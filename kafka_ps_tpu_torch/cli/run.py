@@ -96,10 +96,7 @@ def make_app_from_args(args, device=None):
                             max_size=args.max_buffer_size,
                             coefficient=args.buffer_size_coefficient),
         stream=StreamConfig(time_per_event_ms=args.producer_time_per_event),
-        eval_every=args.eval_every,
-        eval_async=args.eval_async,
-        use_gang=not args.no_gang,
-        use_pallas=args.pallas)
+        eval_every=args.eval_every)
     test_x, test_y = load_test_csv(args.test_data_file_path,
                                    args.num_features)
     server_log = CsvLogSink("./logs-server.csv" if args.logging else None,

@@ -24,6 +24,7 @@ from kafka_ps_tpu_torch.runtime.server import LogSink, ServerNode
 from kafka_ps_tpu_torch.runtime.worker import WorkerNode
 from kafka_ps_tpu_torch.utils.asynclog import DeferredSink
 from kafka_ps_tpu_torch.utils.config import PSConfig, resolve_device
+from kafka_ps_tpu_torch.utils.csvlog import NullLogSink
 
 
 class StreamingPSApp:
@@ -55,8 +56,8 @@ class StreamingPSApp:
                                      device=self.device)
         # deferred sinks: rows carry device scalars, formatted when ready
         # and force-flushed at drive-loop exit
-        server_log = DeferredSink(server_log or (lambda line: None))
-        worker_log = DeferredSink(worker_log or (lambda line: None))
+        server_log = DeferredSink(server_log or NullLogSink())
+        worker_log = DeferredSink(worker_log or NullLogSink())
         self.server = ServerNode(cfg, self.fabric, self.device, test_x,
                                  test_y, server_log)
         self.workers = [

@@ -27,6 +27,14 @@ from collections import deque
 
 import torch
 
+# a backlog longer than this is flushed by the submitter in one batch
+MAX_PENDING = 4096
+# seconds between the drain thread's polls of the completion events
+DRAIN_INTERVAL_S = 0.25
+# the drain thread exits after this many idle seconds (the next submit
+# restarts it), so idle sinks hold no thread
+IDLE_EXIT_S = 10.0
+
 
 def _cuda_event(values):
     """A completion event for the row's CUDA tensors, or None when it
@@ -63,14 +71,9 @@ class DeferredSink:
     deferred entries).  flush(): force-emit everything.
     """
 
-    def __init__(self, sink, max_pending: int = 4096,
-                 drain_interval: float = 0.25,
-                 idle_exit: float = 10.0):
+    def __init__(self, sink):
         self._sink = sink
         self._pending: deque = deque()    # (template, values, event)
-        self._max_pending = max_pending
-        self._interval = drain_interval
-        self._idle_exit = idle_exit
         self._lock = threading.Lock()     # guards _pending, tickets, _thread
         self._turn_cv = threading.Condition()
         self._next_ticket = 0
@@ -87,7 +90,7 @@ class DeferredSink:
             self._pending.append((template, values, event))
             n = len(self._pending)
         self._ensure_thread()
-        if n > self._max_pending:
+        if n > MAX_PENDING:
             self.flush()             # backlogged: pay one batched fetch
 
     def __call__(self, line: str) -> None:
@@ -110,22 +113,21 @@ class DeferredSink:
                 self._thread.start()
 
     def _drain_loop(self) -> None:
-        # exits after idle_exit seconds with nothing pending (the next
-        # submit restarts it), so idle sinks hold no thread
         idle = 0.0
         while not self._stop.is_set():
-            self._wake.wait(timeout=self._interval)
+            self._wake.wait(timeout=DRAIN_INTERVAL_S)
             self._wake.clear()
             try:
                 self._drain_ready()
-            except Exception as e:   # keep draining; the row stays queued
-                print(f"log drain error: {e!r}", file=sys.stderr)
+            except Exception as e:   # rows went back to the queue
+                print(f"log drain error, rows kept for the next drain: "
+                      f"{e!r}", file=sys.stderr)
             with self._lock:
                 if self._pending:
                     idle = 0.0
                     continue
-                idle += self._interval
-                if idle >= self._idle_exit:
+                idle += DRAIN_INTERVAL_S
+                if idle >= IDLE_EXIT_S:
                     if self._thread is threading.current_thread():
                         self._thread = None
                     return
@@ -163,6 +165,14 @@ class DeferredSink:
         lines: list[str] = []
         try:
             lines = self._format_entries(ready)
+        except Exception:
+            # back to the head of the queue: the next drain or flush
+            # retries them, and a flush raises if the fault persists.
+            # Only a flush racing this failed drain can emit later rows
+            # before these.
+            with self._lock:
+                self._pending.extendleft(reversed(ready))
+            raise
         finally:
             self._emit_in_turn(ticket, lines)
 

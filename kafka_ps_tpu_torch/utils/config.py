@@ -3,8 +3,8 @@ plus the port's device rule.
 
 The dataclasses keep the reference's names and defaults for the fields
 this package implements; options of subsystems not yet ported
-(compression, slab dtypes, serving, tiering) are absent rather than
-accepted and ignored.
+(gang dispatch, async eval, the Pallas switch, compression, slab dtypes,
+serving, tiering) are absent rather than accepted and ignored.
 """
 
 from __future__ import annotations
@@ -72,14 +72,6 @@ class PSConfig:
     # server aggregation rate; None = 1/num_workers (BSP averages deltas)
     learning_rate: float | None = None
     eval_every: int = 1
-    # Accepted for flag parity with the reference.  This package has no
-    # async eval engine or gang dispatcher yet: runs take the fused
-    # apply+eval and per-message paths whatever these say.  On the card
-    # the local update is always the CUDA kernel, so use_pallas selects
-    # nothing either.
-    eval_async: bool = True
-    use_gang: bool = True
-    use_pallas: bool = False
 
     @property
     def server_lr(self) -> float:

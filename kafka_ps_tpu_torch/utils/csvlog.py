@@ -7,7 +7,6 @@ Schemas are the reference's, so its evaluation notebooks parse our logs:
 
 from __future__ import annotations
 
-import os
 import sys
 import threading
 
@@ -15,23 +14,29 @@ SERVER_HEADER = "timestamp;partition;vectorClock;loss;fMeasure;accuracy"
 WORKER_HEADER = SERVER_HEADER + ";numTuplesSeen"
 
 
-class CsvLogSink:
-    """Thread-safe line sink to a file (with header) or stdout."""
+class NullLogSink:
+    """Discard-everything sink (the log of an app built without one)."""
 
-    def __init__(self, path: str | None, header: str, append: bool = False):
+    def __call__(self, line: str) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class CsvLogSink:
+    """Thread-safe line sink to a new file (with header) or stdout."""
+
+    def __init__(self, path: str | None, header: str):
         self._lock = threading.Lock()
         if path is None:
             self._fh = sys.stdout
             self._close = False
-            write_header = True
         else:
-            exists = os.path.exists(path) and os.path.getsize(path) > 0
-            self._fh = open(path, "a" if append else "w")
+            self._fh = open(path, "w")
             self._close = True
-            write_header = not (append and exists)
-        if write_header:
-            self._fh.write(header + "\n")
-            self._fh.flush()
+        self._fh.write(header + "\n")
+        self._fh.flush()
 
     def __call__(self, line: str) -> None:
         with self._lock:

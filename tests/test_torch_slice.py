@@ -38,11 +38,14 @@ RTOL, ATOL = 1e-4, 1e-5
 POLICY = dict(min_size=8, max_size=32, coefficient=0.3, arrival_window=20)
 
 
-def _configs(mod, c, **kw):
+def _configs(mod, c):
     model = mod.ModelConfig(num_features=F, num_classes=C)
     buf = mod.BufferConfig(**POLICY)
+    # the reference runs the per-message path with fused apply+eval, the
+    # only one the port has
+    kw = dict(use_gang=False, eval_async=False) if mod is jconfig else {}
     return mod.PSConfig(num_workers=W, consistency_model=c, model=model,
-                        buffer=buf, use_gang=False, eval_async=False, **kw)
+                        buffer=buf, **kw)
 
 
 def _data(n_train=260, n_test=90):
@@ -243,12 +246,12 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch,
         config.resolve_device()
 
 
-def test_threaded_stress_more_workers_than_cores(tmp_path):
+def test_threaded_stress_more_workers_than_cores(tmp_path, monkeypatch):
     """16 worker threads under a tiny switch interval: every gradient is
     applied once, every worker's clocks step by one, the log keeps the
     staleness bound (lost updates or reordered rows would break these)."""
     import threading
-    from kafka_ps_tpu_torch.utils.asynclog import DeferredSink
+    from kafka_ps_tpu_torch.utils import asynclog
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -278,7 +281,8 @@ def test_threaded_stress_more_workers_than_cores(tmp_path):
         # the sink alone: rows from many threads, each once, each
         # thread's rows in its own order
         lines = []
-        sink = DeferredSink(lines.append, drain_interval=0.001)
+        monkeypatch.setattr(asynclog, "DRAIN_INTERVAL_S", 0.001)
+        sink = asynclog.DeferredSink(lines.append)
 
         def writer(t):
             for i in range(200):
@@ -299,3 +303,44 @@ def test_threaded_stress_more_workers_than_cores(tmp_path):
             assert all(float(m[2]) == int(m[1]) for m in mine)
     finally:
         sys.setswitchinterval(old)
+
+
+def test_deferred_sink_keeps_rows_when_a_fetch_fails(monkeypatch):
+    """A fetch that raises in the drain thread puts its rows back: the
+    close that follows writes every row once, in submit order."""
+    import threading
+    from kafka_ps_tpu_torch.utils import asynclog
+
+    real_fetch, failed = asynclog._fetch, threading.Event()
+
+    def flaky_fetch(tensors):
+        if not failed.is_set():
+            failed.set()
+            raise RuntimeError("injected fetch failure")
+        return real_fetch(tensors)
+
+    monkeypatch.setattr(asynclog, "_fetch", flaky_fetch)
+    monkeypatch.setattr(asynclog, "DRAIN_INTERVAL_S", 0.001)
+    lines = []
+    sink = asynclog.DeferredSink(lines.append)
+    for i in range(50):
+        sink.submit(f"{i};{{}}", torch.tensor(float(i)))
+    assert failed.wait(timeout=30)
+    sink.close()
+    assert lines == [f"{i};{float(i)}" for i in range(50)]
+
+
+def test_app_without_log_sinks_discards_rows():
+    from kafka_ps_tpu_torch.utils.csvlog import NullLogSink
+
+    sink = NullLogSink()
+    sink("a;b")
+    sink.close()
+    rows, tx, ty = _data(n_train=120, n_test=30)
+    app = StreamingPSApp(_configs(config, 0), test_x=tx, test_y=ty,
+                         device="cpu")
+    for i, (feats, label) in enumerate(rows):
+        app.data_sink(i % W, feats, label)
+    app.run_serial(6)
+    app.close_logs()
+    assert app.server.iterations == 6
