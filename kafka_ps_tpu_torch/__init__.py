@@ -8,8 +8,8 @@ package imports torch and numpy only — never jax, and nothing of
 
 Entry points run on CUDA unless the caller asks for the CPU
 (`device="cpu"`, or `KPS_PLATFORM=cpu` in the environment); see
-`utils.config.resolve_device`.  The worker's k-step local update runs as
-a hand-written CUDA kernel on the card (`ops/fused_update.py`,
-`ops/csrc/local_update.cu`) and as its plain PyTorch version on CPU
-tensors.
+`utils.config.resolve_device`.  The worker's k-step local update, for
+one worker or a gang of them, logreg or MLP, runs as a hand-written CUDA
+kernel on the card (`ops/fused_update.py`, `ops/csrc/*.cu`) and as its
+plain PyTorch version on CPU tensors.
 """

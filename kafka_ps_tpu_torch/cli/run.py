@@ -5,15 +5,17 @@ producer + server + N logical workers in one process.
         -c 0 -p 0 -l --max_iterations 400
 
 Flags are the reference's subset this package implements, same names
-and defaults.  Runs on the CUDA card; KPS_PLATFORM=cpu runs it on the
-CPU.  Gang dispatch and async evaluation are not ported yet: with them
-on (the defaults) the run takes the per-message path with the fused
-apply+eval and says so on stderr.
+and defaults: gang dispatch and the async eval engine are on
+(`--no-gang`, `--no-eval-async` turn them off), `--task mlp` trains the
+one-hidden-layer MLP (`--hidden_dim`).  Runs on the CUDA card;
+KPS_PLATFORM=cpu runs it on the CPU.  At exit it prints one line of run
+statistics on stderr: `kafka_ps_tpu_torch run: {json}`.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -43,6 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--num_features", type=int, default=1024)
     p.add_argument("--num_classes", type=int, default=5)
+    p.add_argument("--task", choices=["logreg", "mlp"], default="logreg",
+                   help="model family; logreg is the reference's")
+    p.add_argument("--hidden_dim", type=int, default=128,
+                   help="hidden width of the mlp task")
     p.add_argument("--local_iterations", type=int, default=2,
                    help="k local solver steps per iteration")
     p.add_argument("--local_learning_rate", type=float, default=0.5)
@@ -56,15 +62,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "card the local update is the CUDA kernel either "
                         "way")
     p.add_argument("--no-gang", action="store_true", dest="no_gang",
-                   help="per-message dispatch (the only path ported so "
-                        "far)")
+                   help="strict per-message dispatch instead of gang "
+                        "dispatch (bitwise the same results)")
     p.add_argument("--eval-async", dest="eval_async", action="store_true",
                    default=True,
-                   help="async eval engine (not ported yet: runs the "
-                        "fused apply+eval)")
+                   help="async eval engine (default): the server's test-"
+                        "set evaluation runs on its own thread and emits "
+                        "the same rows in clock order")
     p.add_argument("--no-eval-async", dest="eval_async",
                    action="store_false",
-                   help="fused apply+eval (the only path ported so far)")
+                   help="evaluate inside the server's apply instead")
     return p
 
 
@@ -88,15 +95,19 @@ def make_app_from_args(args, device=None):
     cfg = PSConfig(
         num_workers=args.num_workers,
         consistency_model=args.consistency_model,
+        task=args.task,
         model=ModelConfig(num_features=args.num_features,
                           num_classes=args.num_classes,
                           num_max_iter=args.local_iterations,
-                          local_learning_rate=args.local_learning_rate),
+                          local_learning_rate=args.local_learning_rate,
+                          hidden_dim=args.hidden_dim),
         buffer=BufferConfig(min_size=args.min_buffer_size,
                             max_size=args.max_buffer_size,
                             coefficient=args.buffer_size_coefficient),
         stream=StreamConfig(time_per_event_ms=args.producer_time_per_event),
-        eval_every=args.eval_every)
+        eval_every=args.eval_every,
+        eval_async=args.eval_async,
+        use_gang=not args.no_gang)
     test_x, test_y = load_test_csv(args.test_data_file_path,
                                    args.num_features)
     server_log = CsvLogSink("./logs-server.csv" if args.logging else None,
@@ -115,10 +126,6 @@ def main(argv=None) -> int:
         raise SystemExit("--eval_every must be >= 1")
     from kafka_ps_tpu_torch.utils.config import resolve_device
     device = resolve_device()       # CUDA, or KPS_PLATFORM's choice
-    if not args.no_gang or args.eval_async:
-        print("kafka_ps_tpu_torch: gang dispatch and async eval are not "
-              "ported yet; running the per-message path with fused "
-              "apply+eval", file=sys.stderr)
     app, logs = make_app_from_args(args, device)
     producer = app.make_producer(args.training_data_file_path)
     try:
@@ -140,7 +147,23 @@ def main(argv=None) -> int:
         app.close_logs()
         for log in logs:
             log.close()
+    print("kafka_ps_tpu_torch run: " + json.dumps(run_stats(app)),
+          file=sys.stderr)
     return 0
+
+
+def run_stats(app) -> dict:
+    """Host counters of a finished run: server iterations, gang
+    dispatches and their members, the eval engine's dispatches, widths
+    and final lag."""
+    out = {"server_iterations": app.server.iterations,
+           "server_batched_applies": app.server.batched_applies}
+    if app.gang is not None:
+        out["gang"] = {"dispatches": app.gang.dispatches,
+                       "members": app.gang.members}
+    if app.eval_engine is not None:
+        out["eval"] = app.eval_engine.stats()
+    return out
 
 
 if __name__ == "__main__":

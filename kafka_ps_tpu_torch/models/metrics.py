@@ -51,3 +51,13 @@ def evaluate(theta: torch.Tensor, x_test: torch.Tensor, y_test: torch.Tensor,
     loss = loss_fn(params, x_test, y_test, ones)
     f1, acc = weighted_f1_accuracy(preds, y_test, cfg.num_rows)
     return Metrics(f1=f1, accuracy=acc, loss=loss)
+
+
+def stack_evaluations(evaluate_fn, thetas, x_test, y_test) -> Metrics:
+    """Metrics with (k,)-leading fields for k thetas: the standalone
+    evaluation once per theta, stacked, so row i is bitwise equal to
+    `evaluate_fn(thetas[i], ...)` (torch does not promise that one
+    stacked product equals k single ones bit for bit)."""
+    ms = [evaluate_fn(t, x_test, y_test) for t in thetas]
+    return Metrics(*(torch.stack([getattr(m, f) for m in ms])
+                     for f in Metrics._fields))

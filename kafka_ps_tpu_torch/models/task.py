@@ -1,12 +1,13 @@
 """The ML-task abstraction (counterpart of kafka_ps_tpu/models/task.py):
 the flat parameter layout, the k-step local solver and test evaluation
-the runtime dispatches through.  Only the reference's model, logreg, is
-ported so far."""
+the runtime dispatches through.  Two families: `logreg`, the reference's
+model, and `mlp` (models/mlp.py)."""
 
 from __future__ import annotations
 
 from kafka_ps_tpu_torch.models import logreg
 from kafka_ps_tpu_torch.models import metrics as metrics_mod
+from kafka_ps_tpu_torch.models.mlp import MLPTask
 from kafka_ps_tpu_torch.utils.config import ModelConfig
 
 
@@ -26,15 +27,16 @@ class LogRegTask:
     def evaluate(self, theta, x_test, y_test) -> metrics_mod.Metrics:
         return metrics_mod.evaluate(theta, x_test, y_test, cfg=self.cfg)
 
+    def evaluate_batch(self, thetas, x_test, y_test) -> metrics_mod.Metrics:
+        """(k,)-leading metrics, row i bitwise equal to evaluate(thetas[i])."""
+        return metrics_mod.stack_evaluations(self.evaluate, thetas, x_test,
+                                             y_test)
 
-_REGISTRY = {"logreg": LogRegTask}
+
+_REGISTRY = {"logreg": LogRegTask, "mlp": MLPTask}
 
 
-def get_task(name: str, cfg: ModelConfig) -> LogRegTask:
-    if name == "mlp":
-        raise ValueError(
-            "task 'mlp' is not ported to kafka_ps_tpu_torch yet; see "
-            "ROADMAP.md (queue A, models/mlp.py)")
+def get_task(name: str, cfg: ModelConfig) -> LogRegTask | MLPTask:
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown task {name!r}; registered: {sorted(_REGISTRY)}")

@@ -7,6 +7,10 @@ ServerNode over the in-process fabric, with two drive modes:
   * `run_threaded` — one thread per worker, the server on the calling
     thread (the reference's stream threads).  A worker's exception stops
     the run and is re-raised (failure policy "halt").
+
+Both run gang dispatch when cfg.use_gang (runtime/gang.py), and the
+server's evaluations go to the async eval engine when cfg.eval_async
+and there is a test set (evaluation/engine.py).
 """
 
 from __future__ import annotations
@@ -65,6 +69,29 @@ class StreamingPSApp:
                        test_x, test_y, worker_log)
             for w in range(cfg.num_workers)]
         self._stop = threading.Event()
+        self.gang = None             # the last drive loop's dispatcher
+        self.eval_engine = None
+        if cfg.eval_async and test_x is not None:
+            self.enable_async_eval()
+
+    # -- async eval plane -----------------------------------------------------
+
+    def enable_async_eval(self):
+        """Attach the async eval engine to the server: eval-cadence
+        applies hand (theta, clock) to its thread, which emits the rows
+        back through `server._emit_eval` in clock order.  Idempotent;
+        returns the engine (None without a test set)."""
+        if self.eval_engine is None and self.server.test_x is not None:
+            from kafka_ps_tpu_torch.evaluation.engine import EvalEngine
+            self.eval_engine = self.server.attach_eval_engine(EvalEngine(
+                self.server.task, self.server.test_x, self.server.test_y,
+                self.server._emit_eval))
+        return self.eval_engine
+
+    def close_eval(self) -> None:
+        """Evaluate what is pending and join the engine thread."""
+        if self.eval_engine is not None:
+            self.eval_engine.close()
 
     # -- ingestion sink (the INPUT_DATA topic hop) ----------------------------
 
@@ -111,42 +138,88 @@ class StreamingPSApp:
                 *{id(w.log): w.log for w in self.workers}.values())
 
     def flush_logs(self) -> None:
-        """Force every deferred log row out (waits on the device)."""
+        """Force every deferred log row out (waits on the device).
+        Pending async evals drain FIRST: their rows enter the server
+        sink before the sink is flushed."""
+        if self.eval_engine is not None:
+            self.eval_engine.drain()
         for sink in self._sinks():
             flush = getattr(sink, "flush", None)
             if flush is not None:
                 flush()
 
     def close_logs(self) -> None:
-        """Close the deferred sinks: joins their drain threads and closes
-        the wrapped file sinks."""
-        for sink in self._sinks():
-            close = getattr(sink, "close", None)
-            if close is not None:
-                close()
+        """Close the eval engine, then the deferred sinks: joins their
+        threads and closes the wrapped file sinks, even when the engine
+        reports a failed evaluation."""
+        try:
+            self.close_eval()
+        finally:
+            for sink in self._sinks():
+                close = getattr(sink, "close", None)
+                if close is not None:
+                    close()
+
+    def _make_gang(self):
+        """The gang dispatcher for a drive loop, or None with gang
+        dispatch off."""
+        if not self.cfg.use_gang:
+            return None
+        from kafka_ps_tpu_torch.runtime.gang import GangDispatcher
+        self.gang = GangDispatcher(self.workers, self.fabric, self.cfg)
+        return self.gang
+
+    def _queued_gradients(self, max_server_iterations: int, first=None):
+        """The gradients already queued, `first` ahead of them, capped so
+        that applying them all cannot overshoot the iteration budget."""
+        batch = [] if first is None else [first]
+        while self.server.iterations + len(batch) < max_server_iterations:
+            g = self.fabric.poll(fabric_mod.GRADIENTS_TOPIC, 0)
+            if g is None:
+                break
+            batch.append(g)
+        return batch
+
+    def _apply(self, batch) -> None:
+        if len(batch) > 1:
+            self.server.process_batch(batch)
+        elif batch:
+            self.server.process(batch[0])
 
     def run_serial(self, max_server_iterations: int, pump=None) -> None:
         """Deterministic scheduler: alternate weights delivery and
         gradient processing until the server has applied
         `max_server_iterations` gradient messages.  `pump()` (optional)
-        feeds more stream rows between rounds."""
+        feeds more stream rows between rounds.
+
+        With gang dispatch each round drains the release sets whole: the
+        gang notices first (one batched kernel call per set), then the
+        per-message stragglers, then the queued gradients as one batch
+        for the server's chained apply.  Without it each round is
+        strictly per message."""
         stalled_rounds = 0
+        gang = self._make_gang()
         try:
             self.server.start_training_loop()
             while self.server.iterations < max_server_iterations:
-                progressed = False
+                progressed = gang is not None and gang.drain_serial()
                 for worker in self.workers:
                     msg = self.fabric.poll(fabric_mod.WEIGHTS_TOPIC,
                                            worker.worker_id)
                     if msg is not None:
                         worker.on_weights(msg)
                         progressed = True
-                while self.server.iterations < max_server_iterations:
-                    g = self.fabric.poll(fabric_mod.GRADIENTS_TOPIC, 0)
-                    if g is None:
-                        break
-                    self.server.process(g)
-                    progressed = True
+                if gang is None:
+                    while self.server.iterations < max_server_iterations:
+                        g = self.fabric.poll(fabric_mod.GRADIENTS_TOPIC, 0)
+                        if g is None:
+                            break
+                        self.server.process(g)
+                        progressed = True
+                else:
+                    batch = self._queued_gradients(max_server_iterations)
+                    self._apply(batch)
+                    progressed = progressed or bool(batch)
                 if pump is not None:
                     pump()
                 # pump() only adds buffer rows, never messages: rounds
@@ -163,6 +236,7 @@ class StreamingPSApp:
         worker exception stops the run and is re-raised."""
         self._stop.clear()
         worker_errors: list[BaseException] = []
+        gang = self._make_gang()
 
         def worker_loop(worker: WorkerNode):
             try:
@@ -170,7 +244,13 @@ class StreamingPSApp:
                     msg = self.fabric.poll_blocking(
                         fabric_mod.WEIGHTS_TOPIC, worker.worker_id,
                         timeout=poll_timeout)
-                    if msg is not None:
+                    if msg is None:
+                        continue
+                    if gang is not None:
+                        # the first arrival a gang notice covers leads
+                        # the set; otherwise the message runs solo
+                        gang.offer(worker, msg)
+                    else:
                         worker.on_weights(msg)
             except BaseException as e:   # surfaced on the server thread
                 worker_errors.append(e)
@@ -187,8 +267,14 @@ class StreamingPSApp:
                    and not self._stop.is_set()):
                 g = self.fabric.poll_blocking(fabric_mod.GRADIENTS_TOPIC, 0,
                                               timeout=poll_timeout)
-                if g is not None:
+                if g is None:
+                    continue
+                if gang is None:
                     self.server.process(g)
+                else:
+                    # whatever else has ALREADY arrived joins this apply
+                    self._apply(self._queued_gradients(
+                        max_server_iterations, first=g))
         finally:
             self._stop.set()
             for t in threads:

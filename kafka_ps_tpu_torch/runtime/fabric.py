@@ -4,7 +4,9 @@ keyed FIFO queues standing in for the reference's Kafka topics.
 WEIGHTS is keyed by worker id (point to point), GRADIENTS by 0 (the
 single server's many-to-one gather).  Per-key FIFO order and buffering
 are what the consistency models rely on; tests drive `poll` directly
-for deterministic scheduling.
+for deterministic scheduling.  GANG carries the server's advisory gang
+notices (runtime/gang.py), sent with `send_transient`: control traffic
+with no reference topic, never made durable.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any
 
 WEIGHTS_TOPIC = "weights"
 GRADIENTS_TOPIC = "gradients"
+GANG_TOPIC = "gang"
 
 
 class Fabric:
@@ -32,6 +35,11 @@ class Fabric:
             self._q(topic, key).append(message)
             self._cond.notify_all()
 
+    def send_transient(self, topic: str, key: int, message: Any) -> None:
+        """Enqueue advisory traffic (gang notices) that a durable fabric
+        must neither log nor serialize.  Identical to `send` here."""
+        self.send(topic, key, message)
+
     def poll(self, topic: str, key: int = 0) -> Any | None:
         """Non-blocking: next message for (topic, key) or None."""
         with self._cond:
@@ -45,3 +53,12 @@ class Fabric:
             if not q:
                 self._cond.wait_for(lambda: bool(q), timeout=timeout)
             return q.popleft() if q else None
+
+    def contains(self, topic: str, key: int, pred) -> bool:
+        """True if any queued message matches pred (non-destructive)."""
+        with self._cond:
+            return any(pred(m) for m in self._q(topic, key))
+
+    def pending(self, topic: str, key: int = 0) -> int:
+        with self._cond:
+            return len(self._q(topic, key))

@@ -52,3 +52,14 @@ class GradientMessage(BaseMessage):
     """worker → server; carries the sending worker's id."""
 
     worker_id: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class GangNotice:
+    """Server → drive loop: the gate just released `members` (worker id,
+    clock) at one moment, and their per-worker WeightsMessages are in the
+    fabric; a dispatcher may claim them as ONE batched kernel call
+    (runtime/gang.py).  Advisory: the per-worker messages are the
+    protocol, and a dropped notice only costs the coalescing."""
+
+    members: tuple[tuple[int, int], ...]

@@ -2,7 +2,7 @@
 
 On each WeightsMessage: overwrite the local parameters with the server's,
 bring the worker's device slab up to date with its sliding buffer, run
-the k-step local update (on the card: the CUDA kernel of
+the k-step local update (on the card: the family's CUDA kernel in
 ops/fused_update.py) fused with the evaluation of the updated model, log
 the worker CSV row and send the delta back as a GradientMessage with the
 same vector clock.
@@ -34,17 +34,24 @@ from kafka_ps_tpu_torch.utils.config import ModelConfig, PSConfig
 LogSink = Callable[[str], None]
 
 
+# the single-worker kernel of each task family (K1, K4)
+SOLVERS = {"logreg": fused_update.local_update,
+           "mlp": fused_update.mlp_local_update}
+
+
 @functools.lru_cache(maxsize=None)
 def _solver_fns(task_name: str, cfg: ModelConfig):
     """(update, update_and_eval) for one (task, cfg), shared by every
-    WorkerNode.  `update` is fused_update.local_update: the CUDA kernel
-    for tensors on the card, its plain version for CPU tensors.
-    `update_and_eval` also evaluates theta + delta on the test set, as
-    the reference evaluates each worker's post-fit model."""
+    WorkerNode.  `update` is the family's kernel wrapper (K1 for logreg,
+    K4 for the MLP): the CUDA kernel for tensors on the card, its plain
+    version for CPU tensors.  `update_and_eval` also evaluates theta +
+    delta on the test set, as the reference evaluates each worker's
+    post-fit model."""
     task = get_task(task_name, cfg)
+    solver = SOLVERS[task_name]
 
     def update_fn(theta, x, y, mask):
-        return fused_update.local_update(theta, x, y, mask, cfg=cfg)
+        return solver(theta, x, y, mask, cfg=cfg)
 
     def update_and_eval(theta, x, y, mask, test_x, test_y):
         delta, loss = update_fn(theta, x, y, mask)

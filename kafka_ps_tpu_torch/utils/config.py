@@ -3,8 +3,9 @@ plus the port's device rule.
 
 The dataclasses keep the reference's names and defaults for the fields
 this package implements; options of subsystems not yet ported
-(gang dispatch, async eval, the Pallas switch, compression, slab dtypes,
-serving, tiering) are absent rather than accepted and ignored.
+(compression, slab dtypes, serving, tiering) are absent rather than
+accepted and ignored.  There is no Pallas switch: on the card the
+hand-written kernels are the only path.
 """
 
 from __future__ import annotations
@@ -25,12 +26,14 @@ class ModelConfig:
     """Logistic-regression shape: a flat vector of (num_classes + 1) *
     num_features coefficients followed by (num_classes + 1) intercepts —
     6*1024 + 6 = 6150 keys by default (labels are 1..num_classes, row 0
-    exists but is never observed)."""
+    exists but is never observed).  `num_params` is logreg's count; a
+    task's own is `get_task(name, cfg).num_params`."""
 
     num_features: int = 1024
     num_classes: int = 5
     num_max_iter: int = 2       # k local solver steps per iteration
     local_learning_rate: float = 0.5
+    hidden_dim: int = 128       # used by the mlp task family only
 
     @property
     def num_rows(self) -> int:
@@ -72,6 +75,14 @@ class PSConfig:
     # server aggregation rate; None = 1/num_workers (BSP averages deltas)
     learning_rate: float | None = None
     eval_every: int = 1
+    # async eval engine (evaluation/engine.py): the server's apply hands
+    # (theta, clock) to a thread that evaluates and emits rows in clock
+    # order, the same rows as the fused apply+eval
+    eval_async: bool = True
+    # gang dispatch (runtime/gang.py): workers the gate releases at one
+    # moment run as one batched kernel call, the server applies queued
+    # gradients as one chained batch; bitwise the per-message results
+    use_gang: bool = True
 
     @property
     def server_lr(self) -> float:

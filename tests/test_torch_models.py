@@ -108,7 +108,7 @@ def test_flat_layout_round_trips():
 def test_get_task():
     task = get_task("logreg", CFG)
     assert task.num_params == 6 * F + 6
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        get_task("mlp", CFG)
+    mlp_task = get_task("mlp", CFG)
+    assert mlp_task.num_params == 128 * F + 128 + 6 * 128 + 6
     with pytest.raises(ValueError, match="unknown task"):
         get_task("svm", CFG)

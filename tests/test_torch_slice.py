@@ -7,6 +7,7 @@ the run's iterations): loss and theta rtol=1e-4, atol=1e-5; F1 and
 accuracy within 1/len(test), one flipped argmax of a near tie.
 """
 
+import json
 import os
 import pkgutil
 import re
@@ -38,14 +39,16 @@ RTOL, ATOL = 1e-4, 1e-5
 POLICY = dict(min_size=8, max_size=32, coefficient=0.3, arrival_window=20)
 
 
-def _configs(mod, c):
-    model = mod.ModelConfig(num_features=F, num_classes=C)
+def _configs(mod, c, task="logreg"):
+    model = mod.ModelConfig(num_features=F, num_classes=C, hidden_dim=24)
     buf = mod.BufferConfig(**POLICY)
-    # the reference runs the per-message path with fused apply+eval, the
-    # only one the port has
+    # the reference runs the per-message path with fused apply+eval; the
+    # port runs its defaults, gang dispatch and async eval, which give
+    # its per-message results bit for bit (tests/test_torch_gang.py,
+    # tests/test_torch_eval_engine.py)
     kw = dict(use_gang=False, eval_async=False) if mod is jconfig else {}
     return mod.PSConfig(num_workers=W, consistency_model=c, model=model,
-                        buffer=buf, **kw)
+                        buffer=buf, task=task, **kw)
 
 
 def _data(n_train=260, n_test=90):
@@ -68,10 +71,12 @@ def _clock():
     return clock_ms
 
 
-def _drive(app_cls, cfg, rows, tx, ty, iters, **kw):
+def _drive(app_cls, cfg, rows, tx, ty, iters, theta0=None, **kw):
     server, worker = [], []
     app = app_cls(cfg, test_x=tx, test_y=ty, server_log=server.append,
                   worker_log=worker.append, clock_ms=_clock(), **kw)
+    if theta0 is not None:
+        app.server.theta = theta0      # before start_training_loop
     prefill = 40 * W
     for i, (feats, label) in enumerate(rows[:prefill]):
         app.data_sink(i % W, feats, label)
@@ -115,6 +120,36 @@ def test_serial_run_matches_reference(c):
     # the stream kept arriving during training: the slab took the
     # incremental path
     assert any(w._slab_store.incremental_applies for w in tapp.workers)
+
+
+@pytest.mark.parametrize("c", [0, -1])
+def test_serial_mlp_run_matches_reference(c):
+    """The MLP app from the JAX package's θ₀ (its PRNGKey(0) He init,
+    carried across as the parity contract asks)."""
+    rows, tx, ty = _data()
+    iters = 36
+    jcfg, cfg = _configs(jconfig, c, "mlp"), _configs(config, c, "mlp")
+    jtheta0 = np.asarray(JApp(jcfg).server.theta)
+    japp, js, jw = _drive(JApp, jcfg, rows, tx, ty, iters,
+                          theta0=jtheta0)
+    tapp, ts, tw = _drive(StreamingPSApp, cfg, rows, tx, ty, iters,
+                          theta0=from_jax_params(jtheta0, cfg.model, "cpu",
+                                                 task="mlp"),
+                          device="cpu")
+    js, jw, ts, tw = map(_split, (js, jw, ts, tw))
+    assert len(ts) == len(js) > 0 and len(tw) == len(jw) >= iters
+    assert [r[1:3] for r in ts] == [r[1:3] for r in js]
+    assert [r[1:3] + r[6:] for r in tw] == [r[1:3] + r[6:] for r in jw]
+    tol = 1.0 / len(ty)
+    for ours, ref in zip(ts + tw, js + jw):
+        np.testing.assert_allclose(float(ours[3]), float(ref[3]),
+                                   rtol=RTOL, atol=ATOL)       # loss
+        assert abs(float(ours[4]) - float(ref[4])) <= tol       # F1
+        assert abs(float(ours[5]) - float(ref[5])) <= tol       # accuracy
+    np.testing.assert_allclose(tapp.server.theta.numpy(),
+                               np.asarray(japp.server.theta),
+                               rtol=RTOL, atol=ATOL)
+    assert tapp.gang.dispatches > 0 and tapp.eval_engine is not None
 
 
 @pytest.mark.parametrize("c", [0, 2, -1])
@@ -165,6 +200,53 @@ def test_cli_runs_on_cpu(mode, c, tmp_path, monkeypatch):
         assert all(np.isfinite(float(v)) for v in fields[3:6])
 
 
+@pytest.mark.parametrize("mode,c,task", [("serial", 0, "logreg"),
+                                         ("threaded", 2, "logreg"),
+                                         ("serial", 0, "mlp"),
+                                         ("threaded", -1, "mlp")])
+def test_cli_default_flags_run_gang_and_async_eval(mode, c, task, tmp_path,
+                                                   monkeypatch, capsys):
+    x, y = generate(300, 16, 3, seed=1)
+    write_csv(str(tmp_path / "train.csv"), x[:240], y[:240])
+    write_csv(str(tmp_path / "test.csv"), x[240:], y[240:])
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("KPS_PLATFORM", "cpu")
+    rc = cli_run.main(["-training", "train.csv", "-test", "test.csv",
+                       "--num_features", "16", "--num_classes", "3",
+                       "--num_workers", "2", "-c", str(c), "-p", "0", "-l",
+                       "-min", "8", "-max", "32", "--mode", mode,
+                       "--max_iterations", "12", "--task", task,
+                       "--hidden_dim", "8"])
+    assert rc == 0
+    err = capsys.readouterr().err
+    stats = [line for line in err.splitlines()
+             if line.startswith("kafka_ps_tpu_torch run: ")]
+    assert len(stats) == 1 and "not ported" not in err
+    stats = json.loads(stats[0].split(": ", 1)[1])
+    assert stats["server_iterations"] == 12
+    assert stats["eval"]["lag_clocks"] == 0 and stats["eval"]["evals"] > 0
+    assert "gang" in stats
+    if mode == "serial":
+        assert stats["gang"]["dispatches"] > 0
+    server = (tmp_path / "logs-server.csv").read_text().splitlines()
+    worker = (tmp_path / "logs-worker.csv").read_text().splitlines()
+    assert len(worker) - 1 >= 12 and len(server) - 1 == stats["eval"]["evals"]
+    for line in worker[1:] + server[1:]:
+        assert "tensor" not in line
+        assert all(np.isfinite(float(v)) for v in line.split(";")[3:6])
+
+
+def test_cli_flags_reach_the_config():
+    args = cli_run.build_parser().parse_args([])
+    assert (args.task, args.hidden_dim, args.no_gang, args.eval_async) == \
+        ("logreg", 128, False, True)
+    args = cli_run.build_parser().parse_args(
+        ["--task", "mlp", "--hidden_dim", "7", "--no-gang",
+         "--no-eval-async"])
+    assert (args.task, args.hidden_dim, args.no_gang, args.eval_async) == \
+        ("mlp", 7, True, False)
+
+
 def test_from_jax_params_round_trips():
     cfg = config.ModelConfig(num_features=F, num_classes=C)
     jcfg = jconfig.ModelConfig(num_features=F, num_classes=C)
@@ -191,7 +273,9 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules()
-    assert "kafka_ps_tpu_torch.ops.fused_update" in mods
+    for m in ("ops.fused_update", "models.mlp", "runtime.gang",
+              "evaluation.engine"):
+        assert f"kafka_ps_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
