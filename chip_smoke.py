@@ -8,30 +8,35 @@
 2. Kernel phase, at the main path's shapes (F=1024, B=1024 with masked
    rows and one out-of-range label, C=5, k=2; the MLP at H=128): K1
    (logreg), K2 (logreg, a gang of 4), K4 (MLP) and K6 (MLP, a gang of
-   4), each against its plain PyTorch version on the card (TF32 off), two
-   launches bitwise equal, K2 bitwise equal to 4 K1 calls and K6 to 4 K4
-   calls, K4 also at H=100, B=1000; then each kernel's median time over
-   CUDA events, its device time from torch.profiler, the plain version's
-   time and the card's bound for the same work.
+   4), and K3 (logreg) and K5 (MLP) on bf16 and on int8 slabs, each
+   against its plain PyTorch version on the card (TF32 off), two launches
+   bitwise equal, K2 bitwise equal to 4 K1 calls, K6 to 4 K4 calls and a
+   gang of 4 stored slabs to 4 K3 (K5) calls, K4 and K5 also at H=100,
+   B=1000; then each kernel's median time over CUDA events, its device
+   time from torch.profiler, the plain version's time and the card's
+   bound for the same work, with x counted at its stored width.
 3. Reference check: small serial runs of the trainer on the card against
    the same runs on the CPU (row keys exact, theta within tolerance), for
-   logreg at -c 0/2/-1 and the MLP at -c 0; on the card, gang dispatch on
-   and off give the same theta bits, async and fused eval the same server
-   rows.
+   logreg at -c 0/2/-1 and the MLP at -c 0, with f32, bf16 and int8
+   slabs; on the card, gang dispatch on and off give the same theta bits
+   (f32 and int8), async and fused eval the same server rows (f32).
 4. Main path, through the real entry point kafka_ps_tpu_torch.cli.run:
    4 workers, buffer max 1024, a synthetic 1024-feature CSV.  logreg with
    the default flags (gang dispatch and async eval): serial -c 0,
    threaded -c 2, threaded -c -1; the MLP with the default flags: serial
    -c 0, threaded -c -1; logreg with --no-gang --no-eval-async: serial
-   -c 0, threaded -c 2, threaded -c -1.  Launch counters are zeroed just
-   before each run and read just after it: the single and gang-member
-   kernel calls must cover every worker iteration, serial -c 0 must have
-   run the gang kernel, metrics must be finite and the final eval lag 0.
-5. Profile: one more default serial -c 0 run per family (200
-   iterations) under torch.profiler (CUDA activity only) and cProfile:
-   device busy time by kernel against the run's wall window, i.e. the
-   device's idle share on the main path, and the host's time by Python
-   function.
+   -c 0, threaded -c 2, threaded -c -1; and with --slab-dtype: logreg
+   bf16 serial -c 0, logreg int8 threaded -c 2, the MLP int8 serial -c 0
+   and bf16 threaded -c -1.  Launch counters are zeroed just before each
+   run and read just after it: the single and gang-member kernel calls
+   must cover every worker iteration (K3/K5 alone on a bf16/int8 run, the
+   f32 kernels' counters 0), serial -c 0 must have run the gang kernel,
+   metrics must be finite and the final eval lag 0.
+5. Profile: one more default serial -c 0 run per family, and one of
+   logreg with int8 slabs (200 iterations each), under torch.profiler
+   (CUDA activity only) and cProfile: device busy time by kernel against
+   the run's wall window, i.e. the device's idle share on the main path,
+   and the host's time by Python function.
 6. The `kernels` JSON line, the card line, and last the result line.
 
 Any failed phase raises: the script exits non-zero and prints no result.
@@ -60,12 +65,19 @@ OUT = os.path.join(REPO, "chiprun_out", "smoke")
 # tensor cores (the kernels do scalar f32 FMA)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-RTOL, ATOL = 1e-4, 1e-6            # K1, K2
-MLP_RTOL, MLP_ATOL = 1e-4, 1e-5    # K4, K6
+RTOL, ATOL = 1e-4, 1e-6            # K1, K2, K3
+MLP_RTOL, MLP_ATOL = 1e-4, 1e-5    # K4, K5, K6
 
 F, C, B, K, H, GANG = 1024, 5, 1024, 2, 128, 4
 WORKERS, MAX_BUFFER, TRAIN_ROWS, TEST_ROWS = 4, 1024, 6000, 2000
 ITERS, SLICE1_ITERS = 400, 200
+SLAB_KINDS = ("bf16", "int8")
+X_BYTES = {"bf16": 2, "int8": 1}
+# the Pallas body each storage form of K3 and K5 replaces
+K3_REPLACES = {"bf16": "kafka_ps_tpu/ops/fused_update.py:512",
+               "int8": "kafka_ps_tpu/ops/fused_update.py:522"}
+K5_REPLACES = {"bf16": "kafka_ps_tpu/ops/fused_update.py:719",
+               "int8": "kafka_ps_tpu/ops/fused_update.py:725"}
 NO_LIBRARY = ("no single PyTorch call computes the k-step update; the "
               "plain version is a chain of eager ops")
 
@@ -84,7 +96,7 @@ def ptxas_summary(log: str) -> str:
     keep, out = False, []
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            keep = any(k in line for k in ("ILi6E", "apply_pass", "dw1_pass",
+            keep = any(k in line for k in ("Li6E", "apply_pass", "dw1_pass",
                                            "tail_apply", "loss_reduce"))
         if keep:
             out.append(line.strip())
@@ -191,6 +203,38 @@ def kernel_entry(name, source, replaces, call, plain, nbytes, flops,
             "bound_by": by, "library_ms": None}
 
 
+def stored_x_bytes(kind: str) -> int:
+    """Bytes of one [B, F] slab x stored as `kind` (int8: q and the B row
+    scales)."""
+    return B * F * X_BYTES[kind] + (4 * B if kind == "int8" else 0)
+
+
+def check_stored(name, single, batched, plain, gang, kind, cfg, rtol,
+                 atol) -> tuple[float, list]:
+    """K3 or K5 on `kind` slabs (x encoded on the card): against the plain
+    version, two launches bitwise equal, and a gang of the stored slabs
+    bitwise equal to single calls.  Returns (max abs error, the stored
+    gang)."""
+    from kafka_ps_tpu_torch.compress.slab import encode_x
+    stored = [[t, encode_x(kind, x), y, m] for t, x, y, m in gang]
+    args = stored[0]
+    r1, r2 = single(*args, cfg=cfg), single(*args, cfg=cfg)
+    torch.cuda.synchronize()
+    err = compare(f"{name} {kind}", r1, plain(*args, cfg=cfg), rtol, atol)
+    if not (torch.equal(r1[0], r2[0]) and torch.equal(r1[1], r2[1])):
+        raise RuntimeError(f"{name} {kind}: two launches differ")
+    members = [list(a) for a in zip(*stored)]
+    b = batched(*members, cfg=cfg)
+    singles = [single(*g, cfg=cfg) for g in stored]
+    if not all(torch.equal(b[0][i], d) and torch.equal(b[1][i], loss)
+               for i, (d, loss) in enumerate(singles)):
+        raise RuntimeError(f"{name} {kind}: a gang of {len(stored)} is not "
+                           "bitwise the single calls")
+    print(f"{name} {kind}: two launches bitwise equal, a gang of "
+          f"{len(stored)} bitwise equal to {len(stored)} single calls: True")
+    return err, stored
+
+
 def kernel_phase(dev) -> dict:
     from kafka_ps_tpu_torch.models import mlp
     from kafka_ps_tpu_torch.ops import fused_update as fu
@@ -239,6 +283,18 @@ def kernel_phase(dev) -> dict:
         lambda: fu.local_update_batched(*members, cfg=cfg),
         lambda: fu.local_update_batched_plain(*members, cfg=cfg),
         GANG * nbytes, GANG * flops, k2_err, 2 * K + 2)
+    for kind in SLAB_KINDS:
+        err, stored = check_stored("K3 stream_update", fu.stream_update,
+                                   fu.local_update_batched,
+                                   fu.local_update_plain, gang, kind, cfg,
+                                   RTOL, ATOL)
+        sargs = stored[0]
+        out[f"stream_update_{kind}"] = kernel_entry(
+            f"stream_update_{kind}", "local_update.cu", K3_REPLACES[kind],
+            lambda a=sargs: fu.stream_update(*a, cfg=cfg),
+            lambda a=sargs: fu.local_update_plain(*a, cfg=cfg),
+            stored_x_bytes(kind) + 4 * (2 * B + 2 * P + 1), flops, err,
+            2 * K + 2)
 
     # -- K4 / K6: MLP ---------------------------------------------------------
     mcfg = ModelConfig(num_features=F, num_classes=C, num_max_iter=K,
@@ -264,6 +320,14 @@ def kernel_phase(dev) -> dict:
             fu.mlp_local_update(*odd_args, cfg=odd),
             fu.mlp_local_update_plain(*odd_args, cfg=odd),
             MLP_RTOL, MLP_ATOL)
+    from kafka_ps_tpu_torch.compress.slab import encode_x
+    for kind in SLAB_KINDS:
+        odd_stored = [odd_args[0], encode_x(kind, odd_args[1]),
+                      *odd_args[2:]]
+        compare(f"K5 mlp_stream_update {kind} (H=100, B=1000)",
+                fu.mlp_stream_update(*odd_stored, cfg=odd),
+                fu.mlp_local_update_plain(*odd_stored, cfg=odd),
+                MLP_RTOL, MLP_ATOL)
     members = [list(a) for a in zip(*gang)]
     b1 = fu.mlp_local_update_batched(*members, cfg=mcfg)
     b2 = fu.mlp_local_update_batched(*members, cfg=mcfg)
@@ -293,6 +357,19 @@ def kernel_phase(dev) -> dict:
         lambda: fu.mlp_local_update_batched(*members, cfg=mcfg),
         lambda: fu.mlp_local_update_batched_plain(*members, cfg=mcfg),
         GANG * nbytes, GANG * flops, k6_err, 3 * K + 2)
+    for kind in SLAB_KINDS:
+        err, stored = check_stored("K5 mlp_stream_update",
+                                   fu.mlp_stream_update,
+                                   fu.mlp_local_update_batched,
+                                   fu.mlp_local_update_plain, gang, kind,
+                                   mcfg, MLP_RTOL, MLP_ATOL)
+        sargs = stored[0]
+        out[f"mlp_stream_update_{kind}"] = kernel_entry(
+            f"mlp_stream_update_{kind}", "mlp_update.cu", K5_REPLACES[kind],
+            lambda a=sargs: fu.mlp_stream_update(*a, cfg=mcfg),
+            lambda a=sargs: fu.mlp_local_update_plain(*a, cfg=mcfg),
+            stored_x_bytes(kind) + 4 * (2 * B + 2 * MP + 1), flops, err,
+            3 * K + 2)
     return out
 
 
@@ -331,29 +408,37 @@ def reference_check(dev) -> None:
 
     for task, cs in (("logreg", (0, 2, -1)), ("mlp", (0,))):
         for c in cs:
-            t_gpu, s_gpu, w_gpu = run(dev, c, task)
-            t_cpu, s_cpu, w_cpu = run("cpu", c, task)
-            if keys(s_gpu, w_gpu) != keys(s_cpu, w_cpu):
-                raise RuntimeError(f"{task} -c {c}: row keys differ card "
-                                   "vs CPU")
-            torch.testing.assert_close(t_gpu.cpu(), t_cpu, rtol=1e-4,
-                                       atol=1e-5)
-            print(f"reference check {task} -c {c} (gang, async eval): card "
-                  f"vs CPU rows equal, theta max_abs="
-                  f"{float((t_gpu.cpu() - t_cpu).abs().max()):.3e}")
-            t_off, s_off, w_off = run(dev, c, task, use_gang=False)
-            if not (torch.equal(t_gpu, t_off)
-                    and strip(w_gpu) == strip(w_off)):
-                raise RuntimeError(f"{task} -c {c}: gang on/off differ on "
-                                   "the card")
+            on_card = {}
+            for kind in ("f32", *SLAB_KINDS):
+                t_gpu, s_gpu, w_gpu = on_card[kind] = run(dev, c, task,
+                                                          slab_dtype=kind)
+                t_cpu, s_cpu, w_cpu = run("cpu", c, task, slab_dtype=kind)
+                if keys(s_gpu, w_gpu) != keys(s_cpu, w_cpu):
+                    raise RuntimeError(f"{task} -c {c} {kind}: row keys "
+                                       "differ card vs CPU")
+                torch.testing.assert_close(t_gpu.cpu(), t_cpu, rtol=1e-4,
+                                           atol=1e-5)
+                print(f"reference check {task} -c {c} {kind} slab (gang, "
+                      f"async eval): card vs CPU rows equal, theta max_abs="
+                      f"{float((t_gpu.cpu() - t_cpu).abs().max()):.3e}")
+                if kind == "bf16":
+                    continue
+                t_off, s_off, w_off = run(dev, c, task, use_gang=False,
+                                          slab_dtype=kind)
+                if not (torch.equal(t_gpu, t_off)
+                        and strip(w_gpu) == strip(w_off)):
+                    raise RuntimeError(f"{task} -c {c} {kind}: gang on/off "
+                                       "differ on the card")
+                print(f"reference check {task} -c {c} {kind} on the card: "
+                      "gang on/off theta bitwise equal")
+            t_gpu, s_gpu, _ = on_card["f32"]
             t_fused, s_fused, _ = run(dev, c, task, eval_async=False)
             if not (torch.equal(t_gpu, t_fused)
                     and strip(s_gpu) == strip(s_fused)):
                 raise RuntimeError(f"{task} -c {c}: async/fused eval rows "
                                    "differ on the card")
-            print(f"reference check {task} -c {c} on the card: gang on/off "
-                  f"theta bitwise equal, async/fused server rows identical "
-                  f"({len(s_gpu)} rows)")
+            print(f"reference check {task} -c {c} on the card: async/fused "
+                  f"server rows identical ({len(s_gpu)} rows)")
 
 
 def write_data():
@@ -371,7 +456,9 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
     from kafka_ps_tpu_torch.cli import run as cli_run
     from kafka_ps_tpu_torch.ops import fused_update
 
-    tag = f"{task}-{mode}-c{c}" + ("-slice1" if flags else "")
+    tag = "-".join([task, mode, f"c{c}", *(f.lstrip("-") for f in flags)])
+    kind = flags[flags.index("--slab-dtype") + 1] \
+        if "--slab-dtype" in flags else "f32"
     here = os.getcwd()
     os.chdir(OUT)
     err = io.StringIO()
@@ -404,10 +491,14 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
     stats = [json.loads(line.split(": ", 1)[1])
              for line in err.getvalue().splitlines()
              if line.startswith("kafka_ps_tpu_torch run: ")][-1]
-    prefix = "" if task == "logreg" else "mlp_"
-    single, gang_calls, members = (n[f"{prefix}launches"],
-                                   n[f"{prefix}batched_launches"],
-                                   n[f"{prefix}batched_members"])
+    # K1/K2 (K4/K6) on an f32 slab, K3 (K5) single and batched on a
+    # stored one; every other kernel's counters must stay 0
+    prefix = ("" if task == "logreg" else "mlp_") + (
+        "" if kind == "f32" else "stream_")
+    mine = [f"{prefix}{k}" for k in ("launches", "batched_launches",
+                                     "batched_members")]
+    single, gang_calls, members = (n[k] for k in mine)
+    others = {k: v for k, v in n.items() if k not in mine and v}
     values = np.array([[float(v) for v in r[3:6]] for r in server + worker])
     stamps = [int(r[0]) for r in worker]
     # server iterations over the window up to the synchronised flush
@@ -428,6 +519,11 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
           f"{window_s:.3f} s, first worker row to flushed logs) "
           f"worker_rows_per_s_host_submit={submit_rate:.1f} "
           f"final_f1={f1:.4f} wall_s={wall:.1f}")
+    slab = stats["slab"]
+    print(f"  slab {slab['dtype']}: device_bytes={slab['device_bytes']} "
+          f"(4 workers, the spare row left out) "
+          f"bytes_uploaded={slab['bytes_uploaded']}; iters_per_s="
+          f"{rate:.1f}; other kernel counters: {others or 'all 0'}")
     print(f"  gang dispatches={g['dispatches']} members per dispatch="
           f"{per:.2f}; server batched applies="
           f"{stats['server_batched_applies']}; eval engine: "
@@ -440,7 +536,13 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
         raise RuntimeError(f"{tag}: {len(worker)} worker iterations but "
                            f"{single} single and {members} gang-member "
                            "kernel calls")
-    if not flags and mode == "serial" and c == 0 and gang_calls < 1:
+    if others:
+        raise RuntimeError(f"{tag}: kernels of another slab form or family "
+                           f"ran: {others}")
+    if slab["dtype"] != kind:
+        raise RuntimeError(f"{tag}: slab {slab['dtype']}, asked {kind}")
+    if ("--no-gang" not in flags and mode == "serial" and c == 0
+            and gang_calls < 1):
         raise RuntimeError(f"{tag}: the gang kernel never ran")
     if ev is not None and ev["lag_clocks"] != 0:
         raise RuntimeError(f"{tag}: final eval lag {ev['lag_clocks']}")
@@ -450,11 +552,12 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
         clocks = [int(r[2]) for r in worker if int(r[1]) == w]
         if clocks != list(range(len(clocks))):
             raise RuntimeError(f"{tag}: worker {w} clocks skip")
-    return {"task": task, "single": single, "gang_calls": gang_calls}
+    return {"task": task, "kind": kind, "single": single,
+            "gang_calls": gang_calls}
 
 
-def profile_run(task: str, iters: int = 200) -> None:
-    """One default serial -c 0 run through cli.run.main under
+def profile_run(task: str, iters: int = 200, flags: tuple = ()) -> None:
+    """One default serial -c 0 run (plus `flags`) through cli.run.main under
     torch.profiler and cProfile: device time by kernel, the device's busy
     share of the window from the profiler's start to the flushed logs,
     and the host's own time by Python function (cProfile on Python 3.12
@@ -480,7 +583,7 @@ def profile_run(task: str, iters: int = 200) -> None:
                     str(F), "--num_classes", str(C), "--task", task,
                     "--hidden_dim", str(H), "-max", str(MAX_BUFFER), "-p",
                     "0", "-l", "--mode", "serial", "-c", "0",
-                    "--max_iterations", str(iters)])
+                    "--max_iterations", str(iters), *flags])
                 torch.cuda.synchronize()
                 host.disable()
                 wall_ms = (time.perf_counter() - t0) * 1e3
@@ -494,7 +597,8 @@ def profile_run(task: str, iters: int = 200) -> None:
         if us > 0:
             per[e.key[:70]] = us / 1e3
     busy = sum(per.values())
-    print(f"profile {task} serial -c 0 ({iters} server iterations, CSV "
+    name = " ".join([task, *flags])
+    print(f"profile {name} serial -c 0 ({iters} server iterations, CSV "
           f"parsing included): wall {wall_ms:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.4f}; device ms "
           f"per server iteration {busy / iters:.4f}; top kernels (ms):")
@@ -502,7 +606,7 @@ def profile_run(task: str, iters: int = 200) -> None:
         print(f"  {v:9.3f}  {k}")
     stats = pstats.Stats(host)
     rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])
-    print(f"profile {task} host by own time (cProfile; own ms, cumulative "
+    print(f"profile {name} host by own time (cProfile; own ms, cumulative "
           "ms, calls):")
     for (path, line, fn), (_, calls, own, cum, _) in rows[:25]:
         where = f"{os.path.basename(path)}:{line}({fn})"
@@ -547,18 +651,31 @@ def main() -> int:
         runs += [main_path_run("logreg", m, c, SLICE1_ITERS,
                                ("--no-gang", "--no-eval-async"))
                  for m, c in logreg_default]
+        runs += [main_path_run(task, m, c, ITERS, ("--slab-dtype", kind))
+                 for task, kind, m, c in (
+                     ("logreg", "bf16", "serial", 0),
+                     ("logreg", "int8", "threaded", 2),
+                     ("mlp", "int8", "serial", 0),
+                     ("mlp", "bf16", "threaded", -1))]
         profile_run("logreg")
         profile_run("mlp")
+        profile_run("logreg", flags=("--slab-dtype", "int8"))
     finally:
         for name in ("train.csv", "test.csv"):   # ~70 MB, made anew each run
             os.remove(os.path.join(OUT, name))
-    for name, task, key in (
-            ("local_update", "logreg", "single"),
-            ("local_update_batched", "logreg", "gang_calls"),
-            ("mlp_local_update", "mlp", "single"),
-            ("mlp_local_update_batched", "mlp", "gang_calls")):
-        kernels[name]["launches"] = sum(r[key] for r in runs
-                                        if r["task"] == task)
+    # K3 and K5 count their single and batched calls (one kernel each)
+    entries = [("local_update", "logreg", "f32", ("single",)),
+               ("local_update_batched", "logreg", "f32", ("gang_calls",)),
+               ("mlp_local_update", "mlp", "f32", ("single",)),
+               ("mlp_local_update_batched", "mlp", "f32", ("gang_calls",))]
+    entries += [(f"{pre}stream_update_{kind}", task, kind,
+                 ("single", "gang_calls"))
+                for pre, task in (("", "logreg"), ("mlp_", "mlp"))
+                for kind in SLAB_KINDS]
+    for name, task, kind, keys in entries:
+        kernels[name]["launches"] = sum(
+            r[k] for r in runs if (r["task"], r["kind"]) == (task, kind)
+            for k in keys)
         if kernels[name]["launches"] < 1:
             raise RuntimeError(f"{name} never ran on the main path")
     print(json.dumps({"kernels": list(kernels.values())}))

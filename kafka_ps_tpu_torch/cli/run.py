@@ -7,7 +7,9 @@ producer + server + N logical workers in one process.
 Flags are the reference's subset this package implements, same names
 and defaults: gang dispatch and the async eval engine are on
 (`--no-gang`, `--no-eval-async` turn them off), `--task mlp` trains the
-one-hidden-layer MLP (`--hidden_dim`).  Runs on the CUDA card;
+one-hidden-layer MLP (`--hidden_dim`), `--slab-dtype bf16|int8` keeps the
+workers' device slabs reduced (`--full-slab-upload` re-uploads them whole
+on every change).  Runs on the CUDA card;
 KPS_PLATFORM=cpu runs it on the CPU.  At exit it prints one line of run
 statistics on stderr: `kafka_ps_tpu_torch run: {json}`.
 """
@@ -72,6 +74,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-eval-async", dest="eval_async",
                    action="store_false",
                    help="evaluate inside the server's apply instead")
+    p.add_argument("--slab-dtype", dest="slab_dtype",
+                   choices=["f32", "bf16", "int8"], default="f32",
+                   help="storage of each worker's device-resident "
+                        "training slab: bf16 halves and int8 (per-row "
+                        "max-abs scales) about quarters the bytes the "
+                        "solver reads; the kernel decodes it (K3, K5)")
+    p.add_argument("--full-slab-upload", action="store_true",
+                   dest="full_slab_upload",
+                   help="re-upload the whole slab whenever the buffer "
+                        "changes instead of scattering only the dirty "
+                        "rows (bitwise the same slab)")
     return p
 
 
@@ -107,7 +120,9 @@ def make_app_from_args(args, device=None):
         stream=StreamConfig(time_per_event_ms=args.producer_time_per_event),
         eval_every=args.eval_every,
         eval_async=args.eval_async,
-        use_gang=not args.no_gang)
+        use_gang=not args.no_gang,
+        slab_dtype=args.slab_dtype,
+        slab_incremental=not args.full_slab_upload)
     test_x, test_y = load_test_csv(args.test_data_file_path,
                                    args.num_features)
     server_log = CsvLogSink("./logs-server.csv" if args.logging else None,
@@ -155,9 +170,15 @@ def main(argv=None) -> int:
 def run_stats(app) -> dict:
     """Host counters of a finished run: server iterations, gang
     dispatches and their members, the eval engine's dispatches, widths
-    and final lag."""
+    and final lag, and the workers' device slabs (storage form, bytes on
+    the device, host bytes uploaded)."""
+    stores = [w._slab_store for w in app.workers]
     out = {"server_iterations": app.server.iterations,
-           "server_batched_applies": app.server.batched_applies}
+           "server_batched_applies": app.server.batched_applies,
+           "slab": {"dtype": app.cfg.slab_dtype,
+                    "device_bytes": sum(s.device_bytes() for s in stores),
+                    "bytes_uploaded": sum(s.bytes_uploaded
+                                          for s in stores)}}
     if app.gang is not None:
         out["gang"] = {"dispatches": app.gang.dispatches,
                        "members": app.gang.members}

@@ -1,41 +1,120 @@
-"""Device-resident training slab, f32 storage (counterpart of
-kafka_ps_tpu/compress/slab.py:SlabStore).
+"""Device-resident training slab in f32, bf16 or int8 storage
+(counterpart of kafka_ps_tpu/compress/slab.py).
 
 The worker trains on its buffer slab ([cap, F] x, labels, validity mask)
 every iteration.  `SlabStore` keeps that slab on the device and applies
 only the rows `SlidingBuffer` marked dirty: O(changed rows) bytes per
 arrival instead of the whole slab.
 
+`--slab-dtype bf16|int8` stores x reduced: bf16 halves and int8 (per-row
+max-abs scale) about quarters the bytes the solver reads per step.  The
+host always ships f32 rows; encoding runs on the device after the copy,
+and the solver decodes inside its kernel (K3, K5 in ops/fused_update.py)
+exactly as `decode_x` does, so the kernel and the plain version train on
+the same decoded values.  Labels and mask stay exact.  The encodes are
+bitwise the JAX package's: `quantize_rows` is the same max-abs / 127,
+division and round-half-to-even, and bf16 is a round-to-nearest-even
+cast in both.
+
 The changed-row count is padded to a power-of-two bucket (never below
 MIN_BUCKET) with a sentinel slot == capacity, so host→device copies
 keep a handful of shapes.  torch has no scatter mode that drops
-out-of-range indices, so the device tensors carry one spare row at index
-`capacity`: every sentinel lands there and `arrays()` slices it off.
-Real slots are unique (a drained set), so the only repeated index is the
-sentinel's, and index_copy_'s unordered writes touch nothing that is
-read.  Incremental and full uploads give bitwise-equal slabs.
+out-of-range indices, so the device tensors (x, or q and scale, y, mask)
+carry one spare row at index `capacity`: every sentinel lands there and
+`arrays()` slices it off.  Real slots are unique (a drained set), so the
+only repeated index is the sentinel's, and index_copy_'s unordered writes
+touch nothing that is read.  Incremental and full uploads give
+bitwise-equal slabs in every storage form.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+SLAB_DTYPES = ("f32", "bf16", "int8")
 MIN_BUCKET = 4
 
 
+def quantize_rows(r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Max-abs int8 quantization over the last axis of a 2-D block:
+    [n, c] f32 → (q [n, c] int8, scale [n] f32), bit for bit the JAX
+    package's (torch.round rounds half to even, as jnp.round does)."""
+    scale = r.abs().amax(dim=-1) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(r / safe[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of quantize_rows (up to the quantization error)."""
+    return q.to(torch.float32) * scale[..., None]
+
+
+class QuantizedSlab(NamedTuple):
+    """int8 slab storage: rows quantized with a per-row scale."""
+
+    q: torch.Tensor       # [cap, F] int8
+    scale: torch.Tensor   # [cap, 1] f32  (max|row| / 127)
+
+
+def slab_kind(x) -> str:
+    """Storage form of a slab: "f32", "bf16" or "int8" (QuantizedSlab).
+    Raises TypeError on anything else."""
+    if isinstance(x, QuantizedSlab):
+        return "int8"
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.float32:
+            return "f32"
+        if x.dtype == torch.bfloat16:
+            return "bf16"
+    raise TypeError("a slab is a float32 or bfloat16 tensor or a "
+                    f"QuantizedSlab, got {getattr(x, 'dtype', type(x))}")
+
+
+def slab_batch_shape(x) -> tuple[int, int]:
+    """(batch, num_features) of a slab in any storage form."""
+    a = x.q if isinstance(x, QuantizedSlab) else x
+    return a.shape[-2], a.shape[-1]
+
+
+def decode_x(x) -> torch.Tensor:
+    """Stored slab → f32: bf16 widens exactly, int8 is one f32 multiply
+    per element (q · scale of its row); f32 comes back as it is."""
+    if isinstance(x, QuantizedSlab):
+        return x.q.to(torch.float32) * x.scale
+    return x.to(torch.float32)
+
+
+def encode_x(dtype: str, x: torch.Tensor):
+    """f32 rows → stored form."""
+    if dtype == "bf16":
+        return x.to(torch.bfloat16)
+    if dtype == "int8":
+        q, scale = quantize_rows(x)
+        return QuantizedSlab(q=q, scale=scale[..., None])
+    return x
+
+
 class SlabStore:
-    """One worker's device-resident training slab (f32).
+    """One worker's device-resident training slab.
 
-    `upload_full` replaces the whole slab (bootstrap, mass-delete churn);
-    `apply_rows` scatters a drained dirty set into it.  `bytes_uploaded`
-    counts the host bytes each path shipped, as the reference does."""
+    `upload_full` replaces the whole slab (bootstrap, mass-delete churn,
+    or every change under `--full-slab-upload`); `apply_rows` scatters a
+    drained dirty set into it.  `bytes_uploaded` counts the f32 host
+    bytes each path shipped, as the reference does."""
 
-    def __init__(self, capacity: int, num_features: int, device):
+    def __init__(self, dtype: str, capacity: int, num_features: int,
+                 device):
+        if dtype not in SLAB_DTYPES:
+            raise ValueError(f"slab dtype {dtype!r} not in {SLAB_DTYPES}")
+        self.dtype = dtype
         self.capacity = capacity
         self.num_features = num_features
         self.device = torch.device(device)
-        self._x = None
+        self._x = None            # [cap+1, F] tensor, or a QuantizedSlab
         self._y = None
         self._mask = None
         self.bytes_uploaded = 0
@@ -48,7 +127,8 @@ class SlabStore:
         return self._x is not None
 
     def upload_full(self, x, y, mask) -> None:
-        """Host slab copy → device store (plus the zeroed spare row)."""
+        """Host slab copy → device store (plus the zeroed spare row),
+        encoded on the device."""
         x = np.ascontiguousarray(x, dtype=np.float32)
         y = np.ascontiguousarray(y, dtype=np.int32)
         mask = np.ascontiguousarray(mask, dtype=np.float32)
@@ -62,7 +142,7 @@ class SlabStore:
         sx[:cap].copy_(torch.from_numpy(x))
         sy[:cap].copy_(torch.from_numpy(y))
         sm[:cap].copy_(torch.from_numpy(mask))
-        self._x, self._y, self._mask = sx, sy, sm
+        self._x, self._y, self._mask = encode_x(self.dtype, sx), sy, sm
 
     def apply_rows(self, slots, xr, yr, mr) -> None:
         """Scatter the changed rows into the device slab, the row count
@@ -92,16 +172,36 @@ class SlabStore:
         self.rows_applied += n
         dev = self.device
         idx = torch.from_numpy(slots_p).to(dev, dtype=torch.int64)
+        enc = encode_x(self.dtype, torch.from_numpy(xr_p).to(dev))
         # in place: a kernel already queued on this stream that reads the
         # slab runs before these copies, so no reader sees a torn slab
-        self._x.index_copy_(0, idx, torch.from_numpy(xr_p).to(dev))
+        if isinstance(self._x, QuantizedSlab):
+            self._x.q.index_copy_(0, idx, enc.q)
+            self._x.scale.index_copy_(0, idx, enc.scale)
+        else:
+            self._x.index_copy_(0, idx, enc)
         self._y.index_copy_(0, idx, torch.from_numpy(yr_p).to(dev))
         self._mask.index_copy_(0, idx, torch.from_numpy(mr_p).to(dev))
 
     def arrays(self):
-        """(x [cap, F] f32, y [cap] int32, mask [cap] f32) device views,
-        contiguous, without the spare row."""
+        """(x, y [cap] int32, mask [cap] f32) device views without the
+        spare row, all contiguous; x in the storage form: a [cap, F] f32
+        or bf16 tensor, or a QuantizedSlab."""
         if not self.ready:
             raise RuntimeError("slab store read before first upload")
         cap = self.capacity
-        return self._x[:cap], self._y[:cap], self._mask[:cap]
+        x = self._x
+        if isinstance(x, QuantizedSlab):
+            x = QuantizedSlab(q=x.q[:cap], scale=x.scale[:cap])
+        else:
+            x = x[:cap]
+        return x, self._y[:cap], self._mask[:cap]
+
+    def device_bytes(self) -> int:
+        """Bytes of the slab the solver reads (x in its storage form, y
+        and mask), the spare row left out."""
+        if not self.ready:
+            return 0
+        x, y, mask = self.arrays()
+        parts = tuple(x) if isinstance(x, QuantizedSlab) else (x,)
+        return sum(t.nbytes for t in (*parts, y, mask))

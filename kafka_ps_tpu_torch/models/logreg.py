@@ -9,7 +9,9 @@ observed.
 `local_update` here is the plain PyTorch form of the worker's k-step
 solver: a Python loop of `num_max_iter` full-batch gradient steps with
 the closed-form gradient, then the loss at the updated parameters.  It
-is the version the CUDA kernel (ops/fused_update.py) is held against.
+is the version the CUDA kernels (ops/fused_update.py) are held against.
+It takes the slab in any stored form (compress/slab.py) and decodes it
+first, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from kafka_ps_tpu_torch.compress.slab import decode_x
 from kafka_ps_tpu_torch.utils.config import ModelConfig
 
 
@@ -93,7 +96,9 @@ def local_update(theta: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                  mask: torch.Tensor, *, cfg: ModelConfig
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """cfg.num_max_iter full-batch gradient steps on the buffer →
-    (delta, loss at the updated parameters)."""
+    (delta, loss at the updated parameters).  `x` may be any stored
+    slab form; it is decoded first."""
+    x = decode_x(x)
     onehot = one_hot(y, cfg.num_rows)
     lr = cfg.local_learning_rate
     t = theta

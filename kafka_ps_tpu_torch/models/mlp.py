@@ -14,7 +14,8 @@ hand (no autograd), then the loss at the updated parameters.  It equals
 label lies outside [0, C] has an all-zero one-hot row, so it gets ZERO
 gradient (`row_valid`; logreg's closed form keeps its softmax term
 instead), and relu'(0) = 0.  It is the version the CUDA kernels K4/K6
-(ops/fused_update.py) are held against.
+(ops/fused_update.py) are held against.  Like logreg's, it takes the slab
+in any stored form (compress/slab.py) and decodes it first.
 
 Initialization differs from the JAX package's on purpose: that one draws
 He-normal weights from `jax.random.PRNGKey(0)`, which torch cannot
@@ -29,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from kafka_ps_tpu_torch.compress.slab import decode_x
 from kafka_ps_tpu_torch.models import metrics as metrics_mod
 from kafka_ps_tpu_torch.models.logreg import one_hot
 from kafka_ps_tpu_torch.utils.config import ModelConfig
@@ -112,7 +114,9 @@ def local_update(theta: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                  mask: torch.Tensor, *, cfg: ModelConfig
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """cfg.num_max_iter full-batch gradient steps on the buffer →
-    (delta, loss at the updated parameters)."""
+    (delta, loss at the updated parameters).  `x` may be any stored
+    slab form; it is decoded first."""
+    x = decode_x(x)
     onehot = one_hot(y, cfg.num_rows)
     lr = cfg.local_learning_rate
     t = theta

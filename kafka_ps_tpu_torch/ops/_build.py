@@ -4,8 +4,10 @@ Each source under `ops/csrc/` compiles with nvcc into a shared library
 with a plain C interface, loaded with ctypes.  Builds happen at the
 first CUDA call, never at import, into `kafka_ps_tpu_torch/_build/`
 (listed in .gitignore); a library's file name carries a hash of its
-source and flags, so an edited source rebuilds and an unchanged one is
-reused.  A failed build raises with nvcc's output.
+source, of every header of `ops/csrc/` it includes (`#include "..."`,
+followed through the headers' own includes) and of the flags, so an
+edited source or header rebuilds and an unchanged one is reused.  A
+failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,6 +26,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register/shared-memory report) per source
@@ -41,10 +45,27 @@ def _nvcc() -> str:
                        "the CUDA toolkit's nvcc")
 
 
+def _closure(name: str) -> list[str]:
+    """`name` and the files of CSRC it includes, directly or through
+    another header, each once, in the order first met (a quoted include
+    found elsewhere, such as a toolkit header, is left out)."""
+    seen, todo = [], [name]
+    while todo:
+        n = todo.pop(0)
+        if n in seen or not os.path.isfile(os.path.join(CSRC, n)):
+            continue
+        seen.append(n)
+        with open(os.path.join(CSRC, n), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, name)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for n in _closure(name):
+        with open(os.path.join(CSRC, n), "rb") as f:
+            digest.update(n.encode() + b"\0" + f.read())
     stem = os.path.splitext(name)[0]
     return src, os.path.join(BUILD_DIR,
                              f"lib{stem}-{digest.hexdigest()[:16]}.so")

@@ -1,9 +1,13 @@
-// K1 and K2: the fused k-step logistic-regression local update, for Hopper
-// (sm_90a), for one worker (K1) or a gang of workers (K2) in one call.
+// K1, K2 and K3: the fused k-step logistic-regression local update, for
+// Hopper (sm_90a), for one worker (K1) or a gang of workers (K2) in one
+// call, with x stored in f32 (K1, K2) or in bf16 or int8 (K3).
 //
 // Replaces kafka_ps_tpu/ops/fused_update.py:_kernel (the Pallas TPU kernel
 // behind fused_update.local_update) and its grid over gang members,
-// fused_update.local_update_batched.  Same function, not the same layout:
+// fused_update.local_update_batched; and _stream_kernel /
+// _stream_kernel_q (K3, via _stream_core and _stream_update), the TPU's
+// batch-tiled version for slabs too large for VMEM and for bf16 / int8
+// slab storage.  Same function, not the same layout:
 //
 //   for s in 0..k-1:
 //       logits = x @ W.T + b                      [B, R]
@@ -54,6 +58,19 @@
 // (B floats), which saves a launch.  No atomics anywhere: every sum has a
 // fixed order, so equal inputs give bitwise-equal outputs from run to run.
 //
+// K3.  The passes are templated on the slab's storage form (slab_x.cuh):
+// every load of x decodes there, bf16 -> f32 or int8 q * (row scale), and
+// the rest of the pass is the f32 code.  The TPU's (k+1, tiles) grid with
+// its revisited accumulators is not needed: these passes already tile
+// the batch across CTAs and reduce the per-CTA partials in a fixed order,
+// and an f32 batch of any size is K1's.  The decode is the plain
+// version's (decode_x) bit for bit, so K3 on a stored slab equals K1's
+// arithmetic on the decoded slab.  At the reference shape x is 2 MiB
+// (bf16) or 1 MiB plus 4 KiB of scales (int8); the work is K1's
+// (4k+2)*B*F*R FLOP, so the bound moves from bytes to operations
+// (~0.94 us).  The simple design stays: one 2- or 1-byte load per lane,
+// no vector loads, so the int8 instance is expected no faster than f32.
+//
 // Loads of data a kernel only reads (x, y, mask, the weights a row pass
 // reads, the partials) are written as __ldg.  With the member's pointers
 // taken from the Members table, plain loads compiled to the same
@@ -70,22 +87,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "slab_x.cuh"
+
 namespace {
+
+using namespace kps;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerCta = 32;
 constexpr int kMaxRows = 16;     // classes + 1; the wrapper refuses more
-constexpr int kMaxMembers = 32;  // per launch; the wrapper splits larger gangs
-
-// Per-member base pointers, passed by value (4 * 32 * 8 = 1 KiB of the
-// 4 KiB kernel-parameter space).
-struct Members {
-  const float* theta[kMaxMembers];
-  const float* x[kMaxMembers];
-  const int* y[kMaxMembers];
-  const float* mask[kMaxMembers];
-};
 
 __device__ __forceinline__ float warp_sum(float v) {
   // xor butterfly: float addition is commutative, so every lane ends with
@@ -111,16 +122,18 @@ __device__ float block_denom(const float* __restrict__ mask, int B,
   return fmaxf(d, 1.0f);
 }
 
-// Logits of one row, reduced across the warp; every lane gets all R.
-template <int R>
-__device__ __forceinline__ void row_logits(const float* __restrict__ xr,
+// Logits of one row (stored form S, row scale s), reduced across the warp;
+// every lane gets all R.
+template <class S, int R>
+__device__ __forceinline__ void row_logits(const typename S::T* __restrict__ xr,
+                                           float s,
                                            const float* __restrict__ w,
                                            int F, int lane, float* out) {
   float acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = 0.f;
   for (int f = lane; f < F; f += 32) {
-    const float xv = __ldg(xr + f);
+    const float xv = S::ldg(xr + f, s);
 #pragma unroll
     for (int r = 0; r < R; ++r)
       acc[r] = fmaf(xv, __ldg(w + r * F + f), acc[r]);
@@ -148,21 +161,23 @@ __device__ __forceinline__ void log_softmax(float* l) {
 }
 
 // The member's current weights: theta on the first step, else its scratch.
-__device__ __forceinline__ const float* member_w(const Members& mem,
+template <class Mem>
+__device__ __forceinline__ const float* member_w(const Mem& mem,
                                                  const float* w_scratch,
                                                  int first, int m, int P) {
   return first ? mem.theta[m] : w_scratch + (size_t)m * P;
 }
 
-template <int R>
+template <class S, int R>
 __global__ void __launch_bounds__(kThreads)
-row_pass(Members mem, const float* w_scratch, int first,
+row_pass(typename S::Mem mem, const float* w_scratch, int first,
          float* __restrict__ partials, int B, int F) {
   __shared__ float red[kThreads];
   __shared__ float g_s[kRowsPerCta][R];
   const int m = blockIdx.y;
   const int P = R * F + R;
-  const float* __restrict__ x = mem.x[m];
+  const typename S::T* __restrict__ x = mem.x[m];
+  const float* __restrict__ sc = S::scales(mem, m);
   const int* __restrict__ y = mem.y[m];
   const float* __restrict__ mask = mem.mask[m];
   const float* __restrict__ w = member_w(mem, w_scratch, first, m, P);
@@ -176,7 +191,8 @@ row_pass(Members mem, const float* w_scratch, int first,
     if (i < nrows) {
       const int row = row0 + i;
       float l[R];
-      row_logits<R>(x + (size_t)row * F, w, F, lane, l);
+      row_logits<S, R>(x + (size_t)row * F, S::scale(sc, row), w, F, lane,
+                       l);
       log_softmax<R>(l);
       const int yv = __ldg(y + row);
       const float scale = __ldg(mask + row) / denom;
@@ -203,7 +219,8 @@ row_pass(Members mem, const float* w_scratch, int first,
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = 0.f;
     for (int i = 0; i < nrows; ++i) {
-      const float xv = __ldg(x + (size_t)(row0 + i) * F + f);
+      const float xv = S::ldg(x + (size_t)(row0 + i) * F + f,
+                              S::scale(sc, row0 + i));
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = fmaf(g_s[i][r], xv, acc[r]);
     }
@@ -221,8 +238,9 @@ row_pass(Members mem, const float* w_scratch, int first,
 // W_in is theta on the first step and the member's scratch (the same
 // element W_out writes, read and written by one thread) after it.  On the
 // last step it also writes delta = W_k - theta.
+template <class Mem>
 __global__ void __launch_bounds__(kThreads)
-apply_pass(Members mem, float* w_scratch, int first, int last,
+apply_pass(Mem mem, float* w_scratch, int first, int last,
            const float* __restrict__ partials, int nparts, int P, float lr,
            float* __restrict__ delta) {
   const int m = blockIdx.y;
@@ -239,14 +257,15 @@ apply_pass(Members mem, float* w_scratch, int first, int last,
   if (last) delta[(size_t)m * P + p] = __fsub_rn(wn, theta[p]);
 }
 
-template <int R>
+template <class S, int R>
 __global__ void __launch_bounds__(kThreads)
-loss_pass(Members mem, const float* w_scratch, int from_theta,
+loss_pass(typename S::Mem mem, const float* w_scratch, int from_theta,
           float* __restrict__ loss_partials, int B, int F) {
   __shared__ float nll_s[kRowsPerCta];
   const int m = blockIdx.y;
   const int P = R * F + R;
-  const float* __restrict__ x = mem.x[m];
+  const typename S::T* __restrict__ x = mem.x[m];
+  const float* __restrict__ sc = S::scales(mem, m);
   const int* __restrict__ y = mem.y[m];
   const float* __restrict__ mask = mem.mask[m];
   const float* __restrict__ w = member_w(mem, w_scratch, from_theta, m, P);
@@ -258,7 +277,8 @@ loss_pass(Members mem, const float* w_scratch, int from_theta,
     if (i < nrows) {
       const int row = row0 + i;
       float l[R];
-      row_logits<R>(x + (size_t)row * F, w, F, lane, l);
+      row_logits<S, R>(x + (size_t)row * F, S::scale(sc, row), w, F, lane,
+                       l);
       log_softmax<R>(l);
       const int yv = __ldg(y + row);
       float dot = 0.f;
@@ -276,8 +296,9 @@ loss_pass(Members mem, const float* w_scratch, int from_theta,
   }
 }
 
+template <class Mem>
 __global__ void __launch_bounds__(kThreads)
-loss_reduce(Members mem, int B, const float* __restrict__ loss_partials,
+loss_reduce(Mem mem, int B, const float* __restrict__ loss_partials,
             int nparts, float* __restrict__ loss) {
   __shared__ float red[kThreads];
   const int m = blockIdx.y;
@@ -290,8 +311,8 @@ loss_reduce(Members mem, int B, const float* __restrict__ loss_partials,
   }
 }
 
-template <int R>
-int run(const Members& mem, int members, float* delta, float* loss,
+template <class S, int R>
+int run(const typename S::Mem& mem, int members, float* delta, float* loss,
         float* w, float* partials, float* loss_partials, int B, int F, int k,
         float lr, cudaStream_t st) {
   const int nblk = (B + kRowsPerCta - 1) / kRowsPerCta;
@@ -301,15 +322,40 @@ int run(const Members& mem, int members, float* delta, float* loss,
   if (k == 0)
     cudaMemsetAsync(delta, 0, sizeof(float) * (size_t)members * P, st);
   for (int s = 0; s < k; ++s) {
-    row_pass<R><<<rows, kThreads, 0, st>>>(mem, w, s == 0, partials, B, F);
-    apply_pass<<<params, kThreads, 0, st>>>(mem, w, s == 0, s == k - 1,
-                                            partials, nblk, P, lr, delta);
+    row_pass<S, R><<<rows, kThreads, 0, st>>>(mem, w, s == 0, partials, B,
+                                              F);
+    apply_pass<typename S::Mem><<<params, kThreads, 0, st>>>(
+        mem, w, s == 0, s == k - 1, partials, nblk, P, lr, delta);
   }
-  loss_pass<R><<<rows, kThreads, 0, st>>>(mem, w, k == 0, loss_partials, B,
-                                          F);
-  loss_reduce<<<dim3(1, members), kThreads, 0, st>>>(mem, B, loss_partials,
-                                                     nblk, loss);
+  loss_pass<S, R><<<rows, kThreads, 0, st>>>(mem, w, k == 0, loss_partials,
+                                             B, F);
+  loss_reduce<typename S::Mem><<<dim3(1, members), kThreads, 0, st>>>(
+      mem, B, loss_partials, nblk, loss);
   return (int)cudaGetLastError();
+}
+
+// The R = C+1 instance of a storage form's passes.
+template <class S>
+int dispatch(const typename S::Mem& mem, int members, float* delta,
+             float* loss, float* w, float* partials, float* loss_partials,
+             int B, int F, int R, int k, float lr, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define KPS_CASE(n)                                                        \
+  case n:                                                                  \
+    return run<S, n>(mem, members, delta, loss, w, partials,               \
+                     loss_partials, B, F, k, lr, st);
+  switch (R) {
+    KPS_CASE(2) KPS_CASE(3) KPS_CASE(4) KPS_CASE(5) KPS_CASE(6) KPS_CASE(7)
+    KPS_CASE(8) KPS_CASE(9) KPS_CASE(10) KPS_CASE(11) KPS_CASE(12)
+    KPS_CASE(13) KPS_CASE(14) KPS_CASE(15) KPS_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef KPS_CASE
+}
+
+bool bad_shape(int B, int F, int k, int members) {
+  return B < 1 || F < 1 || k < 0 || members < 1 || members > kMaxMembers;
 }
 
 }  // namespace
@@ -327,34 +373,42 @@ int kps_local_update(const void* const* thetas, const void* const* xs,
                      int members, float* delta, float* loss, float* w,
                      float* partials, float* loss_partials, int B, int F,
                      int R, int k, float lr, void* stream) {
-  if (B < 1 || F < 1 || k < 0 || members < 1 || members > kMaxMembers)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, F, k, members)) return (int)cudaErrorInvalidValue;
   Members mem;
-  for (int i = 0; i < members; ++i) {
-    mem.theta[i] = static_cast<const float*>(thetas[i]);
-    mem.x[i] = static_cast<const float*>(xs[i]);
-    mem.y[i] = static_cast<const int*>(ys[i]);
-    mem.mask[i] = static_cast<const float*>(masks[i]);
-  }
-  for (int i = members; i < kMaxMembers; ++i) {
-    mem.theta[i] = nullptr;
-    mem.x[i] = nullptr;
-    mem.y[i] = nullptr;
-    mem.mask[i] = nullptr;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define KPS_CASE(n)                                                        \
-  case n:                                                                  \
-    return run<n>(mem, members, delta, loss, w, partials, loss_partials,   \
-                  B, F, k, lr, st);
-  switch (R) {
-    KPS_CASE(2) KPS_CASE(3) KPS_CASE(4) KPS_CASE(5) KPS_CASE(6) KPS_CASE(7)
-    KPS_CASE(8) KPS_CASE(9) KPS_CASE(10) KPS_CASE(11) KPS_CASE(12)
-    KPS_CASE(13) KPS_CASE(14) KPS_CASE(15) KPS_CASE(16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef KPS_CASE
+  fill_members(mem, thetas, xs, ys, masks, members);
+  return dispatch<SlabF32>(mem, members, delta, loss, w, partials,
+                           loss_partials, B, F, R, k, lr, stream);
+}
+
+// K3, bf16 slab: as kps_local_update, with xs pointing at bf16 [B, F].
+int kps_local_update_bf16(const void* const* thetas, const void* const* xs,
+                          const void* const* ys, const void* const* masks,
+                          int members, float* delta, float* loss, float* w,
+                          float* partials, float* loss_partials, int B,
+                          int F, int R, int k, float lr, void* stream) {
+  if (bad_shape(B, F, k, members)) return (int)cudaErrorInvalidValue;
+  MembersBf16 mem;
+  fill_members(mem, thetas, xs, ys, masks, members);
+  return dispatch<SlabBf16>(mem, members, delta, loss, w, partials,
+                            loss_partials, B, F, R, k, lr, stream);
+}
+
+// K3, int8 slab: xs point at int8 q [B, F] and scales at f32 [B] (one
+// scale per row).
+int kps_local_update_q(const void* const* thetas, const void* const* xs,
+                       const void* const* ys, const void* const* masks,
+                       const void* const* scales, int members, float* delta,
+                       float* loss, float* w, float* partials,
+                       float* loss_partials, int B, int F, int R, int k,
+                       float lr, void* stream) {
+  if (bad_shape(B, F, k, members)) return (int)cudaErrorInvalidValue;
+  MembersQ mem;
+  fill_members(mem, thetas, xs, ys, masks, members);
+  for (int i = 0; i < kMaxMembers; ++i)
+    mem.scale[i] = i < members ? static_cast<const float*>(scales[i])
+                               : nullptr;
+  return dispatch<SlabQ>(mem, members, delta, loss, w, partials,
+                         loss_partials, B, F, R, k, lr, stream);
 }
 
 int kps_rows_per_cta() { return kRowsPerCta; }

@@ -1,9 +1,13 @@
-// K4 and K6: the fused k-step local update of the one-hidden-layer MLP, for
-// Hopper (sm_90a), for one worker (K4) or a gang of workers (K6) in one call.
+// K4, K6 and K5: the fused k-step local update of the one-hidden-layer MLP,
+// for Hopper (sm_90a), for one worker (K4) or a gang of workers (K6) in one
+// call, with x stored in f32 (K4, K6) or in bf16 or int8 (K5).
 //
 // Replaces kafka_ps_tpu/ops/fused_update.py:_mlp_kernel (the Pallas TPU
 // kernel behind fused_update.mlp_local_update) and its grid over gang
-// members, fused_update.mlp_local_update_batched.  The function:
+// members, fused_update.mlp_local_update_batched; and _mlp_stream_kernel /
+// _mlp_stream_kernel_q (K5, via _mlp_stream_core and _mlp_stream_update),
+// the TPU's batch-tiled version for oversize and bf16 / int8 slabs.  The
+// function:
 //
 //   for s in 0..k-1:
 //       pre   = x @ W1.T + b1 ;  hid = relu(pre)       [B, H]
@@ -55,6 +59,13 @@
 // dW1 pass gives (F/32)*(H/32) = 128 CTAs.  Every sum has a fixed order,
 // so equal inputs give bitwise-equal outputs from run to run.
 //
+// K5 is these passes templated on the slab's storage form (slab_x.cuh), as
+// K3 is K1's: x is read only where a tile of it is loaded into shared
+// memory (the hidden product of the row and loss passes, and the dW1
+// pass), and it is decoded there, exactly as decode_x does, so every
+// product runs on the f32 values the plain version sees.  The bound stays
+// K4's, set by operations.
+//
 // Built by kafka_ps_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through the plain C entry point below (ctypes).
@@ -62,22 +73,18 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "slab_x.cuh"
+
 namespace {
+
+using namespace kps;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerCta = 32;
 constexpr int kMaxRows = 16;     // classes + 1; the wrapper refuses more
-constexpr int kMaxMembers = 32;  // per launch; the wrapper splits larger gangs
 constexpr int kTile = 32;        // depth of a product tile, edge of a W1 tile
 constexpr int kHidChunk = 64;    // hidden units per sweep of the row product
-
-struct Members {
-  const float* theta[kMaxMembers];
-  const float* x[kMaxMembers];
-  const int* y[kMaxMembers];
-  const float* mask[kMaxMembers];
-};
 
 // Shapes of one call: T = H + R*H + R is the length of the b1|W2|b2 tail,
 // P = H*F + T the length of the flat parameter vector.
@@ -123,7 +130,8 @@ __device__ __forceinline__ void log_softmax(float* l) {
   for (int r = 0; r < R; ++r) l[r] = l[r] - lse;
 }
 
-__device__ __forceinline__ const float* member_w(const Members& mem,
+template <class Mem>
+__device__ __forceinline__ const float* member_w(const Mem& mem,
                                                  const float* w_scratch,
                                                  int first, int m, int P) {
   return first ? mem.theta[m] : w_scratch + (size_t)m * P;
@@ -131,9 +139,12 @@ __device__ __forceinline__ const float* member_w(const Members& mem,
 
 // hid[row, h] = relu(x[row] . W1[h] + b1[h]) for the CTA's rows, written to
 // global.  A 32 x 64 output tile per sweep, 2 x 4 outputs per thread, each
-// a sequential sum over f in index order.  Ends with __syncthreads, so the
-// block sees every hid it wrote.
-__device__ void hidden_rows(const float* __restrict__ x,
+// a sequential sum over f in index order.  x is stored in form S (row
+// scales sc) and decoded as its tile is loaded.  Ends with __syncthreads,
+// so the block sees every hid it wrote.
+template <class S>
+__device__ void hidden_rows(const typename S::T* __restrict__ x,
+                            const float* __restrict__ sc,
                             const float* __restrict__ w1,
                             const float* __restrict__ b1,
                             float* __restrict__ hid, int row0, int nrows,
@@ -151,7 +162,10 @@ __device__ void hidden_rows(const float* __restrict__ x,
     for (int f0 = 0; f0 < F; f0 += kTile) {
       for (int e = t; e < kRowsPerCta * kTile; e += kThreads) {
         const int r = e / kTile, c = e % kTile, f = f0 + c;
-        xs[r][c] = (r < nrows && f < F) ? x[(size_t)(row0 + r) * F + f] : 0.f;
+        xs[r][c] = (r < nrows && f < F)
+                       ? S::get(x + (size_t)(row0 + r) * F + f,
+                                S::scale(sc, row0 + r))
+                       : 0.f;
       }
       for (int e = t; e < kHidChunk * kTile; e += kThreads) {
         const int hh = e / kTile, c = e % kTile, h = hc + hh, f = f0 + c;
@@ -202,16 +216,16 @@ __device__ __forceinline__ void hidden_logits(const float* __restrict__ hr,
   for (int r = 0; r < R; ++r) out[r] = warp_sum(acc[r]) + b2[r];
 }
 
-template <int R>
+template <class S, int R>
 __global__ void __launch_bounds__(kThreads)
-row_pass(Members mem, const float* w_scratch, int first, Dims d,
+row_pass(typename S::Mem mem, const float* w_scratch, int first, Dims d,
          float* __restrict__ hid_all, float* __restrict__ dh_all,
          float* __restrict__ partials) {
   __shared__ float red[kThreads];
   __shared__ float g_s[kRowsPerCta][R];
   const int m = blockIdx.y;
   const int H = d.H;
-  const float* __restrict__ x = mem.x[m];
+  const typename S::T* __restrict__ x = mem.x[m];
   const int* __restrict__ y = mem.y[m];
   const float* __restrict__ mask = mem.mask[m];
   const float* w1 = member_w(mem, w_scratch, first, m, d.P);
@@ -223,7 +237,7 @@ row_pass(Members mem, const float* w_scratch, int first, Dims d,
   const float denom = block_denom(mask, d.B, red);
   const int row0 = blockIdx.x * kRowsPerCta;
   const int nrows = min(kRowsPerCta, d.B - row0);
-  hidden_rows(x, w1, b1, hid, row0, nrows, d.F, H);
+  hidden_rows<S>(x, S::scales(mem, m), w1, b1, hid, row0, nrows, d.F, H);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int i = warp; i < kRowsPerCta; i += kWarps) {
@@ -280,14 +294,16 @@ row_pass(Members mem, const float* w_scratch, int first, Dims d,
 // dW1 tile = dh.T @ x over all B rows in index order, then W1 -= lr * dW1
 // (each element read and written by one thread); on the last step also
 // delta = W1_k - W1_0.
+template <class S>
 __global__ void __launch_bounds__(kThreads)
-dw1_pass(Members mem, float* w_scratch, int first, int last, Dims d,
+dw1_pass(typename S::Mem mem, float* w_scratch, int first, int last, Dims d,
          const float* __restrict__ dh_all, float lr,
          float* __restrict__ delta) {
   __shared__ float ds[kTile][kTile + 1];
   __shared__ float xs[kTile][kTile + 1];
   const int m = blockIdx.z;
-  const float* __restrict__ x = mem.x[m];
+  const typename S::T* __restrict__ x = mem.x[m];
+  const float* __restrict__ sc = S::scales(mem, m);
   const float* __restrict__ dh = dh_all + (size_t)m * d.B * d.H;
   const int f0 = blockIdx.x * kTile, h0 = blockIdx.y * kTile;
   const int t = threadIdx.x, th = t / kTile, tf = t % kTile;  // th 0..7
@@ -297,8 +313,9 @@ dw1_pass(Members mem, float* w_scratch, int first, int last, Dims d,
       const int bb = e / kTile, c = e % kTile, b = b0 + bb;
       ds[bb][c] = (b < d.B && h0 + c < d.H) ? dh[(size_t)b * d.H + h0 + c]
                                             : 0.f;
-      xs[bb][c] = (b < d.B && f0 + c < d.F) ? x[(size_t)b * d.F + f0 + c]
-                                            : 0.f;
+      xs[bb][c] = (b < d.B && f0 + c < d.F)
+                      ? S::get(x + (size_t)b * d.F + f0 + c, S::scale(sc, b))
+                      : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -328,8 +345,9 @@ dw1_pass(Members mem, float* w_scratch, int first, int last, Dims d,
 }
 
 // b1 | W2 | b2 -= lr * (sum of the CTA partials, in CTA order).
+template <class Mem>
 __global__ void __launch_bounds__(kThreads)
-tail_apply(Members mem, float* w_scratch, int first, int last, Dims d,
+tail_apply(Mem mem, float* w_scratch, int first, int last, Dims d,
            const float* __restrict__ partials, float lr,
            float* __restrict__ delta) {
   const int m = blockIdx.y;
@@ -346,14 +364,15 @@ tail_apply(Members mem, float* w_scratch, int first, int last, Dims d,
   if (last) delta[(size_t)m * d.P + off] = __fsub_rn(wn, theta[off]);
 }
 
-template <int R>
+template <class S, int R>
 __global__ void __launch_bounds__(kThreads)
-loss_pass(Members mem, const float* w_scratch, int from_theta, Dims d,
-          float* __restrict__ hid_all, float* __restrict__ loss_partials) {
+loss_pass(typename S::Mem mem, const float* w_scratch, int from_theta,
+          Dims d, float* __restrict__ hid_all,
+          float* __restrict__ loss_partials) {
   __shared__ float nll_s[kRowsPerCta];
   const int m = blockIdx.y;
   const int H = d.H;
-  const float* __restrict__ x = mem.x[m];
+  const typename S::T* __restrict__ x = mem.x[m];
   const int* __restrict__ y = mem.y[m];
   const float* __restrict__ mask = mem.mask[m];
   const float* w1 = member_w(mem, w_scratch, from_theta, m, d.P);
@@ -363,7 +382,7 @@ loss_pass(Members mem, const float* w_scratch, int from_theta, Dims d,
   float* hid = hid_all + (size_t)m * d.B * H;
   const int row0 = blockIdx.x * kRowsPerCta;
   const int nrows = min(kRowsPerCta, d.B - row0);
-  hidden_rows(x, w1, b1, hid, row0, nrows, d.F, H);
+  hidden_rows<S>(x, S::scales(mem, m), w1, b1, hid, row0, nrows, d.F, H);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int i = warp; i < kRowsPerCta; i += kWarps) {
@@ -389,8 +408,9 @@ loss_pass(Members mem, const float* w_scratch, int from_theta, Dims d,
   }
 }
 
+template <class Mem>
 __global__ void __launch_bounds__(kThreads)
-loss_reduce(Members mem, Dims d, const float* __restrict__ loss_partials,
+loss_reduce(Mem mem, Dims d, const float* __restrict__ loss_partials,
             float* __restrict__ loss) {
   __shared__ float red[kThreads];
   const int m = blockIdx.y;
@@ -403,8 +423,8 @@ loss_reduce(Members mem, Dims d, const float* __restrict__ loss_partials,
   }
 }
 
-template <int R>
-int run(const Members& mem, int members, float* delta, float* loss,
+template <class S, int R>
+int run(const typename S::Mem& mem, int members, float* delta, float* loss,
         float* w, float* hid, float* dh, float* partials,
         float* loss_partials, int B, int F, int H, int k, float lr,
         cudaStream_t st) {
@@ -422,18 +442,44 @@ int run(const Members& mem, int members, float* delta, float* loss,
   if (k == 0)
     cudaMemsetAsync(delta, 0, sizeof(float) * (size_t)members * d.P, st);
   for (int s = 0; s < k; ++s) {
-    row_pass<R><<<rows, kThreads, 0, st>>>(mem, w, s == 0, d, hid, dh,
-                                           partials);
-    dw1_pass<<<w1_tiles, kThreads, 0, st>>>(mem, w, s == 0, s == k - 1, d,
-                                            dh, lr, delta);
-    tail_apply<<<tail, kThreads, 0, st>>>(mem, w, s == 0, s == k - 1, d,
-                                          partials, lr, delta);
+    row_pass<S, R><<<rows, kThreads, 0, st>>>(mem, w, s == 0, d, hid, dh,
+                                              partials);
+    dw1_pass<S><<<w1_tiles, kThreads, 0, st>>>(mem, w, s == 0, s == k - 1,
+                                               d, dh, lr, delta);
+    tail_apply<typename S::Mem><<<tail, kThreads, 0, st>>>(
+        mem, w, s == 0, s == k - 1, d, partials, lr, delta);
   }
-  loss_pass<R><<<rows, kThreads, 0, st>>>(mem, w, k == 0, d, hid,
-                                          loss_partials);
-  loss_reduce<<<dim3(1, members), kThreads, 0, st>>>(mem, d, loss_partials,
-                                                     loss);
+  loss_pass<S, R><<<rows, kThreads, 0, st>>>(mem, w, k == 0, d, hid,
+                                             loss_partials);
+  loss_reduce<typename S::Mem><<<dim3(1, members), kThreads, 0, st>>>(
+      mem, d, loss_partials, loss);
   return (int)cudaGetLastError();
+}
+
+// The R = C+1 instance of a storage form's passes.
+template <class S>
+int dispatch(const typename S::Mem& mem, int members, float* delta,
+             float* loss, float* w, float* hid, float* dh, float* partials,
+             float* loss_partials, int B, int F, int H, int R, int k,
+             float lr, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define KPS_CASE(n)                                                        \
+  case n:                                                                  \
+    return run<S, n>(mem, members, delta, loss, w, hid, dh, partials,      \
+                     loss_partials, B, F, H, k, lr, st);
+  switch (R) {
+    KPS_CASE(2) KPS_CASE(3) KPS_CASE(4) KPS_CASE(5) KPS_CASE(6) KPS_CASE(7)
+    KPS_CASE(8) KPS_CASE(9) KPS_CASE(10) KPS_CASE(11) KPS_CASE(12)
+    KPS_CASE(13) KPS_CASE(14) KPS_CASE(15) KPS_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef KPS_CASE
+}
+
+bool bad_shape(int B, int F, int H, int k, int members) {
+  return B < 1 || F < 1 || H < 1 || k < 0 || members < 1 ||
+         members > kMaxMembers;
 }
 
 }  // namespace
@@ -453,30 +499,46 @@ int kps_mlp_local_update(const void* const* thetas, const void* const* xs,
                          float* hid, float* dh, float* partials,
                          float* loss_partials, int B, int F, int H, int R,
                          int k, float lr, void* stream) {
-  if (B < 1 || F < 1 || H < 1 || k < 0 || members < 1 ||
-      members > kMaxMembers)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, F, H, k, members)) return (int)cudaErrorInvalidValue;
   Members mem;
-  for (int i = 0; i < kMaxMembers; ++i) {
-    const bool used = i < members;
-    mem.theta[i] = used ? static_cast<const float*>(thetas[i]) : nullptr;
-    mem.x[i] = used ? static_cast<const float*>(xs[i]) : nullptr;
-    mem.y[i] = used ? static_cast<const int*>(ys[i]) : nullptr;
-    mem.mask[i] = used ? static_cast<const float*>(masks[i]) : nullptr;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define KPS_CASE(n)                                                        \
-  case n:                                                                  \
-    return run<n>(mem, members, delta, loss, w, hid, dh, partials,         \
-                  loss_partials, B, F, H, k, lr, st);
-  switch (R) {
-    KPS_CASE(2) KPS_CASE(3) KPS_CASE(4) KPS_CASE(5) KPS_CASE(6) KPS_CASE(7)
-    KPS_CASE(8) KPS_CASE(9) KPS_CASE(10) KPS_CASE(11) KPS_CASE(12)
-    KPS_CASE(13) KPS_CASE(14) KPS_CASE(15) KPS_CASE(16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef KPS_CASE
+  fill_members(mem, thetas, xs, ys, masks, members);
+  return dispatch<SlabF32>(mem, members, delta, loss, w, hid, dh, partials,
+                           loss_partials, B, F, H, R, k, lr, stream);
+}
+
+// K5, bf16 slab: as kps_mlp_local_update, with xs pointing at bf16 [B, F].
+int kps_mlp_local_update_bf16(const void* const* thetas,
+                              const void* const* xs, const void* const* ys,
+                              const void* const* masks, int members,
+                              float* delta, float* loss, float* w,
+                              float* hid, float* dh, float* partials,
+                              float* loss_partials, int B, int F, int H,
+                              int R, int k, float lr, void* stream) {
+  if (bad_shape(B, F, H, k, members)) return (int)cudaErrorInvalidValue;
+  MembersBf16 mem;
+  fill_members(mem, thetas, xs, ys, masks, members);
+  return dispatch<SlabBf16>(mem, members, delta, loss, w, hid, dh,
+                            partials, loss_partials, B, F, H, R, k, lr,
+                            stream);
+}
+
+// K5, int8 slab: xs point at int8 q [B, F] and scales at f32 [B] (one
+// scale per row).
+int kps_mlp_local_update_q(const void* const* thetas, const void* const* xs,
+                           const void* const* ys, const void* const* masks,
+                           const void* const* scales, int members,
+                           float* delta, float* loss, float* w, float* hid,
+                           float* dh, float* partials, float* loss_partials,
+                           int B, int F, int H, int R, int k, float lr,
+                           void* stream) {
+  if (bad_shape(B, F, H, k, members)) return (int)cudaErrorInvalidValue;
+  MembersQ mem;
+  fill_members(mem, thetas, xs, ys, masks, members);
+  for (int i = 0; i < kMaxMembers; ++i)
+    mem.scale[i] = i < members ? static_cast<const float*>(scales[i])
+                               : nullptr;
+  return dispatch<SlabQ>(mem, members, delta, loss, w, hid, dh, partials,
+                         loss_partials, B, F, H, R, k, lr, stream);
 }
 
 int kps_mlp_rows_per_cta() { return kRowsPerCta; }

@@ -10,9 +10,11 @@ WeightsMessages.  A `GangDispatcher` claims the set's messages, runs
 each member's own `_prepare` (its slab, its `num_tuples_seen`), calls
 the family's batched kernel once over all members — K2
 (`local_update_batched`) for logreg, K6 (`mlp_local_update_batched`)
-for the MLP, which take per-member pointers, so nothing is stacked and
-a theta shared by every member (sequential consistency) is passed as
-the same tensor k times — then runs each member's `_finish` in
+for the MLP, or their bf16 / int8 instances K3 and K5 when the slabs are
+stored reduced — which take per-member pointers, so nothing is stacked
+(an int8 member's q and row scales are two pointers of their own) and a
+theta shared by every member (sequential consistency) is passed as the
+same tensor k times — then runs each member's `_finish` in
 worker-id order: the same worker CSV rows and GradientMessages, in the
 same order, as the per-message path.  Bitwise equality with that path
 holds because a gang member IS a single call (the batched kernel is the
@@ -38,7 +40,7 @@ from kafka_ps_tpu_torch.ops import fused_update
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
 from kafka_ps_tpu_torch.runtime import worker as worker_mod
 
-# the batched kernel of each task family (K2, K6)
+# the batched kernel of each task family (K2/K3, K6/K5 by slab form)
 BATCHED_SOLVERS = {"logreg": fused_update.local_update_batched,
                    "mlp": fused_update.mlp_local_update_batched}
 

@@ -1,9 +1,11 @@
 """Worker compute node (counterpart of kafka_ps_tpu/runtime/worker.py).
 
 On each WeightsMessage: overwrite the local parameters with the server's,
-bring the worker's device slab up to date with its sliding buffer, run
-the k-step local update (on the card: the family's CUDA kernel in
-ops/fused_update.py) fused with the evaluation of the updated model, log
+bring the worker's device slab (f32, bf16 or int8 storage,
+cfg.slab_dtype) up to date with its sliding buffer, run the k-step local
+update (on the card: the family's CUDA kernel in ops/fused_update.py, K1
+or K4 for an f32 slab, K3 or K5 for a reduced one) fused with the
+evaluation of the updated model, log
 the worker CSV row and send the delta back as a GradientMessage with the
 same vector clock.
 
@@ -34,7 +36,7 @@ from kafka_ps_tpu_torch.utils.config import ModelConfig, PSConfig
 LogSink = Callable[[str], None]
 
 
-# the single-worker kernel of each task family (K1, K4)
+# the single-worker kernel of each task family (K1/K3, K4/K5 by slab form)
 SOLVERS = {"logreg": fused_update.local_update,
            "mlp": fused_update.mlp_local_update}
 
@@ -42,9 +44,9 @@ SOLVERS = {"logreg": fused_update.local_update,
 @functools.lru_cache(maxsize=None)
 def _solver_fns(task_name: str, cfg: ModelConfig):
     """(update, update_and_eval) for one (task, cfg), shared by every
-    WorkerNode.  `update` is the family's kernel wrapper (K1 for logreg,
-    K4 for the MLP): the CUDA kernel for tensors on the card, its plain
-    version for CPU tensors.  `update_and_eval` also evaluates theta +
+    WorkerNode.  `update` is the family's kernel wrapper (K1 or K3 for
+    logreg, K4 or K5 for the MLP, by the slab's storage form): the CUDA
+    kernel for tensors on the card, its plain version for CPU tensors.  `update_and_eval` also evaluates theta +
     delta on the test set, as the reference evaluates each worker's
     post-fit model."""
     task = get_task(task_name, cfg)
@@ -85,10 +87,11 @@ class WorkerNode:
         self.test_x = _as_device(test_x, self.device, torch.float32)
         self.test_y = _as_device(test_y, self.device, torch.int32)
         self.log = log or (lambda line: None)
-        # device slab keyed by the buffer's mutation counter: steady
-        # state uploads only the dirty rows
+        # device slab in cfg.slab_dtype storage, keyed by the buffer's
+        # mutation counter: steady state uploads only the dirty rows
+        # (unless cfg.slab_incremental is off)
         self._slab_version: int | None = None
-        self._slab_store = SlabStore(buffer.cfg.max_size,
+        self._slab_store = SlabStore(cfg.slab_dtype, buffer.cfg.max_size,
                                      buffer.num_features, self.device)
         self.iterations = 0
 
@@ -112,7 +115,7 @@ class WorkerNode:
         ver = self.buffer.version
         if ver != self._slab_version:
             store = self._slab_store
-            if not store.ready:
+            if not (self.cfg.slab_incremental and store.ready):
                 store.upload_full(*self.buffer.snapshot(clear_dirty=True))
             else:
                 slots, xr, yr, mr = self.buffer.drain_dirty()

@@ -3,8 +3,8 @@ plus the port's device rule.
 
 The dataclasses keep the reference's names and defaults for the fields
 this package implements; options of subsystems not yet ported
-(compression, slab dtypes, serving, tiering) are absent rather than
-accepted and ignored.  There is no Pallas switch: on the card the
+(compression, serving, tiering) are absent rather than accepted and
+ignored.  There is no Pallas switch: on the card the
 hand-written kernels are the only path.
 """
 
@@ -83,6 +83,12 @@ class PSConfig:
     # moment run as one batched kernel call, the server applies queued
     # gradients as one chained batch; bitwise the per-message results
     use_gang: bool = True
+    # device slab (compress/slab.py): storage of each worker's slab x,
+    # "f32" | "bf16" | "int8" (per-row scales), decoded inside the
+    # solver kernel; slab_incremental scatters only the dirty rows (off:
+    # the whole slab is uploaded on every buffer change)
+    slab_dtype: str = "f32"
+    slab_incremental: bool = True
 
     @property
     def server_lr(self) -> float:

@@ -1,5 +1,5 @@
-"""Same-call A/B of the port's K1 (and K4 where a tree has it) across
-checkouts of the repo, on one NVIDIA card.
+"""Same-call A/B of the port's f32 kernels K1 and K2 (and K4 and K6 where
+a tree has them) across checkouts of the repo, on one NVIDIA card.
 
     python3 scripts/torch_kernel_ab.py TREE [TREE ...]
 
@@ -11,8 +11,8 @@ process of its own (they hold packages of the same name), in the order
 given: list them as A B B A so that drift of the card cancels.
 
 Per tree and kernel, at the main path's shape (F=1024, B=1024 with 100
-masked rows and one out-of-range label, C=5, k=2; the MLP at H=128), on
-inputs made from one seed:
+masked rows and one out-of-range label, C=5, k=2; the MLP at H=128; K2
+and K6 on a gang of 4), on inputs made from one seed per member:
   * `digest`: sha256 of the outputs' bytes (delta and loss) — trees with
     the same arithmetic agree bit for bit;
   * `ms`: median of 200 calls, each between a pair of CUDA events (with
@@ -21,9 +21,11 @@ inputs made from one seed:
     without a sync;
   * `device_ms` and `per_kernel`: the kernels' device time per call from
     torch.profiler, in total and by kernel;
-  * `sass`: per kernel of the C=5 instance, the count of instructions
-    and of global loads by kind (LDG.E.CONSTANT is the read-only path),
-    from `cuobjdump -sass` of the tree's built library.
+  * `sass`: per kernel of the C=5 f32 instance, the count of
+    instructions and of global loads by kind (LDG.E.CONSTANT is the
+    read-only path), from `cuobjdump -sass` of the tree's built library
+    (a tree whose kernels are templated on the slab's storage form
+    reports its f32 instances).
 One JSON line per tree and kernel, then the card's name and power limit.
 """
 
@@ -42,17 +44,27 @@ import time
 
 F, C, B, K, H, MASKED = 1024, 5, 1024, 2, 128, 100
 KERNEL_RE = re.compile(r"(row_pass|apply_pass|loss_pass|loss_reduce|"
-                       r"dw1_pass|tail_apply)(?:ILi(\d+)E|<(\d+)>)?")
+                       r"dw1_pass|tail_apply)")
+# the class count R of a pass's template arguments, mangled or demangled,
+# with or without the f32 storage form ahead of it
+TEMPLATE_R = re.compile(r"<(?:kps::SlabF32, )?(\d+)>|"
+                        r"I(?:N3kps7SlabF32E)?Li(\d+)E")
+OTHER_FORM = re.compile(r"SlabBf16|SlabQ|MembersBf16|MembersQ")
 
 
 def short_name(name: str) -> str | None:
     """`row_pass<6>` for a mangled or demangled kernel name of the C=5
-    instance or an untemplated pass; None for other instances."""
+    f32 instance or a pass without a class count; None for other
+    instances and storage forms."""
     m = KERNEL_RE.search(name)
     if m is None:
         return None
-    r = m.group(2) or m.group(3)
-    if r is not None and r != str(C + 1):
+    rest = name[m.end():]
+    if OTHER_FORM.search(rest):
+        return None
+    t = TEMPLATE_R.match(rest)
+    r = t and (t.group(1) or t.group(2))
+    if r and r != str(C + 1):
         return None
     return m.group(1) + (f"<{r}>" if r else "")
 
@@ -154,20 +166,30 @@ def measure_one(tree: str, label: str) -> None:
     dev = torch.device("cuda")
     cfg = ModelConfig(num_features=F, num_classes=C, num_max_iter=K,
                       local_learning_rate=0.5)
-    args = inputs(torch, dev, cfg.num_params, 7)
-    res = measure(torch, lambda: fu.local_update(*args, cfg=cfg),
-                  _build._target("local_update.cu")[1])
-    print(json.dumps({"tree": label, "kernel": "K1 local_update", **res}))
+    lib = _build._target("local_update.cu")[1]
+    gang = [inputs(torch, dev, cfg.num_params, 7 + i) for i in range(4)]
+    members = [list(a) for a in zip(*gang)]
+    runs = [("K1 local_update", lib,
+             lambda: fu.local_update(*gang[0], cfg=cfg))]
+    if hasattr(fu, "local_update_batched"):
+        runs.append(("K2 local_update_batched", lib,
+                     lambda: fu.local_update_batched(*members, cfg=cfg)))
     if "mlp_update.cu" in _build.sources():
         from kafka_ps_tpu_torch.models import mlp
         mcfg = ModelConfig(num_features=F, num_classes=C, num_max_iter=K,
                            local_learning_rate=0.5, hidden_dim=H)
-        margs = inputs(torch, dev, mlp.num_params(mcfg), 17,
-                       mlp.init_params(mcfg, "cpu").numpy())
-        res = measure(torch, lambda: fu.mlp_local_update(*margs, cfg=mcfg),
-                      _build._target("mlp_update.cu")[1])
-        print(json.dumps({"tree": label, "kernel": "K4 mlp_local_update",
-                          **res}))
+        base = mlp.init_params(mcfg, "cpu").numpy()
+        mgang = [inputs(torch, dev, mlp.num_params(mcfg), 17 + i, base)
+                 for i in range(4)]
+        mmembers = [list(a) for a in zip(*mgang)]
+        mlib = _build._target("mlp_update.cu")[1]
+        runs += [("K4 mlp_local_update", mlib,
+                  lambda: fu.mlp_local_update(*mgang[0], cfg=mcfg)),
+                 ("K6 mlp_local_update_batched", mlib,
+                  lambda: fu.mlp_local_update_batched(*mmembers, cfg=mcfg))]
+    for kernel, path, fn in runs:
+        print(json.dumps({"tree": label, "kernel": kernel,
+                          **measure(torch, fn, path)}))
 
 
 def main(argv=None) -> int:

@@ -77,8 +77,8 @@ def _full(store, buf):
 def test_incremental_slab_equals_full_upload_bitwise():
     cap = POLICY["max_size"]
     buf = SlidingBuffer(F, BufferConfig(**POLICY), clock_ms=_clock(STEPS))
-    inc = SlabStore(cap, F, "cpu")
-    full = SlabStore(cap, F, "cpu")
+    inc = SlabStore("f32", cap, F, "cpu")
+    full = SlabStore("f32", cap, F, "cpu")
     rows = _rows(len(STEPS), seed=1)
     for feats, label in (next(rows) for _ in range(3)):
         buf.add(feats, label)
@@ -108,7 +108,7 @@ def test_upload_bytes_match_reference(nrows):
     y = rng.integers(0, 6, size=cap).astype(np.int32)
     m = np.ones(cap, np.float32)
     slots = np.sort(rng.choice(cap, size=nrows, replace=False))
-    ours, ref = SlabStore(cap, F, "cpu"), JSlabStore("f32", cap, F)
+    ours, ref = SlabStore("f32", cap, F, "cpu"), JSlabStore("f32", cap, F)
     for s in (ours, ref):
         s.upload_full(x, y, m)
         s.apply_rows(slots, x[slots] + 1, y[slots], m[slots] * 0)
@@ -121,7 +121,7 @@ def test_upload_bytes_match_reference(nrows):
 
 def test_slab_refuses_apply_before_upload():
     with pytest.raises(RuntimeError):
-        SlabStore(4, F, "cpu").apply_rows(np.array([0]),
+        SlabStore("f32", 4, F, "cpu").apply_rows(np.array([0]),
                                           np.zeros((1, F), np.float32),
                                           np.zeros(1, np.int32),
                                           np.ones(1, np.float32))

@@ -1,4 +1,4 @@
-"""The kernels (K1, K2, K4, K6) and the trainer on an NVIDIA card.  Every
+"""The kernels (K1-K6) and the trainer on an NVIDIA card.  Every
 test here needs CUDA and skips without it.  The file imports no JAX, so
 it also runs where only PyTorch is installed:
 
@@ -8,13 +8,17 @@ Tolerances of a kernel against its plain version on the card (float32;
 the kernel and cuBLAS sum in different orders; TF32 is switched off for
 the plain version's matmuls): K1/K2 rtol=1e-4, atol=1e-6; K4/K6
 rtol=1e-4, atol=1e-5 (two more products per step, and the relu gate).
-A gang member and a single call on the same inputs are bitwise equal.
+K3 and K5 (bf16 and int8 slabs) take K1's and K4's tolerances: the
+kernel decodes each element exactly as the plain version's decode_x does,
+so both run the same arithmetic on the same decoded values.  A gang
+member and a single call on the same inputs are bitwise equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from kafka_ps_tpu_torch.compress.slab import encode_x
 from kafka_ps_tpu_torch.data.synth import generate
 from kafka_ps_tpu_torch.models import mlp
 from kafka_ps_tpu_torch.ops import fused_update
@@ -199,3 +203,108 @@ def test_gang_and_async_eval_are_bitwise_on_card(card, task):
     for app, s, w in runs.values():
         assert torch.equal(app.server.theta, ref_app.server.theta)
         assert strip(s) == strip(ref_s) and strip(w) == strip(ref_w)
+
+
+def _stored(args, kind):
+    """The case's inputs with x in storage form `kind`, encoded on the
+    card."""
+    return [args[0], encode_x(kind, args[1]), args[2], args[3]]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("batch,features,classes,k", [
+    (1024, 1024, 5, 2), (37, 64, 5, 2), (1, 8, 1, 1), (300, 130, 15, 3),
+    (64, 32, 5, 0)])
+def test_stream_kernel_matches_plain_version(card, kind, batch, features,
+                                             classes, k):
+    """K3: the logreg kernel on a bf16 / int8 slab, decoded in the kernel,
+    against decode_x + K1's plain version; no K1 launch."""
+    cfg, args = _case(card, batch, features, classes, k)
+    args = _stored(args, kind)
+    before = fused_update.counts()
+    d, loss = fused_update.local_update(*args, cfg=cfg)
+    torch.cuda.synchronize()
+    after = fused_update.counts()
+    assert after["stream_launches"] == before["stream_launches"] + 1
+    assert after["launches"] == before["launches"]
+    d_ref, loss_ref = fused_update.local_update_plain(*args, cfg=cfg)
+    torch.testing.assert_close(d, d_ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(loss, loss_ref, rtol=RTOL, atol=ATOL)
+    d2, loss2 = fused_update.stream_update(*args, cfg=cfg)
+    assert torch.equal(d, d2) and torch.equal(loss, loss2)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("batch,features,hidden,classes,k", [
+    (1024, 1024, 128, 5, 2), (1000, 1024, 100, 5, 2), (37, 64, 32, 5, 2),
+    (1, 8, 3, 1, 1), (64, 32, 16, 5, 0)])
+def test_mlp_stream_kernel_matches_plain_version(card, kind, batch,
+                                                 features, hidden, classes,
+                                                 k):
+    """K5: the MLP kernel on a bf16 / int8 slab against decode_x + K4's
+    plain version; no K4 launch."""
+    cfg, args = _case(card, batch, features, classes, k, hidden=hidden)
+    args = _stored(args, kind)
+    before = fused_update.counts()
+    d, loss = fused_update.mlp_local_update(*args, cfg=cfg)
+    torch.cuda.synchronize()
+    after = fused_update.counts()
+    assert (after["mlp_stream_launches"]
+            == before["mlp_stream_launches"] + 1)
+    assert after["mlp_launches"] == before["mlp_launches"]
+    d_ref, loss_ref = fused_update.mlp_local_update_plain(*args, cfg=cfg)
+    torch.testing.assert_close(d, d_ref, rtol=MLP_RTOL, atol=MLP_ATOL)
+    torch.testing.assert_close(loss, loss_ref, rtol=MLP_RTOL, atol=MLP_ATOL)
+    d2, loss2 = fused_update.mlp_stream_update(*args, cfg=cfg)
+    assert torch.equal(d, d2) and torch.equal(loss, loss2)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("family", ["logreg", "mlp"])
+@pytest.mark.parametrize("members,batch,features,shared", [
+    (4, 1024, 1024, False), (4, 1024, 1024, True), (3, 37, 64, False),
+    (34, 40, 32, True)])
+def test_stream_gang_member_is_bitwise_a_single_call(card, kind, family,
+                                                     members, batch,
+                                                     features, shared):
+    """The batched K3 (K5) member i == K3 (K5) on member i's stored slab,
+    bit for bit; every member's q and scales are pointers of its own."""
+    hidden = None if family == "logreg" else 100
+    cfg, thetas, xs, ys, masks = _gang(card, members, batch, features,
+                                       hidden, shared)
+    xs = [encode_x(kind, x) for x in xs]
+    batched, single = {
+        "logreg": (fused_update.local_update_batched,
+                   fused_update.local_update),
+        "mlp": (fused_update.mlp_local_update_batched,
+                fused_update.mlp_local_update)}[family]
+    prefix = "" if family == "logreg" else "mlp_"
+    before = fused_update.counts()
+    deltas, losses = batched(thetas, xs, ys, masks, cfg=cfg)
+    after = fused_update.counts()
+    assert (after[f"{prefix}stream_batched_members"]
+            == before[f"{prefix}stream_batched_members"] + members)
+    assert after[f"{prefix}batched_launches"] == \
+        before[f"{prefix}batched_launches"]
+    for i in range(members):
+        d, loss = single(thetas[i], xs[i], ys[i], masks[i], cfg=cfg)
+        assert torch.equal(deltas[i], d) and torch.equal(losses[i], loss)
+
+
+@pytest.mark.parametrize("task", ["logreg", "mlp"])
+def test_int8_trainer_runs_k3_k5_only(card, task):
+    """--slab-dtype int8 on the card: every worker step is a K3 (K5) call,
+    single or gang member, no f32 kernel runs, and the run matches the
+    same run on the CPU."""
+    fused_update.reset_counts()
+    gpu, gs, gw = _serial_run(card, 0, task, slab_dtype="int8")
+    n = fused_update.counts()
+    prefix = "" if task == "logreg" else "mlp_"
+    assert (n[f"{prefix}stream_launches"]
+            + n[f"{prefix}stream_batched_members"] == len(gw) >= 30)
+    assert n[f"{prefix}stream_batched_launches"] > 0
+    assert all(v == 0 for name, v in n.items() if "stream" not in name)
+    cpu, cs, cw = _serial_run("cpu", 0, task, slab_dtype="int8")
+    assert [r.split(";")[1:3] for r in gs] == [r.split(";")[1:3] for r in cs]
+    torch.testing.assert_close(gpu.server.theta.cpu(), cpu.server.theta,
+                               rtol=1e-4, atol=1e-5)

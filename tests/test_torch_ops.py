@@ -8,6 +8,8 @@ chip_smoke.py hold it against the plain version there.
 Tolerance: rtol=1e-4, atol=1e-6 (float32, different summation orders).
 """
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +17,7 @@ import torch
 
 from kafka_ps_tpu.ops import fused_update as jfused
 from kafka_ps_tpu.utils.config import ModelConfig as JModelConfig
-from kafka_ps_tpu_torch.ops import fused_update
+from kafka_ps_tpu_torch.ops import _build, fused_update
 from kafka_ps_tpu_torch.utils.config import ModelConfig
 
 RTOL, ATOL = 1e-4, 1e-6
@@ -106,3 +108,27 @@ def test_plain_version_is_the_cpu_path():
     d1, l1 = fused_update.local_update(*args, cfg=cfg)
     d2, l2 = fused_update.local_update_plain(*args, cfg=cfg)
     assert torch.equal(d1, d2) and torch.equal(l1, l2)
+
+
+def test_build_target_follows_the_headers_a_source_includes(tmp_path,
+                                                            monkeypatch):
+    """A library's name hashes its source and every header of CSRC it
+    includes, directly or through another header: editing any of them
+    names a new library, so a stale one is never reused."""
+    for name in ("local_update.cu", "mlp_update.cu", "slab_x.cuh"):
+        shutil.copy(f"{_build.CSRC}/{name}", tmp_path / name)
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    assert _build._closure("local_update.cu") == ["local_update.cu",
+                                                  "slab_x.cuh"]
+    names = {n: _build._target(n)[1] for n in _build.sources()}
+    assert set(names) == {"local_update.cu", "mlp_update.cu"}
+    header = tmp_path / "slab_x.cuh"
+    header.write_text(header.read_text() + '#include "extra.cuh"\n')
+    (tmp_path / "extra.cuh").write_text("// v1\n")
+    renamed = {n: _build._target(n)[1] for n in names}
+    assert all(renamed[n] != names[n] for n in names)
+    (tmp_path / "extra.cuh").write_text("// v2\n")     # two levels down
+    assert all(_build._target(n)[1] != renamed[n] for n in names)
+    before = _build._target("local_update.cu")
+    (tmp_path / "unrelated.cuh").write_text("// not included\n")
+    assert _build._target("local_update.cu") == before

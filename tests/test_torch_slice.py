@@ -39,14 +39,15 @@ RTOL, ATOL = 1e-4, 1e-5
 POLICY = dict(min_size=8, max_size=32, coefficient=0.3, arrival_window=20)
 
 
-def _configs(mod, c, task="logreg"):
+def _configs(mod, c, task="logreg", **kw):
     model = mod.ModelConfig(num_features=F, num_classes=C, hidden_dim=24)
     buf = mod.BufferConfig(**POLICY)
     # the reference runs the per-message path with fused apply+eval; the
     # port runs its defaults, gang dispatch and async eval, which give
     # its per-message results bit for bit (tests/test_torch_gang.py,
     # tests/test_torch_eval_engine.py)
-    kw = dict(use_gang=False, eval_async=False) if mod is jconfig else {}
+    if mod is jconfig:
+        kw.update(use_gang=False, eval_async=False)
     return mod.PSConfig(num_workers=W, consistency_model=c, model=model,
                         buffer=buf, task=task, **kw)
 
