@@ -4,7 +4,8 @@
 
 1. Setup: the card's name and power limit, torch and CUDA versions, and
    the build of every CUDA kernel from the sources in the checkout (one
-   nvcc per source, all started together).
+   nvcc per source, all started together), with ptxas's register and
+   shared-memory report and the MLP tensor passes' dynamic shared memory.
 2. Kernel phase, at the main path's shapes (F=1024, B=1024 with masked
    rows and one out-of-range label, C=5, k=2; the MLP at H=128): K1
    (logreg), K2 (logreg, a gang of 4), K4 (MLP) and K6 (MLP, a gang of
@@ -14,7 +15,10 @@
    gang of 4 stored slabs to 4 K3 (K5) calls, K4 and K5 also at H=100,
    B=1000; then each kernel's median time over CUDA events, its device
    time from torch.profiler, the plain version's time and the card's
-   bound for the same work, with x counted at its stored width.
+   bound for the same work (operations at the TF32 tensor-core rate, the
+   f32 rate printed beside it), with x counted at its stored width; the
+   device time of a K5 gang of 4 per storage form; and one cuBLAS f32
+   x @ W1.T beside K4's hidden_pass, as a yardstick for one product.
 3. Reference check: small serial runs of the trainer on the card against
    the same runs on the CPU (row keys exact, theta within tolerance), for
    logreg at -c 0/2/-1 and the MLP at -c 0, with f32, bf16 and int8
@@ -46,6 +50,7 @@ It also exits non-zero without a card, and when the package is absent.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -61,9 +66,12 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "chiprun_out", "smoke")
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
-# tensor cores (the kernels do scalar f32 FMA)
+# NVIDIA H100 SXM data sheet: HBM3 rate, the TF32 tensor-core rate (dense)
+# that bounds every kernel's operations (a product's FLOP counted once,
+# whatever split of its operands a kernel runs), and the float32 rate
+# outside the tensor cores, printed beside it
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 RTOL, ATOL = 1e-4, 1e-6            # K1, K2, K3
 MLP_RTOL, MLP_ATOL = 1e-4, 1e-5    # K4, K5, K6
@@ -92,12 +100,13 @@ def card_line() -> str:
 
 def ptxas_summary(log: str) -> str:
     """The ptxas -v lines of the kernels the main path runs (R=6 template
-    instances and the untemplated passes)."""
+    instances and the passes not templated on R)."""
     keep, out = False, []
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            keep = any(k in line for k in ("Li6E", "apply_pass", "dw1_pass",
-                                           "tail_apply", "loss_reduce"))
+            keep = any(k in line for k in ("Li6E", "apply_pass",
+                                           "hidden_pass", "update_pass",
+                                           "loss_reduce"))
         if keep:
             out.append(line.strip())
     return "\n".join(out)
@@ -136,19 +145,21 @@ def device_ms(fn, reps=20) -> tuple[float, dict]:
         if us is None:
             us = e.self_cuda_time_total
         if us > 0:
-            per[e.key[:60]] = us / reps / 1e3
+            per[e.key] = us / reps / 1e3
     return sum(per.values()), per
 
 
 def bound(nbytes: int, flops: int) -> tuple[float, str, str]:
     """The least time for the work: the larger of bytes over the memory
-    rate and f32 operations over the f32 rate."""
+    rate and operations over the TF32 tensor-core rate (the old f32-rate
+    figure is printed beside it, not used)."""
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    op_ms = flops / PEAK_F32_FLOPS * 1e3
+    op_ms = flops / PEAK_TF32_FLOPS * 1e3
     by = "bytes" if byte_ms >= op_ms else "operations"
     return max(byte_ms, op_ms), by, (
-        f"bytes {nbytes} -> {byte_ms:.6f} ms at 3.35 TB/s; {flops} f32 "
-        f"FLOP -> {op_ms:.6f} ms at 67 TFLOP/s")
+        f"bytes {nbytes} -> {byte_ms:.6f} ms at 3.35 TB/s; {flops} "
+        f"FLOP -> {op_ms:.6f} ms at 495 TFLOP/s TF32 (at the f32 rate of "
+        f"67 TFLOP/s: {flops / PEAK_F32_FLOPS * 1e3:.6f} ms)")
 
 
 def member_inputs(dev, num_params, seed, mlp_theta=None, batch=B):
@@ -192,7 +203,7 @@ def kernel_entry(name, source, replaces, call, plain, nbytes, flops,
     bound_ms, by, detail = bound(nbytes, flops)
     print(f"{name} device time per call (torch.profiler, kernels only): "
           f"{dev_ms:.4f} ms; " + "; ".join(
-              f"{k} {v:.4f}" for k, v in sorted(per_kernel.items())))
+              f"{k[:60]} {v:.4f}" for k, v in sorted(per_kernel.items())))
     print(f"{name} ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.6f} ({detail}); CUDA launches per call "
           f"{cuda_launches}; library_ms=null ({NO_LIBRARY})")
@@ -350,13 +361,14 @@ def kernel_phase(dev) -> dict:
         "kafka_ps_tpu/ops/fused_update.py:248",
         lambda: fu.mlp_local_update(*args, cfg=mcfg),
         lambda: fu.mlp_local_update_plain(*args, cfg=mcfg),
-        nbytes, flops, k4_err, 3 * K + 2)
+        nbytes, flops, k4_err, 3 * K + 3)
+    cublas_yardstick(args, mcfg)
     out["mlp_local_update_batched"] = kernel_entry(
         "mlp_local_update_batched", "mlp_update.cu",
         "kafka_ps_tpu/ops/fused_update.py:939",
         lambda: fu.mlp_local_update_batched(*members, cfg=mcfg),
         lambda: fu.mlp_local_update_batched_plain(*members, cfg=mcfg),
-        GANG * nbytes, GANG * flops, k6_err, 3 * K + 2)
+        GANG * nbytes, GANG * flops, k6_err, 3 * K + 3)
     for kind in SLAB_KINDS:
         err, stored = check_stored("K5 mlp_stream_update",
                                    fu.mlp_stream_update,
@@ -369,8 +381,29 @@ def kernel_phase(dev) -> dict:
             lambda a=sargs: fu.mlp_stream_update(*a, cfg=mcfg),
             lambda a=sargs: fu.mlp_local_update_plain(*a, cfg=mcfg),
             stored_x_bytes(kind) + 4 * (2 * B + 2 * MP + 1), flops, err,
-            3 * K + 2)
+            3 * K + 3)
+        smembers = [list(a) for a in zip(*stored)]
+        dev_ms, _ = device_ms(
+            lambda m=smembers: fu.mlp_local_update_batched(*m, cfg=mcfg))
+        print(f"K5 {kind} gang of {GANG} stored slabs, device time per "
+              f"call (torch.profiler): {dev_ms:.4f} ms")
     return out
+
+
+def cublas_yardstick(args, cfg) -> None:
+    """One x @ W1.T at the main path's shape through cuBLAS in f32 (TF32
+    off), beside the device time of one hidden_pass launch of K4 (k+1 of
+    them per call), which computes the same product (plus bias and relu):
+    a yardstick for a single product, not a library time of the kernel."""
+    from kafka_ps_tpu_torch.models import mlp
+    from kafka_ps_tpu_torch.ops import fused_update as fu
+    x, w1 = args[1], mlp.unflatten(args[0], cfg).w1
+    cublas_ms, _ = device_ms(lambda: torch.matmul(x, w1.t()))
+    _, per = device_ms(lambda: fu.mlp_local_update(*args, cfg=cfg))
+    hidden = sum(v for key, v in per.items() if "hidden_pass" in key)
+    print(f"yardstick x @ W1.T [{B},{F}]x[{F},{H}]: cuBLAS f32 (TF32 off) "
+          f"{cublas_ms:.4f} ms device; K4 hidden_pass "
+          f"{hidden / (K + 1):.4f} ms device per launch")
 
 
 def reference_check(dev) -> None:
@@ -638,6 +671,12 @@ def main() -> int:
             f.write(log)
         print(f"nvcc {name}, ptxas report for the C=5 instances:")
         print(ptxas_summary(log))
+    smem = (ctypes.c_int * 6)()
+    _build.load("mlp_update.cu").kps_mlp_smem(smem)
+    print("mlp_update.cu dynamic shared memory per CTA, hidden_pass / "
+          "update_pass (bytes): " + "; ".join(
+              f"{form} {smem[2 * i]} / {smem[2 * i + 1]}"
+              for i, form in enumerate(("f32", "bf16", "int8"))))
 
     kernels = kernel_phase(dev)
     reference_check(dev)

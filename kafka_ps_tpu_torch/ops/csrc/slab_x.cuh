@@ -4,12 +4,15 @@
 //
 // A worker keeps x on the device in f32, bf16, or int8 with one f32 scale
 // per row (kafka_ps_tpu_torch/compress/slab.py, --slab-dtype).  The
-// kernels are templated on one of the Slab* types below and decode each
-// element where they load it, exactly as compress/slab.decode_x does:
-// bf16 widens exactly, int8 is one rounded f32 multiply q * scale
+// kernels are templated on one of the Slab* types below.  local_update.cu
+// decodes each element where it loads it, exactly as compress/slab.decode_x
+// does: bf16 widens exactly, int8 is one rounded f32 multiply q * scale
 // (__fmul_rn, so that nvcc cannot contract it into the product that reads
 // it).  Every product after the load is then the f32 kernel's, and a
 // kernel's decoded value equals the plain version's bit for bit.
+// mlp_update.cu's tensor-core products take the stored values as they are
+// (bf16 and int8 q are exact in TF32) and apply int8's row scales to the
+// products' rows (see its header).
 //
 // Each form has its own table of per-member base pointers, passed by
 // value: the f32 table is the one K1/K2/K4/K6 have always taken, and the
@@ -52,9 +55,9 @@ struct MembersQ {
 };
 
 // A storage form: its member table, its element type, the member's row
-// scales (none but int8's), and two loads that decode one element, one
-// through the read-only path (__ldg) and one plain.  `s` is the element's
-// row scale; the f32 and bf16 forms ignore it.
+// scales (none but int8's), and a load that decodes one element through
+// the read-only path (__ldg).  `s` is the element's row scale; the f32 and
+// bf16 forms ignore it.
 struct SlabF32 {
   using Mem = Members;
   using T = float;
@@ -66,9 +69,6 @@ struct SlabF32 {
   }
   static __device__ __forceinline__ float ldg(const T* p, float) {
     return __ldg(p);
-  }
-  static __device__ __forceinline__ float get(const T* p, float) {
-    return *p;
   }
 };
 
@@ -84,9 +84,6 @@ struct SlabBf16 {
   static __device__ __forceinline__ float ldg(const T* p, float) {
     return __bfloat162float(__ldg(p));
   }
-  static __device__ __forceinline__ float get(const T* p, float) {
-    return __bfloat162float(*p);
-  }
 };
 
 struct SlabQ {
@@ -101,9 +98,6 @@ struct SlabQ {
   }
   static __device__ __forceinline__ float ldg(const T* p, float s) {
     return __fmul_rn(static_cast<float>(__ldg(p)), s);
-  }
-  static __device__ __forceinline__ float get(const T* p, float s) {
-    return __fmul_rn(static_cast<float>(*p), s);
   }
 };
 

@@ -27,13 +27,22 @@ For CUDA tensors a wrapper launches its hand-written kernel
 built by `_build` on first use) or raises; for CPU tensors it runs the
 kernel's plain PyTorch version beside it.  There is no fallback from the
 card to the plain version, and no decode into an f32 copy before a K1/K4
-launch: a stored slab is decoded inside K3/K5.
+launch: K3/K5 read a stored slab in its stored form.
 
 K1 is the K2 kernel with one member, K4 the K6 kernel with one member,
 and K3/K5 are those kernels' bf16 and int8 instances, so a gang member is
 bitwise equal to a single call on its inputs by construction; the plain
 batched versions are loops of the plain single versions, so the same
 holds on the CPU.
+
+K4/K5/K6 run their five B*F*H products on the tensor cores (TF32
+mma.sync) at f32 accuracy: each f32 operand is split into two TF32 terms
+(hi + lo) and a product summed from three (two where x is stored bf16 or
+int8, which TF32 holds exactly; see the header of csrc/mlp_update.cu).
+They sum in another order than the plain version, within rtol 1e-4,
+atol 1e-5 of it.  The logreg kernels' scratch is sized here from their
+row tiling (ROWS_PER_CTA, checked against the library); the MLP kernel's
+from the library's own `kps_mlp_scratch`, so its tiling stays in the .cu.
 
 The counters count each wrapper's kernel calls (a call is several CUDA
 launches — see the .cu files), so a run can show that its main path went
@@ -60,7 +69,7 @@ from kafka_ps_tpu_torch.utils.config import ModelConfig
 SOURCE = "local_update.cu"
 MLP_SOURCE = "mlp_update.cu"
 MAX_ROWS = 16          # classes + 1 the kernels take (kMaxRows in the .cu)
-ROWS_PER_CTA = 32      # batch rows per CTA (kRowsPerCta in the .cu)
+ROWS_PER_CTA = 32      # batch rows per CTA of local_update.cu (kRowsPerCta)
 MAX_MEMBERS = 32       # gang members per kernel call (kMaxMembers)
 
 launches = 0
@@ -241,7 +250,25 @@ _SYMBOLS = {("logreg", "f32"): "kps_local_update",
             ("mlp", "int8"): "kps_mlp_local_update_q"}
 
 
-def _entry(source: str, symbol: str, prefix: str, tables: int,
+def _geometry(lib, family: str) -> None:
+    """Check a library's compiled limits against this module's constants:
+    logreg's row tiling, which its scratch is sized from here, and both
+    families' class and member limits.  The MLP kernel sizes its own
+    scratch (`_mlp_scratch`)."""
+    if family == "logreg":
+        names, want = ("kps_rows_per_cta", "kps_max_rows",
+                       "kps_max_members"), (ROWS_PER_CTA, MAX_ROWS,
+                                            MAX_MEMBERS)
+    else:
+        names, want = ("kps_mlp_max_rows", "kps_mlp_max_members"), (
+            MAX_ROWS, MAX_MEMBERS)
+    got = tuple(getattr(lib, n)() for n in names)
+    if got != want:
+        raise RuntimeError(f"the {family} kernel disagrees with "
+                           f"fused_update.py on {', '.join(names)}: {got}")
+
+
+def _entry(source: str, symbol: str, family: str, tables: int,
            nargs_ptr: int, nargs_int: int):
     """A kernel's C entry point, its signature declared once and the
     compiled geometry checked against this module's constants."""
@@ -249,13 +276,7 @@ def _entry(source: str, symbol: str, prefix: str, tables: int,
         fn = _fns.get(symbol)
         if fn is None:
             lib = _build.load(source)
-            geometry = (getattr(lib, f"{prefix}rows_per_cta")(),
-                        getattr(lib, f"{prefix}max_rows")(),
-                        getattr(lib, f"{prefix}max_members")())
-            if geometry != (ROWS_PER_CTA, MAX_ROWS, MAX_MEMBERS):
-                raise RuntimeError(f"{source} disagrees with fused_update.py "
-                                   f"on ROWS_PER_CTA / MAX_ROWS / "
-                                   f"MAX_MEMBERS: {geometry}")
+            _geometry(lib, family)
             fn = getattr(lib, symbol)
             fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * tables
                            + [ctypes.c_int] + [ctypes.c_void_p] * nargs_ptr
@@ -307,7 +328,8 @@ def _call(fn, tables, outputs, ints, cfg, name):
 
 def _launch_logreg(thetas, xs, ys, masks, cfg: ModelConfig, kind: str):
     tables = _tables(thetas, xs, ys, masks, kind)
-    fn = _entry(SOURCE, _SYMBOLS["logreg", kind], "kps_", len(tables), 5, 4)
+    fn = _entry(SOURCE, _SYMBOLS["logreg", kind], "logreg", len(tables), 5,
+                4)
     k, (batch, features) = len(xs), slab_batch_shape(xs[0])
     nblk = -(-batch // ROWS_PER_CTA)
     P = cfg.num_params
@@ -320,20 +342,27 @@ def _launch_logreg(thetas, xs, ys, masks, cfg: ModelConfig, kind: str):
     return deltas, losses
 
 
+def _mlp_scratch(batch: int, features: int, hidden: int, rows: int,
+                 members: int) -> tuple[int, ...]:
+    """The float counts of the MLP kernel's five scratch buffers (w, hid,
+    dh, partials, loss_partials) for a call on `members` members, as
+    mlp_update.cu's tiling needs them."""
+    lib = _build.load(MLP_SOURCE)
+    sizes = (ctypes.c_longlong * 5)()
+    lib.kps_mlp_scratch(batch, features, hidden, rows, members, sizes)
+    return tuple(sizes)
+
+
 def _launch_mlp(thetas, xs, ys, masks, cfg: ModelConfig, kind: str):
     tables = _tables(thetas, xs, ys, masks, kind)
-    fn = _entry(MLP_SOURCE, _SYMBOLS["mlp", kind], "kps_mlp_", len(tables),
-                7, 5)
+    fn = _entry(MLP_SOURCE, _SYMBOLS["mlp", kind], "mlp", len(tables), 7, 5)
     k, (batch, features) = len(xs), slab_batch_shape(xs[0])
-    nblk = -(-batch // ROWS_PER_CTA)
     H, R = cfg.hidden_dim, cfg.num_rows
     P = mlp.num_params(cfg)
     f32 = dict(dtype=torch.float32, device=thetas[0].device)
     deltas, losses = torch.empty(k * P, **f32), torch.empty(k, **f32)
-    scratch = (torch.empty(k * P, **f32), torch.empty(k * batch * H, **f32),
-               torch.empty(k * batch * H, **f32),
-               torch.empty(k * nblk * (H + R * H + R), **f32),
-               torch.empty(k * nblk, **f32))
+    scratch = tuple(torch.empty(n, **f32) for n in
+                    _mlp_scratch(batch, features, H, R, k))
     _call(fn, tables, (deltas, losses, *scratch),
           (batch, features, H, R), cfg, "mlp_local_update")
     return deltas, losses

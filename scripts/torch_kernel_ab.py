@@ -1,5 +1,6 @@
-"""Same-call A/B of the port's f32 kernels K1 and K2 (and K4 and K6 where
-a tree has them) across checkouts of the repo, on one NVIDIA card.
+"""Same-call A/B of the port's kernels across checkouts of the repo, on one
+NVIDIA card: K1 and K2 (logreg, f32), K4 and K6 (MLP, f32) and K5 (MLP,
+bf16 and int8 slabs), each where a tree has it.
 
     python3 scripts/torch_kernel_ab.py TREE [TREE ...]
 
@@ -14,18 +15,24 @@ Per tree and kernel, at the main path's shape (F=1024, B=1024 with 100
 masked rows and one out-of-range label, C=5, k=2; the MLP at H=128; K2
 and K6 on a gang of 4), on inputs made from one seed per member:
   * `digest`: sha256 of the outputs' bytes (delta and loss) — trees with
-    the same arithmetic agree bit for bit;
+    the same arithmetic agree bit for bit (K1 and K2 must);
+  * `max_abs_vs_plain` (MLP kernels): the largest difference of the
+    outputs from the plain version's on the same inputs (TF32 off), for
+    trees whose MLP arithmetic differs by design;
   * `ms`: median of 200 calls, each between a pair of CUDA events (with
     the card idle, this is mostly the host's time to launch);
   * `host_us`: mean host time of one wrapper call, 200 calls queued
     without a sync;
   * `device_ms` and `per_kernel`: the kernels' device time per call from
-    torch.profiler, in total and by kernel;
-  * `sass`: per kernel of the C=5 f32 instance, the count of
-    instructions and of global loads by kind (LDG.E.CONSTANT is the
-    read-only path), from `cuobjdump -sass` of the tree's built library
-    (a tree whose kernels are templated on the slab's storage form
-    reports its f32 instances).
+    torch.profiler, in total and by pass;
+  * `sass`: per pass the call ran, the count of instructions, of
+    tensor-core instructions (HMMA from mma.sync, HGMMA from wgmma), of
+    scalar f32 FMAs (FFMA) and of loads by kind (LDG.E.CONSTANT is the
+    read-only path, LDGSTS is cp.async), from `cuobjdump -sass` of the
+    tree's built library.
+A pass is named `name[form,R,loss]`: its storage form (f32, bf16, int8)
+and, where it is templated on them, the class count R and the row pass's
+loss flag; only the C=5 (R=6) instances are reported.
 One JSON line per tree and kernel, then the card's name and power limit.
 """
 
@@ -44,29 +51,34 @@ import time
 
 F, C, B, K, H, MASKED = 1024, 5, 1024, 2, 128, 100
 KERNEL_RE = re.compile(r"(row_pass|apply_pass|loss_pass|loss_reduce|"
-                       r"dw1_pass|tail_apply)")
-# the class count R of a pass's template arguments, mangled or demangled,
-# with or without the f32 storage form ahead of it
-TEMPLATE_R = re.compile(r"<(?:kps::SlabF32, )?(\d+)>|"
-                        r"I(?:N3kps7SlabF32E)?Li(\d+)E")
-OTHER_FORM = re.compile(r"SlabBf16|SlabQ|MembersBf16|MembersQ")
+                       r"dw1_pass|tail_apply|hidden_pass|update_pass)")
+# storage forms as they appear in a pass's template arguments, mangled or
+# demangled; the longer names first ("Members" is in "MembersQ")
+FORMS = (("SlabBf16", "bf16"), ("MembersBf16", "bf16"), ("SlabQ", "int8"),
+         ("MembersQ", "int8"), ("SlabF32", "f32"), ("Members", "f32"))
+CLASSES = re.compile(r"Li(\d+)E|[<,] ?(\d+)[,>]")
+LOSS = re.compile(r"Lb([01])E|, (true|false)>")
+COUNTED = ("HMMA", "HGMMA", "FFMA", "F2F", "I2F", "LDG", "LDS", "LDGSTS")
 
 
 def short_name(name: str) -> str | None:
-    """`row_pass<6>` for a mangled or demangled kernel name of the C=5
-    f32 instance or a pass without a class count; None for other
-    instances and storage forms."""
+    """`row_pass[f32,6,loss]` for a mangled or demangled kernel name; None
+    for a name that is not a pass or an instance of another class count
+    than C+1."""
     m = KERNEL_RE.search(name)
     if m is None:
         return None
     rest = name[m.end():]
-    if OTHER_FORM.search(rest):
-        return None
-    t = TEMPLATE_R.match(rest)
-    r = t and (t.group(1) or t.group(2))
+    form = next((f for key, f in FORMS if key in rest), None)
+    r = CLASSES.search(rest)
+    r = r and (r.group(1) or r.group(2))
     if r and r != str(C + 1):
         return None
-    return m.group(1) + (f"<{r}>" if r else "")
+    loss = LOSS.search(rest)
+    tags = [form, r, loss and ("loss" if loss.group(1) == "1"
+                               or loss.group(2) == "true" else None)]
+    tags = [t for t in tags if t]
+    return m.group(1) + (f"[{','.join(tags)}]" if tags else "")
 
 
 def sass_counts(lib: str) -> dict | None:
@@ -90,8 +102,11 @@ def sass_counts(lib: str) -> dict | None:
         op = m.group(1)
         c = counts[cur]
         c["instructions"] = c.get("instructions", 0) + 1
-        if op.startswith(("LDG", "LDC", "LDL", "STL")):
-            c[op] = c.get(op, 0) + 1
+        for kind in COUNTED:
+            if op.split(".")[0] == kind or (kind == "LDG"
+                                            and op.startswith("LDG.")):
+                key = op if kind == "LDG" else kind
+                c[key] = c.get(key, 0) + 1
     return counts
 
 
@@ -108,12 +123,17 @@ def inputs(torch, dev, num_params, seed, base=None):
     return [torch.from_numpy(a).to(dev) for a in (theta, x, y, mask)]
 
 
-def measure(torch, fn, lib, reps=200) -> dict:
+def measure(torch, fn, plain, sass, reps=200) -> dict:
     from torch.profiler import ProfilerActivity, profile
     delta, loss = fn()
     torch.cuda.synchronize()
     digest = hashlib.sha256(delta.cpu().numpy().tobytes()
                             + loss.reshape(-1).cpu().numpy().tobytes())
+    err = None
+    if plain is not None:
+        ref = plain()
+        err = max(float((delta - ref[0]).abs().max()),
+                  float((loss - ref[1]).abs().max()))
     for _ in range(20):
         fn()
     times = []
@@ -143,10 +163,13 @@ def measure(torch, fn, lib, reps=200) -> dict:
         if us > 0:
             key = short_name(e.key) or e.key[:40]
             per[key] = per.get(key, 0.0) + us / 50 / 1e3
-    return {"digest": digest.hexdigest()[:16],
-            "ms": statistics.median(times), "host_us": host_us,
-            "device_ms": sum(per.values()), "per_kernel": per,
-            "sass": sass_counts(lib)}
+    out = {"digest": digest.hexdigest()[:16], "ms": statistics.median(times),
+           "host_us": host_us, "device_ms": sum(per.values()),
+           "per_kernel": per,
+           "sass": sass and {k: v for k, v in sass.items() if k in per}}
+    if err is not None:
+        out["max_abs_vs_plain"] = err
+    return out
 
 
 def build_one(tree: str) -> None:
@@ -166,14 +189,15 @@ def measure_one(tree: str, label: str) -> None:
     dev = torch.device("cuda")
     cfg = ModelConfig(num_features=F, num_classes=C, num_max_iter=K,
                       local_learning_rate=0.5)
-    lib = _build._target("local_update.cu")[1]
+    lib = sass_counts(_build._target("local_update.cu")[1])
     gang = [inputs(torch, dev, cfg.num_params, 7 + i) for i in range(4)]
     members = [list(a) for a in zip(*gang)]
     runs = [("K1 local_update", lib,
-             lambda: fu.local_update(*gang[0], cfg=cfg))]
+             lambda: fu.local_update(*gang[0], cfg=cfg), None)]
     if hasattr(fu, "local_update_batched"):
         runs.append(("K2 local_update_batched", lib,
-                     lambda: fu.local_update_batched(*members, cfg=cfg)))
+                     lambda: fu.local_update_batched(*members, cfg=cfg),
+                     None))
     if "mlp_update.cu" in _build.sources():
         from kafka_ps_tpu_torch.models import mlp
         mcfg = ModelConfig(num_features=F, num_classes=C, num_max_iter=K,
@@ -181,15 +205,27 @@ def measure_one(tree: str, label: str) -> None:
         base = mlp.init_params(mcfg, "cpu").numpy()
         mgang = [inputs(torch, dev, mlp.num_params(mcfg), 17 + i, base)
                  for i in range(4)]
-        mmembers = [list(a) for a in zip(*mgang)]
-        mlib = _build._target("mlp_update.cu")[1]
+        mm = [list(a) for a in zip(*mgang)]
+        mlib = sass_counts(_build._target("mlp_update.cu")[1])
         runs += [("K4 mlp_local_update", mlib,
-                  lambda: fu.mlp_local_update(*mgang[0], cfg=mcfg)),
+                  lambda: fu.mlp_local_update(*mgang[0], cfg=mcfg),
+                  lambda: fu.mlp_local_update_plain(*mgang[0], cfg=mcfg)),
                  ("K6 mlp_local_update_batched", mlib,
-                  lambda: fu.mlp_local_update_batched(*mmembers, cfg=mcfg))]
-    for kernel, path, fn in runs:
+                  lambda: fu.mlp_local_update_batched(*mm, cfg=mcfg),
+                  lambda: fu.mlp_local_update_batched_plain(*mm, cfg=mcfg))]
+        try:
+            from kafka_ps_tpu_torch.compress.slab import encode_x
+        except ImportError:        # a tree from before the slab dtypes
+            encode_x = None
+        for kind in ("bf16", "int8") if encode_x else ():
+            a = [mgang[0][0], encode_x(kind, mgang[0][1]), *mgang[0][2:]]
+            runs.append((f"K5 mlp_stream_update {kind}", mlib,
+                         lambda a=a: fu.mlp_local_update(*a, cfg=mcfg),
+                         lambda a=a: fu.mlp_local_update_plain(*a,
+                                                               cfg=mcfg)))
+    for kernel, sass, fn, plain in runs:
         print(json.dumps({"tree": label, "kernel": kernel,
-                          **measure(torch, fn, path)}))
+                          **measure(torch, fn, plain, sass)}))
 
 
 def main(argv=None) -> int:

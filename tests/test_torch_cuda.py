@@ -11,7 +11,10 @@ rtol=1e-4, atol=1e-5 (two more products per step, and the relu gate).
 K3 and K5 (bf16 and int8 slabs) take K1's and K4's tolerances: the
 kernel decodes each element exactly as the plain version's decode_x does,
 so both run the same arithmetic on the same decoded values.  A gang
-member and a single call on the same inputs are bitwise equal.
+member and a single call on the same inputs are bitwise equal.  K4-K6
+run their B*F*H products on the tensor cores (TF32 mma.sync, each f32
+operand split into two TF32 terms) and keep these tolerances
+(tests/test_torch_mlp_split.py models the split on the CPU).
 """
 
 import numpy as np
@@ -308,3 +311,52 @@ def test_int8_trainer_runs_k3_k5_only(card, task):
     assert [r.split(";")[1:3] for r in gs] == [r.split(";")[1:3] for r in cs]
     torch.testing.assert_close(gpu.server.theta.cpu(), cpu.server.theta,
                                rtol=1e-4, atol=1e-5)
+
+
+def _in_form(args, kind):
+    return list(args) if kind == "f32" else _stored(args, kind)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("batch,features,hidden,classes,k", [
+    (1024, 1024, 128, 5, 2), (64, 33, 16, 5, 2), (100, 64, 1, 5, 2),
+    (300, 130, 200, 15, 3), (37, 33, 200, 5, 1)])
+def test_mlp_tensor_core_passes_any_shape_and_form(card, kind, batch,
+                                                   features, hidden,
+                                                   classes, k):
+    """K4 and K5 on the tensor-core passes: F=33 (rows not 16-byte
+    aligned in any form), H=1 and H=200 (not a multiple of the 32-wide
+    tile), and the main path's shape, within the f32 tolerance of the
+    plain version and bitwise repeatable."""
+    cfg, args = _case(card, batch, features, classes, k, hidden=hidden)
+    args = _in_form(args, kind)
+    name = "mlp_launches" if kind == "f32" else "mlp_stream_launches"
+    before = fused_update.counts()[name]
+    d, loss = fused_update.mlp_local_update(*args, cfg=cfg)
+    torch.cuda.synchronize()
+    assert fused_update.counts()[name] == before + 1
+    d_ref, loss_ref = fused_update.mlp_local_update_plain(*args, cfg=cfg)
+    torch.testing.assert_close(d, d_ref, rtol=MLP_RTOL, atol=MLP_ATOL)
+    torch.testing.assert_close(loss, loss_ref, rtol=MLP_RTOL, atol=MLP_ATOL)
+    d2, loss2 = fused_update.mlp_local_update(*args, cfg=cfg)
+    assert torch.equal(d, d2) and torch.equal(loss, loss2)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_mlp_gang_of_34_is_bitwise_single_calls(card, kind):
+    """34 members (two kernel calls of 32 and 2) at F=33, H=200: each
+    member bitwise equal to a single call, and the gang within tolerance
+    of the plain version."""
+    cfg, thetas, xs, ys, masks = _gang(card, 34, 40, 33, hidden=200)
+    xs = [x if kind == "f32" else encode_x(kind, x) for x in xs]
+    deltas, losses = fused_update.mlp_local_update_batched(
+        thetas, xs, ys, masks, cfg=cfg)
+    for i in range(34):
+        d, loss = fused_update.mlp_local_update(thetas[i], xs[i], ys[i],
+                                                masks[i], cfg=cfg)
+        assert torch.equal(deltas[i], d) and torch.equal(losses[i], loss)
+    d_ref, loss_ref = fused_update.mlp_local_update_batched_plain(
+        thetas, xs, ys, masks, cfg=cfg)
+    torch.testing.assert_close(deltas, d_ref, rtol=MLP_RTOL, atol=MLP_ATOL)
+    torch.testing.assert_close(losses, loss_ref, rtol=MLP_RTOL,
+                               atol=MLP_ATOL)
