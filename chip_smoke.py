@@ -13,8 +13,12 @@
    against its plain PyTorch version on the card (TF32 off), two launches
    bitwise equal, K2 bitwise equal to 4 K1 calls, K6 to 4 K4 calls and a
    gang of 4 stored slabs to 4 K3 (K5) calls, K4 and K5 also at H=100,
-   B=1000; then each kernel's median time over CUDA events, its device
-   time from torch.profiler, the plain version's time and the card's
+   B=1000, K1 also at B=16384 (more x than the card's shared memory holds,
+   re-staged at each step); the logreg kernels' cooperative launch (grid,
+   tiles per CTA, dynamic shared memory per CTA, x resident or not); then
+   each kernel's median time over CUDA events, its device time and CUDA
+   launches per call from torch.profiler, the plain version's time and the
+   card's
    bound for the same work (operations at the TF32 tensor-core rate, the
    f32 rate printed beside it), with x counted at its stored width; the
    device time of a K5 gang of 4 per storage form; and one cuBLAS f32
@@ -77,6 +81,7 @@ RTOL, ATOL = 1e-4, 1e-6            # K1, K2, K3
 MLP_RTOL, MLP_ATOL = 1e-4, 1e-5    # K4, K5, K6
 
 F, C, B, K, H, GANG = 1024, 5, 1024, 2, 128, 4
+BIG_B = 16384                      # K1's re-staged case: 64 MiB of x
 WORKERS, MAX_BUFFER, TRAIN_ROWS, TEST_ROWS = 4, 1024, 6000, 2000
 ITERS, SLICE1_ITERS = 400, 200
 SLAB_KINDS = ("bf16", "int8")
@@ -104,9 +109,8 @@ def ptxas_summary(log: str) -> str:
     keep, out = False, []
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            keep = any(k in line for k in ("Li6E", "apply_pass",
-                                           "hidden_pass", "update_pass",
-                                           "loss_reduce"))
+            keep = any(k in line for k in ("Li6E", "hidden_pass",
+                                           "update_pass", "loss_reduce"))
         if keep:
             out.append(line.strip())
     return "\n".join(out)
@@ -129,9 +133,10 @@ def time_ms(fn, warmup=10, reps=100) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps=20) -> tuple[float, dict]:
+def device_ms(fn, reps=20) -> tuple[float, dict, float]:
     """Device time per call of the kernels `fn` launches, from a
-    torch.profiler trace: (total ms, {kernel name: ms})."""
+    torch.profiler trace: (total ms, {kernel name: ms}, CUDA launches per
+    call)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -139,14 +144,15 @@ def device_ms(fn, reps=20) -> tuple[float, dict]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    per = {}
+    per, launches = {}, 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
         if us > 0:
             per[e.key] = us / reps / 1e3
-    return sum(per.values()), per
+            launches += e.count
+    return sum(per.values()), per, launches / reps
 
 
 def bound(nbytes: int, flops: int) -> tuple[float, str, str]:
@@ -196,17 +202,18 @@ def compare(name, out, ref, rtol, atol) -> float:
 
 
 def kernel_entry(name, source, replaces, call, plain, nbytes, flops,
-                 max_abs, cuda_launches) -> dict:
+                 max_abs) -> dict:
     ms = time_ms(call)
     plain_ms = time_ms(plain)
-    dev_ms, per_kernel = device_ms(call)
+    dev_ms, per_kernel, cuda_launches = device_ms(call)
     bound_ms, by, detail = bound(nbytes, flops)
     print(f"{name} device time per call (torch.profiler, kernels only): "
           f"{dev_ms:.4f} ms; " + "; ".join(
               f"{k[:60]} {v:.4f}" for k, v in sorted(per_kernel.items())))
     print(f"{name} ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.6f} ({detail}); CUDA launches per call "
-          f"{cuda_launches}; library_ms=null ({NO_LIBRARY})")
+          f"{cuda_launches:g} (torch.profiler); library_ms=null "
+          f"({NO_LIBRARY})")
     return {"name": name, "route": "cuda",
             "source": f"kafka_ps_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": max_abs,
@@ -280,6 +287,15 @@ def kernel_phase(dev) -> dict:
                            "launches differ")
     print(f"K2 ({GANG} members) bitwise equal to {GANG} K1 calls and "
           "across two launches: True")
+    big = member_inputs(dev, P, 41, batch=BIG_B)
+    compare(f"K1 local_update (B={BIG_B}, x re-staged)",
+            fu.local_update(*big, cfg=cfg),
+            fu.local_update_plain(*big, cfg=cfg), RTOL, ATOL)
+    for kind, count, batch in (("f32", 1, B), ("f32", GANG, B),
+                               ("f32", 1, BIG_B), ("bf16", 1, B),
+                               ("int8", 1, B)):
+        print(f"logreg cooperative launch ({kind}, {count} member(s), "
+              f"B={batch}): {fu.logreg_plan(batch, F, R, count, kind)}")
     nbytes = 4 * (B * F + 2 * B + 2 * P + 1)   # x, y, mask, theta, delta, loss
     flops = (4 * K + 2) * B * F * R            # 2k+1 passes of 2 B*F*R
     out["local_update"] = kernel_entry(
@@ -287,13 +303,13 @@ def kernel_phase(dev) -> dict:
         "kafka_ps_tpu/ops/fused_update.py:86",
         lambda: fu.local_update(*args, cfg=cfg),
         lambda: fu.local_update_plain(*args, cfg=cfg),
-        nbytes, flops, k1_err, 2 * K + 2)
+        nbytes, flops, k1_err)
     out["local_update_batched"] = kernel_entry(
         "local_update_batched", "local_update.cu",
         "kafka_ps_tpu/ops/fused_update.py:845",
         lambda: fu.local_update_batched(*members, cfg=cfg),
         lambda: fu.local_update_batched_plain(*members, cfg=cfg),
-        GANG * nbytes, GANG * flops, k2_err, 2 * K + 2)
+        GANG * nbytes, GANG * flops, k2_err)
     for kind in SLAB_KINDS:
         err, stored = check_stored("K3 stream_update", fu.stream_update,
                                    fu.local_update_batched,
@@ -304,8 +320,7 @@ def kernel_phase(dev) -> dict:
             f"stream_update_{kind}", "local_update.cu", K3_REPLACES[kind],
             lambda a=sargs: fu.stream_update(*a, cfg=cfg),
             lambda a=sargs: fu.local_update_plain(*a, cfg=cfg),
-            stored_x_bytes(kind) + 4 * (2 * B + 2 * P + 1), flops, err,
-            2 * K + 2)
+            stored_x_bytes(kind) + 4 * (2 * B + 2 * P + 1), flops, err)
 
     # -- K4 / K6: MLP ---------------------------------------------------------
     mcfg = ModelConfig(num_features=F, num_classes=C, num_max_iter=K,
@@ -361,14 +376,14 @@ def kernel_phase(dev) -> dict:
         "kafka_ps_tpu/ops/fused_update.py:248",
         lambda: fu.mlp_local_update(*args, cfg=mcfg),
         lambda: fu.mlp_local_update_plain(*args, cfg=mcfg),
-        nbytes, flops, k4_err, 3 * K + 3)
+        nbytes, flops, k4_err)
     cublas_yardstick(args, mcfg)
     out["mlp_local_update_batched"] = kernel_entry(
         "mlp_local_update_batched", "mlp_update.cu",
         "kafka_ps_tpu/ops/fused_update.py:939",
         lambda: fu.mlp_local_update_batched(*members, cfg=mcfg),
         lambda: fu.mlp_local_update_batched_plain(*members, cfg=mcfg),
-        GANG * nbytes, GANG * flops, k6_err, 3 * K + 3)
+        GANG * nbytes, GANG * flops, k6_err)
     for kind in SLAB_KINDS:
         err, stored = check_stored("K5 mlp_stream_update",
                                    fu.mlp_stream_update,
@@ -380,10 +395,9 @@ def kernel_phase(dev) -> dict:
             f"mlp_stream_update_{kind}", "mlp_update.cu", K5_REPLACES[kind],
             lambda a=sargs: fu.mlp_stream_update(*a, cfg=mcfg),
             lambda a=sargs: fu.mlp_local_update_plain(*a, cfg=mcfg),
-            stored_x_bytes(kind) + 4 * (2 * B + 2 * MP + 1), flops, err,
-            3 * K + 3)
+            stored_x_bytes(kind) + 4 * (2 * B + 2 * MP + 1), flops, err)
         smembers = [list(a) for a in zip(*stored)]
-        dev_ms, _ = device_ms(
+        dev_ms, _, _ = device_ms(
             lambda m=smembers: fu.mlp_local_update_batched(*m, cfg=mcfg))
         print(f"K5 {kind} gang of {GANG} stored slabs, device time per "
               f"call (torch.profiler): {dev_ms:.4f} ms")
@@ -398,8 +412,8 @@ def cublas_yardstick(args, cfg) -> None:
     from kafka_ps_tpu_torch.models import mlp
     from kafka_ps_tpu_torch.ops import fused_update as fu
     x, w1 = args[1], mlp.unflatten(args[0], cfg).w1
-    cublas_ms, _ = device_ms(lambda: torch.matmul(x, w1.t()))
-    _, per = device_ms(lambda: fu.mlp_local_update(*args, cfg=cfg))
+    cublas_ms, _, _ = device_ms(lambda: torch.matmul(x, w1.t()))
+    _, per, _ = device_ms(lambda: fu.mlp_local_update(*args, cfg=cfg))
     hidden = sum(v for key, v in per.items() if "hidden_pass" in key)
     print(f"yardstick x @ W1.T [{B},{F}]x[{F},{H}]: cuBLAS f32 (TF32 off) "
           f"{cublas_ms:.4f} ms device; K4 hidden_pass "

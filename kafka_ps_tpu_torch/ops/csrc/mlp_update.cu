@@ -84,7 +84,8 @@
 // with cp.async, double-buffered, in chunks 128 deep along K (F for
 // hidden_pass, B for update_pass).  A tile row is copied as the 16-byte
 // chunks that cover it, aligned down, with the row's offset in its first
-// chunk kept beside the tile: so any F (F=33 f32, bf16 and int8 rows are
+// chunk kept beside the tile (slab_x.cuh's stage_rows, which
+// local_update.cu shares): so any F (F=33 f32, bf16 and int8 rows are
 // not 16-byte aligned), any storage form and any base address load the
 // same way, and a chunk past the end of a row or the matrix is zero-filled
 // or masked where a fragment is read.  Eight warps per CTA, in groups of
@@ -175,59 +176,23 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a,
 
 // -- cp.async ---------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 2) : "memory");
 }
 
-// Rows r0..r0+ROWS-1, columns c0..c0+COLS-1 (elements of ES bytes) of a
-// row-major matrix of nrows x ncols with a row pitch of `ld` bytes, into a
-// tile of STRIDE bytes per row: each row as the 16-byte chunks that cover
-// it, aligned down, its first element at byte mis[r] of the tile row.  A
-// chunk is copied whole if it starts before the end of its row and of the
-// window (it lies in the allocation, which is 16-byte aligned), and
-// zero-filled without a read otherwise, as are rows past nrows; columns
-// past ncols hold whatever followed the row and are masked by the reader.
+// A ROWS x COLS tile at STRIDE bytes per row, staged by slab_x.cuh's
+// stage_rows (the aligned-down 16-byte chunks of each row, its offset in
+// mis).
 template <int ES, int STRIDE, int ROWS, int COLS>
 __device__ __forceinline__ void load_tile(unsigned char* dst,
                                           unsigned char* mis,
                                           const void* src, size_t ld,
                                           int r0, int nrows, int c0,
                                           int ncols) {
-  constexpr int kChunks = COLS * ES / 16 + 1;
-  static_assert(kChunks * 16 <= STRIDE && STRIDE % 16 == 0, "tile stride");
-  const unsigned char* base = static_cast<const unsigned char*>(src);
-  for (int e = threadIdx.x; e < ROWS * kChunks; e += kTcThreads) {
-    const int r = e / kChunks, j = e - r * kChunks;
-    const uintptr_t row =
-        reinterpret_cast<uintptr_t>(base) + (size_t)(r0 + r) * ld;
-    const uintptr_t start = row + (size_t)c0 * ES;
-    const uintptr_t end = row + (size_t)ncols * ES;
-    const uintptr_t s = (start & ~uintptr_t(15)) + 16 * j;
-    const bool ok = r0 + r < nrows && s < end && s < start + COLS * ES;
-    cp_async16(dst + r * STRIDE + 16 * j, reinterpret_cast<const void*>(s),
-               ok ? 16 : 0);
-    if (j == 0) mis[r] = static_cast<unsigned char>(start & 15);
-  }
+  static_assert(stage_chunks(COLS * ES) * 16 <= STRIDE && STRIDE % 16 == 0,
+                "tile stride");
+  stage_rows(dst, mis, src, ld, ES, STRIDE, ROWS, COLS, r0, nrows, c0,
+             ncols, threadIdx.x, kTcThreads);
 }
 
 __device__ __forceinline__ float f32_at(const unsigned char* p) {

@@ -40,12 +40,15 @@ mma.sync) at f32 accuracy: each f32 operand is split into two TF32 terms
 (hi + lo) and a product summed from three (two where x is stored bf16 or
 int8, which TF32 holds exactly; see the header of csrc/mlp_update.cu).
 They sum in another order than the plain version, within rtol 1e-4,
-atol 1e-5 of it.  The logreg kernels' scratch is sized here from their
-row tiling (ROWS_PER_CTA, checked against the library); the MLP kernel's
-from the library's own `kps_mlp_scratch`, so its tiling stays in the .cu.
+atol 1e-5 of it.  K1/K2/K3 run as one cooperative persistent CUDA launch
+per call, x resident in shared memory across the k steps (see the header
+of csrc/local_update.cu).  Each library sizes its own scratch
+(`kps_logreg_scratch`, `kps_mlp_scratch`), so the tilings stay in the
+.cu files.
 
-The counters count each wrapper's kernel calls (a call is several CUDA
-launches — see the .cu files), so a run can show that its main path went
+The counters count each wrapper's kernel calls (a logreg call is one CUDA
+launch, an MLP call several — see the .cu files), so a run can show that
+its main path went
 through the kernels: `launches` (K1), `batched_launches` (K2),
 `stream_launches` and `stream_batched_launches` (K3), `mlp_launches`
 (K4), `mlp_batched_launches` (K6), `mlp_stream_launches` and
@@ -56,6 +59,7 @@ members its calls covered (`..._members`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -69,7 +73,6 @@ from kafka_ps_tpu_torch.utils.config import ModelConfig
 SOURCE = "local_update.cu"
 MLP_SOURCE = "mlp_update.cu"
 MAX_ROWS = 16          # classes + 1 the kernels take (kMaxRows in the .cu)
-ROWS_PER_CTA = 32      # batch rows per CTA of local_update.cu (kRowsPerCta)
 MAX_MEMBERS = 32       # gang members per kernel call (kMaxMembers)
 
 launches = 0
@@ -251,17 +254,12 @@ _SYMBOLS = {("logreg", "f32"): "kps_local_update",
 
 
 def _geometry(lib, family: str) -> None:
-    """Check a library's compiled limits against this module's constants:
-    logreg's row tiling, which its scratch is sized from here, and both
-    families' class and member limits.  The MLP kernel sizes its own
-    scratch (`_mlp_scratch`)."""
-    if family == "logreg":
-        names, want = ("kps_rows_per_cta", "kps_max_rows",
-                       "kps_max_members"), (ROWS_PER_CTA, MAX_ROWS,
-                                            MAX_MEMBERS)
-    else:
-        names, want = ("kps_mlp_max_rows", "kps_mlp_max_members"), (
-            MAX_ROWS, MAX_MEMBERS)
+    """Check a library's compiled class and member limits against this
+    module's constants.  Each library sizes its own scratch
+    (`_logreg_scratch`, `_mlp_scratch`)."""
+    names = {"logreg": ("kps_max_rows", "kps_max_members"),
+             "mlp": ("kps_mlp_max_rows", "kps_mlp_max_members")}[family]
+    want = (MAX_ROWS, MAX_MEMBERS)
     got = tuple(getattr(lib, n)() for n in names)
     if got != want:
         raise RuntimeError(f"the {family} kernel disagrees with "
@@ -320,25 +318,57 @@ def _call(fn, tables, outputs, ints, cfg, name):
                                    f"error {err}")
 
 
-# The scratch tensors of a launch are dropped when it returns, while its
-# kernels may still run: the caching allocator hands their memory only to
+@functools.lru_cache(maxsize=64)
+def _logreg_scratch(batch: int, features: int, rows: int,
+                    members: int) -> int:
+    """The floats of a logreg call's scratch on `members` members, as
+    local_update.cu's tiling needs them (`kps_logreg_scratch`: W, the tile
+    partials, the loss partials), summed: the wrapper allocates one tensor
+    and the library lays the three out in it."""
+    sizes = (ctypes.c_longlong * 3)()
+    _build.load(SOURCE).kps_logreg_scratch(batch, features, rows, members,
+                                           sizes)
+    return sum(sizes)
+
+
+_PLAN = ("grid", "tiles_per_cta", "smem", "resident", "chunk_cols",
+         "chunks", "static_smem")
+
+
+def logreg_plan(batch: int, features: int, rows: int, members: int,
+                kind: str = "f32") -> dict[str, int]:
+    """The cooperative launch a logreg call on `members` members would
+    make on the current card (`kps_logreg_plan`): its grid, the batch
+    tiles each CTA owns, the dynamic and static shared memory per CTA in
+    bytes, whether x stays resident in shared memory for the call (1) or
+    is re-staged at each step (0), and the columns and chunks a staged row
+    is cut into.  Needs the card."""
+    out = (ctypes.c_int * len(_PLAN))()
+    err = _build.load(SOURCE).kps_logreg_plan(
+        batch, features, rows, members, ("f32", "bf16", "int8").index(kind),
+        out)
+    if err != 0:
+        raise RuntimeError(f"kps_logreg_plan failed: CUDA error {err}")
+    return dict(zip(_PLAN, out))
+
+
+# The scratch tensor of a launch is dropped when it returns, while its
+# kernels may still run: the caching allocator hands its memory only to
 # work queued later on the same stream, which runs after them.  Outputs
 # come back flat: deltas [k*P], losses [k].
 
 
 def _launch_logreg(thetas, xs, ys, masks, cfg: ModelConfig, kind: str):
     tables = _tables(thetas, xs, ys, masks, kind)
-    fn = _entry(SOURCE, _SYMBOLS["logreg", kind], "logreg", len(tables), 5,
+    fn = _entry(SOURCE, _SYMBOLS["logreg", kind], "logreg", len(tables), 3,
                 4)
     k, (batch, features) = len(xs), slab_batch_shape(xs[0])
-    nblk = -(-batch // ROWS_PER_CTA)
-    P = cfg.num_params
+    R, P = cfg.num_rows, cfg.num_params
     f32 = dict(dtype=torch.float32, device=thetas[0].device)
     deltas, losses = torch.empty(k * P, **f32), torch.empty(k, **f32)
-    scratch = (torch.empty(k * P, **f32), torch.empty(k * nblk * P, **f32),
-               torch.empty(k * nblk, **f32))
-    _call(fn, tables, (deltas, losses, *scratch),
-          (batch, features, cfg.num_rows), cfg, "local_update")
+    scratch = torch.empty(_logreg_scratch(batch, features, R, k), **f32)
+    _call(fn, tables, (deltas, losses, scratch), (batch, features, R), cfg,
+          "local_update")
     return deltas, losses
 
 

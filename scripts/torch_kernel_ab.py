@@ -1,6 +1,7 @@
 """Same-call A/B of the port's kernels across checkouts of the repo, on one
-NVIDIA card: K1 and K2 (logreg, f32), K4 and K6 (MLP, f32) and K5 (MLP,
-bf16 and int8 slabs), each where a tree has it.
+NVIDIA card: K1 and K2 (logreg, f32), K3 (logreg, bf16 and int8 slabs),
+K4 and K6 (MLP, f32) and K5 (MLP, bf16 and int8 slabs), each where a tree
+has it.
 
     python3 scripts/torch_kernel_ab.py TREE [TREE ...]
 
@@ -15,10 +16,10 @@ Per tree and kernel, at the main path's shape (F=1024, B=1024 with 100
 masked rows and one out-of-range label, C=5, k=2; the MLP at H=128; K2
 and K6 on a gang of 4), on inputs made from one seed per member:
   * `digest`: sha256 of the outputs' bytes (delta and loss) — trees with
-    the same arithmetic agree bit for bit (K1 and K2 must);
-  * `max_abs_vs_plain` (MLP kernels): the largest difference of the
-    outputs from the plain version's on the same inputs (TF32 off), for
-    trees whose MLP arithmetic differs by design;
+    the same arithmetic agree bit for bit;
+  * `max_abs_vs_plain`: the largest difference of the outputs from the
+    plain version's on the same inputs (TF32 off), for trees whose
+    arithmetic differs by design (every kernel reports it);
   * `ms`: median of 200 calls, each between a pair of CUDA events (with
     the card idle, this is mostly the host's time to launch);
   * `host_us`: mean host time of one wrapper call, 200 calls queued
@@ -33,7 +34,9 @@ and K6 on a gang of 4), on inputs made from one seed per member:
 A pass is named `name[form,R,loss]`: its storage form (f32, bf16, int8)
 and, where it is templated on them, the class count R and the row pass's
 loss flag; only the C=5 (R=6) instances are reported.
-One JSON line per tree and kernel, then the card's name and power limit.
+One JSON line per tree and kernel, a summary line per tree and kernel
+(device ms, host us, ms per call, launches per call), then the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -50,8 +53,8 @@ import sys
 import time
 
 F, C, B, K, H, MASKED = 1024, 5, 1024, 2, 128, 100
-KERNEL_RE = re.compile(r"(row_pass|apply_pass|loss_pass|loss_reduce|"
-                       r"dw1_pass|tail_apply|hidden_pass|update_pass)")
+KERNEL_RE = re.compile(r"(logreg_update|row_pass|apply_pass|loss_pass|"
+                       r"loss_reduce|hidden_pass|update_pass)")
 # storage forms as they appear in a pass's template arguments, mangled or
 # demangled; the longer names first ("Members" is in "MembersQ")
 FORMS = (("SlabBf16", "bf16"), ("MembersBf16", "bf16"), ("SlabQ", "int8"),
@@ -129,11 +132,9 @@ def measure(torch, fn, plain, sass, reps=200) -> dict:
     torch.cuda.synchronize()
     digest = hashlib.sha256(delta.cpu().numpy().tobytes()
                             + loss.reshape(-1).cpu().numpy().tobytes())
-    err = None
-    if plain is not None:
-        ref = plain()
-        err = max(float((delta - ref[0]).abs().max()),
-                  float((loss - ref[1]).abs().max()))
+    ref = plain()
+    err = max(float((delta - ref[0]).abs().max()),
+              float((loss - ref[1]).abs().max()))
     for _ in range(20):
         fn()
     times = []
@@ -155,7 +156,7 @@ def measure(torch, fn, plain, sass, reps=200) -> dict:
         for _ in range(50):
             fn()
         torch.cuda.synchronize()
-    per = {}
+    per, launches = {}, 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -163,12 +164,12 @@ def measure(torch, fn, plain, sass, reps=200) -> dict:
         if us > 0:
             key = short_name(e.key) or e.key[:40]
             per[key] = per.get(key, 0.0) + us / 50 / 1e3
+            launches += e.count
     out = {"digest": digest.hexdigest()[:16], "ms": statistics.median(times),
            "host_us": host_us, "device_ms": sum(per.values()),
+           "launches_per_call": launches / 50, "max_abs_vs_plain": err,
            "per_kernel": per,
            "sass": sass and {k: v for k, v in sass.items() if k in per}}
-    if err is not None:
-        out["max_abs_vs_plain"] = err
     return out
 
 
@@ -193,11 +194,22 @@ def measure_one(tree: str, label: str) -> None:
     gang = [inputs(torch, dev, cfg.num_params, 7 + i) for i in range(4)]
     members = [list(a) for a in zip(*gang)]
     runs = [("K1 local_update", lib,
-             lambda: fu.local_update(*gang[0], cfg=cfg), None)]
+             lambda: fu.local_update(*gang[0], cfg=cfg),
+             lambda: fu.local_update_plain(*gang[0], cfg=cfg))]
     if hasattr(fu, "local_update_batched"):
         runs.append(("K2 local_update_batched", lib,
                      lambda: fu.local_update_batched(*members, cfg=cfg),
-                     None))
+                     lambda: fu.local_update_batched_plain(*members,
+                                                           cfg=cfg)))
+    try:
+        from kafka_ps_tpu_torch.compress.slab import encode_x
+    except ImportError:            # a tree from before the slab dtypes
+        encode_x = None
+    for kind in ("bf16", "int8") if encode_x else ():
+        a = [gang[0][0], encode_x(kind, gang[0][1]), *gang[0][2:]]
+        runs.append((f"K3 stream_update {kind}", lib,
+                     lambda a=a: fu.local_update(*a, cfg=cfg),
+                     lambda a=a: fu.local_update_plain(*a, cfg=cfg)))
     if "mlp_update.cu" in _build.sources():
         from kafka_ps_tpu_torch.models import mlp
         mcfg = ModelConfig(num_features=F, num_classes=C, num_max_iter=K,
@@ -213,10 +225,6 @@ def measure_one(tree: str, label: str) -> None:
                  ("K6 mlp_local_update_batched", mlib,
                   lambda: fu.mlp_local_update_batched(*mm, cfg=mcfg),
                   lambda: fu.mlp_local_update_batched_plain(*mm, cfg=mcfg))]
-        try:
-            from kafka_ps_tpu_torch.compress.slab import encode_x
-        except ImportError:        # a tree from before the slab dtypes
-            encode_x = None
         for kind in ("bf16", "int8") if encode_x else ():
             a = [mgang[0][0], encode_x(kind, mgang[0][1]), *mgang[0][2:]]
             runs.append((f"K5 mlp_stream_update {kind}", mlib,
@@ -224,8 +232,12 @@ def measure_one(tree: str, label: str) -> None:
                          lambda a=a: fu.mlp_local_update_plain(*a,
                                                                cfg=mcfg)))
     for kernel, sass, fn, plain in runs:
-        print(json.dumps({"tree": label, "kernel": kernel,
-                          **measure(torch, fn, plain, sass)}))
+        m = measure(torch, fn, plain, sass)
+        print(json.dumps({"tree": label, "kernel": kernel, **m}))
+        print(f"summary {label} {kernel}: device_ms={m['device_ms']:.5f} "
+              f"host_us={m['host_us']:.1f} ms={m['ms']:.5f} launches="
+              f"{m['launches_per_call']:g} digest={m['digest']} "
+              f"max_abs_vs_plain={m['max_abs_vs_plain']:.3e}", flush=True)
 
 
 def main(argv=None) -> int:

@@ -14,7 +14,11 @@ so both run the same arithmetic on the same decoded values.  A gang
 member and a single call on the same inputs are bitwise equal.  K4-K6
 run their B*F*H products on the tensor cores (TF32 mma.sync, each f32
 operand split into two TF32 terms) and keep these tolerances
-(tests/test_torch_mlp_split.py models the split on the CPU).
+(tests/test_torch_mlp_split.py models the split on the CPU).  K1-K3 are
+one cooperative launch per call with x resident in shared memory where it
+fits and re-staged at each step where it does not; both give the same
+bits (tests/test_torch_logreg_tiling.py models their summation order on
+the CPU).
 """
 
 import numpy as np
@@ -360,3 +364,99 @@ def test_mlp_gang_of_34_is_bitwise_single_calls(card, kind):
     torch.testing.assert_close(deltas, d_ref, rtol=MLP_RTOL, atol=MLP_ATOL)
     torch.testing.assert_close(losses, loss_ref, rtol=MLP_RTOL,
                                atol=MLP_ATOL)
+
+
+def _kernels(fn, reps=10) -> dict[str, int]:
+    """The CUDA kernels `reps` calls of `fn` launch, by name, from
+    torch.profiler (which can drop an event now and then, never add one)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) > 0}
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("batch,features,classes,k,resident", [
+    (16384, 1024, 5, 2, None),  # more x than one wave of shared memory
+    (16, 70000, 5, 2, 0),       # a row wider than a CTA's shared memory
+    (300, 130, 15, 0, 1),       # R=16, k=0
+    (1020, 33, 15, 2, 1)])      # R=16, a ragged last tile, F=33
+def test_logreg_kernel_resident_or_restaged_matches_plain(
+        card, kind, batch, features, classes, k, resident):
+    """K1/K3 whether x stays resident in shared memory for the call or is
+    re-staged at each step (in column chunks where a row is wider than a
+    CTA's shared memory): within tolerance of the plain version, bitwise
+    repeatable, and one CUDA launch per call."""
+    cfg, args = _case(card, batch, features, classes, k)
+    args = _in_form(args, kind)
+    plan = fused_update.logreg_plan(batch, features, cfg.num_rows, 1, kind)
+    if resident is not None:
+        assert plan["resident"] == resident
+    if features == 70000:
+        assert plan["chunks"] > 1
+    d, loss = fused_update.local_update(*args, cfg=cfg)
+    torch.cuda.synchronize()
+    d_ref, loss_ref = fused_update.local_update_plain(*args, cfg=cfg)
+    torch.testing.assert_close(d, d_ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(loss, loss_ref, rtol=RTOL, atol=ATOL)
+    d2, loss2 = fused_update.local_update(*args, cfg=cfg)
+    assert torch.equal(d, d2) and torch.equal(loss, loss2)
+    # one kernel, launched at most once a call
+    seen = _kernels(lambda: fused_update.local_update(*args, cfg=cfg))
+    assert len(seen) == 1 and "logreg_update" in next(iter(seen))
+    assert 1 <= sum(seen.values()) <= 10
+
+
+def test_logreg_slab_beyond_one_wave_is_restaged(card):
+    """B=16384, F=1024 f32 (64 MiB of x) cannot stay resident: the plan
+    re-stages its tiles, several per CTA, and the main shape keeps one
+    resident tile per CTA."""
+    big = fused_update.logreg_plan(16384, 1024, 6, 1, "f32")
+    assert big["resident"] == 0 and big["tiles_per_cta"] > 1
+    main = fused_update.logreg_plan(1024, 1024, 6, 1, "f32")
+    assert main["resident"] == 1 and main["tiles_per_cta"] == 1
+    assert main["grid"] == 1024 // 8
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_logreg_gang_beyond_one_wave_is_bitwise_single_calls(card, kind):
+    """34 members at the main shape: the first kernel call (32 members,
+    more x than the card's shared memory holds) re-stages its tiles, the
+    second (2 members) and every single call keep theirs resident; each
+    member is bitwise the single call, and the gang is within tolerance
+    of the plain version."""
+    cfg, thetas, xs, ys, masks = _gang(card, 34, 1024, 1024)
+    xs = [x if kind == "f32" else encode_x(kind, x) for x in xs]
+    R = cfg.num_rows
+    assert fused_update.logreg_plan(1024, 1024, R, 32, kind)["resident"] == 0
+    assert fused_update.logreg_plan(1024, 1024, R, 2, kind)["resident"] == 1
+    deltas, losses = fused_update.local_update_batched(thetas, xs, ys, masks,
+                                                       cfg=cfg)
+    for i in range(34):
+        d, loss = fused_update.local_update(thetas[i], xs[i], ys[i],
+                                            masks[i], cfg=cfg)
+        assert torch.equal(deltas[i], d) and torch.equal(losses[i], loss)
+    d_ref, loss_ref = fused_update.local_update_batched_plain(
+        thetas, xs, ys, masks, cfg=cfg)
+    torch.testing.assert_close(deltas, d_ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(losses, loss_ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_logreg_two_launches_bitwise_at_main_shape(card, kind):
+    """Two calls at the main path's shape, single and as a gang of 4, give
+    the same bits: no sum depends on which CTA ran a tile or when."""
+    cfg, thetas, xs, ys, masks = _gang(card, 4, 1024, 1024)
+    xs = [x if kind == "f32" else encode_x(kind, x) for x in xs]
+    one = [fused_update.local_update(thetas[0], xs[0], ys[0], masks[0],
+                                     cfg=cfg) for _ in range(2)]
+    gang = [fused_update.local_update_batched(thetas, xs, ys, masks,
+                                              cfg=cfg) for _ in range(2)]
+    for a, b in (one, gang):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
