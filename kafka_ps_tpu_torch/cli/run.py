@@ -9,7 +9,8 @@ and defaults: gang dispatch and the async eval engine are on
 (`--no-gang`, `--no-eval-async` turn them off), `--task mlp` trains the
 one-hidden-layer MLP (`--hidden_dim`), `--slab-dtype bf16|int8` keeps the
 workers' device slabs reduced (`--full-slab-upload` re-uploads them whole
-on every change).  Runs on the CUDA card;
+on every change), `--fused` runs the sequential model as fused BSP rounds
+(runtime/app.run_fused_bsp).  Runs on the CUDA card;
 KPS_PLATFORM=cpu runs it on the CPU.  At exit it prints one line of run
 statistics on stderr: `kafka_ps_tpu_torch run: {json}`.
 """
@@ -57,6 +58,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_iterations", type=int, default=0,
                    help="stop after this many server iterations "
                         "(0 = run until Ctrl-C)")
+    p.add_argument("--fused", action="store_true",
+                   help="sequential model as fused BSP rounds: one gang "
+                        "kernel call per round, chunks of rounds as one "
+                        "CUDA graph (parallel/bsp.py)")
     p.add_argument("--eval_every", type=int, default=1,
                    help="evaluate test metrics every Nth vector clock")
     p.add_argument("--pallas", action="store_true",
@@ -139,6 +144,18 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.eval_every < 1:
         raise SystemExit("--eval_every must be >= 1")
+    if args.fused and args.pallas:
+        raise SystemExit(
+            "--pallas applies to the per-node worker path only; the "
+            "--fused BSP path runs its own fused program "
+            "(parallel/bsp.py) — drop one of the two flags")
+    if args.slab_dtype != "f32" and args.fused:
+        # the fused BSP path keeps its own whole-slab device cache outside
+        # the worker SlabStore: ignoring the dtype would misreport what ran
+        raise SystemExit(
+            "--slab-dtype applies to the per-node worker slab "
+            "(compress/slab.py); the --fused BSP path keeps its own "
+            "slab cache — drop one of the two flags")
     from kafka_ps_tpu_torch.utils.config import resolve_device
     device = resolve_device()       # CUDA, or KPS_PLATFORM's choice
     app, logs = make_app_from_args(args, device)
@@ -148,7 +165,9 @@ def main(argv=None) -> int:
         app.wait_for_prefill(min_per_worker=1, timeout=120.0)
         app.wait_for_stream_settle(producer)
         max_iters = args.max_iterations or sys.maxsize
-        if args.mode == "serial":
+        if args.fused:
+            app.run_fused_bsp(max_server_iterations=max_iters)
+        elif args.mode == "serial":
             app.run_serial(max_server_iterations=max_iters,
                            pump=lambda: None)
         else:
@@ -162,16 +181,18 @@ def main(argv=None) -> int:
         app.close_logs()
         for log in logs:
             log.close()
-    print("kafka_ps_tpu_torch run: " + json.dumps(run_stats(app)),
-          file=sys.stderr)
+    print("kafka_ps_tpu_torch run: "
+          + json.dumps(run_stats(app, producer)), file=sys.stderr)
     return 0
 
 
-def run_stats(app) -> dict:
+def run_stats(app, producer) -> dict:
     """Host counters of a finished run: server iterations, gang
     dispatches and their members, the eval engine's dispatches, widths
-    and final lag, and the workers' device slabs (storage form, bytes on
-    the device, host bytes uploaded)."""
+    and final lag, the workers' device slabs (storage form, bytes on
+    the device, host bytes uploaded), the fused rounds (all, in chunks,
+    chunk dispatches, CUDA graphs captured) and the producer's parser,
+    rows and the seconds of its native one-pass parse."""
     stores = [w._slab_store for w in app.workers]
     out = {"server_iterations": app.server.iterations,
            "server_batched_applies": app.server.batched_applies,
@@ -179,6 +200,12 @@ def run_stats(app) -> dict:
                     "device_bytes": sum(s.device_bytes() for s in stores),
                     "bytes_uploaded": sum(s.bytes_uploaded
                                           for s in stores)}}
+    if app.fused_stats["rounds"]:
+        out["fused"] = dict(app.fused_stats, graph_captures=sum(
+            multi.captures for _, multi in app._fused_programs.values()))
+    out["producer"] = {"parser": producer.parser,
+                       "rows": producer.rows_sent,
+                       "parse_s": producer.parse_s}
     if app.gang is not None:
         out["gang"] = {"dispatches": app.gang.dispatches,
                        "members": app.gang.members}

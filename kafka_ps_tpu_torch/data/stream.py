@@ -1,16 +1,23 @@
 """Streaming ingestion simulator (counterpart of
-kafka_ps_tpu/data/stream.py, Python parser only).
+kafka_ps_tpu/data/stream.py).
 
-Reads a training CSV row by row, turns each row into a sparse sample
-(zero features dropped, label = last column), assigns it round-robin to
-a logical worker (row_count % num_workers) and paces delivery: the first
+Reads a training CSV, turns each row into a sparse sample (zero features
+dropped, label = last column), assigns it round-robin to a logical
+worker (row_count % num_workers) and paces delivery: the first
 num_workers * prefill_per_worker rows go unthrottled, after which the
 producer sleeps 1 s every (1000 / time_per_event_ms) rows.
+
+Two parsers give the same rows: the native one (native/, C++) parses the
+whole file in one pass and replays rows from its CSR arrays; the Python
+one streams line by line.  `use_native=None` (the default) picks the
+native parser when it is available and falls back to Python where the
+stricter C parser rejects the file.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Iterator
 
 import numpy as np
@@ -18,11 +25,34 @@ import numpy as np
 Sink = Callable[[int, dict[int, float], int], None]  # (worker, features, label)
 
 
-def iter_csv_rows(csv_path: str, has_header: bool = True,
-                  num_features: int | None = None
-                  ) -> Iterator[tuple[dict[int, float], int]]:
-    """Yield (sparse_features, label) per CSV row, dropping zero
-    features."""
+def _native_parse(csv_path: str, has_header: bool,
+                  num_features: int | None, use_native: bool | None):
+    """The native parse of the file, or None where the Python parser
+    takes it: use_native False, or None with the parser unavailable or
+    refusing the file (the C parser is stricter: uniform width, no stray
+    whitespace)."""
+    if use_native is False:
+        return None
+    from kafka_ps_tpu_torch import native
+    parsed = None
+    if native.is_available():
+        try:
+            parsed = native.parse_csv(csv_path, has_header=has_header)
+        except RuntimeError:
+            if use_native:
+                raise
+    elif use_native:
+        raise RuntimeError("native CSV parser requested but unavailable")
+    if (parsed is not None and num_features is not None
+            and parsed.num_rows > 0 and parsed.num_features != num_features):
+        raise ValueError(
+            f"rows have {parsed.num_features + 1} columns, "
+            f"expected {num_features + 1}")
+    return parsed
+
+
+def _python_rows(csv_path: str, has_header: bool, num_features: int | None
+                 ) -> Iterator[tuple[dict[int, float], int]]:
     with open(csv_path) as f:
         if has_header:
             f.readline()
@@ -42,6 +72,29 @@ def iter_csv_rows(csv_path: str, has_header: bool = True,
             yield feats, int(float(cols[-1]))
 
 
+def _open_rows(csv_path: str, has_header: bool, num_features: int | None,
+               use_native: bool | None):
+    """("native" | "python", the row iterator)."""
+    parsed = _native_parse(csv_path, has_header, num_features, use_native)
+    if parsed is None:
+        return "python", _python_rows(csv_path, has_header, num_features)
+    return "native", (parsed.row(i) for i in range(parsed.num_rows))
+
+
+def iter_csv_rows(csv_path: str, has_header: bool = True,
+                  num_features: int | None = None,
+                  use_native: bool | None = None
+                  ) -> Iterator[tuple[dict[int, float], int]]:
+    """Yield (sparse_features, label) per CSV row, dropping zero
+    features.
+
+    `use_native`: True forces the C++ parser, False forces Python, None
+    (default) picks the native parser when it is available and falls
+    back to Python on a file it refuses."""
+    yield from _open_rows(csv_path, has_header, num_features,
+                          use_native)[1]
+
+
 class CsvStreamProducer:
     """Paced row pump: CSV → sink(worker, features, label)."""
 
@@ -49,7 +102,8 @@ class CsvStreamProducer:
                  time_per_event_ms: float = 200.0,
                  prefill_per_worker: int = 128,
                  has_header: bool = True,
-                 num_features: int | None = None):
+                 num_features: int | None = None,
+                 use_native: bool | None = None):
         self.csv_path = csv_path
         self.num_workers = num_workers
         self.sink = sink
@@ -57,7 +111,16 @@ class CsvStreamProducer:
         self.prefill_per_worker = prefill_per_worker
         self.has_header = has_header
         self.num_features = num_features
-        self.rows_sent = 0       # written by the producer thread only
+        # None = auto (the native one-pass parse when available); False =
+        # the line-by-line Python parser
+        self.use_native = use_native
+        # written by the producer thread only, read after it ends: rows
+        # sent, the parser that ran, and the seconds of the native
+        # one-pass parse (the Python parser parses row by row as the loop
+        # pulls, outside this count)
+        self.rows_sent = 0
+        self.parser: str | None = None
+        self.parse_s = 0.0
         self.finished = threading.Event()
         self.stopped = threading.Event()
         self._thread: threading.Thread | None = None
@@ -67,8 +130,11 @@ class CsvStreamProducer:
         # 1 s sleep every this many rows; <= 0 ms per event = unthrottled
         rows_per_sleep = (max(1, int(1000 / self.time_per_event_ms))
                           if self.time_per_event_ms > 0 else 0)
-        for feats, label in iter_csv_rows(self.csv_path, self.has_header,
-                                          self.num_features):
+        t0 = time.perf_counter()
+        self.parser, rows = _open_rows(self.csv_path, self.has_header,
+                                       self.num_features, self.use_native)
+        self.parse_s += time.perf_counter() - t0
+        for feats, label in rows:
             if self.stopped.is_set():
                 break
             worker = self.rows_sent % self.num_workers

@@ -1,0 +1,145 @@
+// Native CSV → sparse-row parser (counterpart of
+// kafka_ps_tpu/native/csvparse.cpp, the same source): the data-loading
+// hot path of the streaming producer.
+//
+// Parses a whole training CSV into CSR-style arrays in one pass:
+//   row_offsets[num_rows + 1], keys[nnz], vals[nnz], labels[num_rows]
+// dropping zero features, as the reference's producer does.  The Python
+// binding (binding.py) copies the arrays into numpy; the paced stream
+// iterator then replays rows without re-parsing.
+//
+// Built by binding.py at first use: g++ -O3 -fPIC -shared -std=c++17,
+// into kafka_ps_tpu_torch/_build/.
+
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <vector>
+
+extern "C" {
+
+struct ParsedCsv {
+    long num_rows;
+    long nnz;
+    long num_features;      // columns per row minus the label
+    long *row_offsets;      // [num_rows + 1]
+    int *keys;              // [nnz]
+    float *vals;            // [nnz]
+    int *labels;            // [num_rows]
+};
+
+static char *read_file(const char *path, long *out_len) {
+    FILE *f = fopen(path, "rb");
+    if (!f) return nullptr;
+    fseek(f, 0, SEEK_END);
+    long len = ftell(f);
+    fseek(f, 0, SEEK_SET);
+    char *buf = (char *)malloc((size_t)len + 1);
+    if (!buf) { fclose(f); return nullptr; }
+    if (len > 0 && fread(buf, 1, (size_t)len, f) != (size_t)len) {
+        free(buf); fclose(f); return nullptr;
+    }
+    fclose(f);
+    buf[len] = '\0';
+    *out_len = len;
+    return buf;
+}
+
+// Parse one line of comma-separated floats into (keys, vals) of nonzeros
+// plus the final column as the label.  Returns the column count, or -1
+// on a malformed number.
+static long parse_line(char *line, std::vector<int> &keys,
+                       std::vector<float> &vals, int *label) {
+    long col = 0;
+    float last = 0.0f;
+    char *p = line;
+    while (*p) {
+        char *end = nullptr;
+        float v = strtof(p, &end);
+        if (end == p) return -1;                 // not a number
+        // a previous "last" value was a feature, not the label
+        if (col > 0 && last != 0.0f) {
+            keys.push_back((int)(col - 1));
+            vals.push_back(last);
+        }
+        last = v;
+        col++;
+        p = end;
+        if (*p == ',') p++;
+        else if (*p == '\0') break;
+        else return -1;                          // junk between fields
+    }
+    if (col == 0) return 0;                      // blank line
+    *label = (int)last;
+    return col;
+}
+
+ParsedCsv *kps_parse_csv(const char *path, int has_header) {
+    long len = 0;
+    char *buf = read_file(path, &len);
+    if (!buf) return nullptr;
+
+    std::vector<long> row_offsets;
+    std::vector<int> keys;
+    std::vector<float> vals;
+    std::vector<int> labels;
+    row_offsets.push_back(0);
+
+    long num_features = -1;
+    bool first_line = true;
+    char *save = nullptr;
+    for (char *line = strtok_r(buf, "\n", &save); line;
+         line = strtok_r(nullptr, "\n", &save)) {
+        size_t n = strlen(line);
+        if (n > 0 && line[n - 1] == '\r') line[n - 1] = '\0';
+        if (line[0] == '\0') continue;
+        if (first_line) {
+            first_line = false;
+            if (has_header) continue;
+        }
+        int label = 0;
+        long cols = parse_line(line, keys, vals, &label);
+        if (cols == 0) continue;                 // blank
+        if (cols < 2) { free(buf); return nullptr; }
+        if (num_features < 0) num_features = cols - 1;
+        else if (cols - 1 != num_features) { free(buf); return nullptr; }
+        labels.push_back(label);
+        row_offsets.push_back((long)keys.size());
+    }
+    free(buf);
+
+    ParsedCsv *out = (ParsedCsv *)malloc(sizeof(ParsedCsv));
+    if (!out) return nullptr;
+    out->num_rows = (long)labels.size();
+    out->nnz = (long)keys.size();
+    out->num_features = num_features < 0 ? 0 : num_features;
+    out->row_offsets = (long *)malloc(sizeof(long) * row_offsets.size());
+    out->keys = (int *)malloc(sizeof(int) * (keys.size() ? keys.size() : 1));
+    out->vals = (float *)malloc(sizeof(float) * (vals.size() ? vals.size() : 1));
+    out->labels = (int *)malloc(sizeof(int) * (labels.size() ? labels.size() : 1));
+    if (!out->row_offsets || !out->keys || !out->vals || !out->labels) {
+        free(out->row_offsets); free(out->keys); free(out->vals);
+        free(out->labels); free(out);
+        return nullptr;
+    }
+    memcpy(out->row_offsets, row_offsets.data(),
+           sizeof(long) * row_offsets.size());
+    if (!keys.empty()) {
+        memcpy(out->keys, keys.data(), sizeof(int) * keys.size());
+        memcpy(out->vals, vals.data(), sizeof(float) * vals.size());
+    }
+    if (!labels.empty())
+        memcpy(out->labels, labels.data(), sizeof(int) * labels.size());
+    return out;
+}
+
+void kps_free(ParsedCsv *p) {
+    if (!p) return;
+    free(p->row_offsets);
+    free(p->keys);
+    free(p->vals);
+    free(p->labels);
+    free(p);
+}
+
+}  // extern "C"

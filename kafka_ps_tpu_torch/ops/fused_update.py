@@ -53,7 +53,9 @@ through the kernels: `launches` (K1), `batched_launches` (K2),
 `stream_launches` and `stream_batched_launches` (K3), `mlp_launches`
 (K4), `mlp_batched_launches` (K6), `mlp_stream_launches` and
 `mlp_stream_batched_launches` (K5), and for each batched counter the gang
-members its calls covered (`..._members`).
+members its calls covered (`..._members`).  A CUDA graph that captured
+wrapper calls (the fused BSP chunk, parallel/bsp.py) adds them again at
+each replay (`add_counts`).
 """
 
 from __future__ import annotations
@@ -108,6 +110,15 @@ def counts() -> dict[str, int]:
     """The kernel counters, by name."""
     with _lock:
         return {name: globals()[name] for name in _COUNTERS}
+
+
+def add_counts(delta: dict[str, int]) -> None:
+    """Add `delta` to the counters: a CUDA graph replay counts the kernel
+    calls it captured (parallel/bsp.py), and a capture takes back what
+    its wrapper calls counted, since capturing launches nothing."""
+    with _lock:
+        for name, n in delta.items():
+            globals()[name] += n
 
 
 # -- plain versions ------------------------------------------------------------

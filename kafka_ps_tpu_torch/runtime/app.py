@@ -1,16 +1,21 @@
 """System assembly + drive loops (counterpart of kafka_ps_tpu/runtime/app.py).
 
 Wires: CSV stream producer → per-worker sliding buffers, WorkerNodes ↔
-ServerNode over the in-process fabric, with two drive modes:
+ServerNode over the in-process fabric, with three drive modes:
 
   * `run_serial` — deterministic single-thread scheduler;
   * `run_threaded` — one thread per worker, the server on the calling
     thread (the reference's stream threads).  A worker's exception stops
-    the run and is re-raised (failure policy "halt").
+    the run and is re-raised (failure policy "halt");
+  * `run_fused_bsp` — the sequential model without messages: each round
+    is one gang kernel call over all active workers plus the server's
+    apply (parallel/bsp.py), stretches between eval clocks run as chunks
+    of FUSED_CHUNK_ROUNDS rounds (one CUDA graph replay on the card).
 
-Both run gang dispatch when cfg.use_gang (runtime/gang.py), and the
-server's evaluations go to the async eval engine when cfg.eval_async
-and there is a test set (evaluation/engine.py).
+The first two run gang dispatch when cfg.use_gang (runtime/gang.py), and
+the server's evaluations go to the async eval engine when cfg.eval_async
+and there is a test set (evaluation/engine.py); the fused path evaluates
+inline.
 """
 
 from __future__ import annotations
@@ -23,11 +28,14 @@ import torch
 
 from kafka_ps_tpu_torch.data.buffer import SlidingBuffer
 from kafka_ps_tpu_torch.data.stream import CsvStreamProducer
+from kafka_ps_tpu_torch.parallel import bsp
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
 from kafka_ps_tpu_torch.runtime.server import LogSink, ServerNode
 from kafka_ps_tpu_torch.runtime.worker import WorkerNode
+from kafka_ps_tpu_torch.utils import asynclog
 from kafka_ps_tpu_torch.utils.asynclog import DeferredSink
-from kafka_ps_tpu_torch.utils.config import PSConfig, resolve_device
+from kafka_ps_tpu_torch.utils.config import (SEQUENTIAL, PSConfig,
+                                             resolve_device)
 from kafka_ps_tpu_torch.utils.csvlog import NullLogSink
 
 
@@ -71,6 +79,11 @@ class StreamingPSApp:
         self._stop = threading.Event()
         self.gang = None             # the last drive loop's dispatcher
         self.eval_engine = None
+        # fused BSP (step, multi_step) per active-worker count, and the
+        # counts of the fused rounds run: all, in chunks, chunk dispatches
+        self._fused_programs: dict = {}
+        self._fused_slab = None
+        self.fused_stats = {"rounds": 0, "chunk_rounds": 0, "chunks": 0}
         if cfg.eval_async and test_x is not None:
             self.enable_async_eval()
 
@@ -282,6 +295,151 @@ class StreamingPSApp:
             self.flush_logs()
         if worker_errors:
             raise RuntimeError("worker thread failed") from worker_errors[0]
+
+    # -- fused BSP ------------------------------------------------------------
+
+    # rounds per fused chunk dispatch: enough to amortize the host's cost
+    # of a dispatch, few enough that stream arrivals are picked up soon
+    FUSED_CHUNK_ROUNDS = 8
+
+    def run_fused_bsp(self, max_server_iterations: int,
+                      log_metrics: bool = True) -> None:
+        """Sequential consistency as fused BSP rounds: each round is one
+        full iteration of every active worker (all advance one clock),
+        one gang kernel call on their slabs plus the server's apply
+        (parallel/bsp.py).  Resumes from the minimum active clock."""
+        if self.cfg.consistency_model != SEQUENTIAL:
+            raise ValueError("fused path implements the sequential model only")
+        # only active workers take part
+        active = self.server.tracker.active_workers
+        task = self.server.task
+        progs = self._fused_programs.get(len(active))
+        if progs is None:
+            progs = self._fused_programs[len(active)] = (
+                bsp.make_bsp_step(self.cfg.model, len(active),
+                                  self.cfg.server_lr, task=task),
+                bsp.make_bsp_multi_step(self.cfg.model, len(active),
+                                        self.cfg.server_lr,
+                                        self.FUSED_CHUNK_ROUNDS, task=task))
+        # under BSP all active clocks are equal; resume from the restored
+        # one
+        clock = min(self.server.tracker.tracker[w].vector_clock
+                    for w in active)
+        try:
+            self._run_fused_loop(max_server_iterations, log_metrics, progs,
+                                 self.server.theta, clock, active)
+        finally:
+            self.flush_logs()
+
+    def _upload_fused_slab(self, active):
+        """The active workers' buffers stacked into [N, cap, F] (y, mask
+        [N, cap]) and copied to the device once, from pinned memory on
+        the card; the device tensors are reused across uploads."""
+        snaps = []
+        for w in active:
+            sx, sy, sm = self.buffers[w].snapshot()
+            if sm.sum() == 0:
+                raise RuntimeError(
+                    f"There is no data in the buffer of worker {w}")
+            snaps.append((sx, sy, sm))
+        host = [torch.from_numpy(np.stack([s[i] for s in snaps]))
+                for i in range(3)]
+        if self.device.type != "cuda":
+            return host
+        cache = self._fused_slab
+        if cache is None or [tuple(t.shape) for t in cache[1]] != \
+                [tuple(t.shape) for t in host]:
+            pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                      for t in host]
+            dev = [torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                   for t in host]
+            cache = self._fused_slab = [None, pinned, dev]
+        done, pinned, dev = cache
+        if done is not None:
+            done.synchronize()     # the last copy out of pinned has run
+        for p, h, d in zip(pinned, host, dev):
+            p.copy_(h)
+            d.copy_(p, non_blocking=True)
+        cache[0] = torch.cuda.Event()
+        cache[0].record(torch.cuda.current_stream(self.device))
+        return dev
+
+    def _run_fused_loop(self, max_server_iterations, log_metrics, progs,
+                        theta, clock, active) -> None:
+        step, multi_step = progs
+        # A stretch with no eval clock in it runs CHUNK rounds as one
+        # dispatch (parallel/bsp.make_bsp_multi_step: one CUDA graph
+        # replay on the card); a chunk never crosses an eval clock, and
+        # any shorter stretch runs round by round, so eval_every=1 is
+        # always per round.
+        CHUNK = self.FUSED_CHUNK_ROUNDS
+        n = len(active)
+        evaluate = log_metrics and self.server.test_x is not None
+        x = y = mask = None
+        slab_versions: list[int] | None = None
+        while self.server.iterations < max_server_iterations:
+            # the slab cache is keyed by num_tuples_seen, which grows with
+            # every insert: between arrivals the rounds re-train on the
+            # same device slabs
+            versions = [self.buffers[w].num_tuples_seen for w in active]
+            if versions != slab_versions:
+                x, y, mask = self._upload_fused_slab(active)
+                slab_versions = versions
+            # rounds until the run cap / the next eval clock
+            rounds_left = -((self.server.iterations - max_server_iterations)
+                            // n)
+            r = min(CHUNK, rounds_left)
+            if evaluate:
+                r = min(r, self.cfg.eval_every
+                        - (clock % self.cfg.eval_every))
+            losses = None
+            if r == CHUNK:
+                theta, losses = multi_step(theta, x, y, mask)
+                self.fused_stats["chunks"] += 1
+                self.fused_stats["chunk_rounds"] += r
+            else:
+                r = 1
+                theta, mean_loss = step(theta, x, y, mask)
+            self.fused_stats["rounds"] += r
+            clock += r
+            self.server.iterations += r * n
+            # theta is replaced, never mutated (runtime/server.py)
+            self.server.theta = theta
+            for w in active:
+                self.workers[w].iterations += r
+                self.server.tracker.tracker[w].vector_clock = clock
+                self.server.tracker.tracker[w].weights_message_sent = True
+            if not evaluate:
+                continue
+            is_eval = clock % self.cfg.eval_every == 0
+            now = int(time.time() * 1000)
+            m = None
+            if is_eval:
+                m = self.server.task.evaluate(theta, self.server.test_x,
+                                              self.server.test_y)
+                asynclog.submit_or_write(
+                    self.server.log, f"{now};-1;{clock};{{}};{{}};{{}}",
+                    m.loss, m.f1, m.accuracy)
+            # Worker rows keep the per-node schema and cadence: one row per
+            # worker per CLOCK, clock-major, the reference's -1
+            # placeholders off cadence and the shared test metrics on it
+            # (the weights are replicated under BSP).  A chunk logs each
+            # of its rounds with that round's mean local loss.
+            # numTuplesSeen is chunk-granular: every row of a chunk stamps
+            # the buffer version read after its dispatch (its rounds ran
+            # on one slab).
+            for i in range(r):
+                ci = clock - r + 1 + i
+                round_loss = losses[i] if losses is not None else mean_loss
+                on_eval = is_eval and ci == clock
+                f1 = m.f1 if on_eval else -1.0
+                acc = m.accuracy if on_eval else -1.0
+                for w in active:
+                    asynclog.submit_or_write(
+                        self.workers[w].log,
+                        f"{now};{w};{ci};{{}};{{}};{{}};"
+                        f"{self.buffers[w].num_tuples_seen}",
+                        round_loss, f1, acc)
 
     def stop(self) -> None:
         self._stop.set()
