@@ -41,7 +41,22 @@
    equal to 8 single rounds, for logreg and the MLP at H=4096, the
    kernels of two replays traced by torch.profiler and held to the launch
    counters, and the chunk's time as one graph replay beside 8 eager
-   rounds.
+   rounds.  The codecs of --compress (bf16, int8, topk:0.01) at the
+   three model sizes (6,150, 131,974 and 4,222,982 parameters): parts on
+   the card bitwise the CPU's, decode after pack/unpack bitwise, error
+   feedback over 50 steps keeping the sum of the deltas and continuing
+   bitwise after a restore, ms per ef_step and per weights encode, packed
+   bytes against 4n.  Compressed serial runs on the card against the CPU
+   (logreg under each codec, the MLP under int8; row keys exact, theta
+   within one step of its codec), gang on/off bitwise under int8; a
+   checkpoint resume bitwise the uninterrupted run (f32, int8); through
+   the app API a threaded -c 2 rebalance run in which worker 1 raises at
+   its 20th iteration with that iteration's gradient still in flight
+   (evicted, its late gradient dropped and counted as a zombie, survivors
+   finish, rows rerouted, then readmitted at the slowest clock and
+   contributing), a threaded -c 0 rebalance run with gang dispatch in
+   which one member fails on its leader's thread (evicted alone, the run
+   finishes), and the same crash under halt raising.
 4. Main path, through the real entry point kafka_ps_tpu_torch.cli.run:
    4 workers, buffer max 1024, a synthetic 1024-feature CSV.  logreg with
    the default flags (gang dispatch and async eval): serial -c 0,
@@ -51,16 +66,24 @@
    bf16 serial -c 0, logreg int8 threaded -c 2, the MLP int8 serial -c 0
    and bf16 threaded -c -1; then the fused BSP path (--fused): logreg at
    --eval_every 1 and 10 (400 iterations), the MLP at --hidden_dim 4096
-   --eval_every 10 (40 rounds).  Launch counters are zeroed just before
-   each run and read just after it: the single and gang-member kernel
-   calls must cover every worker iteration (K3/K5 alone on a bf16/int8
+   --eval_every 10 (40 rounds); then logreg --compress int8 serial -c 0,
+   logreg --compress topk:0.01 threaded -c 2 --failure_policy rebalance
+   --heartbeat_timeout 30, the MLP --compress bf16 serial -c 0, the MLP
+   at --hidden_dim 4096 --compress int8 serial -c 0 (40 iterations), and
+   two resume pairs, logreg serial -c 0 --checkpoint --checkpoint_every
+   50 -v for 200 iterations and then to 400, plain and --compress int8
+   (the restore printed, a resume event, the server rows continuing, the
+   residuals in the file).  Launch counters are zeroed just before each
+   run and read just after it: the single and gang-member kernel calls
+   must equal the run's worker iterations (K3/K5 alone on a bf16/int8
    run, the f32 kernels' counters 0), serial -c 0 must have run the gang
    kernel, a fused run exactly one K2 (K6) call per round and no single
    call, metrics must be finite and the final eval lag 0.  Every run must
    have parsed its CSV with the port's native parser (its parse time is
    printed).
 5. Profile: one more default serial -c 0 run per family, one of logreg
-   with int8 slabs and one of logreg --fused --eval_every 10 (200
+   with int8 slabs, one of logreg --compress int8 and one of logreg
+   --fused --eval_every 10 (200
    iterations each), under torch.profiler (CUDA activity only) and
    cProfile: device busy time by kernel against the run's wall window,
    i.e. the device's idle share on the main path, and the host's time by
@@ -84,6 +107,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -116,6 +140,12 @@ FUSED_MLP_ROUNDS = 40
 BIG_B = 16384                      # K1's re-staged case: 64 MiB of x
 WORKERS, MAX_BUFFER, TRAIN_ROWS, TEST_ROWS = 4, 1024, 6000, 2000
 ITERS, SLICE1_ITERS = 400, 200
+# the codecs of --compress at logreg's, the MLP's (H=128) and the wide
+# MLP's (H=4096) parameter counts
+CODEC_NAMES = ("bf16", "int8", "topk:0.01")
+CODEC_SIZES = (6150, 131974, 4222982)
+EF_STEPS, CRASH_AT = 50, 20
+COMPRESSED_WIDE_ITERS, RESUME_ITERS = 40, 200
 SLAB_KINDS = ("bf16", "int8")
 X_BYTES = {"bf16": 2, "int8": 1}
 # the Pallas body each storage form of K3 and K5 replaces
@@ -548,39 +578,51 @@ def wide_mlp_phase(dev) -> dict:
     return {entry["name"]: entry}
 
 
-def reference_check(dev) -> None:
-    """The trainer on the card against the same serial run on the CPU,
-    and the gang and async-eval levers on the card."""
+def small_app(device, c, task="logreg", workers=3, logs=None, **kw):
+    """The reference checks' trainer: 64 features, 5 classes, buffers of
+    8-32 rows prefilled with 150 seeded rows, a fixed arrival clock."""
     from kafka_ps_tpu_torch.data.synth import generate
     from kafka_ps_tpu_torch.runtime.app import StreamingPSApp
     from kafka_ps_tpu_torch.utils.config import (BufferConfig, ModelConfig,
                                                  PSConfig)
+    cfg = PSConfig(num_workers=workers, consistency_model=c, task=task,
+                   model=ModelConfig(num_features=64, num_classes=5,
+                                     hidden_dim=32),
+                   buffer=BufferConfig(min_size=8, max_size=32), **kw)
+    x, y = generate(200, 64, 5, seed=2, center_scale=0.3)
+    logs = logs if logs is not None else ([], [])
+    app = StreamingPSApp(cfg, test_x=x[150:], test_y=y[150:],
+                         server_log=logs[0].append, worker_log=logs[1].append,
+                         clock_ms=iter(range(0, 10 ** 9, 40)).__next__,
+                         device=device)
+    for i in range(150):
+        app.data_sink(i % workers, x[i], int(y[i]))
+    return app
 
-    def run(device, c, task="logreg", **kw):
-        cfg = PSConfig(num_workers=3, consistency_model=c, task=task,
-                       model=ModelConfig(num_features=64, num_classes=5,
-                                         hidden_dim=32),
-                       buffer=BufferConfig(min_size=8, max_size=32), **kw)
-        x, y = generate(200, 64, 5, seed=2, center_scale=0.3)
-        server, worker = [], []
-        app = StreamingPSApp(cfg, test_x=x[150:], test_y=y[150:],
-                             server_log=server.append,
-                             worker_log=worker.append,
-                             clock_ms=iter(range(0, 10 ** 9, 40)).__next__,
-                             device=device)
-        for i in range(150):
-            app.data_sink(i % 3, x[i], int(y[i]))
-        app.run_serial(30)
-        app.close_logs()
-        return app.server.theta, server, worker
 
-    def keys(server, worker):
-        return [r.split(";")[1:3] for r in server] + [
-            r.split(";")[1:3] + r.split(";")[6:] for r in worker]
+def small_run(device, c, task="logreg", iters=30, **kw):
+    """(theta, server rows, worker rows) of a small serial run."""
+    server, worker = [], []
+    app = small_app(device, c, task, logs=(server, worker), **kw)
+    app.run_serial(iters)
+    app.close_logs()
+    return app.server.theta, server, worker
 
-    def strip(rows):
-        return [r.split(";", 1)[1] for r in rows]
 
+def row_keys(server, worker):
+    return [r.split(";")[1:3] for r in server] + [
+        r.split(";")[1:3] + r.split(";")[6:] for r in worker]
+
+
+def strip_stamps(rows):
+    return [r.split(";", 1)[1] for r in rows]
+
+
+def reference_check(dev) -> None:
+    """The trainer on the card against the same serial run on the CPU,
+    and the gang and async-eval levers on the card."""
+    run = small_run
+    keys, strip = row_keys, strip_stamps
     for task, cs in (("logreg", (0, 2, -1)), ("mlp", (0,))):
         for c in cs:
             on_card = {}
@@ -614,6 +656,275 @@ def reference_check(dev) -> None:
                                    "differ on the card")
             print(f"reference check {task} -c {c} on the card: async/fused "
                   f"server rows identical ({len(s_gpu)} rows)")
+
+
+def codec_phase(dev) -> None:
+    """The codecs of --compress on the card at the three model sizes:
+    parts bitwise the CPU's, decode(unpack(pack(parts))) bitwise
+    decode(parts), error feedback over EF_STEPS steps keeping the sum of
+    the true deltas (sent + residual, float64, within 1e-3) and a
+    restored ErrorFeedback continuing bitwise; median ms per ef_step and
+    per WeightsCompressor.encode, and the packed bytes against 4n."""
+    from kafka_ps_tpu_torch import compress
+    from kafka_ps_tpu_torch.compress import wire
+    from kafka_ps_tpu_torch.compress.codecs import Codec
+    for n in CODEC_SIZES:
+        rng = np.random.default_rng(n)
+        v_cpu = torch.from_numpy(
+            (rng.standard_normal(n) * 0.1).astype(np.float32))
+        v = v_cpu.to(dev)
+        for name in CODEC_NAMES:
+            spec = wire.parse_codec(name)
+            codec = compress.get_codec(spec, n)
+            parts = codec.encode(v)
+            host = Codec.host_parts(parts)
+            if not all(a.dtype == b.dtype and np.array_equal(a, b) for a, b
+                       in zip(host, Codec.host_parts(codec.encode(v_cpu)))):
+                raise RuntimeError(f"codec {name} n={n}: parts on the card "
+                                   "differ from the CPU's")
+            flags, aux, blob = wire.pack_parts(spec.codec_id, host, n)
+            back = wire.unpack_parts(spec.codec_id, flags, aux, blob, n)
+            if not torch.equal(codec.decode(*parts),
+                               codec.decode(*back, device=dev)):
+                raise RuntimeError(f"codec {name} n={n}: decode after "
+                                   "pack/unpack differs")
+            gen = torch.Generator(device=dev).manual_seed(7)
+            ef = compress.ErrorFeedback(codec, dev)
+            true = torch.zeros(n, dtype=torch.float64, device=dev)
+            sent = torch.zeros(n, dtype=torch.float64, device=dev)
+            restored, continued = None, True
+            for i in range(EF_STEPS):
+                delta = torch.randn(n, generator=gen, device=dev) * 0.1
+                decoded, _ = ef.step(delta)
+                if restored is not None:
+                    again, _ = restored.step(delta)
+                    continued = continued and torch.equal(
+                        again, decoded) and torch.equal(restored.residual,
+                                                        ef.residual)
+                true += delta.double()
+                sent += decoded.double()
+                if i == EF_STEPS // 2:
+                    restored = compress.ErrorFeedback(codec, dev)
+                    restored.restore(ef.state())
+            drift = float((sent + ef.residual.double() - true).abs().max())
+            delta = torch.randn(n, generator=gen, device=dev) * 0.1
+            ef_ms = time_ms(lambda: ef.step(delta), reps=50)
+            wc = compress.WeightsCompressor(codec)
+
+            def encode():
+                wc._cache = None         # a new theta each call
+                return wc.encode(v)
+            enc_ms = time_ms(encode, reps=50)
+            print(f"codec {name} n={n}: parts card == CPU, decode after "
+                  f"pack/unpack bitwise; error feedback over {EF_STEPS} "
+                  f"steps: |sent + residual - sum of deltas| max "
+                  f"{drift:.3e} (at most 1e-3), restored at step "
+                  f"{EF_STEPS // 2 + 1} continues bitwise: {continued}; "
+                  f"ef_step {ef_ms:.4f} ms, WeightsCompressor.encode "
+                  f"{enc_ms:.4f} ms (CUDA events, median of 50); packed "
+                  f"{len(blob)} bytes of {4 * n} ({4 * n / len(blob):.2f}x)")
+            if drift >= 1e-3 or not continued:
+                raise RuntimeError(f"codec {name} n={n}: error feedback "
+                                   "lost the signal or did not continue "
+                                   "after a restore")
+
+
+def codec_step(codec: str, theta: torch.Tensor) -> float:
+    """The most one flipped code changes a decoded element of theta: a
+    bf16 rounding step of the largest element, an int8 quantization step
+    of the coarsest chunk, for top-k the k-th largest magnitude (an
+    element kept or dropped at the boundary)."""
+    mags = theta.abs()
+    if codec == "bf16":
+        return float(mags.max()) * 2.0 ** -8
+    if codec == "int8":
+        return float(mags.max()) / 127.0
+    k = max(1, round(float(codec.split(":")[1]) * theta.numel()))
+    return float(mags.topk(k).values[-1])
+
+
+def compress_reference_check(dev) -> None:
+    """--compress on the card: logreg -c 0 under each codec and the MLP
+    -c 0 under int8 against the CPU (row keys exact; theta within one
+    step of its codec at theta's scale, the most one flipped code moves a
+    decoded element: a last-bit difference of the kernel can flip a code,
+    tests/test_torch_compress_runs.py), and gang on/off bitwise under
+    int8."""
+    for task, codec in (("logreg", "bf16"), ("logreg", "int8"),
+                        ("logreg", "topk:0.01"), ("mlp", "int8")):
+        t_gpu, s_gpu, w_gpu = small_run(dev, 0, task, compress=codec)
+        t_cpu, s_cpu, w_cpu = small_run("cpu", 0, task, compress=codec)
+        if row_keys(s_gpu, w_gpu) != row_keys(s_cpu, w_cpu):
+            raise RuntimeError(f"{task} --compress {codec}: row keys differ "
+                               "card vs CPU")
+        step = codec_step(codec, t_cpu)
+        err = float((t_gpu.cpu() - t_cpu).abs().max())
+        print(f"reference check {task} -c 0 --compress {codec}: card vs CPU "
+              f"rows equal, theta max_abs={err:.3e} (at most {step:.3e})")
+        if err > step:
+            raise RuntimeError(f"{task} --compress {codec}: theta off by "
+                               f"{err:.3e}")
+    for c in (0, 2):
+        t_on, _, w_on = small_run(dev, c, compress="int8")
+        t_off, _, w_off = small_run(dev, c, compress="int8", use_gang=False)
+        if not (torch.equal(t_on, t_off)
+                and strip_stamps(w_on) == strip_stamps(w_off)):
+            raise RuntimeError(f"--compress int8 -c {c}: gang on/off differ "
+                               "on the card")
+        print(f"reference check logreg -c {c} --compress int8 on the card: "
+              "gang on/off theta and worker rows bitwise equal")
+
+
+def resume_check(dev) -> None:
+    """On static data, on the card: 100 iterations, a checkpoint, a fresh
+    app restored from it and 100 more equal a 200-iteration run bitwise
+    (theta, the residuals, the second half's rows), f32 and int8."""
+    import tempfile
+
+    from kafka_ps_tpu_torch.utils import checkpoint as ckpt
+    for codec in ("none", "int8"):
+        whole_logs = ([], [])
+        whole = small_app(dev, 0, workers=4, logs=whole_logs, compress=codec)
+        whole.run_serial(100)
+        whole.flush_logs()
+        cut = [len(rows) for rows in whole_logs]
+        whole.run_serial(200)
+        whole.close_logs()
+        first = small_app(dev, 0, workers=4, compress=codec)
+        first.run_serial(100)
+        first.close_logs()
+        with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+            path = os.path.join(tmp, "ck.npz")
+            ckpt.save(path, first.server, buffers=first.buffers,
+                      residuals=first.compressors or None)
+            resumed_logs = ([], [])
+            resumed = small_app(dev, 0, workers=4, logs=resumed_logs,
+                                compress=codec)
+            if not resumed.restore_checkpoint(path):
+                raise RuntimeError("checkpoint not found")
+        resumed.run_serial(200)
+        resumed.close_logs()
+        same = (torch.equal(resumed.server.theta, whole.server.theta)
+                and all(strip_stamps(r) == strip_stamps(w[k:]) for r, w, k
+                        in zip(resumed_logs, whole_logs, cut))
+                and all(torch.equal(a.residual, b.residual) for a, b in zip(
+                    resumed.compressors.values(),
+                    whole.compressors.values())))
+        print(f"resume check --compress {codec} on the card: 100 + 100 "
+              f"iterations through a checkpoint bitwise equal to 200: {same}"
+              f" (theta, residuals, {len(resumed_logs[0])} server and "
+              f"{len(resumed_logs[1])} worker rows)")
+        if not same:
+            raise RuntimeError(f"--compress {codec}: the resumed run differs "
+                               "from the uninterrupted one")
+
+
+def membership_check(dev) -> None:
+    """Through the app API on the card: threaded -c 2 under rebalance, one
+    worker raising at its 20th iteration while that iteration's gradient
+    is still in flight (it is sent only once the worker is evicted, as a
+    delayed network send would arrive): the worker is evicted, its late
+    gradient is dropped and counted as a zombie, the survivors finish,
+    its rows reroute; readmitted, it rejoins at the slowest active clock
+    and contributes.  With gang dispatch, a member failing on its leader's
+    thread is evicted alone.  The same crash under halt raises."""
+    from kafka_ps_tpu_torch.data.synth import generate
+
+    def crash_at_20(app, wid, late_send=False):
+        worker = app.workers[wid]
+        calls = [0]
+        orig = worker.on_weights
+        late = []
+
+        def send_after_eviction(msg):
+            deadline = time.monotonic() + 30.0
+            while (app.server.tracker.tracker[wid].active
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+            orig(msg)
+
+        def on_weights(msg):
+            calls[0] += 1
+            if calls[0] == CRASH_AT:
+                if late_send:
+                    late.append(threading.Thread(
+                        target=send_after_eviction, args=(msg,),
+                        daemon=True))
+                    late[0].start()
+                raise RuntimeError("injected worker fault")
+            return orig(msg)
+        worker.on_weights = on_weights
+        return late
+
+    app = small_app(dev, 2)
+    late = crash_at_20(app, 1, late_send=True)
+    app.run_threaded(150, poll_timeout=0.02, failure_policy="rebalance",
+                     heartbeat_timeout=30.0)
+    late[0].join(60.0)
+    s = app.server
+    x, y = generate(30, 64, 5, seed=3, center_scale=0.3)
+    for i in range(30):
+        app.data_sink(1, x[i], int(y[i]))
+    evicted = [w for w, _ in app.worker_failures]
+    print(f"membership check on the card: evicted {evicted}, active "
+          f"{s.tracker.active_workers}, {s.iterations} server iterations, "
+          f"zombie gradients dropped {s.zombie_gradients_dropped}, rows "
+          f"rerouted {app.rerouted_rows}, worker iterations "
+          f"{[w.iterations for w in app.workers]}")
+    if (evicted != [1] or s.iterations < 150 or app.rerouted_rows != 30
+            or app.workers[1].iterations != CRASH_AT
+            or late[0].is_alive()):
+        raise RuntimeError("rebalance: the crashed worker was not evicted "
+                           "alone, or the survivors did not finish")
+    if s.zombie_gradients_dropped != 1:
+        raise RuntimeError("rebalance: the evicted worker's late gradient "
+                           "was not dropped as a zombie")
+    del app.workers[1].on_weights
+    slowest = min(s.tracker.clocks[w] for w in s.tracker.active_workers)
+    before = app.workers[1].iterations
+    clock = app.readmit_worker(1)
+    app.run_threaded(220, poll_timeout=0.02, failure_policy="rebalance",
+                     heartbeat_timeout=30.0)
+    gained = app.workers[1].iterations - before
+    print(f"membership check on the card: readmitted at clock {clock} "
+          f"(slowest active {slowest}), then {gained} iterations; events "
+          f"{[e[1:] for e in s.membership_events]}")
+    if clock != slowest or gained < 1:
+        raise RuntimeError("readmission: wrong join clock or no "
+                           "contribution")
+    # gang dispatch on: a member failing on its leader's thread is
+    # evicted alone, and the leader's thread runs on
+    from kafka_ps_tpu_torch.runtime.gang import GangMemberError
+    ganged = small_app(dev, 0, workers=4)
+    bad = ganged.workers[2]
+    orig_prepare = bad._prepare
+
+    def prepare(msg):
+        if threading.current_thread().name != "worker-2":
+            raise RuntimeError("injected gang member fault")
+        return orig_prepare(msg)
+    bad._prepare = prepare
+    ganged.run_threaded(120, poll_timeout=0.02, failure_policy="rebalance")
+    reasons = [(w, type(r).__name__) for w, r in ganged.worker_failures]
+    print(f"membership check on the card: a gang member failing on its "
+          f"leader's thread: evictions {reasons}, active "
+          f"{ganged.server.tracker.active_workers}, "
+          f"{ganged.server.iterations} server iterations, gang dispatches "
+          f"{ganged.gang.dispatches}")
+    if ([w for w, _ in reasons] != [2] or ganged.server.iterations < 120
+            or not isinstance(ganged.worker_failures[0][1],
+                              GangMemberError)):
+        raise RuntimeError("rebalance with gangs: the failed member was "
+                           "not evicted alone through the gang path")
+    halted = small_app(dev, 2)
+    crash_at_20(halted, 1)
+    try:
+        halted.run_threaded(90, poll_timeout=0.02)
+    except RuntimeError as e:
+        print(f"membership check on the card: the same crash under halt "
+              f"raises: {e!r} from {e.__cause__!r}")
+    else:
+        raise RuntimeError("halt: the crash did not stop the run")
 
 
 def fused_reference_check(dev) -> None:
@@ -740,8 +1051,11 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
     from kafka_ps_tpu_torch.cli import run as cli_run
     from kafka_ps_tpu_torch.ops import fused_update
 
+    checkpoint = (flags[flags.index("--checkpoint") + 1]
+                  if "--checkpoint" in flags else None)
     tag = "-".join([task, mode, f"c{c}", *(f.lstrip("-") for f in flags)]
-                   + ([f"H{hidden}"] if hidden != H else []))
+                   + ([f"H{hidden}"] if hidden != H else [])
+                   + ([str(iters)] if checkpoint else []))
     kind = flags[flags.index("--slab-dtype") + 1] \
         if "--slab-dtype" in flags else "f32"
     fused = "--fused" in flags
@@ -749,11 +1063,16 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
         if "--eval_every" in flags else 1
     here = os.getcwd()
     os.chdir(OUT)
-    err = io.StringIO()
+    err, out = io.StringIO(), io.StringIO()
     try:
+        # a resumed run appends to the logs of the run it continues
+        resuming = checkpoint is not None and os.path.exists(checkpoint)
+        before = ([len(open(f).read().splitlines()) - 1 for f in
+                   ("logs-server.csv", "logs-worker.csv")] if resuming
+                  else [0, 0])
         fused_update.reset_counts()
         t0 = time.perf_counter()
-        with contextlib.redirect_stderr(err):
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
             rc = cli_run.main([
                 "-training", "train.csv", "-test", "test.csv",
                 "--num_workers", str(WORKERS), "--num_features", str(F),
@@ -771,11 +1090,18 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
                   open("logs-server.csv").read().splitlines()[1:]]
         worker = [r.split(";") for r in
                   open("logs-worker.csv").read().splitlines()[1:]]
+        events = open("logs-events.csv").read().splitlines()[1:]
+        residuals = []
+        if checkpoint:
+            with np.load(checkpoint) as z:
+                residuals = sorted(k for k in z.files if k.startswith("ef"))
         shutil.copy("logs-server.csv", f"server-{tag}.csv")
         shutil.copy("logs-worker.csv", f"worker-{tag}.csv")
     finally:
         os.chdir(here)
     sys.stderr.write(err.getvalue())
+    restored = [ln.strip() for ln in out.getvalue().splitlines()
+                if "restored checkpoint" in ln]
     stats = [json.loads(line.split(": ", 1)[1])
              for line in err.getvalue().splitlines()
              if line.startswith("kafka_ps_tpu_torch run: ")][-1]
@@ -788,22 +1114,29 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
     single, gang_calls, members = (n[k] for k in mine)
     others = {k: v for k, v in n.items() if k not in mine and v}
     values = np.array([[float(v) for v in r[3:6]] for r in server + worker])
-    stamps = [int(r[0]) for r in worker]
+    # this run's rows and server iterations (a resumed run continues the
+    # logs and the iteration count of the run it restores)
+    new_worker = worker[before[1]:]
+    start = int(restored[0].rsplit(" ", 1)[1]) if restored else 0
+    iters_run = stats["server_iterations"] - start
+    stamps = [int(r[0]) for r in new_worker]
+    comp = stats.get("compress")
     # server iterations over the window up to the synchronised flush
     window_s = (end_ms - min(stamps)) / 1e3
-    rate = iters / window_s
+    rate = iters_run / window_s
     # per-layer: worker rows over their host submit stamps (ms), which
     # precede their device work
     span_s = (max(stamps) - min(stamps)) / 1e3
-    submit_rate = (len(worker) - 1) / span_s if span_s > 0 else float("nan")
+    submit_rate = (len(new_worker) - 1) / span_s if span_s > 0 \
+        else float("nan")
     f1 = float(server[-1][4])
     g = stats.get("gang", {"dispatches": 0, "members": 0})
     ev = stats.get("eval")
     per = g["members"] / g["dispatches"] if g["dispatches"] else 0.0
     print(f"main path {tag}: rc={rc} server_rows={len(server)} "
-          f"worker_rows={len(worker)} single_calls={single} "
+          f"worker_rows={len(new_worker)} single_calls={single} "
           f"gang_calls={gang_calls} gang_members={members} "
-          f"iters_per_s={rate:.1f} ({iters} server iterations over "
+          f"iters_per_s={rate:.1f} ({iters_run} server iterations over "
           f"{window_s:.3f} s, first worker row to flushed logs) "
           f"worker_rows_per_s_host_submit={submit_rate:.1f} "
           f"final_f1={f1:.4f} wall_s={wall:.1f}")
@@ -825,12 +1158,49 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
     if prod["parser"] != "native":
         raise RuntimeError(f"{tag}: the CSV was parsed by the "
                            f"{prod['parser']} parser, not the native one")
-    if rc != 0 or len(worker) < iters or not server:
+    mem = stats["membership"]
+    print(f"  membership: active {mem['active']}, evictions "
+          f"{mem['evictions']}, zombie gradients dropped "
+          f"{mem['zombie_gradients_dropped']}, duplicates dropped "
+          f"{mem['duplicate_gradients_dropped']}, rows rerouted "
+          f"{mem['rerouted_rows']}")
+    redelivered = 0
+    if comp is not None:
+        redelivered = comp["redelivered_weights"]
+        print(f"  compress {comp['codec']}: bytes per message (weights "
+              f"and gradients, packed before zlib) {comp['message_bytes']} "
+              f"of {comp['raw_bytes']} as float32 "
+              f"({comp['raw_bytes'] / comp['message_bytes']:.2f}x); "
+              f"redelivered weights clocks answered from cache "
+              f"{redelivered}; iters_per_s={rate:.1f}")
+    if checkpoint:
+        start_line = restored[0] if restored else "a fresh start"
+        ck = stats["checkpoint"]
+        print(f"  checkpoint {checkpoint}: {start_line}; restore "
+              f"{ck['restore_s']:.4f} s; {ck['saves']} saves, "
+              f"{ck['save_s']:.4f} s in all (host clock); logs-events.csv "
+              f"{events}; residuals in the file {residuals}")
+        want = [f"ef{w}_residual" for w in range(WORKERS)] \
+            if "--compress" in flags and flags[flags.index(
+                "--compress") + 1] != "none" else []
+        if resuming and (not restored or not any(
+                e.split(";")[1] == "resume" for e in events)):
+            raise RuntimeError(f"{tag}: no restore, or no resume event")
+        if residuals != want:
+            raise RuntimeError(f"{tag}: residuals {residuals}, want {want}")
+        clocks = [int(r[2]) for r in server]
+        if clocks != sorted(set(clocks)):
+            raise RuntimeError(f"{tag}: the server rows do not continue")
+    if rc != 0 or len(new_worker) < iters_run or not server:
         raise RuntimeError(f"{tag}: short run")
-    if single + members < len(worker):
-        raise RuntimeError(f"{tag}: {len(worker)} worker iterations but "
+    # every worker iteration logs one worker row and runs one kernel
+    # call, single or as a gang member; a compressed worker answers a
+    # redelivered weights clock from its cache, with no row and no call
+    # (counted in `redelivered`; a resumed app starts with empty caches)
+    if single + members != len(new_worker):
+        raise RuntimeError(f"{tag}: {len(new_worker)} worker iterations but "
                            f"{single} single and {members} gang-member "
-                           "kernel calls")
+                           f"kernel calls ({redelivered} redelivered)")
     if others:
         raise RuntimeError(f"{tag}: kernels of another slab form or family "
                            f"ran: {others}")
@@ -858,9 +1228,9 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
               f"{fs['graph_captures']}; rounds_per_s="
               f"{rounds / window_s:.2f} server_iters_per_s={rate:.1f}")
         want = [eval_every * i for i in range(1, rounds // eval_every + 1)]
-        if fs["rounds"] != rounds or len(worker) != iters:
+        if fs["rounds"] != rounds or len(new_worker) != iters:
             raise RuntimeError(f"{tag}: {fs['rounds']} rounds and "
-                               f"{len(worker)} worker rows for {iters} "
+                               f"{len(new_worker)} worker rows for {iters} "
                                "iterations")
         if single or gang_calls != rounds or members != iters:
             raise RuntimeError(f"{tag}: {single} single and {gang_calls} "
@@ -1004,6 +1374,10 @@ def main() -> int:
     kernels.update(wide_mlp_phase(dev))
     reference_check(dev)
     fused_reference_check(dev)
+    codec_phase(dev)
+    compress_reference_check(dev)
+    resume_check(dev)
+    membership_check(dev)
     write_data()
     logreg_default = [("serial", 0), ("threaded", 2), ("threaded", -1)]
     try:
@@ -1027,9 +1401,31 @@ def main() -> int:
                                   FUSED_MLP_ROUNDS * WORKERS,
                                   ("--fused", "--eval_every", "10"),
                                   hidden=WIDE_H))
+        runs += [main_path_run(task, m, c, ITERS, ("--compress", codec,
+                                                   *extra))
+                 for task, codec, m, c, extra in (
+                     ("logreg", "int8", "serial", 0, ()),
+                     ("logreg", "topk:0.01", "threaded", 2,
+                      ("--failure_policy", "rebalance",
+                       "--heartbeat_timeout", "30")),
+                     ("mlp", "bf16", "serial", 0, ()))]
+        runs.append(main_path_run("mlp", "serial", 0, COMPRESSED_WIDE_ITERS,
+                                  ("--compress", "int8"), hidden=WIDE_H))
+        # a checkpointed run of 200 iterations, then the same command to
+        # 400: it restores at 200 and continues the logs
+        for codec in ("none", "int8"):
+            ck = f"ck-{codec}.npz"
+            for stale in (ck, ck + ".tmp.npz"):
+                if os.path.exists(os.path.join(OUT, stale)):
+                    os.remove(os.path.join(OUT, stale))
+            flags = ("--checkpoint", ck, "--checkpoint_every", "50", "-v",
+                     "--compress", codec)
+            runs += [main_path_run("logreg", "serial", 0, it, flags)
+                     for it in (RESUME_ITERS, 2 * RESUME_ITERS)]
         profile_run("logreg")
         profile_run("mlp")
         profile_run("logreg", flags=("--slab-dtype", "int8"))
+        profile_run("logreg", flags=("--compress", "int8"))
         profile_run("logreg", flags=("--fused", "--eval_every", "10"))
     finally:
         for name in ("train.csv", "test.csv"):   # ~70 MB, made anew each run

@@ -10,15 +10,20 @@ and defaults: gang dispatch and the async eval engine are on
 one-hidden-layer MLP (`--hidden_dim`), `--slab-dtype bf16|int8` keeps the
 workers' device slabs reduced (`--full-slab-upload` re-uploads them whole
 on every change), `--fused` runs the sequential model as fused BSP rounds
-(runtime/app.run_fused_bsp).  Runs on the CUDA card;
-KPS_PLATFORM=cpu runs it on the CPU.  At exit it prints one line of run
-statistics on stderr: `kafka_ps_tpu_torch run: {json}`.
+(runtime/app.run_fused_bsp), `--compress` compresses weights and deltas
+(compress/), `--checkpoint` saves every `--checkpoint_every` server
+iterations and at exit and resumes from the file when it exists, and
+`--failure_policy rebalance` evicts a crashed or hung worker (threaded
+mode).  Runs on the CUDA card; KPS_PLATFORM=cpu runs it on the CPU.  At
+exit it prints one line of run statistics on stderr:
+`kafka_ps_tpu_torch run: {json}`.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -42,9 +47,26 @@ def build_parser() -> argparse.ArgumentParser:
                    default=0.3)
     p.add_argument("-l", "--logging", action="store_true",
                    help="write performance logs to ./logs-server.csv / "
-                        "./logs-worker.csv instead of stdout")
+                        "./logs-worker.csv (and membership events to "
+                        "./logs-events.csv) instead of stdout")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="print the parameters used and the checkpoint "
+                        "restore")
     p.add_argument("--mode", choices=["threaded", "serial"],
                    default="threaded")
+    p.add_argument("--failure_policy", choices=["halt", "rebalance"],
+                   default="halt",
+                   help="threaded mode: evict crashed/hung workers and "
+                        "continue on the survivors (rebalance), or stop "
+                        "the run (halt)")
+    p.add_argument("--heartbeat_timeout", type=float, default=None,
+                   help="threaded+rebalance: seconds without worker "
+                        "progress (with work pending) before eviction")
+    p.add_argument("--checkpoint", default=None,
+                   help="path to save/restore the server's state, the "
+                        "workers' buffers and error-feedback residuals")
+    p.add_argument("--checkpoint_every", type=int, default=50,
+                   help="server iterations between checkpoint saves")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--num_features", type=int, default=1024)
     p.add_argument("--num_classes", type=int, default=5)
@@ -85,6 +107,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "training slab: bf16 halves and int8 (per-row "
                         "max-abs scales) about quarters the bytes the "
                         "solver reads; the kernel decodes it (K3, K5)")
+    p.add_argument("--compress", default="none", metavar="CODEC",
+                   help="compressed delta transport (compress/): none | "
+                        "bf16 | int8 | topk:<ratio>.  Applied "
+                        "symmetrically: server->worker weights are "
+                        "quantize-dequantized, worker->server deltas go "
+                        "through per-worker error-feedback residuals.  "
+                        "Incompatible with --fused")
     p.add_argument("--full-slab-upload", action="store_true",
                    dest="full_slab_upload",
                    help="re-upload the whole slab whenever the buffer "
@@ -104,7 +133,7 @@ def load_test_csv(path: str, num_features: int):
     return x, y
 
 
-def make_app_from_args(args, device=None):
+def make_app_from_args(args, device=None, resuming: bool = False):
     from kafka_ps_tpu_torch.runtime.app import StreamingPSApp
     from kafka_ps_tpu_torch.utils.config import (BufferConfig, ModelConfig,
                                                  PSConfig, StreamConfig)
@@ -127,13 +156,15 @@ def make_app_from_args(args, device=None):
         eval_async=args.eval_async,
         use_gang=not args.no_gang,
         slab_dtype=args.slab_dtype,
-        slab_incremental=not args.full_slab_upload)
+        slab_incremental=not args.full_slab_upload,
+        compress=args.compress)
     test_x, test_y = load_test_csv(args.test_data_file_path,
                                    args.num_features)
+    # a resumed run continues its logs
     server_log = CsvLogSink("./logs-server.csv" if args.logging else None,
-                            SERVER_HEADER)
+                            SERVER_HEADER, append=resuming)
     worker_log = CsvLogSink("./logs-worker.csv" if args.logging else None,
-                            WORKER_HEADER)
+                            WORKER_HEADER, append=resuming)
     app = StreamingPSApp(cfg, test_x=test_x, test_y=test_y,
                          server_log=server_log, worker_log=worker_log,
                          device=device)
@@ -156,9 +187,43 @@ def main(argv=None) -> int:
             "--slab-dtype applies to the per-node worker slab "
             "(compress/slab.py); the --fused BSP path keeps its own "
             "slab cache — drop one of the two flags")
+    if args.compress != "none":
+        from kafka_ps_tpu_torch.compress.wire import parse_codec
+        try:
+            parse_codec(args.compress)
+        except ValueError as e:
+            raise SystemExit(f"--compress: {e}") from None
+        if args.fused:
+            # the fused BSP rounds send no messages: there is no wire to
+            # compress, and ignoring the flag would misreport what ran
+            raise SystemExit(
+                "--compress applies to the message transport; the --fused "
+                "rounds never cross a serde boundary — drop one of the "
+                "two flags")
+    if args.verbose:
+        print("\nUsed parameter:")
+        for k, v in sorted(vars(args).items()):
+            print(f"    {k}: {v}")
     from kafka_ps_tpu_torch.utils.config import resolve_device
+    from kafka_ps_tpu_torch.utils.csvlog import (EVENTS_HEADER, CsvLogSink,
+                                                 NullLogSink)
     device = resolve_device()       # CUDA, or KPS_PLATFORM's choice
-    app, logs = make_app_from_args(args, device)
+    resuming = bool(args.checkpoint and os.path.exists(args.checkpoint))
+    app, logs = make_app_from_args(args, device, resuming=resuming)
+    # membership and resume events are written as they happen
+    events_log = (CsvLogSink("./logs-events.csv", EVENTS_HEADER,
+                             append=resuming)
+                  if args.logging else NullLogSink())
+    app.server.membership_log = events_log
+    logs = [*logs, events_log]
+    if args.checkpoint:
+        restored = app.restore_checkpoint(args.checkpoint)
+        if restored and args.verbose:
+            print(f"    restored checkpoint at iteration "
+                  f"{app.server.iterations}")
+        app.server.checkpoint_path = args.checkpoint
+        app.server.checkpoint_every = args.checkpoint_every
+        app.server.checkpoint_buffers = app.buffers
     producer = app.make_producer(args.training_data_file_path)
     try:
         producer.run_in_background()
@@ -171,13 +236,17 @@ def main(argv=None) -> int:
             app.run_serial(max_server_iterations=max_iters,
                            pump=lambda: None)
         else:
-            app.run_threaded(max_server_iterations=max_iters)
+            app.run_threaded(max_server_iterations=max_iters,
+                             failure_policy=args.failure_policy,
+                             heartbeat_timeout=args.heartbeat_timeout)
     except KeyboardInterrupt:
         print("interrupted — shutting down", file=sys.stderr)
         app.stop()
     finally:
         # join every thread before the interpreter finalizes
         producer.stop()
+        if args.checkpoint:
+            app.server.save_checkpoint_now()
         app.close_logs()
         for log in logs:
             log.close()
@@ -187,15 +256,24 @@ def main(argv=None) -> int:
 
 
 def run_stats(app, producer) -> dict:
-    """Host counters of a finished run: server iterations, gang
+    """Host counters of a finished run: server iterations, membership
+    (active workers, dropped gradients, rerouted rows, evictions), gang
     dispatches and their members, the eval engine's dispatches, widths
     and final lag, the workers' device slabs (storage form, bytes on
     the device, host bytes uploaded), the fused rounds (all, in chunks,
     chunk dispatches, CUDA graphs captured) and the producer's parser,
     rows and the seconds of its native one-pass parse."""
     stores = [w._slab_store for w in app.workers]
-    out = {"server_iterations": app.server.iterations,
-           "server_batched_applies": app.server.batched_applies,
+    server = app.server
+    out = {"server_iterations": server.iterations,
+           "server_batched_applies": server.batched_applies,
+           "membership": {
+               "active": server.tracker.active_workers,
+               "zombie_gradients_dropped": server.zombie_gradients_dropped,
+               "duplicate_gradients_dropped":
+                   server.duplicate_gradients_dropped,
+               "rerouted_rows": app.rerouted_rows,
+               "evictions": [w for w, _ in app.worker_failures]},
            "slab": {"dtype": app.cfg.slab_dtype,
                     "device_bytes": sum(s.device_bytes() for s in stores),
                     "bytes_uploaded": sum(s.bytes_uploaded
@@ -211,7 +289,24 @@ def run_stats(app, producer) -> dict:
                        "members": app.gang.members}
     if app.eval_engine is not None:
         out["eval"] = app.eval_engine.stats()
+    if server.compressor is not None:
+        out["compress"] = compress_stats(app)
+    if server.checkpoint_path:
+        out["checkpoint"] = {"restored_at": app.restored_at,
+                             "restore_s": app.restore_s,
+                             "saves": server.checkpoint_saves,
+                             "save_s": server.checkpoint_save_s}
     return out
+
+
+def compress_stats(app) -> dict:
+    """The codec, the bytes of every message's packed payload before the
+    zlib stage beside the 4n bytes of plain float32, and the redelivered
+    weights clocks the workers answered from cache."""
+    codec = app.server.compressor.codec
+    return {"codec": codec.spec.spec_str(), "raw_bytes": 4 * codec.n,
+            "message_bytes": codec.message_bytes,
+            "redelivered_weights": sum(w.redelivered for w in app.workers)}
 
 
 if __name__ == "__main__":

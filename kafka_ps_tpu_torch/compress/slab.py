@@ -41,8 +41,14 @@ MIN_BUCKET = 4
 def quantize_rows(r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Max-abs int8 quantization over the last axis of a 2-D block:
     [n, c] f32 → (q [n, c] int8, scale [n] f32), bit for bit the JAX
-    package's (torch.round rounds half to even, as jnp.round does)."""
-    scale = r.abs().amax(dim=-1) / 127.0
+    package's (torch.round rounds half to even, as jnp.round does).
+
+    The divisor 127 is a tensor, not a Python number: PyTorch's CUDA
+    division by a CPU scalar multiplies by its reciprocal, which puts a
+    scale 1 ulp off the division on some rows; a tensor divisor divides,
+    on the card as on the CPU."""
+    amax = r.abs().amax(dim=-1)
+    scale = amax / torch.full_like(amax, 127.0)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(r / safe[..., None]), -127, 127)
     return q.to(torch.int8), scale

@@ -81,6 +81,14 @@ class SlidingBuffer:
         with self._lock:
             self._add_locked(features, label)
 
+    def add_many(self, rows) -> None:
+        """Insert (features, label) samples under ONE lock acquisition,
+        policy-identical to one add() per row: arrival recording and the
+        dynamic-target eviction run per row."""
+        with self._lock:
+            for features, label in rows:
+                self._add_locked(features, label)
+
     def _add_locked(self, features, label: int) -> None:
         self._record_arrival()
         target = self.target_size()
@@ -128,7 +136,8 @@ class SlidingBuffer:
 
     @property
     def version(self) -> int:
-        """Monotonic mutation counter (bumps on every add)."""
+        """Monotonic mutation counter (bumps on every add and restore):
+        unlike num_tuples_seen it never aliases across restore_state."""
         with self._lock:
             return self._version
 
@@ -157,3 +166,36 @@ class SlidingBuffer:
             if clear_dirty:
                 self._dirty.clear()
             return self.x.copy(), self.y.copy(), mask
+
+    # -- durability (utils/checkpoint.py) -----------------------------------
+
+    def state(self) -> dict[str, np.ndarray]:
+        """Serializable durable state: slab contents, insertion IDs and
+        the inter-arrival window behind the rate-adaptive target size
+        (the JAX package's keys and dtypes: a checkpoint of either
+        package restores into the other)."""
+        with self._lock:
+            return {"x": self.x.copy(), "y": self.y.copy(),
+                    "ids": self.insertion_id.copy(),
+                    "arrivals": np.asarray(self._inter_arrival_ms,
+                                           dtype=np.float64)}
+
+    def restore_state(self, st) -> None:
+        """Inverse of state().  The arrival CLOCK does not survive a
+        restart (monotonic time is process-local): the gap between the
+        crash and the first post-restore arrival is not counted.  Every
+        slot is marked dirty and the version bumps, so a worker's
+        incremental device slab uploads the restored rows."""
+        if st["x"].shape != self.x.shape:
+            raise ValueError(
+                f"buffer state shape {st['x'].shape} != slab "
+                f"{self.x.shape} (capacity/features changed?)")
+        with self._lock:
+            self.x[:] = st["x"]
+            self.y[:] = st["y"]
+            self.insertion_id[:] = st["ids"]
+            self._inter_arrival_ms.clear()
+            self._inter_arrival_ms.extend(float(v) for v in st["arrivals"])
+            self._last_arrival_ms = None
+            self._dirty.update(range(self.x.shape[0]))
+            self._version += 1

@@ -1,6 +1,7 @@
 """Vector-clock bookkeeping (counterpart of
-kafka_ps_tpu/parallel/tracker.py, its gate part): the reference's
-MessageTracker/MessageStatus (processors/MessageTracker.java:10-88).
+kafka_ps_tpu/parallel/tracker.py): the reference's
+MessageTracker/MessageStatus (processors/MessageTracker.java:10-88), with
+the membership hooks (evict, readmit) and the duplicate filter.
 
 This is the consistency-model gate of the whole system: per worker it
 tracks (vector clock, was-the-weights-reply-sent) and answers the three
@@ -52,6 +53,14 @@ class MessageTracker:
     def received_message(self, worker: int, vector_clock: int) -> None:
         self.tracker[worker].received_message(vector_clock)
 
+    def is_duplicate(self, worker: int, vector_clock: int) -> bool:
+        """True iff a gradient stamped (worker, vector_clock) was already
+        counted: a worker's clock only advances when its gradient for the
+        current clock is applied, so any message below it is a
+        redelivery.  Clocks AHEAD of the tracker still raise in
+        received_message (the protocol sanitizer)."""
+        return vector_clock < self.tracker[worker].vector_clock
+
     def sent_message(self, worker: int, vector_clock: int) -> None:
         self.tracker[worker].sent_message(vector_clock)
 
@@ -74,6 +83,34 @@ class MessageTracker:
         return min(s.vector_clock for s in self.tracker
                    if s.active) >= vector_clock + 1
 
+    # -- membership (failure detection / elastic recovery) -------------------
+
     @property
     def active_workers(self) -> list[int]:
         return [w for w, s in enumerate(self.tracker) if s.active]
+
+    def deactivate_worker(self, worker: int) -> None:
+        """Remove a failed worker from every gate: the sequential and
+        bounded-delay models stop waiting for its gradients.  At least
+        one worker must survive; the check runs BEFORE the mutation, so
+        a concurrent reader (the producer's reroute in data_sink) never
+        sees an empty active set."""
+        if not any(s.active for w, s in enumerate(self.tracker)
+                   if w != worker):
+            raise ValueError("cannot deactivate the last active worker")
+        self.tracker[worker].active = False
+
+    def reactivate_worker(self, worker: int) -> int:
+        """Readmit a worker at the slowest active clock (so no gate can
+        regress) with its reply pending.  Returns the join clock: the
+        caller sends it a fresh WeightsMessage at that clock."""
+        join_clock = min(s.vector_clock for s in self.tracker if s.active)
+        status = self.tracker[worker]
+        status.active = True
+        status.vector_clock = join_clock
+        status.weights_message_sent = False
+        return join_clock
+
+    @property
+    def clocks(self) -> list[int]:
+        return [s.vector_clock for s in self.tracker]

@@ -6,7 +6,9 @@ ServerNode over the in-process fabric, with three drive modes:
   * `run_serial` — deterministic single-thread scheduler;
   * `run_threaded` — one thread per worker, the server on the calling
     thread (the reference's stream threads).  A worker's exception stops
-    the run and is re-raised (failure policy "halt");
+    the run and is re-raised (failure policy "halt"), or evicts the
+    worker and the run goes on with the survivors ("rebalance", with a
+    heartbeat for hung workers); a CUDA error always halts;
   * `run_fused_bsp` — the sequential model without messages: each round
     is one gang kernel call over all active workers plus the server's
     apply (parallel/bsp.py), stretches between eval clocks run as chunks
@@ -15,13 +17,16 @@ ServerNode over the in-process fabric, with three drive modes:
 The first two run gang dispatch when cfg.use_gang (runtime/gang.py), and
 the server's evaluations go to the async eval engine when cfg.eval_async
 and there is a test set (evaluation/engine.py); the fused path evaluates
-inline.
+inline.  With cfg.compress the server gets a weights compressor and each
+worker an error-feedback residual (compress/); rows meant for an evicted
+worker go round-robin to the survivors.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -37,6 +42,23 @@ from kafka_ps_tpu_torch.utils.asynclog import DeferredSink
 from kafka_ps_tpu_torch.utils.config import (SEQUENTIAL, PSConfig,
                                              resolve_device)
 from kafka_ps_tpu_torch.utils.csvlog import NullLogSink
+
+
+def _device_fault(e: BaseException | None) -> bool:
+    """True when `e`, or an exception it wraps, is an error of the CUDA
+    device or its runtime: it poisons the context that every worker
+    shares, so no worker can be evicted and the rest carry on.  A
+    GangError is one when any of its members' failures is."""
+    if any(map(_device_fault, getattr(e, "failures", ()))):
+        return True
+    fault = getattr(torch, "AcceleratorError", ())
+    seen = set()
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        if isinstance(e, fault) or "CUDA error" in str(e):
+            return True
+        e = e.__cause__ or e.__context__
+    return False
 
 
 class StreamingPSApp:
@@ -84,6 +106,26 @@ class StreamingPSApp:
         self._fused_programs: dict = {}
         self._fused_slab = None
         self.fused_stats = {"rounds": 0, "chunk_rounds": 0, "chunks": 0}
+        # compressed delta transport: one weights compressor on the
+        # server, one error-feedback residual per worker ({} when off);
+        # the residuals ride the server's checkpoint beside the buffers
+        self.compressors: dict[int, object] = {}
+        if cfg.compress not in (None, "", "none"):
+            from kafka_ps_tpu_torch import compress
+            codec = compress.get_codec(compress.parse_codec(cfg.compress),
+                                       self.server.task.num_params)
+            self.server.compressor = compress.WeightsCompressor(codec)
+            for w in self.workers:
+                w.compressor = compress.ErrorFeedback(codec, self.device)
+                self.compressors[w.worker_id] = w.compressor
+            self.server.checkpoint_residuals = self.compressors
+        # rows of evicted workers sent to survivors, and the evictions of
+        # the last threaded run: (worker, exception or reason)
+        self.rerouted_rows = 0
+        self.worker_failures: list[tuple[int, BaseException | str]] = []
+        # the iteration a checkpoint restored, and the seconds it took
+        self.restored_at: int | None = None
+        self.restore_s = 0.0
         if cfg.eval_async and test_x is not None:
             self.enable_async_eval()
 
@@ -110,6 +152,12 @@ class StreamingPSApp:
 
     def data_sink(self, worker: int, features: dict[int, float],
                   label: int) -> None:
+        if not self.server.tracker.tracker[worker].active:
+            # partition reassignment: an evicted worker's rows go
+            # round-robin to the survivors
+            active = self.server.tracker.active_workers
+            worker = active[self.rerouted_rows % len(active)]
+            self.rerouted_rows += 1
         self.buffers[worker].add(features, label)
 
     def make_producer(self, csv_path: str,
@@ -123,9 +171,11 @@ class StreamingPSApp:
 
     def wait_for_prefill(self, min_per_worker: int = 1,
                          timeout: float = 60.0) -> None:
-        """Wait until every worker's buffer holds `min_per_worker` rows."""
+        """Wait until every active worker's buffer holds `min_per_worker`
+        rows (an evicted worker's rows are rerouted)."""
         deadline = time.monotonic() + timeout
-        while any(b.count < min_per_worker for b in self.buffers):
+        waiting = self.server.tracker.active_workers
+        while any(self.buffers[w].count < min_per_worker for w in waiting):
             if time.monotonic() > deadline:
                 raise TimeoutError("buffers not prefilled in time")
             time.sleep(0.01)
@@ -143,6 +193,44 @@ class StreamingPSApp:
             if time.monotonic() > deadline:
                 return
             time.sleep(0.005)
+
+    # -- membership and checkpoints -------------------------------------------
+
+    def readmit_worker(self, worker_id: int) -> int:
+        """Rejoin an evicted worker on the server, and reset its grace
+        baseline so the supervisor grants its first iteration since
+        rejoining the 10x heartbeat grace."""
+        clock = self.server.readmit_worker(worker_id)
+        w = self.workers[worker_id]
+        w.iterations_at_join = w.iterations
+        w.last_progress = time.monotonic()
+        return clock
+
+    def restore_checkpoint(self, path: str) -> bool:
+        """Restore a checkpoint, if `path` exists, into the server, the
+        buffers and the residuals.  Only before any drive loop ran: the
+        fused slab cache and the in-flight messages of a started loop
+        predate the restored state."""
+        if self.server._loop_started or self.fused_stats["rounds"]:
+            raise RuntimeError("restore a checkpoint before the first drive "
+                               "loop, not after it")
+        from kafka_ps_tpu_torch.utils import checkpoint as ckpt
+        t0 = time.perf_counter()
+        if not ckpt.maybe_restore(path, self.server, buffers=self.buffers,
+                                  residuals=self.compressors or None):
+            return False
+        self.restored_at = self.server.iterations
+        self.restore_s = time.perf_counter() - t0
+        return True
+
+    def build_kernels(self) -> None:
+        """Build every CUDA kernel now, on the card (a no-op on the CPU):
+        the first CUDA call would otherwise run nvcc inside a worker's
+        first iteration, where a heartbeat could take the build for a
+        hang."""
+        if self.device.type == "cuda":
+            from kafka_ps_tpu_torch.ops import _build
+            _build.build(_build.sources())
 
     # -- drive loops ----------------------------------------------------------
 
@@ -244,12 +332,31 @@ class StreamingPSApp:
             self.flush_logs()
 
     def run_threaded(self, max_server_iterations: int,
-                     poll_timeout: float = 0.1) -> None:
-        """One thread per worker; the server on the calling thread.  Any
-        worker exception stops the run and is re-raised."""
+                     poll_timeout: float = 0.1,
+                     failure_policy: str = "halt",
+                     heartbeat_timeout: float | None = None) -> None:
+        """One thread per worker; the server on the calling thread, also
+        the supervisor.
+
+        `failure_policy="halt"`: any worker exception stops the run and
+        is re-raised.  `"rebalance"`: a crashed worker (exception) or a
+        hung one (no progress within `heartbeat_timeout` seconds while
+        it owes a gradient) is evicted: the gates stop waiting for it,
+        its rows reroute to the survivors (data_sink) and its in-flight
+        gradients are dropped as zombies; the run goes on.  The last
+        active worker is never evicted: its failure halts.  A CUDA error
+        halts under either policy: it poisons the context every worker
+        shares.  The kernels are built before the supervisor's clock
+        starts."""
+        if failure_policy not in ("halt", "rebalance"):
+            raise ValueError(f"unknown failure_policy {failure_policy!r}")
         self._stop.clear()
+        self.worker_failures = []
         worker_errors: list[BaseException] = []
+        failed_q: deque[tuple[int, BaseException]] = deque()
         gang = self._make_gang()
+        from kafka_ps_tpu_torch.runtime.gang import GangError
+        self.build_kernels()
 
         def worker_loop(worker: WorkerNode):
             try:
@@ -259,15 +366,68 @@ class StreamingPSApp:
                         timeout=poll_timeout)
                     if msg is None:
                         continue
-                    if gang is not None:
+                    if gang is None:
+                        worker.on_weights(msg)
+                        continue
+                    try:
                         # the first arrival a gang notice covers leads
                         # the set; otherwise the message runs solo
                         gang.offer(worker, msg)
-                    else:
-                        worker.on_weights(msg)
+                    except GangError as e:
+                        # the members' failures surface on the leader's
+                        # thread: each is queued against its member, and
+                        # the leader runs on unless it failed itself
+                        if failure_policy != "rebalance" or _device_fault(e):
+                            raise
+                        failed_q.extend((f.worker_id, f) for f in e.failures)
+                        if any(f.worker_id == worker.worker_id
+                               for f in e.failures):
+                            return
             except BaseException as e:   # surfaced on the server thread
-                worker_errors.append(e)
+                if failure_policy == "rebalance" and not _device_fault(e):
+                    failed_q.append((worker.worker_id, e))
+                else:
+                    worker_errors.append(e)
+                    self._stop.set()
+
+        def evict(worker_id: int, reason) -> None:
+            if not self.server.tracker.tracker[worker_id].active:
+                return              # already evicted
+            try:
+                self.server.remove_worker(worker_id)
+            except ValueError:      # the last active worker: halt
                 self._stop.set()
+                worker_errors.append(
+                    reason if isinstance(reason, BaseException)
+                    else RuntimeError(f"worker {worker_id}: {reason}"))
+                return
+            self.worker_failures.append((worker_id, reason))
+
+        def supervise() -> None:
+            # a crashed worker queues itself before its thread exits
+            while failed_q:
+                evict(*failed_q.popleft())
+            if heartbeat_timeout is None:
+                return
+            now = time.monotonic()
+            for w in list(self.server.tracker.active_workers):
+                # hung: owes a gradient, that gradient is not queued
+                # behind a slow server, and no sign of life within the
+                # timeout, measured from the later of its own progress
+                # and the server's send; the first iteration since
+                # (re)admission gets 10x grace
+                wk = self.workers[w]
+                grace = 10.0 if wk.iterations == wk.iterations_at_join \
+                    else 1.0
+                baseline = max(wk.last_progress,
+                               self.server.weights_sent_at[w])
+                hung = (self.server.tracker.tracker[w].weights_message_sent
+                        and not self.fabric.contains(
+                            fabric_mod.GRADIENTS_TOPIC, 0,
+                            lambda m, w=w: m.worker_id == w)
+                        and now - baseline > heartbeat_timeout * grace)
+                if hung:
+                    evict(w, f"no heartbeat for {heartbeat_timeout}s")
 
         threads = [threading.Thread(target=worker_loop, args=(w,),
                                     daemon=True, name=f"worker-{w.worker_id}")
@@ -280,14 +440,16 @@ class StreamingPSApp:
                    and not self._stop.is_set()):
                 g = self.fabric.poll_blocking(fabric_mod.GRADIENTS_TOPIC, 0,
                                               timeout=poll_timeout)
-                if g is None:
-                    continue
-                if gang is None:
-                    self.server.process(g)
-                else:
-                    # whatever else has ALREADY arrived joins this apply
-                    self._apply(self._queued_gradients(
-                        max_server_iterations, first=g))
+                if g is not None:
+                    if gang is None:
+                        self.server.process(g)
+                    else:
+                        # whatever else has ALREADY arrived joins this
+                        # apply
+                        self._apply(self._queued_gradients(
+                            max_server_iterations, first=g))
+                if failure_policy == "rebalance":
+                    supervise()
         finally:
             self._stop.set()
             for t in threads:
@@ -409,6 +571,7 @@ class StreamingPSApp:
                 self.workers[w].iterations += r
                 self.server.tracker.tracker[w].vector_clock = clock
                 self.server.tracker.tracker[w].weights_message_sent = True
+            self.server.maybe_checkpoint()
             if not evaluate:
                 continue
             is_eval = clock % self.cfg.eval_every == 0

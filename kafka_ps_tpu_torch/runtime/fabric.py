@@ -54,6 +54,17 @@ class Fabric:
                 self._cond.wait_for(lambda: bool(q), timeout=timeout)
             return q.popleft() if q else None
 
+    def purge(self, topic: str, key: int, pred) -> int:
+        """Remove queued messages matching pred; returns how many (an
+        evicted worker's in-flight messages are drained on readmission)."""
+        with self._cond:
+            q = self._q(topic, key)
+            kept = [m for m in q if not pred(m)]
+            removed = len(q) - len(kept)
+            q.clear()
+            q.extend(kept)
+            return removed
+
     def contains(self, topic: str, key: int, pred) -> bool:
         """True if any queued message matches pred (non-destructive)."""
         with self._cond:

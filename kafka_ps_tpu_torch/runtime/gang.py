@@ -22,7 +22,12 @@ single kernel with a member axis; the plain batched version loops the
 plain single one); tests/test_torch_gang.py pins it.
 
 A failing batched kernel raises.  There is no switch to per-member
-single calls: that would hide the kernel.
+single calls: that would hide the kernel.  A worker whose `on_weights`
+is replaced on the instance (a fault injector, a wrapper) is never
+claimed: its messages stay queued for its own per-message entry.  With
+compression on, members are grouped by clock (one call per release
+set), and a compressed worker's redelivered weights clock is answered
+from its cache instead of joining a gang.
 
 Threaded mode coalesces by first arrival: the thread that pops a
 message covered by a notice leads the gang and claims the siblings'
@@ -52,6 +57,25 @@ class GangMemberError(RuntimeError):
     def __init__(self, worker_id: int, cause: BaseException):
         super().__init__(f"gang member {worker_id} failed: {cause!r}")
         self.worker_id = worker_id
+        self.__cause__ = cause
+
+
+class GangError(RuntimeError):
+    """Members of one gang dispatch failed after the healthy members had
+    finished; `failures` holds a GangMemberError per failed member."""
+
+    def __init__(self, failures):
+        super().__init__("gang members failed: " + ", ".join(
+            str(f.worker_id) for f in failures))
+        self.failures = list(failures)
+        self.__cause__ = self.failures[0]
+
+
+def _gangable(worker) -> bool:
+    """A worker whose `on_weights` is overridden on the INSTANCE keeps
+    the per-message entry point: the gang's `_prepare`/`_finish` split
+    would silently bypass the wrapper."""
+    return "on_weights" not in vars(worker)
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,6 +118,10 @@ class GangDispatcher:
         self._count_lock = threading.Lock()
         self.dispatches = 0
         self.members = 0
+        # compressed runs group members by clock, one call per release
+        # set, so that a restarted gate that re-fires several releases at
+        # once runs the same calls the live run did
+        self._per_clock = cfg.compress not in (None, "", "none")
 
     # -- drive-loop entries ----------------------------------------------
 
@@ -107,9 +135,14 @@ class GangDispatcher:
                 return progressed
             members = []
             for w, _ in notice.members:
+                if not _gangable(self.workers[w]):
+                    continue    # left queued for the per-message loop
                 msg = self.fabric.poll(fabric_mod.WEIGHTS_TOPIC, w)
-                if msg is not None:
-                    members.append((self.workers[w], msg))
+                if msg is None:
+                    continue
+                if self.workers[w]._redelivered_weights(msg):
+                    continue    # a redelivery: the cached resend only
+                members.append((self.workers[w], msg))
             if not members:
                 continue        # set already consumed elsewhere
             if len(members) == 1:
@@ -123,6 +156,11 @@ class GangDispatcher:
         notice covering (worker, clock), if any, and claims the siblings'
         messages still queued in the fabric.  Bookkeeping is non-blocking
         under one lock; the dispatch runs outside it."""
+        if not _gangable(worker):
+            worker.on_weights(msg)
+            return
+        if worker._redelivered_weights(msg):
+            return              # a redelivery: the cached resend only
         members = None
         with self._offer_lock:
             self._refresh_notices()
@@ -137,11 +175,15 @@ class GangDispatcher:
             if spec is not None:
                 members = [(worker, msg)]
                 for w, _ in spec:
-                    if w == worker.worker_id:
+                    if w == worker.worker_id or not _gangable(
+                            self.workers[w]):
                         continue
                     sib = self.fabric.poll(fabric_mod.WEIGHTS_TOPIC, w)
-                    if sib is not None:
-                        members.append((self.workers[w], sib))
+                    if sib is None:
+                        continue
+                    if self.workers[w]._redelivered_weights(sib):
+                        continue    # a redelivery: the cached resend
+                    members.append((self.workers[w], sib))
                 for w, c in spec:   # claimed: latecomers run solo
                     self._notices.pop((w, c), None)
         if members is None or len(members) == 1:
@@ -165,8 +207,9 @@ class GangDispatcher:
         member's own `_prepare`/`_finish`.  A set that spans eval
         cadence (bounded delay mixes clocks) splits into at most one
         eval and one non-eval call; a part of one member takes the
-        single path.  A member whose `_prepare` fails is reported after
-        the healthy members have finished."""
+        single path; under compression each clock is a call of its own.
+        Members whose `_prepare` fails are reported together, as one
+        GangError, after the healthy members have finished."""
         members = sorted(members, key=lambda wm: wm[0].worker_id)
         failures: list[GangMemberError] = []
         prepared = []
@@ -176,16 +219,18 @@ class GangDispatcher:
             except Exception as e:   # the healthy members still run
                 failures.append(GangMemberError(w.worker_id, e))
         results: dict[tuple[int, int], tuple] = {}
-        for with_eval in (True, False):
-            grp = [p for p in prepared if p[7] == with_eval]
-            if grp:
-                self._dispatch_group(grp, with_eval, results)
+        groups: dict[tuple, list] = {}
+        for p in prepared:
+            key = (p[7], p[1].vector_clock) if self._per_clock else (p[7],)
+            groups.setdefault(key, []).append(p)
+        for key in sorted(groups, key=lambda k: (not k[0],) + k[1:]):
+            self._dispatch_group(groups[key], key[0], results)
         # _finish in member order: CSV rows and GradientMessages reach
         # their queues in exactly the per-message order
         for w, msg, _, _, _, _, seen, _ in prepared:
             w._finish(msg, seen, *results[(w.worker_id, msg.vector_clock)])
         if failures:
-            raise failures[0]
+            raise GangError(failures)
 
     def _dispatch_group(self, grp, with_eval: bool, results: dict) -> None:
         lead = grp[0][0]

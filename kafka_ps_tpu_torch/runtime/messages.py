@@ -28,12 +28,30 @@ class KeyRange:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncodedValues:
+    """Lossy-codec encoding of a message's values (compress/codecs.py):
+    codec id + parameter and the encoded parts exactly as the sender
+    produced them.  A serializer ships these parts verbatim rather than
+    re-encoding `values`: int8 quantization is not idempotent over its
+    own decoded output, and a re-encode would desync the sender's
+    error-feedback residual from what crossed the wire."""
+
+    codec_id: int
+    param: float
+    parts: tuple
+
+
+@dataclasses.dataclass(frozen=True)
 class BaseMessage:
-    """vector clock + key range + dense values."""
+    """vector clock + key range + dense values.  `values` is always the
+    full-precision view every consumer computes with (for a compressed
+    message: the decoded floats); `encoded` is transport metadata only,
+    present when a codec produced the message."""
 
     vector_clock: int
     key_range: KeyRange
     values: torch.Tensor
+    encoded: EncodedValues | None = None
 
     def __post_init__(self):
         if len(self.values) != len(self.key_range):

@@ -25,6 +25,17 @@ Gang dispatch (cfg.use_gang, runtime/gang.py): a release of several
 workers at one moment is also advertised as a GangNotice, and
 `process_batch` applies queued gradients as one chained batch — bitwise
 the per-message results.
+
+Membership: `remove_worker` evicts a failed worker (every gate stops
+waiting for it; its in-flight gradients are dropped as zombies) and
+`readmit_worker` rejoins it at the slowest active clock.  A gradient
+whose clock the tracker already passed is a redelivery and is dropped.
+Checkpoints (utils/checkpoint.py) are written every `checkpoint_every`
+applied iterations when `checkpoint_path` is set; a restored server
+re-issues its workers' current clocks through `start_training_loop`.
+With compression on (`compressor`, compress/codecs.WeightsCompressor)
+every WeightsMessage carries the quantize-dequantized theta and its
+encoded parts; the master theta stays full precision.
 """
 
 from __future__ import annotations
@@ -66,6 +77,34 @@ class ServerNode:
         self.batched_applies = 0     # process_batch calls that chained
         self.eval_engine = None
         self._loop_started = False   # bootstrap broadcast done once
+        # drops: gradients of evicted workers, and redeliveries
+        self.zombie_gradients_dropped = 0
+        self.duplicate_gradients_dropped = 0
+        # monotonic stamp of the last weights send per worker (the
+        # supervisor's heartbeat baseline, runtime/app.py)
+        self.weights_sent_at = [time.monotonic()] * cfg.num_workers
+        # periodic checkpointing (utils/checkpoint.py); <= 0: exit only
+        self.checkpoint_path: str | None = None
+        self.checkpoint_every: int = 50
+        self._last_checkpoint_iteration = 0
+        self.checkpoint_saves = 0
+        self.checkpoint_save_s = 0.0     # host seconds spent saving
+        # in-process runs fold the workers' buffers and error-feedback
+        # residuals ({worker: ErrorFeedback}) into the checkpoint
+        self.checkpoint_buffers = None
+        self.checkpoint_residuals = None
+        # weights-side compression (compress.WeightsCompressor)
+        self.compressor = None
+        # the durable-log offsets a restored checkpoint covers
+        self.restored_log_offsets: dict[str, int] | None = None
+        # logical-run identity: survives checkpoint resumes, changes on
+        # every fresh start
+        self.run_id = time.time_ns()
+        # membership record (timestamp_ms, "evict" | "readmit" |
+        # "resume", worker); `membership_log` (a CsvLogSink) writes each
+        # event as it happens
+        self.membership_events: list[tuple[int, str, int]] = []
+        self.membership_log = None
 
     def attach_eval_engine(self, engine):
         """Arm the async eval plane: eval-cadence applies stop fusing the
@@ -96,11 +135,15 @@ class ServerNode:
     # -- bootstrap ------------------------------------------------------------
 
     def start_training_loop(self) -> None:
-        """Broadcast WeightsMessages to kick off the self-sustaining loop:
-        every worker starts in the already-replied state and gets clock 0;
-        the gate then releases whatever it permits (nothing, on a cold
-        start).  The broadcast is one release moment: one gang notice
-        covers it."""
+        """Broadcast WeightsMessages to kick off the self-sustaining loop.
+
+        Cold start: every worker is in the already-replied state and gets
+        clock 0.  After a checkpoint restore: workers whose reply was
+        delivered get their current clock again (the in-flight message
+        died with the stop); workers with a withheld reply go back
+        through the gate (the eventual model answers them at once); a
+        reply already pending on the fabric is not sent twice.  The
+        broadcast is one release moment: one gang notice covers it."""
         if self._loop_started:
             # resuming a drive loop: the in-flight messages are still in
             # the fabric, a second broadcast would double-deliver
@@ -108,23 +151,45 @@ class ServerNode:
         self._loop_started = True
         released = []
         for worker, status in enumerate(self.tracker.tracker):
-            if status.active and status.weights_message_sent:
+            if not status.active:
+                continue
+            if self.fabric.pending(fabric_mod.WEIGHTS_TOPIC, worker):
+                if not status.weights_message_sent:
+                    self.tracker.sent_message(worker, status.vector_clock)
+                continue
+            if status.weights_message_sent:
                 self.fabric.send(fabric_mod.WEIGHTS_TOPIC, worker,
                                  self._prepared_message(status.vector_clock,
                                                         self.theta))
+                self.weights_sent_at[worker] = time.monotonic()
                 released.append((worker, status.vector_clock))
-        released.extend(self._flush_gate(notify=False))
+        if self.cfg.max_vector_clock_delay == EVENTUAL:
+            for worker, st in enumerate(self.tracker.tracker):
+                if st.active and not st.weights_message_sent:
+                    self.send_weights(worker, st.vector_clock)
+                    released.append((worker, st.vector_clock))
+        else:
+            released.extend(self._flush_gate(notify=False))
         self._emit_gang_notice(sorted(released))
 
     def _prepared_message(self, clock: int, theta) -> WeightsMessage:
-        # theta is immutable by contract: safe to alias
+        """WeightsMessage over `theta` (immutable by contract: safe to
+        alias).  With a compressor, the decoded copy and its parts; a
+        release of several workers on one theta encodes once (the
+        compressor's identity cache)."""
+        encoded = None
+        if self.compressor is not None:
+            theta, encoded = self.compressor.encode(theta)
         return WeightsMessage(vector_clock=clock, key_range=self._range,
-                              values=theta)
+                              values=theta, encoded=encoded)
 
     def send_weights(self, worker: int, clock: int) -> None:
-        """The single weights-send site: dispatch + tracker bookkeeping."""
+        """The single weights-send site: dispatch, tracker bookkeeping
+        and the sent-at stamp the supervisor's heartbeat measures from
+        (time a worker spends gate-blocked must not count against it)."""
         self.fabric.send(fabric_mod.WEIGHTS_TOPIC, worker,
                          self._prepared_message(clock, self.theta))
+        self.weights_sent_at[worker] = time.monotonic()
         self.tracker.sent_message(worker, clock)
 
     def _send_weights_prepared(self, worker: int, clock: int,
@@ -135,6 +200,7 @@ class ServerNode:
         observes)."""
         self.fabric.send(fabric_mod.WEIGHTS_TOPIC, worker,
                          self._prepared_message(clock, theta))
+        self.weights_sent_at[worker] = time.monotonic()
 
     # -- consistency gate -----------------------------------------------------
 
@@ -149,6 +215,34 @@ class ServerNode:
                         for w in self.tracker.active_workers}
             return set()
         return set(self.tracker.get_all_sendable_messages(delay))
+
+    # -- membership -----------------------------------------------------------
+
+    def record_membership_event(self, kind: str, worker: int) -> None:
+        ev = (int(time.time() * 1000), kind, worker)
+        self.membership_events.append(ev)
+        if self.membership_log is not None:
+            self.membership_log(f"{ev[0]};{kind};{worker}")
+
+    def remove_worker(self, worker: int) -> None:
+        """Evict a failed worker: every gate stops waiting for its
+        gradients, and any round it was blocking is released."""
+        self.tracker.deactivate_worker(worker)
+        self.record_membership_event("evict", worker)
+        self._flush_gate()
+
+    def readmit_worker(self, worker: int) -> int:
+        """Rejoin at the slowest active clock with the current weights.
+        The worker's pre-eviction traffic is purged first: a stale
+        gradient or weights message becoming live again would break the
+        clock protocol."""
+        self.fabric.purge(fabric_mod.GRADIENTS_TOPIC, 0,
+                          lambda m: getattr(m, "worker_id", None) == worker)
+        self.fabric.purge(fabric_mod.WEIGHTS_TOPIC, worker, lambda m: True)
+        clock = self.tracker.reactivate_worker(worker)
+        self.record_membership_event("readmit", worker)
+        self.send_weights(worker, clock)
+        return clock
 
     def _flush_gate(self, notify: bool = True) -> list[tuple[int, int]]:
         """Send every reply the gate now permits; returns the release
@@ -194,8 +288,23 @@ class ServerNode:
         return (msg.worker_id == 0 and self.test_x is not None
                 and msg.vector_clock % self.cfg.eval_every == 0)
 
+    def _dropped(self, msg: GradientMessage, duplicate: bool) -> bool:
+        """Count and report a gradient that must not be applied: one of
+        an evicted worker (a zombie), or a redelivery (`duplicate`: its
+        clock was applied before)."""
+        if not self.tracker.tracker[msg.worker_id].active:
+            self.zombie_gradients_dropped += 1
+            return True
+        if duplicate:
+            self.duplicate_gradients_dropped += 1
+            return True
+        return False
+
     def process(self, msg: GradientMessage) -> None:
         self._check_range(msg)
+        if self._dropped(msg, self.tracker.is_duplicate(msg.worker_id,
+                                                        msg.vector_clock)):
+            return
         self.tracker.received_message(msg.worker_id, msg.vector_clock)
         want_eval = self._wants_eval(msg)
         fused_eval = want_eval and self.eval_engine is None
@@ -211,6 +320,7 @@ class ServerNode:
             self.eval_engine.submit(self.theta, msg.vector_clock)
         self.dispatch_release_set(
             self.workers_to_respond_to(msg.vector_clock, msg.worker_id))
+        self.maybe_checkpoint()
 
     def process_batch(self, msgs: list[GradientMessage]) -> None:
         """Apply several queued gradients as one chained batch — bitwise
@@ -223,10 +333,23 @@ class ServerNode:
           * evals land at the same clocks, on the same prefix thetas, in
             the same row order;
           * the update is a chain `t = t + lr*d` in member order, never
-            `deltas.sum(0)`: float addition does not associate.
-        All the releases of the batch form one gang notice."""
+            `deltas.sum(0)`: float addition does not associate;
+          * zombie and duplicate drops run per message, the duplicate
+            filter seeing the clocks the earlier members will advance (a
+            redelivered gradient can appear twice in one batch).
+        All the releases of the batch form one gang notice; a checkpoint
+        is due at most once, at the end."""
         for m in msgs:
             self._check_range(m)
+        live, ahead = [], {}
+        for m in msgs:
+            expected = ahead.get(
+                m.worker_id, self.tracker.tracker[m.worker_id].vector_clock)
+            if self._dropped(m, m.vector_clock < expected):
+                continue
+            ahead[m.worker_id] = m.vector_clock + 1
+            live.append(m)
+        msgs = live
         if len(msgs) < 2:
             for m in msgs:
                 self.process(m)
@@ -262,3 +385,30 @@ class ServerNode:
         self.iterations += len(msgs)
         self.batched_applies += 1
         self._emit_gang_notice(sorted(batch_released))
+        self.maybe_checkpoint()
+
+    # -- checkpoints --------------------------------------------------------
+
+    def maybe_checkpoint(self) -> None:
+        """Save once every `checkpoint_every` applied iterations, crossing
+        based, so any stride (1 on the message path, the active workers
+        on the fused path) triggers on schedule."""
+        if not self.checkpoint_path or self.checkpoint_every <= 0:
+            return
+        if (self.iterations - self._last_checkpoint_iteration
+                >= self.checkpoint_every):
+            self.save_checkpoint_now()
+
+    def save_checkpoint_now(self) -> None:
+        """Write the checkpoint: theta, clocks, membership, iterations and
+        run id, with the buffers and residuals the app handed over."""
+        if not self.checkpoint_path:
+            return
+        from kafka_ps_tpu_torch.utils import checkpoint as ckpt
+        t0 = time.perf_counter()
+        ckpt.save(self.checkpoint_path, self,
+                  buffers=self.checkpoint_buffers,
+                  residuals=self.checkpoint_residuals)
+        self._last_checkpoint_iteration = self.iterations
+        self.checkpoint_saves += 1
+        self.checkpoint_save_s += time.perf_counter() - t0

@@ -94,11 +94,28 @@ class WorkerNode:
         self._slab_store = SlabStore(cfg.slab_dtype, buffer.cfg.max_size,
                                      buffer.num_features, self.device)
         self.iterations = 0
+        # iterations counted at (re)admission: the supervisor grants the
+        # first iteration SINCE joining its 10x grace (runtime/app.py)
+        self.iterations_at_join = 0
+        # heartbeat read by the supervisor: the monotonic time of the
+        # last iteration started or finished
+        self.last_progress = time.monotonic()
+        # gradient-side compression (compress.ErrorFeedback), set by the
+        # app when cfg.compress != "none"
+        self.compressor = None
+        # (clock, GradientMessage) of the newest compressed send: a
+        # restart may redeliver a weights clock this worker already
+        # trained on, and the residual must advance once per clock
+        # (_redelivered_weights)
+        self._last_sent = None
+        self.redelivered = 0         # redelivered clocks answered from it
 
     def _prepare(self, msg: WeightsMessage):
         """Pre-dispatch half of an iteration: theta overwrite, slab
         update.  Returns (theta, x, y, mask, num_tuples_seen,
         want_eval)."""
+        # heartbeat: a slow iteration is measured from its own start
+        self.last_progress = time.monotonic()
         r = msg.key_range
         if r.start != 0 or r.end != self.task.num_params:
             raise ValueError(
@@ -143,13 +160,41 @@ class WorkerNode:
             f"{msg.vector_clock};{{}};{{}};{{}};{seen}",
             loss, f1, acc)
         self.iterations += 1
-        self.fabric.send(fabric_mod.GRADIENTS_TOPIC, 0, GradientMessage(
+        encoded = None
+        if self.compressor is not None:
+            # the server applies the DECODED delta; the quantization
+            # error stays here as the residual of the next iteration
+            delta, encoded = self.compressor.step(delta)
+        out = GradientMessage(
             vector_clock=msg.vector_clock,
             key_range=KeyRange(0, self.task.num_params),
-            values=delta,
-            worker_id=self.worker_id))
+            values=delta, encoded=encoded, worker_id=self.worker_id)
+        self.fabric.send(fabric_mod.GRADIENTS_TOPIC, 0, out)
+        if self.compressor is not None:
+            self._last_sent = (msg.vector_clock, out)
+        self.last_progress = time.monotonic()
+
+    def _redelivered_weights(self, msg: WeightsMessage) -> bool:
+        """True when `msg` is a weights clock this worker already trained
+        on and the step must NOT run again.  Only compressed workers
+        dedup: a second step would advance the error-feedback residual
+        twice for one clock.  The newest clock's cached gradient is sent
+        again, so a gate waiting on this worker still completes (the
+        server's duplicate filter drops it if the original got through);
+        older clocks are dropped."""
+        if self.compressor is None:
+            return False
+        last = self._last_sent
+        if last is None or msg.vector_clock > last[0]:
+            return False
+        if msg.vector_clock == last[0]:
+            self.fabric.send(fabric_mod.GRADIENTS_TOPIC, 0, last[1])
+        self.redelivered += 1
+        return True
 
     def on_weights(self, msg: WeightsMessage) -> None:
+        if self._redelivered_weights(msg):
+            return
         theta, x, y, mask, seen, want_eval = self._prepare(msg)
         update_fn, update_eval_fn = _solver_fns(self.cfg.task,
                                                 self.cfg.model)

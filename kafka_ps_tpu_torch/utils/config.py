@@ -2,10 +2,10 @@
 plus the port's device rule.
 
 The dataclasses keep the reference's names and defaults for the fields
-this package implements; options of subsystems not yet ported
-(compression, serving, tiering) are absent rather than accepted and
-ignored.  There is no Pallas switch: on the card the
-hand-written kernels are the only path.
+this package implements, compression among them; options of subsystems
+not yet ported (serving, tiering) are absent rather than accepted and
+ignored.  There is no Pallas switch: on the card the hand-written
+kernels are the only path.
 """
 
 from __future__ import annotations
@@ -89,6 +89,12 @@ class PSConfig:
     # the whole slab is uploaded on every buffer change)
     slab_dtype: str = "f32"
     slab_incremental: bool = True
+    # compressed delta transport (compress/): "none" | "bf16" | "int8" |
+    # "topk:<ratio>", applied symmetrically: server->worker weights are
+    # quantize-dequantized, worker->server deltas go through per-worker
+    # error-feedback residuals.  "none" runs without any codec.  Not
+    # with the fused BSP path (its rounds send no messages)
+    compress: str = "none"
 
     @property
     def server_lr(self) -> float:

@@ -3,15 +3,19 @@
 Schemas are the reference's, so its evaluation notebooks parse our logs:
   server: timestamp;partition;vectorClock;loss;fMeasure;accuracy
   worker: timestamp;partition;vectorClock;loss;fMeasure;accuracy;numTuplesSeen
+  events: timestamp;event;partition (evict / readmit / resume, written
+          as they happen so that a crash cannot lose the record)
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import threading
 
 SERVER_HEADER = "timestamp;partition;vectorClock;loss;fMeasure;accuracy"
 WORKER_HEADER = SERVER_HEADER + ";numTuplesSeen"
+EVENTS_HEADER = "timestamp;event;partition"
 
 
 class NullLogSink:
@@ -25,18 +29,26 @@ class NullLogSink:
 
 
 class CsvLogSink:
-    """Thread-safe line sink to a new file (with header) or stdout."""
+    """Thread-safe line sink to a file (with header) or stdout.
 
-    def __init__(self, path: str | None, header: str):
+    `append=True` (checkpoint-resumed runs) continues an existing log
+    instead of truncating it; the header is written only when the file
+    is new or empty."""
+
+    def __init__(self, path: str | None, header: str, append: bool = False):
         self._lock = threading.Lock()
+        write_header = True
         if path is None:
             self._fh = sys.stdout
             self._close = False
         else:
-            self._fh = open(path, "w")
+            exists = os.path.exists(path) and os.path.getsize(path) > 0
+            self._fh = open(path, "a" if append else "w")
             self._close = True
-        self._fh.write(header + "\n")
-        self._fh.flush()
+            write_header = not (append and exists)
+        if write_header:
+            self._fh.write(header + "\n")
+            self._fh.flush()
 
     def __call__(self, line: str) -> None:
         with self._lock:

@@ -572,3 +572,59 @@ def test_fused_trainer_on_card_matches_cpu(card, task, eval_every):
         [r.split(";")[1:3] + r.split(";")[6:] for r in cw]
     torch.testing.assert_close(gpu.server.theta.cpu(), cpu.server.theta,
                                rtol=1e-4, atol=1e-5)
+
+
+# -- the codecs of --compress (compress/codecs.py) ---------------------------
+
+@pytest.mark.parametrize("n", [6150, 131974, 4222982])
+@pytest.mark.parametrize("name", ["bf16", "int8", "topk:0.01"])
+def test_codec_parts_on_the_card_equal_the_cpu(card, name, n):
+    from kafka_ps_tpu_torch import compress
+    from kafka_ps_tpu_torch.compress.codecs import Codec
+    codec = compress.get_codec(compress.parse_codec(name), n)
+    v = torch.from_numpy((np.random.default_rng(n).standard_normal(n)
+                          * 0.1).astype(np.float32))
+    on_card = Codec.host_parts(codec.encode(v.to(card)))
+    on_cpu = Codec.host_parts(codec.encode(v))
+    for a, b in zip(on_card, on_cpu):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(codec.decode(*on_cpu, device=card).cpu(),
+                       codec.decode(*on_cpu, device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["bf16", "int8", "topk:0.01"])
+def test_error_feedback_continues_after_a_restore_on_the_card(card, name):
+    from kafka_ps_tpu_torch import compress
+    n = 131974
+    codec = compress.get_codec(compress.parse_codec(name), n)
+    gen = torch.Generator(device=card).manual_seed(3)
+    deltas = [torch.randn(n, generator=gen, device=card) * 0.1
+              for _ in range(12)]
+    ef = compress.ErrorFeedback(codec, card)
+    for d in deltas[:6]:
+        ef.step(d)
+    restored = compress.ErrorFeedback(codec, card)
+    restored.restore(ef.state())
+    assert restored.residual.device.type == "cuda"
+    for d in deltas[6:]:
+        a, ea = ef.step(d)
+        b, eb = restored.step(d)
+        assert torch.equal(a, b) and torch.equal(ef.residual,
+                                                 restored.residual)
+        assert all(torch.equal(p, q) for p, q in zip(ea.parts, eb.parts))
+
+
+def test_int8_slab_encode_on_the_card_equals_the_cpu(card):
+    """quantize_rows divides by a tensor 127: a Python 127.0 makes the
+    CUDA kernel multiply by the reciprocal, 1 ulp off on some rows (61 of
+    these 1024)."""
+    from kafka_ps_tpu_torch.compress.slab import quantize_rows
+    x, _ = generate(1024, 1024, 5, seed=7)
+    x = torch.from_numpy(x)
+    q_card, s_card = quantize_rows(x.to(card))
+    q_cpu, s_cpu = quantize_rows(x)
+    assert torch.equal(s_card.cpu(), s_cpu)
+    assert torch.equal(q_card.cpu(), q_cpu)
+    stored = encode_x("int8", x.to(card))
+    assert torch.equal(stored.scale.cpu(), encode_x("int8", x).scale)
