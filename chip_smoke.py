@@ -145,6 +145,11 @@ ITERS, SLICE1_ITERS = 400, 200
 CODEC_NAMES = ("bf16", "int8", "topk:0.01")
 CODEC_SIZES = (6150, 131974, 4222982)
 EF_STEPS, CRASH_AT = 50, 20
+# the durable log's checks: the in-process crash and its restart, the
+# CLI crash (512 rows = 4 workers x the default 128 prefill) and the
+# main-path runs on the log
+DURABLE_ITERS, DURABLE_CRASH_AT = 200, 120
+CLI_CRASH_ROWS, CLI_KILL_AT = 512, 130
 COMPRESSED_WIDE_ITERS, RESUME_ITERS = 40, 200
 SLAB_KINDS = ("bf16", "int8")
 X_BYTES = {"bf16": 2, "int8": 1}
@@ -578,9 +583,11 @@ def wide_mlp_phase(dev) -> dict:
     return {entry["name"]: entry}
 
 
-def small_app(device, c, task="logreg", workers=3, logs=None, **kw):
+def small_app(device, c, task="logreg", workers=3, logs=None, fabric=None,
+              rows=150, **kw):
     """The reference checks' trainer: 64 features, 5 classes, buffers of
-    8-32 rows prefilled with 150 seeded rows, a fixed arrival clock."""
+    8-32 rows prefilled with `rows` of 150 seeded rows, a fixed arrival
+    clock; on `fabric` when one is given (a durable log)."""
     from kafka_ps_tpu_torch.data.synth import generate
     from kafka_ps_tpu_torch.runtime.app import StreamingPSApp
     from kafka_ps_tpu_torch.utils.config import (BufferConfig, ModelConfig,
@@ -594,8 +601,8 @@ def small_app(device, c, task="logreg", workers=3, logs=None, **kw):
     app = StreamingPSApp(cfg, test_x=x[150:], test_y=y[150:],
                          server_log=logs[0].append, worker_log=logs[1].append,
                          clock_ms=iter(range(0, 10 ** 9, 40)).__next__,
-                         device=device)
-    for i in range(150):
+                         device=device, fabric=fabric)
+    for i in range(rows):
         app.data_sink(i % workers, x[i], int(y[i]))
     return app
 
@@ -817,6 +824,225 @@ def resume_check(dev) -> None:
         if not same:
             raise RuntimeError(f"--compress {codec}: the resumed run differs "
                                "from the uninterrupted one")
+
+
+def serde_ms(stats: dict) -> str:
+    """A durable log's serde milliseconds per encoded frame, by topic."""
+    return ", ".join(f"{t} {ms:.4f}" for t, ms in
+                     sorted(stats["serde_ms_per_frame"].items()))
+
+
+def remove(path: str) -> None:
+    """Delete a file or a directory tree, if there."""
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.remove(path)
+
+
+def rows_from(rows, clocks):
+    """Stamp-stripped rows whose clock is at least its worker's clock in
+    `clocks` (server rows are worker 0's eval clocks)."""
+    out = []
+    for r in strip_stamps(rows):
+        part, clock = (int(v) for v in r.split(";")[:2])
+        if clock >= clocks[max(part, 0)]:
+            out.append(r)
+    return out
+
+
+def first_of_each_clock(rows):
+    """Stamp-stripped worker rows, one per (worker, clock), sorted: a plain
+    worker trains again on a replayed weights clock, and that row must be
+    bitwise its first."""
+    seen = {}
+    for r in strip_stamps(rows):
+        if seen.setdefault(tuple(r.split(";")[:2]), r) != r:
+            raise RuntimeError(f"a replayed clock's row differs: {r}")
+    return sorted(seen.values())
+
+
+def durable_reference_check(dev) -> None:
+    """On the card, logreg serial -c 0, 4 workers, gang on, static data:
+    200 iterations on the volatile fabric against a run on the durable
+    log (checkpoint every 50) abandoned at iteration 120 — no close, no
+    final save — whose log and checkpoint a fresh app restores, replays
+    and runs to 200.  θ, clocks, the restarted run's server and worker
+    rows (stamps stripped) and under int8 the residuals are bitwise the
+    uninterrupted run's; weights and gradients were replayed and at least
+    one redelivered gradient dropped.  --compress none and int8."""
+    import tempfile
+
+    from kafka_ps_tpu_torch.log import DurableFabric, LogConfig
+    for codec in ("none", "int8"):
+        whole_logs = ([], [])
+        whole = small_app(dev, 0, workers=4, logs=whole_logs, compress=codec)
+        whole.run_serial(DURABLE_ITERS)
+        whole.close_logs()
+        with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+            ck = os.path.join(tmp, "ck.npz")
+            first = small_app(dev, 0, workers=4, compress=codec,
+                              fabric=DurableFabric(os.path.join(tmp, "wal"),
+                                                   LogConfig(fsync="none")))
+            first.server.checkpoint_path = ck
+            first.server.checkpoint_every = 50
+            first.server.checkpoint_buffers = first.buffers
+            first.run_serial(DURABLE_CRASH_AT)
+            first.close_logs()         # abandoned: no close, no final save
+            logs = ([], [])
+            again = small_app(dev, 0, workers=4, compress=codec, logs=logs,
+                              fabric=DurableFabric(os.path.join(tmp, "wal"),
+                                                   LogConfig(fsync="none")),
+                              rows=0)
+            if not again.restore_checkpoint(ck):
+                raise RuntimeError("durable check: no checkpoint")
+            restored = again.server.iterations
+            clocks = list(again.server.tracker.clocks)
+            t0 = time.perf_counter()
+            counts = again.recover_durable()
+            replay_s = time.perf_counter() - t0
+            again.run_serial(DURABLE_ITERS)
+            again.close_logs()
+            stats = again.fabric.stats()
+            again.fabric.close()
+        same = (torch.equal(again.server.theta, whole.server.theta)
+                and again.server.tracker.clocks == whole.server.tracker.clocks
+                and strip_stamps(logs[0]) == rows_from(whole_logs[0], clocks)
+                and first_of_each_clock(logs[1])
+                == sorted(rows_from(whole_logs[1], clocks))
+                and all(torch.equal(a.residual, b.residual) for a, b in zip(
+                    again.compressors.values(), whole.compressors.values())))
+        dropped = again.server.duplicate_gradients_dropped
+        print(f"durable check --compress {codec} on the card: crash at "
+              f"{DURABLE_CRASH_AT}, restored at {restored}, replayed {counts}"
+              f" in {replay_s:.4f} s, duplicates dropped {dropped}, "
+              f"redelivered weights answered from cache "
+              f"{sum(w.redelivered for w in again.workers)}; restart to "
+              f"{DURABLE_ITERS} bitwise the uninterrupted run: {same} "
+              f"(theta, clocks, {len(logs[0])} server and {len(logs[1])} "
+              f"worker rows, residuals); serde ms per frame "
+              f"{serde_ms(stats)}")
+        if not same:
+            raise RuntimeError(f"durable --compress {codec}: the restarted "
+                               "run differs from the uninterrupted one")
+        if (counts["weights"] < 1 or counts["gradients"] < 1
+                or dropped < 1 or not 0 < restored < DURABLE_CRASH_AT):
+            raise RuntimeError(f"durable --compress {codec}: nothing was "
+                               "replayed, or no duplicate dropped")
+
+
+def threaded_order_check(dev) -> None:
+    """Threaded -c 2 on the durable log on the card, 200 iterations: every
+    partition's offsets on disk are 0..n-1, none repeated, and the server
+    applied the gradients in the log's offset order."""
+    import tempfile
+
+    from kafka_ps_tpu_torch.log import DurableFabric, LogConfig
+    from kafka_ps_tpu_torch.runtime import serde
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        wal = os.path.join(tmp, "wal")
+        app = small_app(dev, 2, workers=4,
+                        fabric=DurableFabric(wal, LogConfig(fsync="none")))
+        applied = []
+        received = app.server.tracker.received_message
+
+        def record(worker, clock):
+            applied.append((worker, clock))
+            return received(worker, clock)
+
+        app.server.tracker.received_message = record
+        app.run_threaded(DURABLE_ITERS, poll_timeout=0.02)
+        app.close_logs()
+        app.fabric.close()
+        reopened = DurableFabric(wal, LogConfig(fsync="none"))
+        offsets = {f"{t}/{k}": [o for o, _ in
+                                reopened.manager.get(t, k).read_from(0)]
+                   for t, k in reopened.manager.partitions()}
+        order = [(m.worker_id, m.vector_clock) for m in (
+            serde.from_bytes(p, "cpu") for _, p in reopened.manager.get(
+                "gradients", 0).read_from(0))]
+        reopened.close()
+    contiguous = all(o == list(range(len(o))) for o in offsets.values())
+    in_order = applied == order[:len(applied)]
+    print(f"threaded order check on the card (-c 2, durable log): "
+          f"{len(applied)} gradients applied, records per partition "
+          f"{ {k: len(o) for k, o in offsets.items()} }; offsets 0..n-1 in "
+          f"every partition: {contiguous}; applied in offset order: "
+          f"{in_order}")
+    if not (contiguous and in_order and len(applied) >= DURABLE_ITERS):
+        raise RuntimeError("threaded durable run: offsets repeat or skip, "
+                           "or the server's order is not the log's")
+
+
+def cli_crash_check() -> None:
+    """The CLI on the card, 512 rows at F=1024, C=5 (4 workers x the
+    default 128 prefill: the whole stream is buffered before the first
+    iteration): an uninterrupted serial -c 0 run to 400 iterations with
+    --checkpoint, against a run with --durable-log --fsync interval
+    --checkpoint_every 50 that kills itself with SIGKILL right after
+    iteration CLI_KILL_AT (scripts/torch_kill_at.py), past its second
+    commit point, and the same command again, which restores and replays.
+    The final checkpoints hold the same θ and clocks."""
+    from kafka_ps_tpu_torch.data.synth import generate, write_csv
+    x, y = generate(CLI_CRASH_ROWS, F, C, seed=4)
+    write_csv(os.path.join(OUT, "crash-train.csv"), x, y)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    args = ["-training", "crash-train.csv", "-test", "test.csv",
+            "--num_workers", str(WORKERS), "--num_features", str(F),
+            "--num_classes", str(C), "--mode", "serial", "-c", "0",
+            "-p", "2", "--eval_every", "10", "--max_iterations",
+            str(ITERS), "--checkpoint_every", "50", "-v"]
+    cli = [sys.executable, "-m", "kafka_ps_tpu_torch.cli.run"]
+    kill = [sys.executable, os.path.join(REPO, "scripts", "torch_kill_at.py"),
+            str(CLI_KILL_AT), "--"]
+    wal = ["--checkpoint", "ck-crash.npz", "--durable-log", "wal-crash",
+           "--fsync", "interval"]
+    for stale in ("ck-base.npz", "ck-crash.npz", "wal-crash"):
+        remove(os.path.join(OUT, stale))
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=OUT, env=env, capture_output=True,
+                           text=True, timeout=300)
+        return r, time.perf_counter() - t0
+
+    base, base_s = run(cli + args + ["--checkpoint", "ck-base.npz"])
+    killed, killed_s = run(kill + args + wal)
+    again, again_s = run(cli + args + wal)
+    if base.returncode != 0 or again.returncode != 0:
+        raise RuntimeError("CLI crash check: a run failed:\n"
+                           + base.stderr[-2000:] + again.stderr[-2000:])
+    if killed.returncode != -9:
+        raise RuntimeError(f"CLI crash check: the killed run ended with "
+                           f"{killed.returncode}:\n{killed.stderr[-2000:]}")
+    stats = [json.loads(line.split(": ", 1)[1])
+             for line in again.stderr.splitlines()
+             if line.startswith("kafka_ps_tpu_torch run: ")][-1]
+    restored = [ln.strip() for ln in again.stdout.splitlines()
+                if "restored checkpoint at iteration" in ln
+                or "durable-log replay" in ln]
+    with np.load(os.path.join(OUT, "ck-base.npz")) as a, \
+            np.load(os.path.join(OUT, "ck-crash.npz")) as b:
+        same = (np.array_equal(a["theta"], b["theta"])
+                and np.array_equal(a["clocks"], b["clocks"])
+                and int(a["iterations"]) == int(b["iterations"]) == ITERS)
+    d = stats["durable"]
+    print(f"CLI crash check on the card: uninterrupted {base_s:.1f} s, "
+          f"killed at {CLI_KILL_AT} after {killed_s:.1f} s (rc "
+          f"{killed.returncode}), restart {again_s:.1f} s: {restored}; "
+          f"restore {stats['checkpoint']['restore_s']:.4f} s, replay "
+          f"{d['replay_s']:.4f} s ({d['replayed']}), re-ingested rows "
+          f"skipped {d['skipped_rows']}, duplicates dropped "
+          f"{stats['membership']['duplicate_gradients_dropped']}; final "
+          f"checkpoints equal (theta, clocks, {ITERS} iterations): {same}")
+    if not same or len(restored) != 2:
+        raise RuntimeError("CLI crash check: the restarted run differs from "
+                           "the uninterrupted one, or did not restore and "
+                           "replay:\n" + base.stderr[-1500:]
+                           + again.stderr[-1500:])
+    for stale in ("ck-base.npz", "ck-crash.npz", "wal-crash",
+                  "crash-train.csv"):
+        remove(os.path.join(OUT, stale))
 
 
 def membership_check(dev) -> None:
@@ -1191,6 +1417,25 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
         clocks = [int(r[2]) for r in server]
         if clocks != sorted(set(clocks)):
             raise RuntimeError(f"{tag}: the server rows do not continue")
+    dur = stats.get("durable")
+    if dur is not None:
+        wal = os.path.join(OUT, flags[flags.index("--durable-log") + 1])
+        on_disk = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, files in os.walk(wal) for f in files)
+        fsync = flags[flags.index("--fsync") + 1] if "--fsync" in flags \
+            else "interval"
+        print(f"  durable log (--fsync {fsync}): appends {dur['appends']}, "
+              f"bytes {dur['bytes']}; fsyncs {dur['fsyncs']}, "
+              f"{dur['fsync_ms']:.1f} ms in all, max "
+              f"{dur['fsync_ms_max']:.3f} ms; segment rolls {dur['rolls']}, "
+              f"segments reaped {dur['segments_reaped']}, commits "
+              f"{dur['commits']}; serde ms per frame {serde_ms(dur)} over "
+              f"{dur['frames']} frames ({dur['frames_shared']} weights "
+              f"frames shared); bytes on "
+              f"disk at exit {on_disk} (log records {dur['retained_bytes']})"
+              f"; iters_per_s={rate:.1f}")
+        if not dur["commits"] or not sum(dur["appends"].values()):
+            raise RuntimeError(f"{tag}: the log took no appends or commits")
     if rc != 0 or len(new_worker) < iters_run or not server:
         raise RuntimeError(f"{tag}: short run")
     # every worker iteration logs one worker row and runs one kernel
@@ -1242,7 +1487,52 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
             raise RuntimeError(f"{tag}: {fs['graph_captures']} CUDA graphs "
                                "captured, expected 1")
     return {"task": task, "kind": kind, "single": single,
-            "gang_calls": gang_calls, "hidden": hidden, "fused": fused}
+            "gang_calls": gang_calls, "hidden": hidden, "fused": fused,
+            "rate": rate, "durable": dur}
+
+
+def durable_runs() -> list[dict]:
+    """Main-path runs through the CLI on the durable log, each with
+    --checkpoint (every commit point runs retention), beside the same
+    flags without the log in this script run: logreg serial -c 0 at
+    --fsync interval, none and always; logreg threaded -c 2; the MLP
+    serial -c 0; the MLP at H=4096 --compress int8 (40 iterations);
+    logreg --fused --eval_every 10."""
+    runs = []
+    specs = [("logreg", "serial", 0, DURABLE_ITERS, (), H,
+              ("interval", "none", "always")),
+             ("logreg", "threaded", 2, DURABLE_ITERS, (), H, ("interval",)),
+             ("mlp", "serial", 0, DURABLE_ITERS, (), H, ("interval",)),
+             ("mlp", "serial", 0, COMPRESSED_WIDE_ITERS,
+              ("--compress", "int8", "--checkpoint_every", "20"), WIDE_H,
+              ("interval",)),
+             ("logreg", "serial", 0, DURABLE_ITERS,
+              ("--fused", "--eval_every", "10"), H, ("interval",))]
+    for i, (task, mode, c, iters, extra, hidden, fsyncs) in enumerate(specs):
+        for stale in (f"ck-d{i}.npz", f"ck-p{i}.npz"):
+            remove(os.path.join(OUT, stale))
+        plain = main_path_run(task, mode, c, iters,
+                              ("--checkpoint", f"ck-p{i}.npz", *extra),
+                              hidden)
+        runs.append(plain)
+        for fs in fsyncs:
+            wal = f"wal-{i}-{fs}"
+            for stale in (wal, f"ck-d{i}.npz"):
+                remove(os.path.join(OUT, stale))
+            logged = main_path_run(task, mode, c, iters,
+                                   ("--checkpoint", f"ck-d{i}.npz",
+                                    "--durable-log", wal, "--fsync", fs,
+                                    *extra), hidden)
+            runs.append(logged)
+            print(f"durable log against none: {task} {mode} -c {c} "
+                  f"{' '.join(extra)} H={hidden} --fsync {fs}: iters_per_s "
+                  f"{logged['rate']:.1f} against {plain['rate']:.1f} "
+                  f"({logged['rate'] / plain['rate']:.3f}x); fsync "
+                  f"{logged['durable']['fsync_ms']:.1f} ms in "
+                  f"{logged['durable']['fsyncs']} fsyncs; serde ms per "
+                  f"frame {serde_ms(logged['durable'])}")
+            remove(os.path.join(OUT, wal))
+    return runs
 
 
 def profile_run(task: str, iters: int = 200, flags: tuple = ()) -> None:
@@ -1328,6 +1618,19 @@ def profile_run(task: str, iters: int = 200, flags: tuple = ()) -> None:
     print(f"profile {name}: the CSV parse's functions by own-time rank: "
           + ", ".join(f"#{rank} {fn} {own * 1e3:.1f} ms"
                       for rank, fn, own in parse[:6]))
+    if "--durable-log" in flags:
+        # the log's host costs: serde (the device-to-host copy), the CRC,
+        # the writes and the fsyncs
+        logged = [(rank, f"{os.path.basename(path)}:{fn}", own)
+                  for rank, ((path, _, fn), (_, _, own, _, _))
+                  in enumerate(rows, 1)
+                  if os.sep + "log" + os.sep in path
+                  or path.endswith("serde.py")
+                  or any(k in fn for k in ("crc32", "BufferedWriter",
+                                           "fsync", "method 'cpu'"))]
+        print(f"profile {name}: the durable log's functions by own-time "
+              "rank: " + ", ".join(f"#{rank} {fn} {own * 1e3:.1f} ms"
+                                   for rank, fn, own in logged[:10]))
 
 
 def main() -> int:
@@ -1377,6 +1680,8 @@ def main() -> int:
     codec_phase(dev)
     compress_reference_check(dev)
     resume_check(dev)
+    durable_reference_check(dev)
+    threaded_order_check(dev)
     membership_check(dev)
     write_data()
     logreg_default = [("serial", 0), ("threaded", 2), ("threaded", -1)]
@@ -1422,14 +1727,20 @@ def main() -> int:
                      "--compress", codec)
             runs += [main_path_run("logreg", "serial", 0, it, flags)
                      for it in (RESUME_ITERS, 2 * RESUME_ITERS)]
+        runs += durable_runs()
+        cli_crash_check()
         profile_run("logreg")
+        profile_run("logreg", flags=("--durable-log", "wal-profile"))
         profile_run("mlp")
         profile_run("logreg", flags=("--slab-dtype", "int8"))
         profile_run("logreg", flags=("--compress", "int8"))
         profile_run("logreg", flags=("--fused", "--eval_every", "10"))
     finally:
-        for name in ("train.csv", "test.csv"):   # ~70 MB, made anew each run
-            os.remove(os.path.join(OUT, name))
+        # ~70 MB of CSV, and the durable logs, made anew each run
+        for name in os.listdir(OUT):
+            if name.endswith((".csv", ".npz")) and not name.startswith(
+                    ("server-", "worker-")) or name.startswith("wal-"):
+                remove(os.path.join(OUT, name))
     # K3 and K5 count their single and batched calls (one kernel each)
     entries = [("local_update", "logreg", "f32", ("single",)),
                ("local_update_batched", "logreg", "f32", ("gang_calls",)),

@@ -14,8 +14,10 @@ on every change), `--fused` runs the sequential model as fused BSP rounds
 (compress/), `--checkpoint` saves every `--checkpoint_every` server
 iterations and at exit and resumes from the file when it exists, and
 `--failure_policy rebalance` evicts a crashed or hung worker (threaded
-mode).  Runs on the CUDA card; KPS_PLATFORM=cpu runs it on the CPU.  At
-exit it prints one line of run statistics on stderr:
+mode), and `--durable-log DIR` (`--fsync`) logs every message and stream
+row and, on a restart, replays the tail past the checkpoint (log/).  Runs
+on the CUDA card; KPS_PLATFORM=cpu runs it on the CPU.  At exit it prints
+one line of run statistics on stderr:
 `kafka_ps_tpu_torch run: {json}`.
 """
 
@@ -67,6 +69,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "workers' buffers and error-feedback residuals")
     p.add_argument("--checkpoint_every", type=int, default=50,
                    help="server iterations between checkpoint saves")
+    p.add_argument("--durable-log", dest="durable_log", default=None,
+                   metavar="DIR",
+                   help="persist every weights, gradients and input-data "
+                        "message to a segmented commit log under DIR "
+                        "(log/); on restart the run replays the "
+                        "unconsumed tail past the last checkpoint's "
+                        "committed offsets")
+    p.add_argument("--fsync", choices=["none", "interval", "always"],
+                   default="interval",
+                   help="--durable-log fsync policy: page cache only / at "
+                        "most once per second / every append (log/log.py)")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--num_features", type=int, default=1024)
     p.add_argument("--num_classes", type=int, default=5)
@@ -165,9 +178,14 @@ def make_app_from_args(args, device=None, resuming: bool = False):
                             SERVER_HEADER, append=resuming)
     worker_log = CsvLogSink("./logs-worker.csv" if args.logging else None,
                             WORKER_HEADER, append=resuming)
+    fabric = None
+    if args.durable_log:
+        from kafka_ps_tpu_torch.log import DurableFabric, LogConfig
+        fabric = DurableFabric(args.durable_log,
+                               LogConfig(fsync=args.fsync), device=device)
     app = StreamingPSApp(cfg, test_x=test_x, test_y=test_y,
                          server_log=server_log, worker_log=worker_log,
-                         device=device)
+                         device=device, fabric=fabric)
     return app, (server_log, worker_log)
 
 
@@ -224,6 +242,12 @@ def main(argv=None) -> int:
         app.server.checkpoint_path = args.checkpoint
         app.server.checkpoint_every = args.checkpoint_every
         app.server.checkpoint_buffers = app.buffers
+    if args.durable_log:
+        # replay the unconsumed tail past the restored checkpoint's
+        # offsets (or the committed ones) BEFORE the producer starts
+        counts = app.recover_durable()
+        if args.verbose:
+            print(f"    durable-log replay: {counts}")
     producer = app.make_producer(args.training_data_file_path)
     try:
         producer.run_in_background()
@@ -246,7 +270,10 @@ def main(argv=None) -> int:
         # join every thread before the interpreter finalizes
         producer.stop()
         if args.checkpoint:
+            # on a durable fabric the final save is a commit point too
             app.server.save_checkpoint_now()
+        if args.durable_log:
+            app.fabric.close()
         app.close_logs()
         for log in logs:
             log.close()
@@ -261,8 +288,10 @@ def run_stats(app, producer) -> dict:
     dispatches and their members, the eval engine's dispatches, widths
     and final lag, the workers' device slabs (storage form, bytes on
     the device, host bytes uploaded), the fused rounds (all, in chunks,
-    chunk dispatches, CUDA graphs captured) and the producer's parser,
-    rows and the seconds of its native one-pass parse."""
+    chunk dispatches, CUDA graphs captured), the producer's parser,
+    rows and the seconds of its native one-pass parse, and on a durable
+    log its counters (log/durable_fabric.DurableFabric.stats) with the
+    replay's counts and seconds and the re-ingested rows skipped."""
     stores = [w._slab_store for w in app.workers]
     server = app.server
     out = {"server_iterations": server.iterations,
@@ -291,6 +320,11 @@ def run_stats(app, producer) -> dict:
         out["eval"] = app.eval_engine.stats()
     if server.compressor is not None:
         out["compress"] = compress_stats(app)
+    if app.fabric.durable:
+        out["durable"] = dict(app.fabric.stats(),
+                              replayed=app.replay_counts,
+                              replay_s=app.replay_s,
+                              skipped_rows=app.skipped_rows)
     if server.checkpoint_path:
         out["checkpoint"] = {"restored_at": app.restored_at,
                              "restore_s": app.restore_s,

@@ -19,7 +19,10 @@ the server's evaluations go to the async eval engine when cfg.eval_async
 and there is a test set (evaluation/engine.py); the fused path evaluates
 inline.  With cfg.compress the server gets a weights compressor and each
 worker an error-feedback residual (compress/); rows meant for an evicted
-worker go round-robin to the survivors.
+worker go round-robin to the survivors.  On a durable fabric
+(log/durable_fabric.py) every message and stream row is logged, and
+`recover_durable` replays the unconsumed tail after a checkpoint
+restore.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from kafka_ps_tpu_torch.data.buffer import SlidingBuffer
 from kafka_ps_tpu_torch.data.stream import CsvStreamProducer
 from kafka_ps_tpu_torch.parallel import bsp
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
+from kafka_ps_tpu_torch.runtime.messages import LabeledData
 from kafka_ps_tpu_torch.runtime.server import LogSink, ServerNode
 from kafka_ps_tpu_torch.runtime.worker import WorkerNode
 from kafka_ps_tpu_torch.utils import asynclog
@@ -73,10 +77,13 @@ class StreamingPSApp:
                  server_log: LogSink | None = None,
                  worker_log: LogSink | None = None,
                  clock_ms=None,
-                 device=None):
+                 device=None,
+                 fabric=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.fabric = fabric_mod.Fabric()
+        # a durable fabric (log/durable_fabric.py, `--durable-log`) may be
+        # handed in; the default is the volatile in-memory one
+        self.fabric = fabric if fabric is not None else fabric_mod.Fabric()
         self.buffers = [
             SlidingBuffer(cfg.model.num_features, cfg.buffer,
                           clock_ms=clock_ms)
@@ -126,6 +133,15 @@ class StreamingPSApp:
         # the iteration a checkpoint restored, and the seconds it took
         self.restored_at: int | None = None
         self.restore_s = 0.0
+        # durable resume: leading stream rows to drop because the log
+        # already holds them (the producer re-produces the same global row
+        # order, so "skip the first N" is exactly-once re-ingestion; set
+        # by recover_durable), the rows dropped so far, and the replay's
+        # counts per topic and seconds
+        self._ingest_skip = 0
+        self.skipped_rows = 0
+        self.replay_counts: dict[str, int] | None = None
+        self.replay_s = 0.0
         if cfg.eval_async and test_x is not None:
             self.enable_async_eval()
 
@@ -150,15 +166,37 @@ class StreamingPSApp:
 
     # -- ingestion sink (the INPUT_DATA topic hop) ----------------------------
 
-    def data_sink(self, worker: int, features: dict[int, float],
-                  label: int) -> None:
+    def data_sink(self, worker: int, features, label: int) -> None:
+        """One stream row (a {feature: value} dict, or a dense row) into
+        its worker's buffer.  On a durable fabric the row is logged under
+        its FINAL key (after any reroute) and marked consumed as it is
+        inserted, under the fabric's commit lock, so the ingest group's
+        offsets count the buffered rows at every commit point."""
+        if self._ingest_skip > 0:
+            # durable resume: the log (and, via checkpoint + replay, a
+            # buffer) already holds this row
+            self._ingest_skip -= 1
+            self.skipped_rows += 1
+            return
         if not self.server.tracker.tracker[worker].active:
             # partition reassignment: an evicted worker's rows go
             # round-robin to the survivors
             active = self.server.tracker.active_workers
             worker = active[self.rerouted_rows % len(active)]
             self.rerouted_rows += 1
-        self.buffers[worker].add(features, label)
+        if not self.fabric.durable:
+            self.buffers[worker].add(features, label)
+            return
+        if not isinstance(features, dict):
+            features = dict(enumerate(
+                np.asarray(features, dtype=np.float32).tolist()))
+        with self.fabric.commit_lock:
+            offset = self.fabric.persist(
+                fabric_mod.INPUT_DATA_TOPIC, worker,
+                LabeledData(features=features, label=label))
+            self.buffers[worker].add(features, label)
+            self.fabric.mark_consumed(fabric_mod.INPUT_DATA_TOPIC, worker,
+                                      offset)
 
     def make_producer(self, csv_path: str,
                       has_header: bool = True) -> CsvStreamProducer:
@@ -193,6 +231,41 @@ class StreamingPSApp:
             if time.monotonic() > deadline:
                 return
             time.sleep(0.005)
+
+    # -- durable-log recovery (log/durable_fabric.py) -------------------------
+
+    def recover_durable(self) -> dict[str, int]:
+        """Crash recovery over a durable fabric, run once AFTER the
+        checkpoint restore and BEFORE the producer starts:
+
+          * re-enqueue the unconsumed WEIGHTS / GRADIENTS tail (the
+            in-flight messages the dead process held), on this app's
+            device;
+          * replay the unconsumed INPUT_DATA tail into the restored
+            buffers (rows ingested after the last checkpoint);
+          * arm the re-ingestion skip, so that the restarted producer
+            drops the rows the log already holds.
+
+        The replay floor is the checkpoint's recorded offsets when the
+        restore found any (`server.restored_log_offsets`), else the
+        durably committed ones.  Returns replay counts per topic."""
+        t0 = time.perf_counter()
+        ckpt_offsets = self.server.restored_log_offsets
+        counts = self.fabric.recover(ckpt_offsets)
+        replayed_rows = 0
+        total_logged = 0
+        manager = self.fabric.manager
+        for topic, key in manager.partitions(fabric_mod.INPUT_DATA_TOPIC):
+            total_logged += manager.get(topic, key).next_offset
+            for offset, row in self.fabric.replay(topic, key, ckpt_offsets):
+                self.buffers[key].add(row.features, row.label)
+                self.fabric.mark_consumed(topic, key, offset)
+                replayed_rows += 1
+        self._ingest_skip = total_logged
+        counts[fabric_mod.INPUT_DATA_TOPIC] = replayed_rows
+        self.replay_counts = counts
+        self.replay_s = time.perf_counter() - t0
+        return counts
 
     # -- membership and checkpoints -------------------------------------------
 

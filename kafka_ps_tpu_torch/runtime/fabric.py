@@ -4,9 +4,11 @@ keyed FIFO queues standing in for the reference's Kafka topics.
 WEIGHTS is keyed by worker id (point to point), GRADIENTS by 0 (the
 single server's many-to-one gather).  Per-key FIFO order and buffering
 are what the consistency models rely on; tests drive `poll` directly
-for deterministic scheduling.  GANG carries the server's advisory gang
-notices (runtime/gang.py), sent with `send_transient`: control traffic
-with no reference topic, never made durable.
+for deterministic scheduling.  INPUT_DATA names the stream rows' topic,
+which only a durable fabric logs (log/durable_fabric.py).  GANG carries
+the server's advisory gang notices (runtime/gang.py), sent with
+`send_transient`: control traffic with no reference topic, never made
+durable.
 """
 
 from __future__ import annotations
@@ -17,11 +19,14 @@ from typing import Any
 
 WEIGHTS_TOPIC = "weights"
 GRADIENTS_TOPIC = "gradients"
+INPUT_DATA_TOPIC = "input-data"
 GANG_TOPIC = "gang"
 
 
 class Fabric:
     """Keyed FIFO queues with blocking and non-blocking consumption."""
+
+    durable = False              # log/durable_fabric.DurableFabric: True
 
     def __init__(self):
         self._queues: dict[tuple[str, int], deque] = {}

@@ -81,3 +81,79 @@ class GangNotice:
     protocol, and a dropped notice only costs the coalescing."""
 
     members: tuple[tuple[int, int], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseDeltaMessage:
+    """worker → server shard: a sparsified delta slice (range sharding).
+    Not a BaseMessage: `values` is the sparse value list, not a dense slab
+    over the range.  `indices` are local offsets within `key_range`,
+    sorted ascending and unique; an empty slice is still a protocol
+    message (the shard's gate must see one gradient per worker and
+    clock)."""
+
+    vector_clock: int
+    key_range: KeyRange
+    indices: torch.Tensor        # int32 local offsets, may be empty
+    values: torch.Tensor         # float32, same length as indices
+    worker_id: int = 0
+    encoded: EncodedValues | None = None   # API parity with BaseMessage
+
+    def __post_init__(self):
+        if len(self.indices) != len(self.values):
+            raise ValueError(
+                f"indices length {len(self.indices)} != values length "
+                f"{len(self.values)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CompositeDelta:
+    """aggregator → server: one message per (host, clock) carrying the
+    deltas of every co-located worker behind an aggregator.
+
+    `members` is the vector-clock map, (worker_id, vector_clock) pairs
+    sorted ascending and unique.  Stacked (summed=False): `deltas` holds
+    one GradientMessage per member, zipped with `members`, applied per
+    member in member order.  Summed (summed=True): `deltas` is ONE
+    GradientMessage holding the pre-reduced sum over all members.  A
+    stacked member may carry a `trace` attribute (a flow id) that serde
+    carries across."""
+
+    agg_id: int
+    members: tuple[tuple[int, int], ...]
+    deltas: tuple[GradientMessage, ...]
+    summed: bool = False
+
+    def __post_init__(self):
+        if not self.members:
+            raise ValueError("CompositeDelta needs at least one member")
+        if list(self.members) != sorted(set(self.members)):
+            raise ValueError("CompositeDelta members must be sorted "
+                             "and unique")
+        if self.summed:
+            if len(self.deltas) != 1:
+                raise ValueError("summed CompositeDelta carries exactly "
+                                 "one pre-reduced delta")
+        else:
+            if len(self.deltas) != len(self.members):
+                raise ValueError(
+                    f"stacked CompositeDelta carries one delta per "
+                    f"member: {len(self.deltas)} != {len(self.members)}")
+            for (w, c), d in zip(self.members, self.deltas):
+                if (d.worker_id, d.vector_clock) != (w, c):
+                    raise ValueError(
+                        f"member ({w}, {c}) does not match its delta "
+                        f"({d.worker_id}, {d.vector_clock})")
+
+    @property
+    def fan_in(self) -> int:
+        return len(self.members)
+
+
+@dataclasses.dataclass(frozen=True)
+class LabeledData:
+    """One streamed sample: sparse features + label (the INPUT_DATA
+    topic's record)."""
+
+    features: dict[int, float]
+    label: int

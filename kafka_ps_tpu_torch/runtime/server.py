@@ -31,8 +31,10 @@ waiting for it; its in-flight gradients are dropped as zombies) and
 `readmit_worker` rejoins it at the slowest active clock.  A gradient
 whose clock the tracker already passed is a redelivery and is dropped.
 Checkpoints (utils/checkpoint.py) are written every `checkpoint_every`
-applied iterations when `checkpoint_path` is set; a restored server
-re-issues its workers' current clocks through `start_training_loop`.
+applied iterations when `checkpoint_path` is set; on a durable fabric
+each is a commit point of the log.  A restored server re-issues its
+workers' current clocks through `start_training_loop`, except where a
+replayed reply is already queued.
 With compression on (`compressor`, compress/codecs.WeightsCompressor)
 every WeightsMessage carries the quantize-dequantized theta and its
 encoded parts; the master theta stays full precision.
@@ -40,6 +42,7 @@ encoded parts; the master theta stays full precision.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable
 
@@ -401,14 +404,31 @@ class ServerNode:
 
     def save_checkpoint_now(self) -> None:
         """Write the checkpoint: theta, clocks, membership, iterations and
-        run id, with the buffers and residuals the app handed over."""
+        run id, with the buffers and residuals the app handed over.
+
+        On a durable fabric (log/durable_fabric.py) it is a COMMIT POINT:
+        snapshot the consumer offsets the state covers, store them in the
+        checkpoint (authoritative for replay), then commit them durably so
+        retention can reap fully-consumed segments.  Offsets are committed
+        only once the checkpoint covering them is on disk, so a crash
+        between the two replays extra records instead of losing them.
+        The fabric's commit lock holds ingestion off between the offsets'
+        snapshot and the buffers' copy."""
         if not self.checkpoint_path:
             return
         from kafka_ps_tpu_torch.utils import checkpoint as ckpt
         t0 = time.perf_counter()
-        ckpt.save(self.checkpoint_path, self,
-                  buffers=self.checkpoint_buffers,
-                  residuals=self.checkpoint_residuals)
+        durable = self.fabric.durable
+        offsets = None
+        with (self.fabric.commit_lock if durable
+              else contextlib.nullcontext()):
+            if durable:
+                offsets = self.fabric.snapshot_offsets()
+            ckpt.save(self.checkpoint_path, self,
+                      buffers=self.checkpoint_buffers, log_offsets=offsets,
+                      residuals=self.checkpoint_residuals)
+        if offsets is not None:
+            self.fabric.commit(offsets)
         self._last_checkpoint_iteration = self.iterations
         self.checkpoint_saves += 1
         self.checkpoint_save_s += time.perf_counter() - t0

@@ -628,3 +628,82 @@ def test_int8_slab_encode_on_the_card_equals_the_cpu(card):
     assert torch.equal(q_card.cpu(), q_cpu)
     stored = encode_x("int8", x.to(card))
     assert torch.equal(stored.scale.cpu(), encode_x("int8", x).scale)
+
+
+# -- serde and the durable log on the card (runtime/serde.py, log/) ----------
+
+@pytest.mark.parametrize("codec_name", ["none", "bf16", "int8", "topk:0.01"])
+def test_serde_frames_of_card_tensors_equal_the_cpu_bytes(card, codec_name):
+    """to_bytes of a message whose tensors are on the card gives the CPU
+    message's bytes; from_bytes puts the values back on the card,
+    bitwise."""
+    from kafka_ps_tpu_torch import compress
+    from kafka_ps_tpu_torch.runtime import serde
+    from kafka_ps_tpu_torch.runtime.messages import (GradientMessage,
+                                                     KeyRange)
+    n = 6150
+    v = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        n).astype(np.float32))
+    msgs = {}
+    for dev in ("cpu", card):
+        values, enc = v.to(dev), None
+        if codec_name != "none":
+            codec = compress.get_codec(compress.parse_codec(codec_name), n)
+            values, parts = codec.roundtrip(values)
+            enc = codec.encoded(parts)
+        msgs[str(dev)] = GradientMessage(vector_clock=3,
+                                         key_range=KeyRange(0, n),
+                                         values=values, encoded=enc,
+                                         worker_id=1)
+    blob = serde.to_bytes(msgs["cuda"])
+    assert blob == serde.to_bytes(msgs["cpu"])
+    out = serde.from_bytes(blob)              # the card by default
+    assert out.values.device.type == "cuda"
+    assert torch.equal(out.values, msgs["cuda"].values)
+    if codec_name != "none":
+        assert all(p.device.type == "cuda" for p in out.encoded.parts)
+        assert serde.to_bytes(out) == blob
+
+
+def test_durable_restart_on_the_card_is_bitwise_uninterrupted(card,
+                                                             tmp_path):
+    """A durable serial -c 0 run on the card abandoned after a commit
+    point, restored and replayed onto the card, ends with the θ and
+    clocks of an uninterrupted run on the card."""
+    from kafka_ps_tpu_torch.log import DurableFabric, LogConfig
+    from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
+
+    x, y = generate(200, 64, 5, seed=2, center_scale=0.3)
+    cfg = PSConfig(num_workers=4, consistency_model=0,
+                   model=ModelConfig(num_features=64, num_classes=5),
+                   buffer=BufferConfig(min_size=8, max_size=32))
+
+    def app(fabric=None):
+        a = StreamingPSApp(cfg, test_x=x[150:], test_y=y[150:],
+                           clock_ms=lambda: 0.0, device=card, fabric=fabric)
+        a.server.checkpoint_path = str(tmp_path / "ck.npz")
+        a.server.checkpoint_every = 16
+        a.server.checkpoint_buffers = a.buffers
+        return a
+
+    base = app()
+    base.server.checkpoint_path = None
+    for i in range(150):
+        base.data_sink(i % 4, x[i], int(y[i]))
+    base.run_serial(60)
+    first = app(DurableFabric(str(tmp_path / "wal"), LogConfig(fsync="none")))
+    for i in range(150):
+        first.data_sink(i % 4, x[i], int(y[i]))
+    first.run_serial(40)                     # abandoned past a commit
+    again = app(DurableFabric(str(tmp_path / "wal"), LogConfig(fsync="none")))
+    assert again.restore_checkpoint(str(tmp_path / "ck.npz"))
+    counts = again.recover_durable()
+    assert counts[fabric_mod.GRADIENTS_TOPIC] > 0
+    queued = again.fabric._queues[(fabric_mod.WEIGHTS_TOPIC, 0)]
+    assert queued and queued[0][1].values.device.type == card.type
+    again.run_serial(60)
+    assert torch.equal(again.server.theta, base.server.theta)
+    assert again.server.tracker.clocks == base.server.tracker.clocks
+    assert again.server.duplicate_gradients_dropped > 0
+    for a in (base, first, again):
+        a.close_logs()
