@@ -81,7 +81,23 @@
    call, metrics must be finite and the final eval lag 0.  Every run must
    have parsed its CSV with the port's native parser (its parse time is
    printed).
-5. Profile: one more default serial -c 0 run per family, one of logreg
+5. Split phase: one bridge round on the card (tests/torch_split_round.py:
+   4 workers, F=1024, rows as DATA_BATCH frames; logreg and the MLP, f32
+   and stored slabs) bitwise the in-process round; then the port's split
+   deployment, server_runner --listen and two worker_runner processes of
+   2 workers, on the same CSV: logreg at -c 0, -c 2 and -c -1 (400
+   iterations), the MLP at -c -1, logreg --slab-dtype int8 at -c 2, the
+   MLP --slab-dtype bf16 at -c -1, logreg --compress int8 at -c 2 (200
+   each), the MLP at H=4096 -c -1 (40), each beside the in-process
+   trainer with the same flags (threaded, --no-gang); and logreg -c 10
+   with one worker process killed by SIGKILL and restarted
+   (--checkpoint, --failure_policy rebalance).  Each worker process's
+   kernel calls must equal its worker CSV rows, of the run's family and
+   slab form only, on cuda; the log-visible clock spread stays within
+   k + 1 under -c k; F1 in (0.5, 1], eval lag 0.  Per run: server
+   iterations/s against the in-process run, frames, bytes per message
+   and serde ms per frame by topic on each side.
+6. Profile: one more default serial -c 0 run per family, one of logreg
    with int8 slabs, one of logreg --compress int8 and one of logreg
    --fused --eval_every 10 (200
    iterations each), under torch.profiler (CUDA activity only) and
@@ -90,7 +106,8 @@
    Python function, with the rank of the CSV parse's functions in it.
    In the fused run, whose chunks replay CUDA graphs, the K2 kernels the
    profiler traced must equal the launch counter.
-6. The `kernels` JSON line, the card line, and last the result line.
+7. The `kernels` JSON line (the split runs' worker calls counted in the
+   launches), the card line, and last the result line.
 
 Any failed phase raises: the script exits non-zero and prints no result.
 It also exits non-zero without a card, and when the package is absent.
@@ -151,6 +168,8 @@ EF_STEPS, CRASH_AT = 50, 20
 DURABLE_ITERS, DURABLE_CRASH_AT = 200, 120
 CLI_CRASH_ROWS, CLI_KILL_AT = 512, 130
 COMPRESSED_WIDE_ITERS, RESUME_ITERS = 40, 200
+# the split phase: server iterations of its runs
+SPLIT_ITERS, SPLIT_SHORT, SPLIT_WIDE = 400, 200, 40
 SLAB_KINDS = ("bf16", "int8")
 X_BYTES = {"bf16": 2, "int8": 1}
 # the Pallas body each storage form of K3 and K5 replaces
@@ -527,8 +546,8 @@ def wide_mlp_phase(dev) -> dict:
     k4 = fu.mlp_local_update(*args, cfg=cfg)
     k4_ref = fu.mlp_local_update_plain(*args, cfg=cfg)
     torch.cuda.synchronize()
-    compare(f"K4 mlp_local_update (H={WIDE_H})", k4, k4_ref, MLP_RTOL,
-            MLP_ATOL)
+    k4_err = compare(f"K4 mlp_local_update (H={WIDE_H})", k4, k4_ref,
+                     MLP_RTOL, MLP_ATOL)
     b1 = fu.mlp_local_update_batched(*members, cfg=cfg)
     b2 = fu.mlp_local_update_batched(*members, cfg=cfg)
     ref = fu.mlp_local_update_batched_plain(*members, cfg=cfg)
@@ -559,9 +578,14 @@ def wide_mlp_phase(dev) -> dict:
         lambda: fu.mlp_local_update_batched_plain(*members, cfg=cfg),
         nbytes, flops, k6_err)
     cublas_yardstick(args, cfg)
-    k4_ms = time_ms(lambda: fu.mlp_local_update(*args, cfg=cfg), reps=20)
-    print(f"K4 mlp_local_update (H={WIDE_H}) ms per call (CUDA events): "
-          f"{k4_ms:.4f}")
+    # K4 alone at this width: the split phase's wide run calls it
+    k4_entry = kernel_entry(
+        f"mlp_local_update_h{WIDE_H}", "mlp_update.cu",
+        "kafka_ps_tpu/ops/fused_update.py:248",
+        lambda: fu.mlp_local_update(*args, cfg=cfg),
+        lambda: fu.mlp_local_update_plain(*args, cfg=cfg),
+        4 * (B * F + 2 * B + 2 * MP + 1),
+        (4 * K + 2) * B * F * WIDE_H + (6 * K + 2) * B * WIDE_H * R, k4_err)
     # the members of tests/test_torch_mlp_wide.py: on data seed 8 the
     # float32 update is ill-conditioned (a relu gate or softmax near-tie
     # at logits of ~100), and only there are outliers allowed
@@ -580,7 +604,7 @@ def wide_mlp_phase(dev) -> dict:
             compare_outliers(name, out, ref)
         else:
             compare(name, out, ref, MLP_RTOL, MLP_ATOL)
-    return {entry["name"]: entry}
+    return {entry["name"]: entry, k4_entry["name"]: k4_entry}
 
 
 def small_app(device, c, task="logreg", workers=3, logs=None, fabric=None,
@@ -1535,6 +1559,311 @@ def durable_runs() -> list[dict]:
     return runs
 
 
+SPLIT_IDS = ("0,1", "2,3")          # two worker processes of 2
+
+
+def split_reference_check(dev) -> None:
+    """One -c 0 round of 4 workers through a localhost ServerBridge/
+    WorkerBridge pair on the card, rows delivered as DATA_BATCH frames,
+    against the same round in process (tests/torch_split_round.py): the
+    gradients decode onto the card and they and the applied theta are
+    bitwise the in-process ones, logreg and the MLP, f32 and stored
+    slabs."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_split_round import bridge_round
+    for task, slab in (("logreg", "f32"), ("mlp", "f32"),
+                       ("logreg", "int8"), ("mlp", "bf16")):
+        (ref, ref_theta), (got, theta) = bridge_round(
+            dev, task, features=F, classes=C, hidden=H, workers=WORKERS,
+            rows=256, slab=slab)
+        same = (all(a.values.device.type == b.values.device.type == "cuda"
+                    and torch.equal(a.values, b.values)
+                    for a, b in zip(ref, got))
+                and torch.equal(ref_theta, theta))
+        print(f"split reference check on the card ({task}, {slab} slab, "
+              f"{WORKERS} workers, F={F}): gradients through the bridges "
+              f"and the applied theta bitwise the in-process round: {same}")
+        if not same:
+            raise RuntimeError(f"split reference check {task} {slab}: the "
+                               "bridged round differs from the in-process "
+                               "one")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _role_stats(path: str, role: str) -> dict:
+    tag = f"kafka_ps_tpu_torch {role}: "
+    with open(path) as f:
+        lines = [ln for ln in f.read().splitlines() if ln.startswith(tag)]
+    if not lines:
+        raise RuntimeError(f"no {role} stats line in {path}")
+    return json.loads(lines[-1][len(tag):])
+
+
+def _csv_rows(path: str) -> list[list[str]]:
+    with open(path) as f:
+        return [r.split(";") for r in f.read().splitlines()[1:]]
+
+
+def clock_spread(rows) -> int:
+    """The largest log-visible clock spread between the workers over a
+    run's worker rows (timestamp order; at one millisecond the lower clock
+    first, since it enabled the higher).  Under -c k the gate keeps it
+    within k + 1: a worker logs clock c only once the slowest worker's
+    gradient for c - k - 1 arrived, which it sent after logging that
+    clock (kafka_ps_tpu/evaluation/validate.py derives the same bound)."""
+    last: dict[int, int] = {}
+    worst = 0
+    for _, w, clock in sorted((int(r[0]), int(r[1]), int(r[2]))
+                              for r in rows):
+        last[w] = clock
+        if len(last) == WORKERS:
+            worst = max(worst, max(last.values()) - min(last.values()))
+    return worst
+
+
+def _wire_line(side: str, stats: dict) -> str:
+    """Frames, bytes per message and serde ms per frame by topic."""
+    parts = []
+    for topic, t in sorted(stats["wire"].items()):
+        for way in ("out", "in"):
+            n = t.get(f"frames_{way}")
+            if n:
+                parts.append(f"{topic} {way} {n} frames "
+                             f"{t[f'bytes_{way}']} B "
+                             f"({t[f'bytes_{way}'] / n:.0f} B/frame)")
+        if "serde_ms_per_frame" in t:
+            parts.append(f"{topic} serde {t['serde_ms_per_frame']:.4f} "
+                         f"ms/frame over {t['serde_frames']}")
+    w = stats["writers"]
+    fps = w["frames_per_syscall"]
+    return (f"  {side}: " + "; ".join(parts)
+            + f"; writer flushes {w['flushes']}, frames per syscall "
+            + ("n/a" if fps is None else f"{fps:.2f}"))
+
+
+def split_run(task: str, c: int, iters: int, flags: tuple = (),
+              hidden: int = H, kill: bool = False) -> dict:
+    """The port's split deployment on the card: server_runner --listen 0
+    and two worker_runner processes of 2 workers (F=1024, C=5, buffer max
+    1024, k=2, lr 0.5) on write_data()'s CSV, each process in its own
+    directory under OUT.  Each worker process's kernel calls (its stats
+    line) must equal its worker CSV rows and be of the run's family and
+    slab form only, on cuda; under -c k the log-visible clock spread stays
+    within k + 1; the final F1 is in (0.5, 1] and the eval lag at exit 0.
+    `kill`: the second worker process is killed with SIGKILL once it has
+    logged 20 rows and saved its state (--checkpoint, --state_every 0.2),
+    restarted with the same command, and the server (--failure_policy
+    rebalance --heartbeat_timeout 10, no iteration cap) is interrupted
+    with SIGINT once both of its workers are readmitted and the restarted
+    process has logged 50 rows; its restored buffers and readmission are
+    checked."""
+    import signal
+    tag = "-".join(["split", task, f"c{c}",
+                    *(f.lstrip("-") for f in flags)]
+                   + ([f"H{hidden}"] if hidden != H else [])
+                   + (["kill"] if kill else []))
+    base = os.path.join(OUT, tag)
+    remove(base)
+    dirs = {n: os.path.join(base, n) for n in ("server", "w0", "w1")}
+    for d in dirs.values():
+        os.makedirs(d)
+    kind = flags[flags.index("--slab-dtype") + 1] \
+        if "--slab-dtype" in flags else "f32"
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("KPS_PLATFORM", None)
+    common = ["-test", "../../test.csv", "--num_workers", str(WORKERS),
+              "--num_features", str(F), "--num_classes", str(C), "--task",
+              task, "--hidden_dim", str(hidden), "-l", *flags]
+    server_cmd = [sys.executable, "-m", "kafka_ps_tpu_torch.cli."
+                  "server_runner", "--listen", str(port), "-training",
+                  "../../train.csv", "-p", "0", "-c", str(c),
+                  "--max_iterations", str(0 if kill else iters), *common]
+    if kill:
+        server_cmd += ["--failure_policy", "rebalance",
+                       "--heartbeat_timeout", "10"]
+
+    def worker_cmd(i):
+        cmd = [sys.executable, "-m", "kafka_ps_tpu_torch.cli."
+               "worker_runner", "--connect", f"127.0.0.1:{port}",
+               "--worker_ids", SPLIT_IDS[i], "-max", str(MAX_BUFFER),
+               *common]
+        return cmd + (["--checkpoint", "job.npz", "--state_every", "0.2"]
+                      if kill else [])
+
+    def start(name, cmd, suffix=""):
+        d = dirs[name]
+        return subprocess.Popen(
+            cmd, cwd=d, env=env,
+            stdout=open(os.path.join(d, f"out{suffix}.txt"), "w"),
+            stderr=open(os.path.join(d, f"err{suffix}.txt"), "w"))
+
+    t0 = time.perf_counter()
+    procs = {"server": start("server", server_cmd),
+             "w0": start("w0", worker_cmd(0)),
+             "w1": start("w1", worker_cmd(1))}
+    pre_rows = 0
+    try:
+        if kill:
+            w1_log = os.path.join(dirs["w1"], "logs-worker.csv")
+            state = os.path.join(dirs["w1"], "job.npz.workers-2-3.npz")
+
+            def wait_for(pred, what, limit=240.0):
+                deadline = time.monotonic() + limit
+                while not pred():
+                    for name, p in procs.items():
+                        if p.poll() is not None:
+                            raise RuntimeError(f"{tag}: {name} exited "
+                                               f"({p.returncode}) while "
+                                               f"waiting for {what}")
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(f"{tag}: no {what}")
+                    time.sleep(0.05)
+
+            def rows_of(path):
+                return (len(_csv_rows(path)) if os.path.exists(path)
+                        else 0)
+
+            wait_for(lambda: rows_of(w1_log) >= 20
+                     and os.path.exists(state), "20 rows and a state file")
+            procs["w1"].send_signal(signal.SIGKILL)
+            procs["w1"].wait(timeout=60)
+            pre_rows = rows_of(w1_log)
+            procs["w1"] = start("w1", worker_cmd(1), "-restart")
+            server_err = os.path.join(dirs["server"], "err.txt")
+
+            def readmitted():
+                with open(server_err) as f:
+                    return f.read().count("readmitted worker") == 2
+
+            wait_for(lambda: readmitted()
+                     and rows_of(w1_log) >= pre_rows + 50,
+                     "readmission and 50 rows after the restart")
+            procs["server"].send_signal(signal.SIGINT)
+        for name, p in procs.items():
+            p.wait(timeout=300)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    rcs = {n: p.returncode for n, p in procs.items()}
+    errs = {n: os.path.join(d, "err-restart.txt" if kill and n == "w1"
+                            else "err.txt") for n, d in dirs.items()}
+    if any(rcs.values()):
+        tails = {n: open(e).read()[-2000:] for n, e in errs.items()}
+        raise RuntimeError(f"{tag}: exit codes {rcs}:\n{tails}")
+    server = _role_stats(errs["server"], "server")
+    workers = [_role_stats(errs[f"w{i}"], "worker") for i in (0, 1)]
+    server_rows = _csv_rows(os.path.join(dirs["server"], "logs-server.csv"))
+    worker_rows = [_csv_rows(os.path.join(dirs[f"w{i}"], "logs-worker.csv"))
+                   for i in (0, 1)]
+    prefix = ("" if task == "logreg" else "mlp_") + (
+        "" if kind == "f32" else "stream_")
+    mine = f"{prefix}launches"
+    calls = []
+    for i, (st, rows) in enumerate(zip(workers, worker_rows)):
+        own = len(rows) - (pre_rows if kill and i == 1 else 0)
+        n = st["kernels"]
+        others = {k: v for k, v in n.items() if k != mine and v}
+        calls.append(n[mine])
+        print(f"  worker process {i} ({SPLIT_IDS[i]}): device "
+              f"{st['device']}, {own} worker CSV rows in this process, "
+              f"kernel calls {mine}={n[mine]}, others "
+              f"{others or 'all 0'}; rows received "
+              f"{st['rows_received']}; codec {st['codec']}"
+              + (f"; restored {st['restored']}" if kill and i == 1
+                 else ""))
+        if not st["device"].startswith("cuda"):
+            raise RuntimeError(f"{tag}: worker {i} ran on {st['device']}")
+        if n[mine] != own or sum(st["rows"].values()) != own:
+            raise RuntimeError(f"{tag}: worker process {i} made {n[mine]} "
+                               f"{mine} calls and {st['rows']} iterations "
+                               f"for {own} CSV rows")
+        if others:
+            raise RuntimeError(f"{tag}: kernels of another family or form "
+                               f"ran in worker process {i}: {others}")
+    all_rows = worker_rows[0] + worker_rows[1]
+    spread = clock_spread(all_rows)
+    values = np.array([[float(v) for v in r[3:6]]
+                       for r in server_rows + all_rows])
+    f1 = float(server_rows[-1][4])
+    lag = server["eval"]["lag_clocks"]
+    iters_run = server["server_iterations"]
+    first_ms = min(int(r[0]) for r in all_rows)
+    rate = iters_run / ((server["end_ms"] - first_ms) / 1e3)
+    print(f"split {tag}: rc={rcs} server_rows={len(server_rows)} "
+          f"server_iterations={iters_run} iters_per_s={rate:.1f} (first "
+          f"worker row to the server's flushed logs) final_f1={f1:.4f} "
+          f"final eval lag {lag} clock spread {spread}"
+          + (f" (bound {c + 1})" if c >= 0 else "")
+          + f" wall_s={wall:.1f}; server on {server['device']}, codec "
+          f"{server['codec']}, dropped sends {server['dropped_sends']}, "
+          f"rows sent {server['rows']}")
+    print(_wire_line("server", server))
+    for i, st in enumerate(workers):
+        print(_wire_line(f"worker process {i}", st))
+    for i in (0, 1):      # the worker state files: 8 MB a process
+        remove(os.path.join(dirs[f"w{i}"],
+                            f"job.npz.workers-{SPLIT_IDS[i].replace(',', '-')}"
+                            ".npz"))
+    if kill:
+        st = workers[1]
+        readm = server["membership"]["readmissions"]
+        print(f"  kill and restart: {pre_rows} rows on disk at the kill, "
+              f"restored buffers {st['restored']}, readmissions {readm}, "
+              f"evictions {server['membership']['evictions']}")
+        if not st["restored"] or sorted(w for w, _ in readm) != [2, 3]:
+            raise RuntimeError(f"{tag}: the restarted worker process did "
+                               "not restore, or was not readmitted")
+    if not kill and c >= 0 and spread > c + 1:
+        raise RuntimeError(f"{tag}: clock spread {spread} over -c {c}")
+    if not np.isfinite(values).all() or not 0.5 < f1 <= 1.0:
+        raise RuntimeError(f"{tag}: bad metrics (final F1 {f1})")
+    if lag != 0:
+        raise RuntimeError(f"{tag}: final eval lag {lag}")
+    if not kill and iters_run != iters:
+        raise RuntimeError(f"{tag}: {iters_run} server iterations")
+    if "--compress" in flags:
+        want = flags[flags.index("--compress") + 1]
+        if server["codec"] != want or any(w["codec"] != want
+                                          for w in workers):
+            raise RuntimeError(f"{tag}: codec not negotiated as {want}")
+    return {"task": task, "kind": kind, "single": sum(calls),
+            "gang_calls": 0, "hidden": hidden, "fused": False,
+            "rate": rate}
+
+
+def split_runs() -> list[dict]:
+    """The split phase: each run of the port's split deployment beside
+    the in-process trainer with the same flags (threaded, --no-gang: a
+    split worker process runs no gang) in this script run."""
+    runs = []
+    specs = [("logreg", c, SPLIT_ITERS, (), H) for c in (0, 2, -1)]
+    specs += [("mlp", -1, SPLIT_SHORT, (), H),
+              ("logreg", 2, SPLIT_SHORT, ("--slab-dtype", "int8"), H),
+              ("mlp", -1, SPLIT_SHORT, ("--slab-dtype", "bf16"), H),
+              ("logreg", 2, SPLIT_SHORT, ("--compress", "int8"), H),
+              ("mlp", -1, SPLIT_WIDE, (), WIDE_H)]
+    for task, c, iters, flags, hidden in specs:
+        split = split_run(task, c, iters, flags, hidden)
+        inproc = main_path_run(task, "threaded", c, iters,
+                               ("--no-gang", *flags), hidden)
+        runs += [split, inproc]
+        print(f"split against in-process: {task} -c {c} {' '.join(flags)} "
+              f"H={hidden}: iters_per_s {split['rate']:.1f} against "
+              f"{inproc['rate']:.1f} ({split['rate'] / inproc['rate']:.3f}x)")
+    runs.append(split_run("logreg", 10, SPLIT_SHORT, kill=True))
+    return runs
+
+
 def profile_run(task: str, iters: int = 200, flags: tuple = ()) -> None:
     """One default serial -c 0 run (plus `flags`) through cli.run.main under
     torch.profiler and cProfile: device time by kernel, the device's busy
@@ -1729,6 +2058,8 @@ def main() -> int:
                      for it in (RESUME_ITERS, 2 * RESUME_ITERS)]
         runs += durable_runs()
         cli_crash_check()
+        split_reference_check(dev)
+        runs += split_runs()
         profile_run("logreg")
         profile_run("logreg", flags=("--durable-log", "wal-profile"))
         profile_run("mlp")
@@ -1750,11 +2081,13 @@ def main() -> int:
                  ("single", "gang_calls"))
                 for pre, task in (("", "logreg"), ("mlp_", "mlp"))
                 for kind in SLAB_KINDS]
-    entries.append((f"mlp_local_update_batched_h{WIDE_H}", "mlp", "f32",
-                    ("gang_calls",)))
+    entries += [(f"mlp_local_update_batched_h{WIDE_H}", "mlp", "f32",
+                 ("gang_calls",)),
+                (f"mlp_local_update_h{WIDE_H}", "mlp", "f32", ("single",))]
     for name, task, kind, keys in entries:
-        # the H=4096 K6 entry counts the wide runs' calls, the others the
-        # runs at the main path's H
+        # the H=4096 entries count the wide runs' calls, the others the
+        # runs at the main path's H; the split runs count as main-path
+        # runs (their worker processes' calls)
         wide = name.endswith(f"_h{WIDE_H}")
         kernels[name]["launches"] = sum(
             r[k] for r in runs if (r["task"], r["kind"]) == (task, kind)

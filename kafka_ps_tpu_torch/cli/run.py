@@ -19,6 +19,11 @@ row and, on a restart, replays the tail past the checkpoint (log/).  Runs
 on the CUDA card; KPS_PLATFORM=cpu runs it on the CPU.  At exit it prints
 one line of run statistics on stderr:
 `kafka_ps_tpu_torch run: {json}`.
+
+`build_parser` also serves the role runners (cli/server_runner.py,
+cli/worker_runner.py), which leave out the other role's flags and run
+`run_with_args` when not split; `--wire-coalesce` / `--no-wire-coalesce`
+pick the split deployment's send path (cli/socket_mode.py).
 """
 
 from __future__ import annotations
@@ -29,24 +34,31 @@ import os
 import sys
 
 
-def build_parser() -> argparse.ArgumentParser:
+def build_parser(include_server_flags: bool = True,
+                 include_worker_flags: bool = True,
+                 prog: str = "kafka_ps_tpu_torch") -> argparse.ArgumentParser:
+    """The trainer's flags; the role runners (cli/server_runner.py,
+    cli/worker_runner.py) leave out the other role's own flags, as the
+    reference's two runners do."""
     p = argparse.ArgumentParser(
-        prog="kafka_ps_tpu_torch",
-        description="streaming parameter server on an NVIDIA GPU")
-    p.add_argument("-training", "--training_data_file_path",
-                   default="./data/train.csv",
-                   help="path to the training-data CSV")
+        prog=prog, description="streaming parameter server on an NVIDIA GPU")
+    if include_server_flags:
+        p.add_argument("-training", "--training_data_file_path",
+                       default="./data/train.csv",
+                       help="path to the training-data CSV")
+        p.add_argument("-c", "--consistency_model", type=int, default=0,
+                       help="0 sequential, k>0 bounded delay, -1 eventual")
+        p.add_argument("-p", "--producer_time_per_event", type=int,
+                       default=200,
+                       help="ms per produced event (0 = unpaced)")
+    if include_worker_flags:
+        p.add_argument("-min", "--min_buffer_size", type=int, default=128)
+        p.add_argument("-max", "--max_buffer_size", type=int, default=1024)
+        p.add_argument("-bc", "--buffer_size_coefficient", type=float,
+                       default=0.3)
     p.add_argument("-test", "--test_data_file_path",
                    default="./data/test.csv",
                    help="path to the test-data CSV")
-    p.add_argument("-c", "--consistency_model", type=int, default=0,
-                   help="0 sequential, k>0 bounded delay, -1 eventual")
-    p.add_argument("-p", "--producer_time_per_event", type=int,
-                   default=200, help="ms per produced event (0 = unpaced)")
-    p.add_argument("-min", "--min_buffer_size", type=int, default=128)
-    p.add_argument("-max", "--max_buffer_size", type=int, default=1024)
-    p.add_argument("-bc", "--buffer_size_coefficient", type=float,
-                   default=0.3)
     p.add_argument("-l", "--logging", action="store_true",
                    help="write performance logs to ./logs-server.csv / "
                         "./logs-worker.csv (and membership events to "
@@ -132,6 +144,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="re-upload the whole slab whenever the buffer "
                         "changes instead of scattering only the dirty "
                         "rows (bitwise the same slab)")
+    p.add_argument("--wire-coalesce", dest="wire_coalesce",
+                   action="store_true", default=True,
+                   help="split deployment (cli/socket_mode.py): frame "
+                        "coalescing on the socket bridges (default): sends "
+                        "queue behind a per-connection writer thread that "
+                        "ships every queued frame in one scatter-gather "
+                        "sendmsg")
+    p.add_argument("--no-wire-coalesce", dest="wire_coalesce",
+                   action="store_false",
+                   help="one sendall per frame under the connection lock "
+                        "(the byte stream is the same either way)")
     return p
 
 
@@ -190,7 +213,12 @@ def make_app_from_args(args, device=None, resuming: bool = False):
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    return run_with_args(build_parser().parse_args(argv))
+
+
+def run_with_args(args) -> int:
+    """The in-process trainer on parsed flags (the role runners' path
+    when they are given neither --listen nor --connect)."""
     if args.eval_every < 1:
         raise SystemExit("--eval_every must be >= 1")
     if args.fused and args.pallas:

@@ -1,0 +1,88 @@
+"""Server-role entry point (counterpart of kafka_ps_tpu/cli/server_runner.py):
+the reference's ServerAppRunner flags, same names and defaults.
+
+With `--listen PORT` the process hosts ONLY the server (aggregator +
+consistency gate + producer) and serves remote worker processes over
+the socket transport (cli/socket_mode.py).  Without it, it hosts the
+whole system in process (cli/run.py's trainer) with the worker-side
+knobs at their reference defaults.  Runs on the CUDA card unless
+KPS_PLATFORM=cpu.
+
+    python -m kafka_ps_tpu_torch.cli.server_runner --listen 0 \\
+        -training train.csv -test test.csv -c 2 --max_iterations 400 -l
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from kafka_ps_tpu_torch.cli import run as run_mod
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The server-role flag surface: the JAX runner's flags, of which
+    the range-sharded server (--shards, --shard-id), the read replica
+    (--serve-replica) and --bsp-order are refused until their ROADMAP
+    items are ported."""
+    parser = run_mod.build_parser(include_server_flags=True,
+                                  include_worker_flags=False,
+                                  prog="ServerAppRunner")
+    parser.add_argument(
+        "--listen", type=int, default=None, metavar="PORT",
+        help="split deployment: host ONLY the server and serve remote "
+             "worker processes over the socket transport "
+             "(cli/socket_mode.py; 0 = ephemeral port, printed to stderr)")
+    parser.add_argument("--connect_timeout", type=float, default=60.0,
+                        help="--listen: seconds to wait for all workers")
+    parser.add_argument(
+        "--shards", type=int, default=1, metavar="N",
+        help="--listen: total server shards of a range-sharded deployment "
+             "(not ported yet: ROADMAP item 20; only 1)")
+    parser.add_argument(
+        "--shard-id", dest="shard_id", type=int, default=0, metavar="I",
+        help="--shards: this process's shard index in [0, N)")
+    parser.add_argument(
+        "--bsp-order", dest="bsp_order", action="store_true",
+        help="buffer each BSP round and apply it in worker-id order (not "
+             "ported yet: ROADMAP item 23)")
+    parser.add_argument(
+        "--serve-replica", dest="serve_replica", action="store_true",
+        help="read-replica serving process (not ported yet: ROADMAP item "
+             "21)")
+    return parser
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    # worker-side defaults (WorkerAppRunner.java:55-58)
+    args = argparse.Namespace(min_buffer_size=128, max_buffer_size=1024,
+                              buffer_size_coefficient=0.3, **vars(args))
+    if args.shards < 1 or not 0 <= args.shard_id < args.shards:
+        raise SystemExit(
+            f"--shard-id {args.shard_id} must be in [0, --shards "
+            f"{args.shards}) and --shards must be >= 1")
+    if args.shards > 1:
+        raise SystemExit("--shards N > 1: the range-sharded split server "
+                         "is not ported yet (ROADMAP item 20)")
+    if args.serve_replica:
+        raise SystemExit("--serve-replica: the read replica is not ported "
+                         "yet (ROADMAP item 21)")
+    if args.bsp_order:
+        raise SystemExit("--bsp-order: worker-id-ordered BSP applies come "
+                         "with the aggregation tier, not ported yet "
+                         "(ROADMAP item 23)")
+    if args.listen is not None:
+        if args.durable_log:
+            # the socket split has its own durability story (--checkpoint
+            # + per-worker state files); the commit log is the
+            # in-process fabric's
+            raise SystemExit(
+                "--durable-log applies to the in-process fabric; in "
+                "--listen split mode use --checkpoint instead")
+        from kafka_ps_tpu_torch.cli import socket_mode
+        return socket_mode.run_server(args)
+    return run_mod.run_with_args(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -296,6 +296,16 @@ def _entry(source: str, symbol: str, family: str, tables: int,
         return fn
 
 
+def load(family: str, kind: str = "f32") -> None:
+    """Build (nvcc, on first use) and load the kernel of one family and
+    slab form, its geometry checked, without launching it: a process that
+    must answer heartbeats builds before it connects."""
+    source, ptrs, ints = ((SOURCE, 3, 4) if family == "logreg"
+                          else (MLP_SOURCE, 7, 5))
+    _entry(source, _SYMBOLS[family, kind], family,
+           5 if kind == "int8" else 4, ptrs, ints)
+
+
 def _pointers(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 

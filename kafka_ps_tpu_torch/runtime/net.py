@@ -1,0 +1,961 @@
+"""Socket transport (counterpart of kafka_ps_tpu/runtime/net.py): the
+cross-process hop of the split deployment (cli/socket_mode.py), carrying
+the binary serde frames (runtime/serde.py) over TCP.
+
+The reference's server JVM and worker JVMs exchange WEIGHTS / GRADIENTS /
+INPUT_DATA through the broker from different machines; here a server
+process (aggregator + consistency gate + producer) and worker processes
+(buffers + local solvers) talk over point-to-point sockets in place of
+topics.  The frames are byte for byte the JAX package's, so a server of
+either package serves workers of the other.
+
+Wire format, little-endian:
+    frame  := <u32 length> <u8 topic> <i64 key> <payload>
+    topic  := 1 WEIGHTS | 2 GRADIENTS | 3 INPUT_DATA | 4 HELLO | 5 READY
+              | 6 PING | 7 PONG | 8 CONFIG | 9 PREDICT | 10 PREDICTION
+              | 11 DATA_BATCH | 12 WEIGHTS_AGG
+    payload:= serde.to_bytes(message)   (HELLO: <i64 n> <i64 ids[n]>
+                                                [<u8 codec_id> <f32 param>]
+                                                [<u8 trace offer>]
+                                                [<u8 shm request>]
+                                                [<u8 aggregator role>];
+                                         READY/PING/PONG: empty;
+                                         CONFIG: <f64 ping_interval_s>
+                                                 <i64 run_id>
+                                                 [<u8 codec_id> <f32 param>]
+                                                 [<u8 trace answer>]
+                                                 [shm offer];
+                                         DATA_BATCH: columnar <i64 -nrows>
+                                         + packed index/value/label
+                                         columns (serde.
+                                         encode_labeled_rows); the
+                                         legacy <i64 nrows> then per row
+                                         <i32 len><serde bytes> layout
+                                         is still accepted on receive;
+                                         PREDICT / PREDICTION: see the
+                                         encode_/decode_ helpers below)
+`key` is the logical worker id (the Kafka record key); for
+PREDICT/PREDICTION it is the client's request id (echoed back).
+
+Codec negotiation: HELLO optionally carries the worker's `--compress`
+codec; the server's CONFIG reply echoes the codec the pair will use —
+the server's own when both sides named the SAME one, `none` otherwise.
+Trailers are read with unpack_from, so an older peer never sees them and
+the pair falls back to plain f32 frames.
+
+What this package leaves out, each to the subsystem that brings it:
+  * trace context: this side's tracer is off, so a worker offers 0 and
+    a server answers 0 — no 16-byte trace suffix ever crosses a
+    connection of this package, and a JAX peer with tracing on still
+    interoperates (it sees the answer 0);
+  * serving: the server bridge has no prediction engine — a PREDICT
+    frame is answered PREDICT_FAILED, and a HELLO asking for the shared
+    memory channel gets the declined offer;
+  * aggregator relays: a HELLO with the aggregator-role byte is refused
+    (a line on stderr, the connection closed), never registered as a
+    plain worker; there is no grouped T_WEIGHTS_AGG fan-out;
+  * the range-sharded worker (one connection per server shard).
+
+Decoded tensors land on the bridge's device (`device`, resolved once by
+utils.config.resolve_device when the bridge is made), passed explicitly
+to every `serde.from_bytes`.
+
+A reader ends a connection on ConnectionError/OSError (EOF, reset, a
+timeout): that is a disconnect, and the server's `on_disconnect` fires.
+Any other exception — a CUDA error while a gradient lands on the card, a
+frame that does not decode — is not a disconnect: the reader keeps it in
+`reader_error`, fires no `on_disconnect`, and the caller re-raises it
+(`raise_reader_error`), so the process exits non-zero instead of
+evicting a healthy worker.  The JAX readers run their disconnect path
+for every exception.
+
+The counters are plain integers on each bridge: `traffic` frames and
+bytes (frame header included) per (direction, topic), with `wire_bytes`
+per topic over both directions as in the JAX package, `serde_s` and
+`serde_frames` per topic (seconds spent in serde encode and decode, the
+device copies included), and `dropped_sends`; `stats()` reads them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import socket
+import struct
+import sys
+import threading
+import time
+
+from kafka_ps_tpu_torch.compress.wire import CODEC_NONE, CodecSpec
+from kafka_ps_tpu_torch.compress.wire import NONE as CODEC_SPEC_NONE
+from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
+from kafka_ps_tpu_torch.runtime import serde
+from kafka_ps_tpu_torch.runtime.messages import LabeledData
+from kafka_ps_tpu_torch.runtime.wire import (_FRAME, FrameWriter, RecvBuffer,
+                                             force_close, sendmsg_all)
+from kafka_ps_tpu_torch.utils.config import resolve_device
+
+(T_WEIGHTS, T_GRADIENTS, T_DATA, T_HELLO, T_READY,
+ T_PING, T_PONG, T_CONFIG, T_PREDICT, T_PREDICTION,
+ T_DATA_BATCH, T_WEIGHTS_AGG) = range(1, 13)
+# the full frame-topic table: data topics map to their fabric names,
+# control/serving topics to wire-only names
+TOPIC_NAMES = {T_WEIGHTS: fabric_mod.WEIGHTS_TOPIC,
+               T_GRADIENTS: fabric_mod.GRADIENTS_TOPIC,
+               T_DATA: fabric_mod.INPUT_DATA_TOPIC,
+               T_HELLO: "hello", T_READY: "ready",
+               T_PING: "ping", T_PONG: "pong", T_CONFIG: "config",
+               T_PREDICT: "predict", T_PREDICTION: "prediction",
+               T_DATA_BATCH: "input-data-batch",
+               T_WEIGHTS_AGG: "weights-agg"}
+
+# the optional codec trailer on HELLO and CONFIG (negotiation above)
+_CODEC_TRAILER = struct.Struct("<Bf")
+# the optional trace-offer/answer byte AFTER the codec trailer
+_TRACE_TRAILER = struct.Struct("<B")
+# the optional shared-memory request byte AFTER the trace trailer on
+# HELLO, and the matching offer AFTER the trace trailer on CONFIG:
+# <u8 granted> <16s nonce> <64s NUL-padded segment name>
+_SHM_TRAILER = struct.Struct("<B")
+_SHM_OFFER = struct.Struct("<B16s64s")
+# the optional aggregator-role byte AFTER the shm trailer on HELLO: 1
+# marks a per-host aggregator relay, which this package refuses
+_AGG_TRAILER = struct.Struct("<B")
+# T_CONFIG re-sent mid-stream with this run id is a GOODBYE: the run is
+# over and the peer is closing on purpose.  Real run ids are time_ns()
+# or checkpointed positives; -1 can never collide.
+GOODBYE_RUN_ID = -1
+
+# -- serving-plane payloads ---------------------------------------------------
+# PREDICT: the feature row plus the request's staleness bound; sentinel
+# -1 encodes "unbounded" (clocks are non-negative, ages positive)
+_PREDICT_HEADER = struct.Struct("<qdq")   # min_clock, max_age_s, n features
+# PREDICTION: status + (label, confidence, snapshot clock, snapshot time)
+_PREDICTION = struct.Struct("<Bqdqd")
+PREDICT_OK, PREDICT_STALE, PREDICT_FAILED, PREDICT_OVERLOADED = 0, 1, 2, 3
+# optional model-id trailer AFTER the feature row, so frames from peers
+# that never send it decode as model 0
+_MODEL_TRAILER = struct.Struct("<q")
+
+
+def encode_predict_request(x, min_clock: int | None = None,
+                           max_age_s: float | None = None,
+                           model_id: int = 0) -> bytes:
+    import numpy as np
+    row = np.asarray(x, dtype=np.float32).reshape(-1)
+    return (_PREDICT_HEADER.pack(
+        -1 if min_clock is None else int(min_clock),
+        -1.0 if max_age_s is None else float(max_age_s),
+        row.size) + row.tobytes()
+        + _MODEL_TRAILER.pack(int(model_id)))
+
+
+def decode_predict_request(payload: bytes):
+    """(features, min_clock | None, max_age_s | None, model_id)."""
+    import numpy as np
+    min_clock, max_age_s, n = _PREDICT_HEADER.unpack_from(payload, 0)
+    row = np.frombuffer(payload, dtype=np.float32, count=n,
+                        offset=_PREDICT_HEADER.size)
+    model_id = 0
+    tail = _PREDICT_HEADER.size + row.nbytes
+    if len(payload) >= tail + _MODEL_TRAILER.size:
+        (model_id,) = _MODEL_TRAILER.unpack_from(payload, tail)
+    return (row, None if min_clock < 0 else min_clock,
+            None if max_age_s < 0 else max_age_s, model_id)
+
+
+def encode_prediction(status: int, label: int = -1, confidence: float = 0.0,
+                      vector_clock: int = -1, wall_time: float = 0.0) -> bytes:
+    return _PREDICTION.pack(status, label, confidence, vector_clock,
+                            wall_time)
+
+
+def decode_prediction(payload: bytes):
+    """(status, label, confidence, vector_clock, wall_time)."""
+    return _PREDICTION.unpack_from(payload, 0)
+
+
+def send_frame(sock: socket.socket, topic: int, key: int,
+               payload: bytes = b"") -> None:
+    """One frame, immediately (the non-queued path).  Header and payload
+    go out as a two-element scatter-gather send — a multi-KB weights
+    payload is never copied just to prepend 13 bytes."""
+    header = _FRAME.pack(_FRAME.size - 4 + len(payload), topic, key)
+    if len(payload):
+        sendmsg_all(sock, (header, payload))
+    else:
+        sock.sendall(header)
+
+
+def locked_send(sock: socket.socket, lock, topic: int, key: int,
+                payload: bytes = b"") -> None:
+    """Serialize one frame write onto `sock` under its dedicated write
+    lock: interleaved frame bodies from concurrent senders would corrupt
+    the stream, so the lock's whole critical section IS the write."""
+    with lock:
+        send_frame(sock, topic, key, payload)
+
+
+def recv_frame(sock: socket.socket) -> tuple[int, int, memoryview] | None:
+    """(topic, key, payload) or None on a clean EOF.  The payload is a
+    zero-copy memoryview into the received frame body."""
+    head = _recv_exact(sock, 4)
+    if head is None:
+        return None
+    (length,) = struct.unpack("<I", head)
+    body = _recv_exact(sock, length)
+    if body is None:
+        raise ConnectionError("mid-frame EOF")
+    topic, key = struct.unpack_from("<Bq", body, 0)
+    return topic, key, memoryview(body)[9:]
+
+
+def _read_codec_trailer(payload, offset: int) -> CodecSpec:
+    """The optional <u8 codec_id> <f32 param> trailer of a HELLO or
+    CONFIG payload; NONE when absent (old peer) or unintelligible
+    (newer peer with codec ids we don't know)."""
+    if len(payload) < offset + _CODEC_TRAILER.size:
+        return CODEC_SPEC_NONE
+    cid, param = _CODEC_TRAILER.unpack_from(payload, offset)
+    try:
+        return CodecSpec(cid, param)
+    except ValueError:
+        return CODEC_SPEC_NONE
+
+
+def _read_flag(trailer: struct.Struct, payload, offset: int) -> bool:
+    """An optional one-byte trailer (trace offer, shm request,
+    aggregator role); False when absent (an older peer)."""
+    if len(payload) < offset + trailer.size:
+        return False
+    (flag,) = trailer.unpack_from(payload, offset)
+    return bool(flag)
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytearray | bytes | None:
+    """Exactly n bytes, or None on a clean EOF before the first byte.
+    EOF after a partial read is a torn frame — a crashed peer, never an
+    orderly shutdown — and raises.  The handshake's read path (bridge
+    readers use wire.RecvBuffer)."""
+    if n == 0:
+        return b""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        r = sock.recv_into(view[got:])
+        if r == 0:
+            if got:
+                raise ConnectionError(
+                    f"mid-frame EOF ({got}/{n} bytes)")
+            return None
+        got += r
+    return buf
+
+
+class _Counters:
+    """The plain-integer wire counters one bridge keeps (module
+    docstring), under one lock: the reader, the sending threads and the
+    heartbeat all count."""
+
+    def __init__(self):
+        self._wire_lock = threading.Lock()
+        self.traffic: dict[tuple[str, int], list[int]] = {}
+        self.serde_s: dict[int, float] = {}
+        self.serde_frames: dict[int, int] = {}
+
+    @property
+    def wire_bytes(self) -> dict[int, int]:
+        """Bytes on the wire per frame topic, both directions."""
+        out: dict[int, int] = {}
+        with self._wire_lock:
+            for (_, topic), (_, nbytes) in self.traffic.items():
+                out[topic] = out.get(topic, 0) + nbytes
+        return out
+
+    def _count(self, direction: str, topic: int, payload_len: int) -> None:
+        with self._wire_lock:
+            t = self.traffic.setdefault((direction, topic), [0, 0])
+            t[0] += 1
+            t[1] += _FRAME.size + payload_len
+
+    def _serde(self, topic: int, t0: float) -> None:
+        dt = time.perf_counter() - t0
+        with self._wire_lock:
+            self.serde_s[topic] = self.serde_s.get(topic, 0.0) + dt
+            self.serde_frames[topic] = self.serde_frames.get(topic, 0) + 1
+
+    def _decode(self, topic: int, payload):
+        t0 = time.perf_counter()
+        msg = serde.from_bytes(payload, device=self.device)
+        self._serde(topic, t0)
+        return msg
+
+    def _encode(self, topic: int, message) -> bytes:
+        t0 = time.perf_counter()
+        payload = serde.to_bytes(message)
+        self._serde(topic, t0)
+        return payload
+
+    def wire_stats(self) -> dict:
+        """Per topic name: frames and bytes out and in, and the serde
+        milliseconds per frame where frames were encoded or decoded."""
+        out: dict = {}
+        with self._wire_lock:
+            for (direction, topic), (frames, nbytes) in self.traffic.items():
+                t = out.setdefault(TOPIC_NAMES.get(topic, str(topic)), {})
+                t[f"frames_{direction}"] = frames
+                t[f"bytes_{direction}"] = nbytes
+            for topic, n in self.serde_frames.items():
+                t = out.setdefault(TOPIC_NAMES.get(topic, str(topic)), {})
+                t["serde_frames"] = n
+                t["serde_ms_per_frame"] = 1e3 * self.serde_s[topic] / n
+        return out
+
+    def raise_reader_error(self) -> None:
+        """Re-raise the first exception a reader kept (module
+        docstring): the caller's process then exits non-zero."""
+        err = self.reader_error
+        if err is not None:
+            raise RuntimeError(
+                f"socket reader failed: {err!r}") from err
+
+
+def _writer_stats(writers) -> dict:
+    """Frames per syscall of a bridge's coalescing writers."""
+    frames = sum(w.frames_flushed for w in writers)
+    syscalls = sum(w.syscalls for w in writers)
+    return {"flushes": sum(w.flushes for w in writers),
+            "frames_per_syscall": frames / syscalls if syscalls else None,
+            "advisory_dropped": sum(w.advisory_dropped for w in writers)}
+
+
+class ServerBridge(_Counters):
+    """Server-process side: listens for worker processes, forwards
+    WEIGHTS / INPUT_DATA to the connection owning each worker key, and
+    delivers incoming GRADIENTS into the local fabric's gather queue.
+
+    Install via `bridge.wrap(fabric)`: the returned fabric routes sends
+    addressed to remote workers over their socket and leaves local
+    behavior untouched (the Kafka-broker role, minus the broker).
+
+    Failure detection (the consumer-group-rebalance analogue): a reader
+    hitting EOF/reset purges the connection's worker ids and fires
+    `on_disconnect(ids)`; a later HELLO re-registers them and fires
+    `on_hello(ids)`; READY fires `on_ready(worker)` — the caller
+    (cli/socket_mode.run_server) turns these into evictions and
+    readmissions on the ServerNode.  With `heartbeat_interval` set the
+    bridge PINGs every connection on that cadence and, when
+    `heartbeat_timeout` is also set, force-closes connections silent for
+    longer than it — half-open TCP then surfaces as a normal disconnect
+    instead of hanging the consistency gate forever."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 heartbeat_interval: float | None = None,
+                 heartbeat_timeout: float | None = None,
+                 run_id: int = 0, codec: CodecSpec | None = None,
+                 coalesce: bool = True, device=None):
+        super().__init__()
+        # `device`: where decoded gradients land (the ServerNode's)
+        self.device = resolve_device(device)
+        # `run_id` identifies the logical RUN (fresh server start, or the
+        # run a checkpoint resume continues), advertised in T_CONFIG so
+        # worker processes can tell whether their local state file
+        # belongs to THIS run
+        self.run_id = run_id
+        # `codec`: this server's `--compress` choice; per-connection
+        # negotiation lands in `_codec_of`, and sends to a
+        # none-negotiated peer strip the encoded payload in _send
+        self.codec = codec if codec is not None else CODEC_SPEC_NONE
+        self._codec_of: dict[socket.socket, CodecSpec] = {}
+        self._listener = socket.create_server((host, port))
+        self.port = self._listener.getsockname()[1]
+        self._conn_of: dict[int, socket.socket] = {}   # worker -> conn
+        self._ready: set[int] = set()
+        self._lock = threading.RLock()
+        self._cv = threading.Condition(self._lock)
+        self._fabric: fabric_mod.Fabric | None = None
+        self._stop = threading.Event()
+        self._send_lock: dict[socket.socket, threading.Lock] = {}
+        # `--wire-coalesce`: queue frames per connection and ship them in
+        # scatter-gather batches from a dedicated writer thread; off =
+        # one sendall per frame under the connection lock
+        self._coalesce = bool(coalesce)
+        self._writer_of: dict[socket.socket, FrameWriter] = {}
+        self._writers: list[FrameWriter] = []     # every one made (stats)
+        self._last_recv: dict[socket.socket, float] = {}
+        self.on_disconnect = None   # Callable[[list[int]], None]
+        self.on_hello = None        # Callable[[list[int]], None]
+        self.on_ready = None        # Callable[[int], None]
+        self.dropped_sends = 0      # frames lost to dead connections
+        self.refused_aggregators = 0
+        # the first non-connection exception of a reader
+        self.reader_error: Exception | None = None
+        self._hb_interval = heartbeat_interval
+        self._hb_timeout = heartbeat_timeout
+        self._reader_threads: list[threading.Thread] = []
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, daemon=True, name="kps-net-accept")
+        self._accept_thread.start()
+        self._hb_thread = None
+        if heartbeat_interval:
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop, daemon=True,
+                name="kps-net-heartbeat")
+            self._hb_thread.start()
+
+    # -- fabric integration ------------------------------------------------
+
+    def wrap(self, fabric: fabric_mod.Fabric) -> fabric_mod.Fabric:
+        bridge = self
+
+        # subclass the wrapped fabric's OWN class, not the base Fabric:
+        # a wrapped log.durable_fabric.DurableFabric keeps its
+        # append-before-enqueue send and its recover/commit surface
+        class BridgedFabric(type(fabric)):
+            def send(self, topic, key, message):
+                conn = bridge._conn_of.get(key) \
+                    if topic == fabric_mod.WEIGHTS_TOPIC else None
+                if conn is not None:
+                    bridge._send(conn, T_WEIGHTS, key, message)
+                else:
+                    super().send(topic, key, message)
+
+        out = object.__new__(BridgedFabric)
+        # share ALL state with the original (queues, cond, and any
+        # subclass state) so pre-wrap queues stay visible
+        out.__dict__ = fabric.__dict__
+        self._fabric = out
+        return out
+
+    def send_data(self, worker: int, features: dict[int, float],
+                  label: int) -> bool:
+        """Forward one stream row to the process hosting `worker`.
+        False if that worker is not (yet) connected or its connection
+        just died — the caller reroutes or counts the row."""
+        conn = self._conn_of.get(worker)
+        if conn is None:
+            return False
+        return self._send(conn, T_DATA, worker, LabeledData(features, label))
+
+    def send_data_batch(self, worker: int, rows) -> bool:
+        """Forward N stream rows to the process hosting `worker` in ONE
+        columnar frame (serde.encode_labeled_rows), decoded straight into
+        SlidingBuffer.add_many.  `rows` is a sequence of (features,
+        label); False exactly like send_data (the caller reroutes)."""
+        conn = self._conn_of.get(worker)
+        if conn is None:
+            return False
+        t0 = time.perf_counter()
+        payload = serde.encode_labeled_rows(rows)
+        self._serde(T_DATA_BATCH, t0)
+        return self._send_raw(conn, T_DATA_BATCH, worker, payload)
+
+    def wait_for_connected(self, workers, timeout: float = 60.0) -> None:
+        """Block until every worker id has a connection (HELLO seen) —
+        before this the producer has nowhere to send their rows."""
+        with self._cv:
+            ok = self._cv.wait_for(
+                lambda: all(w in self._conn_of for w in workers),
+                timeout=timeout)
+        if not ok:
+            missing = [w for w in workers if w not in self._conn_of]
+            raise TimeoutError(f"workers {missing} not connected in time")
+
+    def wait_for_workers(self, workers, timeout: float = 60.0) -> None:
+        """Block until every worker id has reported READY (its buffer
+        holds data) — the invariant behind the reference's fixed 20 s
+        bootstrap sleep."""
+        with self._cv:
+            ok = self._cv.wait_for(
+                lambda: all(w in self._ready for w in workers),
+                timeout=timeout)
+        if not ok:
+            missing = [w for w in workers if w not in self._ready]
+            raise TimeoutError(f"workers {missing} not ready in time")
+
+    def stats(self) -> dict:
+        return {"wire": self.wire_stats(), "dropped_sends":
+                self.dropped_sends, "writers": _writer_stats(self._writers),
+                "refused_aggregators": self.refused_aggregators}
+
+    def close(self) -> None:
+        self._stop.set()
+        # shutdown BEFORE close: closing the fd does not wake a thread
+        # blocked in accept(), and the in-flight syscall would pin the
+        # port in LISTEN (a restart on it would fail EADDRINUSE)
+        try:
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        # join the accept loop FIRST: no reader may be spawned after the
+        # sweep below
+        if self._accept_thread is not threading.current_thread():
+            self._accept_thread.join(timeout=10.0)
+        # flush-before-close: writers drain their queues first, then the
+        # sockets go down
+        for writer in list(self._writer_of.values()):
+            writer.close(flush=True)
+        # every live connection, including ones that never sent HELLO
+        for conn in list(self._send_lock):
+            force_close(conn)        # wakes the blocked reader thread
+        # readers hand gradients into the fabric (device tensors): join
+        # every thread before returning
+        for t in (*self._reader_threads, self._hb_thread):
+            if t is not None and t is not threading.current_thread():
+                t.join(timeout=10.0)
+
+    # -- internals ---------------------------------------------------------
+
+    def _send(self, conn, topic, key, message=None) -> bool:
+        """False (never raises) when the connection is gone: the message
+        is dropped, like a Kafka send to a dead consumer — the reader's
+        disconnect cleanup drives the actual eviction, so a send from
+        inside the consistency gate can't crash the server."""
+        if (message is not None
+                and getattr(message, "encoded", None) is not None
+                and self._codec_of.get(conn,
+                                       CODEC_SPEC_NONE).codec_id
+                == CODEC_NONE):
+            # this peer negotiated no compression: ship the decoded
+            # values as a plain f32 frame — they ARE the values every
+            # compressed peer decodes to, so a mixed fleet stays
+            # consistent
+            message = dataclasses.replace(message, encoded=None)
+        payload = (self._encode(topic, message) if message is not None
+                   else b"")
+        return self._send_raw(conn, topic, key, payload)
+
+    def _dropped(self, count: bool) -> None:
+        with self._wire_lock:
+            self.dropped_sends += count
+
+    def _send_raw(self, conn, topic, key, payload: bytes) -> bool:
+        # `dropped_sends` is a data-loss diagnostic: a control frame
+        # (PING/CONFIG) hitting a dying connection is not lost training
+        # data, and neither is a prediction reply to a vanished client
+        count = topic not in (T_PING, T_CONFIG, T_PREDICTION)
+        writer = self._writer_of.get(conn)
+        if writer is not None:
+            # coalesced path: enqueue and return (the counters below run
+            # at enqueue time, so both paths count the same).  PINGs are
+            # advisory: regenerated next interval, so a full queue drops
+            # them instead of blocking the heartbeat thread
+            if not writer.send(topic, key, payload,
+                               advisory=topic == T_PING):
+                self._dropped(count)
+                if writer.dead:
+                    force_close(conn)   # reader wakes -> cleanup/eviction
+                return False
+        else:
+            lock = self._send_lock.get(conn)
+            if lock is None:
+                self._dropped(count)
+                return False
+            try:
+                locked_send(conn, lock, topic, key, payload)
+            except (ConnectionError, OSError):
+                self._dropped(count)
+                force_close(conn)   # wake the reader -> cleanup/eviction
+                return False
+        self._count("out", topic, len(payload))
+        return True
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _addr = self._listener.accept()
+            except OSError:
+                return
+            if self._stop.is_set():
+                # raced close(): this connection must not outlive it
+                force_close(conn)
+                return
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            with self._cv:
+                self._send_lock[conn] = threading.Lock()
+                if self._coalesce:
+                    writer = FrameWriter(conn)
+                    self._writer_of[conn] = writer
+                    self._writers.append(writer)
+                self._last_recv[conn] = time.monotonic()
+            t = threading.Thread(target=self._reader, args=(conn,),
+                                 daemon=True, name="kps-net-reader")
+            t.start()
+            # prune finished readers so worker churn over a long
+            # rebalance run doesn't accumulate dead Thread objects
+            with self._cv:
+                self._reader_threads = [r for r in self._reader_threads
+                                        if r.is_alive()] + [t]
+
+    def _heartbeat_loop(self) -> None:
+        while not self._stop.wait(self._hb_interval):
+            now = time.monotonic()
+            for conn in list(self._send_lock):
+                silent = now - self._last_recv.get(conn, now)
+                if (self._hb_timeout is not None
+                        and silent > self._hb_timeout):
+                    # half-open: no FIN will ever come; force the
+                    # reader's recv to fail so cleanup runs
+                    force_close(conn)
+                    continue
+                self._send(conn, T_PING, 0)
+
+    def _hello(self, conn, payload) -> bool:
+        """Negotiate, answer T_CONFIG and register the HELLO's worker
+        ids; False for an aggregator relay's HELLO, which is refused."""
+        (n,) = struct.unpack_from("<q", payload, 0)
+        ids = struct.unpack_from(f"<{n}q", payload, 8)
+        off = 8 + 8 * n
+        if _read_flag(_AGG_TRAILER, payload, off + _CODEC_TRAILER.size
+                      + _TRACE_TRAILER.size + _SHM_TRAILER.size):
+            self.refused_aggregators += 1
+            print(f"refused an aggregator relay's HELLO for workers "
+                  f"{list(ids)}: relays and grouped weights fan-out are "
+                  "not ported yet (ROADMAP item 23); closing the "
+                  "connection", file=sys.stderr, flush=True)
+            return False
+        # negotiation: use our codec iff the peer asked for the SAME one
+        # (old peers send no trailer -> NONE)
+        peer = _read_codec_trailer(payload, off)
+        negotiated = self.codec if peer == self.codec else CODEC_SPEC_NONE
+        with self._cv:
+            # the result lands under the state lock BEFORE T_CONFIG goes
+            # out: once the peer sees CONFIG it may send coded frames
+            self._codec_of[conn] = negotiated
+        # shm: no serving engine here, so a request gets the declined
+        # offer; worker handshakes (no request) stay byte-identical
+        shm_tail = b""
+        if _read_flag(_SHM_TRAILER, payload, off + _CODEC_TRAILER.size
+                      + _TRACE_TRAILER.size):
+            shm_tail = _SHM_OFFER.pack(0, b"", b"")
+        # T_CONFIG goes out BEFORE the ids are registered: once
+        # registered, the producer thread may race data rows onto this
+        # connection, and the worker-side handshake relies on T_CONFIG
+        # being the first non-PING frame.  Payload: PING cadence (0.0 =
+        # no heartbeats) + the run id + the negotiated codec + the trace
+        # answer (always 0 here, whatever the peer offered)
+        self._send_raw(conn, T_CONFIG, 0,
+                       struct.pack("<dq", self._hb_interval or 0.0,
+                                   self.run_id)
+                       + _CODEC_TRAILER.pack(negotiated.codec_id,
+                                             negotiated.param)
+                       + _TRACE_TRAILER.pack(0) + shm_tail)
+        with self._cv:
+            for w in ids:
+                self._conn_of[w] = conn
+            self._cv.notify_all()
+        if self.on_hello is not None:
+            self.on_hello(list(ids))
+        return True
+
+    def _reader(self, conn: socket.socket) -> None:
+        # buffered receive (wire.RecvBuffer): one recv_into brings in
+        # every frame the kernel has ready
+        rbuf = RecvBuffer(conn)
+        disconnect = True
+        try:
+            while not self._stop.is_set():
+                frame = rbuf.recv_frame()
+                if frame is None:
+                    break
+                self._last_recv[conn] = time.monotonic()
+                topic, key, payload = frame
+                self._count("in", topic, len(payload))
+                if topic == T_HELLO:
+                    if not self._hello(conn, payload):
+                        break
+                elif topic == T_READY:
+                    with self._cv:
+                        self._ready.add(key)
+                        self._cv.notify_all()
+                    if self.on_ready is not None:
+                        self.on_ready(key)
+                elif topic == T_PONG:
+                    pass            # liveness already stamped above
+                elif topic == T_GRADIENTS and self._fabric is not None:
+                    msg = self._decode(T_GRADIENTS, payload)
+                    self._fabric.send(fabric_mod.GRADIENTS_TOPIC, 0, msg)
+                elif topic == T_PREDICT:
+                    # no prediction engine on this bridge: an explicit
+                    # failure beats a silent hang on the client side
+                    self._send_raw(conn, T_PREDICTION, key,
+                                   encode_prediction(PREDICT_FAILED))
+        except (ConnectionError, OSError):
+            pass
+        except Exception as e:
+            # not a disconnect (module docstring): keep it for the main
+            # loop, evict nobody
+            disconnect = False
+            with self._cv:
+                if self.reader_error is None:
+                    self.reader_error = e
+        finally:
+            self._cleanup_conn(conn, disconnect)
+
+    def _cleanup_conn(self, conn: socket.socket, notify: bool) -> None:
+        """Purge a dead connection's registrations and, for a disconnect
+        (`notify`), surface it — without this the consistency gate waits
+        forever for a dead worker's gradients."""
+        try:
+            conn.close()
+        except OSError:
+            pass
+        writer = self._writer_of.pop(conn, None)
+        if writer is not None:
+            # the connection is dead — discard the queue, don't flush
+            writer.close(flush=False, timeout=2.0)
+        with self._cv:
+            ids = [w for w, c in self._conn_of.items() if c is conn]
+            for w in ids:
+                del self._conn_of[w]
+                self._ready.discard(w)
+            self._send_lock.pop(conn, None)
+            self._last_recv.pop(conn, None)
+            self._codec_of.pop(conn, None)
+            self._cv.notify_all()
+        if (notify and ids and not self._stop.is_set()
+                and self.on_disconnect is not None):
+            self.on_disconnect(ids)
+
+
+class WorkerBridge(_Counters):
+    """Worker-process side: connects to the server, registers its
+    logical worker ids, feeds received INPUT_DATA rows into the local
+    buffers, delivers received WEIGHTS into the local fabric, and routes
+    the workers' GRADIENTS sends back over the socket."""
+
+    def __init__(self, host: str, port: int, worker_ids: list[int],
+                 connect_timeout: float = 30.0,
+                 heartbeat_timeout: float | None = None,
+                 codec: CodecSpec | None = None,
+                 coalesce: bool = True, device=None):
+        """`heartbeat_timeout`: seconds of total server silence before
+        the connection is declared dead (only sensible when the server
+        PINGs; the advertised cadence floors or disables it).
+        `codec`: this worker process's `--compress` choice, offered on
+        HELLO; `self.negotiated` holds what the server agreed to — the
+        caller builds its gradient compressors from THAT, not the flag.
+        `coalesce`: queue outgoing frames behind a wire.FrameWriter;
+        False is the locked-sendall-per-frame path.  `device`: where
+        decoded weights land (the worker process's)."""
+        super().__init__()
+        self.device = resolve_device(device)
+        self.worker_ids = list(worker_ids)
+        self._heartbeat_timeout = heartbeat_timeout
+        self.codec = codec if codec is not None else CODEC_SPEC_NONE
+        self.negotiated = CODEC_SPEC_NONE
+        # retry: the server process may still be importing/binding when
+        # this process is already up (both launched together)
+        deadline = time.monotonic() + connect_timeout
+        while True:
+            try:
+                self._sock = socket.create_connection((host, port),
+                                                      timeout=5.0)
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.2)
+        self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self._send_lock = threading.Lock()
+        self._stop = threading.Event()
+        self.disconnected = threading.Event()
+        # set by a mid-stream GOODBYE config: the run ended cleanly
+        self.run_over = False
+        # the first non-connection exception of run_reader
+        self.reader_error: Exception | None = None
+        self.server_run_id: int | None = None
+        self.fabric: fabric_mod.Fabric | None = None
+        # HELLO: ids + codec offer + trace offer 0 (no tracer here)
+        payload = (struct.pack(f"<q{len(self.worker_ids)}q",
+                               len(self.worker_ids), *self.worker_ids)
+                   + _CODEC_TRAILER.pack(self.codec.codec_id,
+                                         self.codec.param)
+                   + _TRACE_TRAILER.pack(0))
+        locked_send(self._sock, self._send_lock, T_HELLO, 0, payload)
+        self._count("out", T_HELLO, len(payload))
+        # synchronous handshake: the server replies T_CONFIG before it
+        # registers our ids, so it is the first non-PING frame on the
+        # wire — read it HERE, before any reader thread exists, so
+        # callers know the server's run id and ping cadence before
+        # deciding what local state to restore
+        self._sock.settimeout(10.0)
+        try:
+            while True:
+                frame = recv_frame(self._sock)
+                if frame is None:
+                    raise ConnectionError("server closed during handshake")
+                topic, _key, pl = frame
+                self._count("in", topic, len(pl))
+                if topic == T_PING:
+                    locked_send(self._sock, self._send_lock, T_PONG, 0)
+                    self._count("out", T_PONG, 0)
+                    continue
+                if topic == T_CONFIG:
+                    interval, run_id = struct.unpack_from("<dq", pl, 0)
+                    self.server_run_id = int(run_id)
+                    # a 16-byte CONFIG is an old server: no negotiation,
+                    # stay uncompressed
+                    self.negotiated = _read_codec_trailer(pl, 16)
+                    break
+                raise ConnectionError(
+                    f"expected T_CONFIG during handshake, got topic {topic}")
+        except socket.timeout as e:
+            raise ConnectionError("no T_CONFIG from server") from e
+        # steady state: the configured read timeout (a half-open server
+        # link then surfaces as socket.timeout in the read loop), or
+        # blocking forever when none was requested; the advertised
+        # cadence may floor or disable it
+        self._sock.settimeout(heartbeat_timeout)
+        self._apply_server_ping_interval(interval)
+        # the coalescing writer starts AFTER the synchronous handshake:
+        # HELLO went out on the locked path above and nothing else can
+        # have been queued yet, so frame order is preserved
+        self._writer = FrameWriter(self._sock) if coalesce else None
+
+    def _enqueue(self, topic: int, key: int, payload: bytes = b"",
+                 advisory: bool = False) -> None:
+        """Send one frame via the coalescing writer when enabled, the
+        locked direct path otherwise.  A failed protocol enqueue (dead
+        writer, or the backpressure deadline expired) raises
+        ConnectionError — the failure surface locked_send has."""
+        if self._writer is not None:
+            if not self._writer.send(topic, key, payload,
+                                     advisory=advisory):
+                if not advisory:
+                    raise ConnectionError("wire writer closed")
+                return
+        else:
+            locked_send(self._sock, self._send_lock, topic, key, payload)
+        self._count("out", topic, len(payload))
+
+    def send_gradients(self, key: int, message) -> None:
+        """Serialize one gradient message and send it on this bridge's
+        socket (make_fabric's GRADIENTS route)."""
+        self._enqueue(T_GRADIENTS, key, self._encode(T_GRADIENTS, message))
+
+    def make_fabric(self) -> fabric_mod.Fabric:
+        """Local fabric whose GRADIENTS sends cross the socket (the
+        worker's view of the broker)."""
+        bridge = self
+
+        class BridgedFabric(fabric_mod.Fabric):
+            def send(self, topic, key, message):
+                if topic == fabric_mod.GRADIENTS_TOPIC:
+                    bridge.send_gradients(key, message)
+                else:
+                    super().send(topic, key, message)
+
+        self.fabric = BridgedFabric()
+        return self.fabric
+
+    def _apply_server_ping_interval(self, interval: float) -> None:
+        """React to the server's advertised PING cadence (T_CONFIG).  A
+        timeout below a few pings would false-declare a healthy server
+        dead, so the effective read timeout is floored at 3 pings, and
+        disabled entirely when the server does not ping at all."""
+        if self._heartbeat_timeout is None:
+            return
+        if interval <= 0.0:
+            print(f"warning: server sends no heartbeats; ignoring "
+                  f"heartbeat_timeout={self._heartbeat_timeout}s",
+                  file=sys.stderr, flush=True)
+            self._sock.settimeout(None)
+            return
+        floor = 3.0 * interval
+        effective = self._heartbeat_timeout
+        if effective < floor:
+            print(f"warning: heartbeat_timeout={effective}s is under 3x "
+                  f"the server ping interval ({interval}s); using "
+                  f"{floor}s", file=sys.stderr, flush=True)
+            effective = floor
+        self._sock.settimeout(effective)
+
+    def mark_ready(self, worker: int) -> None:
+        self._enqueue(T_READY, worker)
+
+    def stats(self) -> dict:
+        return {"wire": self.wire_stats(), "writers": _writer_stats(
+            [] if self._writer is None else [self._writer])}
+
+    def run_reader(self, buffers: dict[int, object]) -> None:
+        """Blocking read loop (call on a dedicated thread): dispatches
+        INPUT_DATA to `buffers[worker].add` (batched frames to
+        `.add_many`) and WEIGHTS into the local fabric (make_fabric
+        first).  Returns on EOF (server done); keeps any exception other
+        than a connection error in `reader_error` (module docstring)."""
+        rbuf = RecvBuffer(self._sock)
+        try:
+            while not self._stop.is_set():
+                frame = rbuf.recv_frame()
+                if frame is None:
+                    break
+                topic, key, payload = frame
+                self._count("in", topic, len(payload))
+                if topic == T_PING:
+                    # a PONG is liveness, regenerated on the next PING:
+                    # advisory — never blocks the reader on backpressure
+                    self._enqueue(T_PONG, 0, advisory=True)
+                elif topic == T_CONFIG:
+                    # normally consumed by the handshake; a re-sent
+                    # config mid-stream updates the ping cadence, except
+                    # the GOODBYE sentinel announcing a clean end-of-run
+                    (interval, rid) = struct.unpack_from("<dq", payload, 0)
+                    if rid == GOODBYE_RUN_ID:
+                        self.run_over = True
+                    else:
+                        self._apply_server_ping_interval(interval)
+                elif topic == T_DATA_BATCH:
+                    buffers[key].add_many(self._decode_rows(payload))
+                elif topic == T_DATA:
+                    msg = self._decode(T_DATA, payload)
+                    buffers[key].add(msg.features, msg.label)
+                elif topic == T_WEIGHTS:
+                    msg = self._decode(T_WEIGHTS, payload)
+                    self.fabric.send(fabric_mod.WEIGHTS_TOPIC, key, msg)
+                else:
+                    raise ValueError(
+                        f"unexpected frame topic {topic} "
+                        f"({TOPIC_NAMES.get(topic, 'unknown')}) on a "
+                        "worker connection")
+        except (ConnectionError, OSError):
+            pass
+        except Exception as e:
+            self.reader_error = e
+        finally:
+            self.disconnected.set()
+
+    def _decode_rows(self, payload) -> list:
+        """A T_DATA_BATCH body: columnar (serde.encode_labeled_rows), or
+        the legacy per-row <i32 len><serde blob> layout of an older
+        server."""
+        t0 = time.perf_counter()
+        (nrows,) = struct.unpack_from("<q", payload, 0)
+        if nrows < 0:
+            rows = serde.decode_labeled_rows(payload)
+        else:
+            off = 8
+            rows = []
+            for _ in range(nrows):
+                (blen,) = struct.unpack_from("<i", payload, off)
+                off += 4
+                row = serde.from_bytes(payload[off:off + blen],
+                                       device=self.device)
+                off += blen
+                rows.append((row.features, row.label))
+        self._serde(T_DATA_BATCH, t0)
+        return rows
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._writer is not None:
+            # flush-before-close: queued frames (a final gradient, a
+            # READY) reach the wire before the socket goes down
+            self._writer.close(flush=True)
+        # shutdown + close: wakes a reader still blocked in recv (a
+        # worker loop's failure closes the bridge under it)
+        force_close(self._sock)

@@ -707,3 +707,27 @@ def test_durable_restart_on_the_card_is_bitwise_uninterrupted(card,
     assert again.server.duplicate_gradients_dropped > 0
     for a in (base, first, again):
         a.close_logs()
+
+
+@pytest.mark.parametrize("task,slab", [("logreg", "f32"), ("mlp", "f32"),
+                                       ("logreg", "int8"), ("mlp", "bf16")])
+def test_one_bridge_round_on_the_card_is_bitwise_in_process(card, task,
+                                                            slab):
+    """One -c 0 round through a localhost ServerBridge/WorkerBridge pair
+    (tests/torch_split_round.py) at the reference width: the gradients
+    decode onto the card, and they and the theta the server holds after
+    applying them are bitwise the in-process round's; each worker's
+    iteration ran the family's kernel once."""
+    from torch_split_round import bridge_round
+    fused_update.reset_counts()
+    (ref_grads, ref_theta), (grads, theta) = bridge_round(
+        card, task, features=1024, classes=5, hidden=128, workers=4,
+        rows=256, slab=slab)
+    for a, b in zip(ref_grads, grads):
+        assert b.values.device.type == "cuda"
+        assert torch.equal(a.values, b.values)
+    assert torch.equal(ref_theta, theta) and theta.device.type == "cuda"
+    n = fused_update.counts()
+    key = (("" if task == "logreg" else "mlp_")
+           + ("" if slab == "f32" else "stream_") + "launches")
+    assert n[key] == 8 and sum(n.values()) == 8

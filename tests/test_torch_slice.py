@@ -275,7 +275,9 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules()
     for m in ("ops.fused_update", "models.mlp", "runtime.gang",
-              "evaluation.engine", "parallel.bsp", "native.binding"):
+              "evaluation.engine", "parallel.bsp", "native.binding",
+              "runtime.wire", "runtime.net", "cli.socket_mode",
+              "cli.server_runner", "cli.worker_runner"):
         assert f"kafka_ps_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
