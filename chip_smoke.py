@@ -97,7 +97,34 @@
    k + 1 under -c k; F1 in (0.5, 1], eval lag 0.  Per run: server
    iterations/s against the in-process run, frames, bytes per message
    and serde ms per frame by topic on each side.
-6. Profile: one more default serial -c 0 run per family, one of logreg
+6. Scale-out phase: in process on the card (tests/torch_scaleout_runs.py,
+   4 workers of 256 rows, F=1024), a ShardedServerGroup of one shard
+   bitwise the unsharded app (theta and server rows) at -c 0/2/-1, two
+   and four shards' assembled theta bitwise one shard's (logreg, the MLP
+   at H=128), top-k workers' sparse slices bitwise the dense apply, one
+   stacked aggregator bitwise the direct path at -c 0/3/-1 and under int8
+   (also after a reset and restore), the summed composite within rtol
+   2e-5, atol 2e-6; then through the entry points, on the same CSV: two
+   shard servers (server_runner --listen --shards 2 --shard-id 0|1) with
+   two worker_runner processes of 2 workers dialing both, logreg at -c 0
+   and -c 2 (200 iterations), logreg --slab-dtype int8 -c 2 (100), logreg
+   --compress topk:0.01 -c 2 (200; sparse slices), the MLP at H=128 and
+   H=4096 -c -1 (100, 40), and logreg -c 2 with --durable-log in which
+   shard 1 is killed by SIGKILL and restarted (its log replayed serially
+   afterwards must end bitwise at its final checkpoint); then agg_runner
+   between a server_runner --listen and two worker_runner --aggregate
+   processes: logreg -c 0 and -c -1, --summed -c 0, --compress int8 -c 2,
+   the MLP --slab-dtype bf16 -c -1 (100 each) and the MLP at H=4096 -c -1
+   (40).  Each worker process's kernel calls must equal its CSV rows, of
+   the run's family and form only, on cuda; shards reach the iterations,
+   their final clocks per worker differ by at most one (none at -c 0),
+   the theta assembled from their checkpoints gives F1 in (0.5, 1]; a
+   relayed server's eval lag is 0 and its F1 in (0.5, 1].  Per run:
+   iterations/s per shard (or of the relayed server) against the split
+   run of the same flags from phase 5, bytes per message and serde ms per
+   frame by topic each way, and the relay's fan-in, composites and bytes
+   against the direct path's.
+7. Profile: one more default serial -c 0 run per family, one of logreg
    with int8 slabs, one of logreg --compress int8 and one of logreg
    --fused --eval_every 10 (200
    iterations each), under torch.profiler (CUDA activity only) and
@@ -106,8 +133,8 @@
    Python function, with the rank of the CSV parse's functions in it.
    In the fused run, whose chunks replay CUDA graphs, the K2 kernels the
    profiler traced must equal the launch counter.
-7. The `kernels` JSON line (the split runs' worker calls counted in the
-   launches), the card line, and last the result line.
+8. The `kernels` JSON line (the split and scale-out runs' worker calls
+   counted in the launches), the card line, and last the result line.
 
 Any failed phase raises: the script exits non-zero and prints no result.
 It also exits non-zero without a card, and when the package is absent.
@@ -117,9 +144,11 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -170,6 +199,9 @@ CLI_CRASH_ROWS, CLI_KILL_AT = 512, 130
 COMPRESSED_WIDE_ITERS, RESUME_ITERS = 40, 200
 # the split phase: server iterations of its runs
 SPLIT_ITERS, SPLIT_SHORT, SPLIT_WIDE = 400, 200, 40
+# the scale-out phase: server iterations of its runs, and of its in-process
+# reference checks
+SCALE_ITERS, SCALE_SHORT, SCALE_WIDE, SCALE_REF_ITERS = 200, 100, 40, 40
 SLAB_KINDS = ("bf16", "int8")
 X_BYTES = {"bf16": 2, "int8": 1}
 # the Pallas body each storage form of K3 and K5 replaces
@@ -1610,6 +1642,16 @@ def _csv_rows(path: str) -> list[list[str]]:
         return [r.split(";") for r in f.read().splitlines()[1:]]
 
 
+def steady_rate(rows) -> float:
+    """Worker iterations per second past the first round: the rows of
+    clocks >= 1 over the window from the first of them to the last row
+    (worker CSV timestamps).  The first round waits for every worker
+    process's first kernel call and the server's first eval, seconds that
+    swamp a run of 100 iterations."""
+    stamps = sorted(int(r[0]) for r in rows if int(r[2]) >= 1)
+    return (len(stamps) - 1) / max((stamps[-1] - stamps[0]) / 1e3, 1e-3)
+
+
 def clock_spread(rows) -> int:
     """The largest log-visible clock spread between the workers over a
     run's worker rows (timestamp order; at one millisecond the lower clock
@@ -1838,13 +1880,15 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
             raise RuntimeError(f"{tag}: codec not negotiated as {want}")
     return {"task": task, "kind": kind, "single": sum(calls),
             "gang_calls": 0, "hidden": hidden, "fused": False,
-            "rate": rate}
+            "rate": rate, "steady": steady_rate(all_rows)}
 
 
-def split_runs() -> list[dict]:
+def split_runs(direct: dict) -> list[dict]:
     """The split phase: each run of the port's split deployment beside
     the in-process trainer with the same flags (threaded, --no-gang: a
-    split worker process runs no gang) in this script run."""
+    split worker process runs no gang) in this script run.  Each split
+    run's iterations/s goes into `direct`, keyed (task, c, flags, H),
+    for the scale-out runs to stand beside."""
     runs = []
     specs = [("logreg", c, SPLIT_ITERS, (), H) for c in (0, 2, -1)]
     specs += [("mlp", -1, SPLIT_SHORT, (), H),
@@ -1854,6 +1898,7 @@ def split_runs() -> list[dict]:
               ("mlp", -1, SPLIT_WIDE, (), WIDE_H)]
     for task, c, iters, flags, hidden in specs:
         split = split_run(task, c, iters, flags, hidden)
+        direct[(task, c, flags, hidden)] = split["steady"]
         inproc = main_path_run(task, "threaded", c, iters,
                                ("--no-gang", *flags), hidden)
         runs += [split, inproc]
@@ -1864,6 +1909,498 @@ def split_runs() -> list[dict]:
     return runs
 
 
+def scaleout_reference_check(dev) -> None:
+    """The scale-out paths in process on the card (tests/
+    torch_scaleout_runs.py), F=1024, C=5, 4 workers of 256 rows: a
+    ShardedServerGroup of one shard bitwise the unsharded app (theta and
+    server rows) at -c 0/2/-1; two and four shards assembling the one-shard
+    theta bitwise, logreg and the MLP at H=128; top-k workers' sparse
+    slices at two shards bitwise the dense apply at one; one stacked
+    LocalAggregator in front of all workers bitwise the direct path at
+    -c 0/3/-1, under int8 (also after a reset and restore of the
+    aggregator); the summed composite within rtol 2e-5, atol 2e-6."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_scaleout_runs import (aggregated_run, config, dataset,
+                                     direct_run, group_run, unsharded_run)
+    rows, iters = 256, SCALE_REF_ITERS
+
+    def check(ok, what):
+        print(f"scale-out reference check on the card: {what}: {ok}")
+        if not ok:
+            raise RuntimeError(f"scale-out reference check: {what}")
+
+    def same_rows(a, b):
+        return strip_stamps(a) == strip_stamps(b) and len(a) > 0
+
+    for c in (0, 2, -1):
+        cfg = config(c, "logreg", F, C, H, WORKERS, rows)
+        x, y = dataset(cfg, rows * WORKERS)
+        test = dataset(cfg, 512, seed=1)
+        app, app_rows = unsharded_run(dev, cfg, iters, x, y, test)
+        group, group_rows = group_run(dev, 1, cfg, iters, x, y, test)
+        check(torch.equal(group.assembled_theta(), app.server.theta)
+              and same_rows(group_rows, app_rows),
+              f"one-shard group bitwise the unsharded app at -c {c} "
+              f"(theta and {len(app_rows)} server rows)")
+    for task in ("logreg", "mlp"):
+        cfg = config(0, task, F, C, H, WORKERS, rows)
+        x, y = dataset(cfg, rows * WORKERS)
+        one, _ = group_run(dev, 1, cfg, iters, x, y)
+        for n in (2, 4):
+            many, _ = group_run(dev, n, cfg, iters, x, y)
+            check(torch.equal(many.assembled_theta(), one.assembled_theta())
+                  and many.assembled_theta().device.type == "cuda",
+                  f"{task} H={H}: {n} shards' assembled theta bitwise one "
+                  f"shard's ({one.task.num_params} parameters)")
+    cfg = config(-1, "logreg", F, C, H, WORKERS, rows)
+    x, y = dataset(cfg, rows * WORKERS)
+    one, _ = group_run(dev, 1, cfg, iters, x, y, topk="topk:0.01")
+    two, _ = group_run(dev, 2, cfg, iters, x, y, topk="topk:0.01")
+    sparse = sum(sh.sparse_applies for sh in two.shards)
+    empty = sum(sh.empty_slices for sh in two.shards)
+    check(torch.equal(two.assembled_theta(), one.assembled_theta())
+          and sparse > 0,
+          f"top-k 0.01 workers: sparse slices at two shards ({sparse} "
+          f"applied, {empty} empty) bitwise the dense apply at one")
+    test = dataset(cfg, 512, seed=1)
+    for c in (0, 3, -1):
+        cfg = config(c, "logreg", F, C, H, WORKERS, rows)
+        direct = direct_run(dev, cfg, iters, x, y, test)
+        agg = aggregated_run(dev, cfg, iters, x, y, test)
+        check(torch.equal(agg.server.theta, direct.server.theta)
+              and same_rows(agg.rows, direct.rows),
+              f"one stacked aggregator bitwise the direct path at -c {c} "
+              f"({agg.server.composites_received} composites, theta and "
+              "server rows)")
+    cfg = config(0, "logreg", F, C, H, WORKERS, rows)
+    direct8 = direct_run(dev, dataclasses.replace(cfg, compress="int8"),
+                         iters, x, y, test)
+    agg8 = aggregated_run(dev, cfg, iters, x, y, test, codec="int8")
+    again8 = aggregated_run(dev, cfg, iters, x, y, test, codec="int8",
+                            restart_at=3)
+    check(torch.equal(agg8.server.theta, direct8.server.theta)
+          and torch.equal(again8.server.theta, direct8.server.theta),
+          "int8 at the aggregator bitwise int8 at the workers, also after "
+          "a reset and restore of the aggregator")
+    direct = direct_run(dev, cfg, iters, x, y, test)
+    summed = aggregated_run(dev, cfg, iters, x, y, test, summed=True)
+    err = float((summed.server.theta - direct.server.theta).abs().max())
+    check(torch.allclose(summed.server.theta, direct.server.theta,
+                         rtol=2e-5, atol=2e-6),
+          f"summed composites within rtol 2e-5, atol 2e-6 of the direct "
+          f"path (max abs err {err:.3e}, "
+          f"{summed.server.composites_received} composites)")
+
+
+def _shard_f1(dirs, test_path: str, task: str, hidden: int) -> float:
+    """F1 on the test set of the theta concatenated from the shards'
+    final checkpoints, on the card."""
+    from kafka_ps_tpu_torch.cli.run import load_test_csv
+    from kafka_ps_tpu_torch.models.task import get_task
+    from kafka_ps_tpu_torch.utils.config import ModelConfig
+    parts = []
+    for i, d in enumerate(dirs):
+        with np.load(os.path.join(d, f"job.npz.shard{i}of2.npz")) as z:
+            parts.append(torch.from_numpy(z["theta"].astype(np.float32)))
+    dev = torch.device("cuda")
+    tx, ty = load_test_csv(test_path, F)
+    task_ = get_task(task, ModelConfig(num_features=F, num_classes=C,
+                                       hidden_dim=hidden))
+    m = task_.evaluate(torch.cat(parts).to(dev), torch.from_numpy(tx).to(dev),
+                       torch.from_numpy(ty).to(dev, torch.int32))
+    return float(m.f1)
+
+
+def _replay_is_bitwise(dirs, wal: str, task: str, hidden: int,
+                       c: int) -> list[int]:
+    """Each shard's whole gradient log replayed serially through a fresh
+    ServerNode on the card; returns the records replayed per shard, and
+    raises unless each ends bitwise at the shard's final checkpoint."""
+    from kafka_ps_tpu_torch.log import LogConfig
+    from kafka_ps_tpu_torch.log.manager import LogManager
+    from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
+    from kafka_ps_tpu_torch.runtime import serde
+    from kafka_ps_tpu_torch.runtime.server import ServerNode
+    from kafka_ps_tpu_torch.runtime.sharding import ShardPlan
+    from kafka_ps_tpu_torch.utils.config import ModelConfig, PSConfig
+    dev = torch.device("cuda")
+    cfg = PSConfig(num_workers=WORKERS, consistency_model=c, task=task,
+                   model=ModelConfig(num_features=F, num_classes=C,
+                                     hidden_dim=hidden), use_gang=False)
+    plan = None
+    counts = []
+    for i, d in enumerate(dirs):
+        with np.load(os.path.join(d, f"job.npz.shard{i}of2.npz")) as z:
+            end = json.loads(str(z["log_offsets"]))["gradients/0"]
+            want = torch.from_numpy(z["theta"].astype(np.float32)).to(dev)
+        if plan is None:
+            plan = ShardPlan(ServerNode(cfg, fabric_mod.Fabric(),
+                                        dev).task.num_params, 2)
+        node = ServerNode(cfg, fabric_mod.Fabric(), dev,
+                          key_range=plan.ranges[i], shard_id=i,
+                          num_shards=2)
+        node.start_training_loop()
+        mgr = LogManager(os.path.join(wal, f"shard{i}of2"), LogConfig())
+        n = 0
+        for off, payload in mgr.get("gradients", 0).read_from(0):
+            if off >= end:
+                break
+            node.process(serde.from_bytes(payload, device=dev))
+            n += 1
+        mgr.close()
+        if not torch.equal(node.theta, want):
+            raise RuntimeError(f"shard {i}: the replayed log does not end "
+                               "at its final checkpoint")
+        counts.append(n)
+    return counts
+
+
+def scaleout_run(topology: str, task: str, c: int, iters: int,
+                 flags: tuple = (), hidden: int = H,
+                 relay_flags: tuple = (), kill: bool = False,
+                 direct_rate: float | None = None) -> dict:
+    """One run of a scale-out topology on the card, every process in its
+    own directory under OUT, on write_data()'s CSV (F=1024, C=5, 4
+    workers, buffer max 1024, k=2): "shards" is server_runner --listen
+    --shards 2 --shard-id 0|1 (with --checkpoint) and two worker_runner
+    processes of 2 workers dialing both; "relay" is server_runner
+    --listen, agg_runner and two worker_runner --aggregate processes.
+    Each worker process's kernel calls must equal its worker CSV rows, of
+    the run's family and slab form only, on cuda; the log-visible clock
+    spread stays within k + 1 under -c k; shards: both reach the
+    iterations, a worker's final clocks on them differ by at most one
+    (none under -c 0), the theta assembled from their checkpoints gives
+    F1 in (0.5, 1]; relay: the server's eval lag 0, its final F1 in
+    (0.5, 1], its iterations at least the run's and under it plus the
+    workers (a composite's members apply together).  `kill` (shards):
+    --durable-log and --checkpoint_every 25; shard 1 is killed by SIGKILL
+    once its gradient log holds about 40 slices, restarted with the same
+    command, and must restore, replay its log and get resends from the
+    workers' routers; then each shard's
+    whole log replayed serially must end bitwise at its checkpoint."""
+    import signal
+    tag = "-".join(["scale", topology, task, f"c{c}",
+                    *(f.lstrip("-") for f in flags + relay_flags)]
+                   + ([f"H{hidden}"] if hidden != H else [])
+                   + (["kill"] if kill else []))
+    base = os.path.join(OUT, tag)
+    remove(base)
+    names = (("s0", "s1") if topology == "shards"
+             else ("server", "relay")) + ("w0", "w1")
+    dirs = {n: os.path.join(base, n) for n in names}
+    for d in dirs.values():
+        os.makedirs(d)
+    kind = flags[flags.index("--slab-dtype") + 1] \
+        if "--slab-dtype" in flags else "f32"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("KPS_PLATFORM", None)
+    common = ["-test", "../../test.csv", "--num_workers", str(WORKERS),
+              "--num_features", str(F), "--num_classes", str(C), "--task",
+              task, "--hidden_dim", str(hidden), "-l", *flags]
+    mod = [sys.executable, "-m"]
+    ports = [_free_port(), _free_port()]
+    wal = os.path.join(base, "wal")
+    cmds = {}
+    if topology == "shards":
+        for i in (0, 1):
+            cmds[f"s{i}"] = mod + [
+                "kafka_ps_tpu_torch.cli.server_runner", "--listen",
+                str(ports[i]), "--shards", "2", "--shard-id", str(i),
+                "-training", "../../train.csv", "-p", "0", "-c", str(c),
+                "--max_iterations", str(iters), "--checkpoint", "job.npz",
+                "--checkpoint_every", "25" if kill else "1000000",
+                *common] + (["--durable-log", wal] if kill else [])
+        dial = ["--connect", ",".join(f"127.0.0.1:{p}" for p in ports)]
+    else:
+        cmds["server"] = mod + [
+            "kafka_ps_tpu_torch.cli.server_runner", "--listen",
+            str(ports[0]), "-training", "../../train.csv", "-p", "0", "-c",
+            str(c), "--max_iterations", str(iters), *common]
+        cmds["relay"] = mod + [
+            "kafka_ps_tpu_torch.cli.agg_runner", "--connect",
+            f"127.0.0.1:{ports[0]}", "--listen", str(ports[1]),
+            "--agg-id", "0", "--worker_ids", ",".join(SPLIT_IDS),
+            "--checkpoint", "relay.npz", *common, *relay_flags]
+        dial = ["--aggregate", f"127.0.0.1:{ports[1]}"]
+    for i in (0, 1):
+        cmds[f"w{i}"] = mod + ["kafka_ps_tpu_torch.cli.worker_runner",
+                               *dial, "--worker_ids", SPLIT_IDS[i], "-max",
+                               str(MAX_BUFFER), *common]
+
+    def start(name, suffix=""):
+        d = dirs[name]
+        return subprocess.Popen(
+            cmds[name], cwd=d, env=env,
+            stdout=open(os.path.join(d, f"out{suffix}.txt"), "w"),
+            stderr=open(os.path.join(d, f"err{suffix}.txt"), "w"))
+
+    t0 = time.perf_counter()
+    procs = {n: start(n) for n in names}
+    try:
+        if kill:
+            logs = os.path.join(wal, "shard1of2", "gradients")
+            deadline = time.monotonic() + 240.0
+
+            def logged():
+                return sum(os.path.getsize(os.path.join(dp, f))
+                           for dp, _, fs in os.walk(logs) for f in fs
+                           if f.endswith(".log"))
+
+            from kafka_ps_tpu_torch.models.task import get_task
+            from kafka_ps_tpu_torch.utils.config import ModelConfig
+            n_params = get_task(task, ModelConfig(
+                num_features=F, num_classes=C,
+                hidden_dim=hidden)).num_params
+            slice_bytes = 4 * -(-n_params // 2) + 100
+            while logged() < 40 * slice_bytes:
+                for n, p in procs.items():
+                    if p.poll() is not None:
+                        raise RuntimeError(f"{tag}: {n} exited "
+                                           f"({p.returncode}) before the "
+                                           "kill")
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"{tag}: shard 1 logged too little")
+                time.sleep(0.05)
+            procs["s1"].send_signal(signal.SIGKILL)
+            procs["s1"].wait(timeout=60)
+            time.sleep(0.5)
+            procs["s1"] = start("s1", "-restart")
+        for p in procs.values():
+            p.wait(timeout=400)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    rcs = {n: p.returncode for n, p in procs.items()}
+    errs = {n: os.path.join(d, "err-restart.txt" if kill and n == "s1"
+                            else "err.txt") for n, d in dirs.items()}
+    if any(rcs.values()):
+        tails = {n: open(e).read()[-2000:] for n, e in errs.items()}
+        raise RuntimeError(f"{tag}: exit codes {rcs}:\n{tails}")
+    workers = [_role_stats(errs[f"w{i}"], "worker") for i in (0, 1)]
+    worker_rows = [_csv_rows(os.path.join(dirs[f"w{i}"], "logs-worker.csv"))
+                   for i in (0, 1)]
+    prefix = ("" if task == "logreg" else "mlp_") + (
+        "" if kind == "f32" else "stream_")
+    mine = f"{prefix}launches"
+    calls = []
+    for i, (st, rows) in enumerate(zip(workers, worker_rows)):
+        n = st["kernels"]
+        others = {k: v for k, v in n.items() if k != mine and v}
+        calls.append(n[mine])
+        print(f"  worker process {i} ({SPLIT_IDS[i]}): device "
+              f"{st['device']}, {len(rows)} worker CSV rows, kernel calls "
+              f"{mine}={n[mine]}, others {others or 'all 0'}; codec "
+              f"{st['codec']}, reconnects {st['reconnects']}, router "
+              f"resends {st['router_resent']}, stale slices "
+              f"{st['stale_slices']}")
+        if not st["device"].startswith("cuda"):
+            raise RuntimeError(f"{tag}: worker {i} ran on {st['device']}")
+        if n[mine] != len(rows) or sum(st["rows"].values()) != len(rows):
+            raise RuntimeError(f"{tag}: worker process {i} made {n[mine]} "
+                               f"{mine} calls and {st['rows']} iterations "
+                               f"for {len(rows)} CSV rows")
+        if others:
+            raise RuntimeError(f"{tag}: kernels of another family or form "
+                               f"ran in worker process {i}: {others}")
+    all_rows = worker_rows[0] + worker_rows[1]
+    spread = clock_spread(all_rows)
+    first_ms = min(int(r[0]) for r in all_rows)
+    values = np.array([[float(v) for v in r[3:6]] for r in all_rows])
+    if not np.isfinite(values).all():
+        raise RuntimeError(f"{tag}: non-finite worker metrics")
+    if c >= 0 and spread > c + 1:
+        raise RuntimeError(f"{tag}: clock spread {spread} over -c {c}")
+    steady = steady_rate(all_rows)
+    rates = []
+    if topology == "shards":
+        shards = [_role_stats(errs[f"s{i}"], "server") for i in (0, 1)]
+        a, b = (st["final_clocks"] for st in shards)
+        for i, st in enumerate(shards):
+            rate = st["server_iterations"] / ((st["end_ms"] - first_ms)
+                                              / 1e3)
+            rates.append(rate)
+            print(f"  shard {i} {st['key_range']}: {st['server_iterations']}"
+                  f" iterations, {rate:.1f} iterations/s from the first "
+                  f"worker row, final clocks {st['final_clocks']}, sparse applies "
+                  f"{st['sparse_applies']}, empty slices "
+                  f"{st['empty_slices']}, duplicates dropped "
+                  f"{st['membership']['duplicate_gradients_dropped']}, "
+                  f"replay {st['replay']}")
+            print(_wire_line(f"shard {i}", st))
+            if st["server_iterations"] != iters:
+                raise RuntimeError(f"{tag}: shard {i} ran "
+                                   f"{st['server_iterations']} iterations")
+        print(f"  past the first round: {steady:.1f} worker iterations/s"
+              + (f" ({steady / direct_rate:.3f}x the unsharded split run's "
+                 f"{direct_rate:.1f})" if direct_rate else ""))
+        if (any(abs(x - y) > 1 for x, y in zip(a, b))
+                or (c == 0 and a != b)):
+            raise RuntimeError(f"{tag}: final clocks {a} and {b} disagree")
+        f1 = _shard_f1([dirs["s0"], dirs["s1"]],
+                       os.path.join(OUT, "test.csv"), task, hidden)
+        print(f"  the theta assembled from the shard checkpoints: F1 "
+              f"{f1:.4f} on the test set")
+        if kill:
+            st = shards[1]
+            resent = sum(w["router_resent"] for w in workers)
+            if not (st["restored"] and st["replay"]["gradients"] > 0
+                    and resent > 0):
+                raise RuntimeError(f"{tag}: restored {st['restored']}, "
+                                   f"replay {st['replay']}, router resends "
+                                   f"{resent}")
+            replayed = _replay_is_bitwise([dirs["s0"], dirs["s1"]], wal,
+                                          task, hidden, c)
+            print(f"  kill and restart: shard 1 restored its checkpoint, "
+                  f"replayed {st['replay']} from its log; the workers' "
+                  f"routers resent {resent} slices; each shard's whole "
+                  f"gradient log ({replayed} records) replayed serially "
+                  "ends bitwise at its final checkpoint: True")
+            remove(wal)
+        for i in (0, 1):      # 8.4 MB a shard at H=4096
+            remove(os.path.join(dirs[f"s{i}"], f"job.npz.shard{i}of2.npz"))
+    else:
+        server = _role_stats(errs["server"], "server")
+        relay = _role_stats(errs["relay"], "aggregator")
+        server_rows = _csv_rows(os.path.join(dirs["server"],
+                                             "logs-server.csv"))
+        f1 = float(server_rows[-1][4])
+        lag = server["eval"]["lag_clocks"]
+        rate = server["server_iterations"] / ((server["end_ms"] - first_ms)
+                                              / 1e3)
+        rates.append(rate)
+        print(f"  server: {server['server_iterations']} iterations, "
+              f"{rate:.1f} iterations/s from the first worker row, past the "
+              f"first round {steady:.1f} worker iterations/s"
+              + (f" ({steady / direct_rate:.3f}x the direct split run's "
+                 f"{direct_rate:.1f})" if direct_rate else "")
+              + f", final F1 {f1:.4f}, eval lag {lag}, aggregators "
+              f"{server['aggregators']}, codec {server['codec']}")
+        print(_wire_line("server", server))
+        print(f"  relay: {relay['composites']} composites of "
+              f"{relay['members']} members, fan-in {relay['fan_in']}, "
+              f"{relay['bytes_upstream']} B upstream against "
+              f"{relay['direct_bytes']} B the direct path would send "
+              f"({relay['bytes_upstream'] / relay['direct_bytes']:.4f}x), "
+              f"codec {relay['codec']}, duplicates {relay['duplicates']}")
+        print(_wire_line("relay upstream", relay["upstream"]))
+        print(_wire_line("relay downstream", relay["downstream"]))
+        # a composite's members apply together: the last one may carry
+        # the server past --max_iterations by up to its fan-in less one
+        if not iters <= server["server_iterations"] < iters + WORKERS \
+                or lag != 0:
+            raise RuntimeError(f"{tag}: {server['server_iterations']} "
+                               f"iterations, eval lag {lag}")
+        if server["aggregators"] != 1 or relay["composites"] < 1:
+            raise RuntimeError(f"{tag}: no relay traffic")
+    for i, st in enumerate(workers):
+        print(_wire_line(f"worker process {i}", st))
+    print(f"scale-out {tag}: rc={rcs} clock spread {spread}"
+          + (f" (bound {c + 1})" if c >= 0 else "")
+          + f" wall_s={wall:.1f}")
+    if not 0.5 < f1 <= 1.0:
+        raise RuntimeError(f"{tag}: bad final F1 {f1}")
+    return {"task": task, "kind": kind, "single": sum(calls),
+            "gang_calls": 0, "hidden": hidden, "fused": False,
+            "rate": min(rates), "steady": steady}
+
+
+def scaleout_runs(direct: dict) -> list[dict]:
+    """The scale-out phase through the entry points: two shards with two
+    sharded worker processes (logreg -c 0 and -c 2, logreg int8 slabs and
+    top-k 0.01 workers at -c 2, the MLP at H=128 and H=4096 -c -1, and
+    logreg -c 2 with shard 1 killed and restarted), then a relay between
+    the server and two worker processes (logreg -c 0 and -c -1, --summed
+    -c 0, --compress int8 -c 2, the MLP bf16 slabs and the MLP at H=4096
+    -c -1), each beside the split run of the same flags from the split
+    phase (`direct`: its worker iterations/s past the first round; the
+    top-k workers beside the plain -c 2 run: the shard servers send dense
+    weights, a direct --compress topk run top-k ones)."""
+    runs = []
+    topk = ("--compress", "topk:0.01")
+    specs = [("shards", "logreg", 0, SCALE_ITERS, (), H, ()),
+             ("shards", "logreg", 2, SCALE_ITERS, (), H, ()),
+             ("shards", "logreg", 2, SCALE_SHORT, ("--slab-dtype", "int8"),
+              H, ()),
+             ("shards", "logreg", 2, SCALE_ITERS, topk, H, ()),
+             ("shards", "mlp", -1, SCALE_SHORT, (), H, ()),
+             ("shards", "mlp", -1, SCALE_WIDE, (), WIDE_H, ()),
+             ("relay", "logreg", 0, SCALE_SHORT, (), H, ()),
+             ("relay", "logreg", -1, SCALE_SHORT, (), H, ()),
+             ("relay", "logreg", 0, SCALE_SHORT, (), H, ("--summed",)),
+             ("relay", "logreg", 2, SCALE_SHORT, ("--compress", "int8"), H,
+              ()),
+             ("relay", "mlp", -1, SCALE_SHORT, ("--slab-dtype", "bf16"), H,
+              ()),
+             ("relay", "mlp", -1, SCALE_WIDE, (), WIDE_H, ())]
+    for topology, task, c, iters, flags, hidden, rflags in specs:
+        twin = direct.get((task, c, flags, hidden),
+                          direct.get((task, c, (), hidden)))
+        runs.append(scaleout_run(topology, task, c, iters, flags, hidden,
+                                 rflags, direct_rate=twin))
+    runs.append(scaleout_run("shards", "logreg", 2, SCALE_ITERS, kill=True,
+                             direct_rate=direct.get(("logreg", 2, (), H))))
+    return runs
+
+
+@contextlib.contextmanager
+def observed_graphs():
+    """(graphs, added): every CUDA graph made inside, its captured graph
+    kept after its instantiation (`keep_graph`, which instantiates at the
+    first replay) so that its nodes can be read, with its replays
+    counted; and the batched_launches that the fused path's replays add
+    to the launch counter (`parallel/bsp.py`'s positive `add_counts`)."""
+    from kafka_ps_tpu_torch.ops import fused_update
+    base, base_add = torch.cuda.CUDAGraph, fused_update.add_counts
+    made: list = []
+    added = {"batched_launches": 0}
+
+    class Observed(base):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+            self.replays = 0
+            made.append(self)
+
+        def replay(self):
+            self.replays += 1
+            super().replay()
+
+    def add_counts(delta):
+        added["batched_launches"] += max(delta.get("batched_launches", 0), 0)
+        base_add(delta)
+
+    torch.cuda.CUDAGraph, fused_update.add_counts = Observed, add_counts
+    try:
+        yield made, added
+    finally:
+        torch.cuda.CUDAGraph, fused_update.add_counts = base, base_add
+
+
+def graph_k2_launches(graphs: list) -> tuple[int, int]:
+    """(K2 kernels the graphs ran, replays): the K2 kernel nodes of each
+    graph, read from its DOT dump, times the graph's replays."""
+    ran = 0
+    for i, g in enumerate(graphs):
+        path = os.path.join(OUT, f"graph-{i}.dot")
+        g.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+        os.remove(path)
+        starts = [m.start() for m in
+                  re.finditer(r'^"[^"]+"\s*\[', text, re.M)] + [len(text)]
+        nodes = sum("logreg_update" in text[a:b]
+                    for a, b in zip(starts, starts[1:]))
+        if not nodes:
+            raise RuntimeError(f"CUDA graph {i} holds no K2 kernel node")
+        ran += nodes * g.replays
+    return ran, sum(g.replays for g in graphs)
+
+
 def profile_run(task: str, iters: int = 200, flags: tuple = ()) -> None:
     """One default serial -c 0 run (plus `flags`) through cli.run.main under
     torch.profiler and cProfile: device time by kernel, the device's busy
@@ -1871,24 +2408,42 @@ def profile_run(task: str, iters: int = 200, flags: tuple = ()) -> None:
     and the host's own time by Python function (cProfile on Python 3.12
     sees every thread, adds its own cost to every Python call, and its
     cumulative times overlap across threads).  A --fused run must have
-    replayed chunks, and the K2 kernels traced must equal the launch
-    counter (the replays' counts are added, not launched, by the
-    wrapper)."""
+    replayed chunks, with no single launch, and the K2 kernels that the
+    replays ran must equal what they added to the launch counter (the
+    replays' counts are added, not launched, by the wrapper): they are
+    read from the CUDA graphs themselves, the K2 nodes of each captured
+    graph times its replays (`graph_k2_launches`).  The rounds outside
+    a chunk launch K2 through the wrapper, which counts them there.
+    torch.profiler's count of all K2 kernels is printed beside the
+    counter and may only fall short of it: its trace loses kernel events
+    now and then (45–46 of 50 in three runs), even with the discarded
+    warm-up step that opens it."""
     import cProfile
     import pstats
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from kafka_ps_tpu_torch.cli import run as cli_run
     from kafka_ps_tpu_torch.ops import fused_update
     here = os.getcwd()
     os.chdir(OUT)
     err = io.StringIO()
+    trace = {}
     try:
         host = cProfile.Profile()
         fused_update.reset_counts()
-        with contextlib.redirect_stderr(err):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with contextlib.redirect_stderr(err), \
+                observed_graphs() as (graphs, added):
+            # one warm-up step first, whose events are discarded: without
+            # it the trace lost the first events of its window more often
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1),
+                         on_trace_ready=lambda p: trace.setdefault(
+                             "events", p.key_averages())) as prof:
+                torch.ones(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
+                prof.step()
                 t0 = time.perf_counter()
                 host.enable()
                 cli_run.main([
@@ -1901,11 +2456,12 @@ def profile_run(task: str, iters: int = 200, flags: tuple = ()) -> None:
                 torch.cuda.synchronize()
                 host.disable()
                 wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
     finally:
         os.chdir(here)
     n = fused_update.counts()
     per, traced = {}, 0
-    for e in prof.key_averages():
+    for e in trace["events"]:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
@@ -1925,14 +2481,24 @@ def profile_run(task: str, iters: int = 200, flags: tuple = ()) -> None:
         fs = [json.loads(line.split(": ", 1)[1])
               for line in err.getvalue().splitlines()
               if line.startswith("kafka_ps_tpu_torch run: ")][-1]["fused"]
+        ran, replays = graph_k2_launches(graphs)
+        total = n["batched_launches"]
         print(f"profile {name}: {fs['chunks']} chunk dispatches (CUDA "
-              f"graph replays) of {fs['rounds']} rounds; K2 kernels traced "
-              f"by torch.profiler {traced}, batched_launches counter "
-              f"{n['batched_launches']}, single launches {n['launches']}")
-        if (not fs["chunks"] or traced != n["batched_launches"]
-                or n["launches"]):
+              f"graph replays) of {fs['rounds']} rounds; {len(graphs)} "
+              f"graphs captured, replayed {replays} times, their K2 nodes "
+              f"ran {ran} kernels, the replays added "
+              f"{added['batched_launches']} to the counter; "
+              f"batched_launches counter {total} ("
+              f"{total - added['batched_launches']} launched outside the "
+              f"graphs), single launches {n['launches']}; K2 kernels "
+              f"traced by torch.profiler {traced}")
+        if (not fs["chunks"] or replays != fs["chunks"]
+                or ran != added["batched_launches"] or n["launches"]):
             raise RuntimeError(f"profile {name}: the launch counter does "
                                "not match the K2 kernels that ran")
+        if traced > total:
+            raise RuntimeError(f"profile {name}: torch.profiler traced more "
+                               "K2 kernels than the counter counted")
     stats = pstats.Stats(host)
     rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])
     print(f"profile {name} host by own time (cProfile; own ms, cumulative "
@@ -1969,6 +2535,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from kafka_ps_tpu_torch.ops import _build
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2059,7 +2626,17 @@ def main() -> int:
         runs += durable_runs()
         cli_crash_check()
         split_reference_check(dev)
-        runs += split_runs()
+        direct: dict = {}
+        t_split = time.perf_counter()
+        runs += split_runs(direct)
+        t_scale = time.perf_counter()
+        scaleout_reference_check(dev)
+        t_runs = time.perf_counter()
+        runs += scaleout_runs(direct)
+        t_end = time.perf_counter()
+        print(f"phase times: split {t_scale - t_split:.1f} s; scale-out "
+              f"{t_end - t_scale:.1f} s (in-process checks "
+              f"{t_runs - t_scale:.1f} s, runs {t_end - t_runs:.1f} s)")
         profile_run("logreg")
         profile_run("logreg", flags=("--durable-log", "wal-profile"))
         profile_run("mlp")
@@ -2086,14 +2663,15 @@ def main() -> int:
                 (f"mlp_local_update_h{WIDE_H}", "mlp", "f32", ("single",))]
     for name, task, kind, keys in entries:
         # the H=4096 entries count the wide runs' calls, the others the
-        # runs at the main path's H; the split runs count as main-path
-        # runs (their worker processes' calls)
+        # runs at the main path's H; the split and scale-out runs count
+        # as main-path runs (their worker processes' calls)
         wide = name.endswith(f"_h{WIDE_H}")
         kernels[name]["launches"] = sum(
             r[k] for r in runs if (r["task"], r["kind"]) == (task, kind)
             and (r["hidden"] == WIDE_H) == wide for k in keys)
         if kernels[name]["launches"] < 1:
             raise RuntimeError(f"{name} never ran on the main path")
+    print(f"whole script: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,11 @@ KPS_PLATFORM=cpu.
 
     python -m kafka_ps_tpu_torch.cli.server_runner --listen 0 \\
         -training train.csv -test test.csv -c 2 --max_iterations 400 -l
+
+`--shards N --shard-id I` makes a `--listen` server shard I of a
+range-sharded group (cli/socket_mode.run_server_shard, one process per
+shard; workers --connect to all N).  `--bsp-order` applies each -c 0
+round in worker-id order, as an aggregation relay's composites are.
 """
 
 from __future__ import annotations
@@ -21,9 +26,8 @@ from kafka_ps_tpu_torch.cli import run as run_mod
 
 def build_parser() -> argparse.ArgumentParser:
     """The server-role flag surface: the JAX runner's flags, of which
-    the range-sharded server (--shards, --shard-id), the read replica
-    (--serve-replica) and --bsp-order are refused until their ROADMAP
-    items are ported."""
+    the read replica (--serve-replica) is refused until its ROADMAP item
+    is ported."""
     parser = run_mod.build_parser(include_server_flags=True,
                                   include_worker_flags=False,
                                   prog="ServerAppRunner")
@@ -36,15 +40,19 @@ def build_parser() -> argparse.ArgumentParser:
                         help="--listen: seconds to wait for all workers")
     parser.add_argument(
         "--shards", type=int, default=1, metavar="N",
-        help="--listen: total server shards of a range-sharded deployment "
-             "(not ported yet: ROADMAP item 20; only 1)")
+        help="--listen: total server shards of a range-sharded deployment: "
+             "run N of these processes, one per --shard-id, each owning a "
+             "contiguous key range of theta with its own gate, checkpoint "
+             "file and durable-log directory; workers --connect to all N")
     parser.add_argument(
         "--shard-id", dest="shard_id", type=int, default=0, metavar="I",
-        help="--shards: this process's shard index in [0, N)")
+        help="--shards: this process's shard index in [0, N); shard 0 "
+             "also hosts the stream producer")
     parser.add_argument(
         "--bsp-order", dest="bsp_order", action="store_true",
-        help="buffer each BSP round and apply it in worker-id order (not "
-             "ported yet: ROADMAP item 23)")
+        help="--listen + -c 0: buffer each BSP round and apply it in "
+             "worker-id order, which makes an aggregated run bitwise "
+             "comparable with a direct one")
     parser.add_argument(
         "--serve-replica", dest="serve_replica", action="store_true",
         help="read-replica serving process (not ported yet: ROADMAP item "
@@ -61,24 +69,28 @@ def main(argv=None) -> int:
         raise SystemExit(
             f"--shard-id {args.shard_id} must be in [0, --shards "
             f"{args.shards}) and --shards must be >= 1")
-    if args.shards > 1:
-        raise SystemExit("--shards N > 1: the range-sharded split server "
-                         "is not ported yet (ROADMAP item 20)")
+    if args.shards > 1 and args.listen is None:
+        raise SystemExit("--shards N > 1 requires --listen (one shard "
+                         "server process per port); in process, sharding "
+                         "is the runtime.sharding.ShardedServerGroup API")
     if args.serve_replica:
         raise SystemExit("--serve-replica: the read replica is not ported "
                          "yet (ROADMAP item 21)")
-    if args.bsp_order:
-        raise SystemExit("--bsp-order: worker-id-ordered BSP applies come "
-                         "with the aggregation tier, not ported yet "
-                         "(ROADMAP item 23)")
     if args.listen is not None:
+        if args.shards > 1:
+            # each shard process owns a durable-log directory, replayed
+            # on restart
+            from kafka_ps_tpu_torch.cli import socket_mode
+            return socket_mode.run_server_shard(args)
         if args.durable_log:
             # the socket split has its own durability story (--checkpoint
             # + per-worker state files); the commit log is the
             # in-process fabric's
             raise SystemExit(
                 "--durable-log applies to the in-process fabric; in "
-                "--listen split mode use --checkpoint instead")
+                "--listen split mode use --checkpoint instead (or "
+                "--shards N > 1, whose shard processes each own a "
+                "durable-log directory)")
         from kafka_ps_tpu_torch.cli import socket_mode
         return socket_mode.run_server(args)
     return run_mod.run_with_args(args)

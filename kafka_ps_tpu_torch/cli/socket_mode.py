@@ -22,10 +22,30 @@ Kept from the JAX roles: checkpoint and run-id continuity, the
 per-run worker log marker, worker state files (`--checkpoint`,
 `--state_every`), `--ready-rows`, rerouting of rows under halt and
 rebalance, readmission and the liveness reissue, and `--compress`
-negotiation.  Not ported yet, each refused with the ROADMAP item that
-brings it: the range-sharded worker (a comma-separated `--connect`, item
-20), aggregator relays (`--aggregate`, item 23); the tier store (22),
-serving (21) and the telemetry planes (24) have no flags here.
+negotiation.
+
+The scale-out topologies (runtime/sharding.py, agg/):
+
+    # N shard servers, each owning a key range of theta; shard 0 hosts
+    # the producer; each has its own checkpoint and durable log
+    python -m kafka_ps_tpu_torch.cli.server_runner --listen 8477 \
+        --shards 2 --shard-id 0 ...        # and --shard-id 1 on 8478
+    python -m kafka_ps_tpu_torch.cli.worker_runner \
+        --connect hostA:8477,hostA:8478 --worker_ids 0,1 ...
+
+    # a per-host relay between the server and its host's workers
+    python -m kafka_ps_tpu_torch.cli.agg_runner --connect hostA:8477 \
+        --listen 8479 --worker_ids 0,1,2,3
+    python -m kafka_ps_tpu_torch.cli.worker_runner \
+        --aggregate hostB:8479 --worker_ids 0,1 ...
+
+A sharded worker process keeps one bridge per shard, splits each delta
+per shard (`--compress topk:R` is then its local sparsifier and the
+slices are sparse) and reassembles the weights slices; a dead shard is
+not fatal (it reconnects and the router resends what the shard missed).
+With `--aggregate` the same worker dials the relay, which compresses for
+it; after a relay restart it resends its whole cache.  The tier store
+(22), serving (21) and the telemetry planes (24) have no flags here.
 
 At exit each role prints one line of run statistics on stderr,
 `kafka_ps_tpu_torch server: {json}` or `kafka_ps_tpu_torch worker:
@@ -222,6 +242,15 @@ def run_server(args) -> int:
               flush=True)
     server.run_id = run_id
     server.membership_log = events_log   # before restore: it logs "resume"
+    # releases to workers behind a relay go as one T_WEIGHTS_AGG frame
+    # per relay (no effect while none is connected)
+    server.weights_group_send = bridge.send_weights_group
+    if getattr(args, "bsp_order", False):
+        # each BSP round applied in worker-id order, so an aggregated run
+        # is bitwise comparable with a direct one
+        server.bsp_order = True
+        print("bsp-order: buffering rounds for worker-id-ordered applies",
+              file=sys.stderr, flush=True)
     eval_engine = None
     if cfg.eval_async:
         from kafka_ps_tpu_torch.evaluation.engine import EvalEngine
@@ -400,14 +429,16 @@ def run_worker(args) -> int:
     loaded before the connection, so a first build (nvcc) is never
     taken for a hung worker by the server's heartbeat.  A reader
     exception that is not a connection error, or a worker loop's
-    exception (a CUDA error), makes the process exit 1."""
+    exception (a CUDA error), makes the process exit 1.
+
+    A comma-separated `--connect` is the range-sharded worker, one
+    address per shard in shard-id order; `--aggregate HOST:PORT` dials a
+    relay through the same path (_run_worker_sharded)."""
     if getattr(args, "aggregate", None):
-        raise SystemExit("--aggregate: aggregator relays are not ported "
-                         "yet (ROADMAP item 23); --connect to the server")
+        return _run_worker_sharded(args, [args.aggregate], aggregate=True)
     if "," in args.connect:
-        raise SystemExit("--connect with several addresses is the "
-                         "range-sharded worker, not ported yet (ROADMAP "
-                         "item 20); give one HOST:PORT")
+        return _run_worker_sharded(
+            args, [a for a in args.connect.split(",") if a])
     from kafka_ps_tpu_torch.cli.run import load_test_csv
     from kafka_ps_tpu_torch.data.buffer import SlidingBuffer
     from kafka_ps_tpu_torch.ops import fused_update
@@ -474,21 +505,9 @@ def run_worker(args) -> int:
             os.remove(state_path)
     # Log continuity is decided by RUN continuity, not by whether buffer
     # state restored: a worker killed before its first state snapshot
-    # has no state file, but its pre-crash rows still belong to this
-    # run.  A sidecar marker records which run the log belongs to.
-    log_path = "./logs-worker.csv" if args.logging else None
-    append_log = restoring
-    if log_path is not None:
-        marker = log_path + ".runid"
-        try:
-            with open(marker) as fh:
-                append_log = append_log or (
-                    int(fh.read().strip()) == bridge.server_run_id)
-        except (OSError, ValueError):
-            pass
-        with open(marker, "w") as fh:
-            fh.write(str(bridge.server_run_id))
-    log = CsvLogSink(log_path, WORKER_HEADER, append=append_log)
+    # has no state file, but its pre-crash rows still belong to this run
+    log = _open_worker_log(args, bridge.server_run_id, restoring,
+                           CsvLogSink, WORKER_HEADER)
 
     buffers = {w: SlidingBuffer(cfg.model.num_features, cfg.buffer)
                for w in ids}
@@ -509,28 +528,9 @@ def run_worker(args) -> int:
         for w in ids:
             nodes[w].compressor = compressors[w]
 
-    if state_path is not None:
-        state_stop = threading.Event()
-
-        def state_saver():
-            # the changelog analogue: snapshot on a cadence so a killed
-            # process loses at most one interval of rows; skip idle
-            # intervals.  The fingerprint covers insertions AND
-            # iteration counts: under compression the residuals advance
-            # on every iteration even when no new rows arrived.
-            last = None
-            while not state_stop.wait(state_every):
-                fp = (tuple(buffers[w].num_tuples_seen for w in ids),
-                      tuple(nodes[w].iterations for w in ids))
-                if fp != last:
-                    ckpt.save_worker(state_path, buffers,
-                                     run_id=bridge.server_run_id,
-                                     residuals=compressors)
-                    last = fp
-
-        state_saver_thread = threading.Thread(
-            target=state_saver, daemon=True, name="kps-worker-state")
-        state_saver_thread.start()
+    saver = (None if state_path is None else _StateSaver(
+        state_path, buffers, nodes, bridge.server_run_id, compressors,
+        state_every))
 
     reader_thread = threading.Thread(target=bridge.run_reader,
                                      args=(buffers,), daemon=True,
@@ -597,19 +597,8 @@ def run_worker(args) -> int:
             leftover.append(t.name)
     if bridge.reader_error is not None:
         errors.insert(0, bridge.reader_error)
-    if state_path is not None:
-        state_stop.set()
-        # join BEFORE the final save: two concurrent save_worker calls
-        # share one tmp path and would corrupt the state file
-        state_saver_thread.join(timeout=60.0)
-        if state_saver_thread.is_alive():   # wedged in a stalled write
-            print("warning: state saver still writing; skipping final "
-                  "snapshot", file=sys.stderr, flush=True)
-            leftover.append(state_saver_thread.name)
-        else:
-            ckpt.save_worker(state_path, buffers,   # final snapshot
-                             run_id=bridge.server_run_id,
-                             residuals=compressors)
+    if saver is not None:
+        saver.close(leftover)
     try:
         worker_log.close()    # joins the drain thread, flushes, closes log
     except Exception as e:   # a device error surfacing in the rows
@@ -641,3 +630,659 @@ def run_worker(args) -> int:
     if errors:
         raise RuntimeError("worker failed") from errors[0]
     return 0
+
+
+# -- range-sharded servers and aggregation relays --------------------------
+
+
+def run_server_shard(args) -> int:
+    """One shard server of a `--shards N` deployment: owns
+    `ShardPlan.ranges[shard_id]` of theta with its own vector clocks and
+    gate, its own checkpoint (utils/checkpoint.shard_state_path) and,
+    with `--durable-log DIR`, its own commit log under
+    `DIR/shard<I>of<N>`, so a killed shard recovers from checkpoint plus
+    log replay while the others keep serving.  Shard 0 hosts the stream
+    producer; no shard evaluates (each holds a slice).  The shards'
+    weights slices are uncompressed; a worker's `--compress topk:R` is
+    what shrinks the gradient slices."""
+    from kafka_ps_tpu_torch.data.stream import CsvStreamProducer
+    from kafka_ps_tpu_torch.models.task import get_task
+    from kafka_ps_tpu_torch.runtime.server import ServerNode
+    from kafka_ps_tpu_torch.runtime.sharding import ShardPlan
+    from kafka_ps_tpu_torch.utils import checkpoint as ckpt
+    from kafka_ps_tpu_torch.utils.config import resolve_device
+
+    cfg = _make_cfg(args)
+    num_shards, shard_id = args.shards, args.shard_id
+    plan = ShardPlan(get_task(cfg.task, cfg.model).num_params, num_shards)
+    key_range = plan.ranges[shard_id]
+    device = resolve_device()
+    failure_policy = getattr(args, "failure_policy", "halt")
+    hb_timeout = getattr(args, "heartbeat_timeout", None)
+    checkpoint_path = None
+    if getattr(args, "checkpoint", None):
+        checkpoint_path = ckpt.shard_state_path(args.checkpoint, shard_id,
+                                                num_shards)
+    resuming = bool(checkpoint_path) and os.path.exists(checkpoint_path)
+    run_id = ckpt.peek_run_id(checkpoint_path) if resuming else None
+    if run_id is None:
+        run_id = time.time_ns()
+    inner = fabric_mod.Fabric()
+    if getattr(args, "durable_log", None):
+        # one log per shard, under a shard-suffixed root: N shard
+        # processes never share a segment file
+        from kafka_ps_tpu_torch.log import DurableFabric, LogConfig
+        inner = DurableFabric(
+            os.path.join(args.durable_log, f"shard{shard_id}of{num_shards}"),
+            LogConfig(fsync=getattr(args, "fsync", "interval")),
+            device=device)
+    bridge = net.ServerBridge(
+        port=args.listen,
+        heartbeat_interval=min(1.0, hb_timeout / 3) if hb_timeout else 1.0,
+        heartbeat_timeout=hb_timeout, run_id=run_id,
+        coalesce=getattr(args, "wire_coalesce", True), device=device)
+    print(f"shard {shard_id}/{num_shards} range [{key_range.start}, "
+          f"{key_range.end}) listening on port {bridge.port}",
+          file=sys.stderr, flush=True)
+    fabric = bridge.wrap(inner)     # keeps DurableFabric's class
+    server = ServerNode(cfg, fabric, device, key_range=key_range,
+                        shard_id=shard_id, num_shards=num_shards)
+    server.run_id = run_id
+    server.weights_group_send = bridge.send_weights_group
+    if getattr(args, "bsp_order", False):
+        server.bsp_order = True
+    if checkpoint_path:
+        ckpt.maybe_restore(checkpoint_path, server)
+        server.checkpoint_path = checkpoint_path
+        server.checkpoint_every = getattr(args, "checkpoint_every", 50)
+        if resuming:
+            print(f"shard {shard_id}: restored checkpoint at iteration "
+                  f"{server.iterations}", file=sys.stderr, flush=True)
+    replay = None
+    if inner.durable:
+        # re-enqueue the gradient slices past the checkpoint's offsets;
+        # the tracker drops what the checkpoint covers
+        t0 = time.perf_counter()
+        replay = inner.recover(server.restored_log_offsets)
+        replay_s = time.perf_counter() - t0
+        if any(replay.values()):
+            print(f"shard {shard_id}: durable-log replay {replay} in "
+                  f"{replay_s:.3f} s", file=sys.stderr, flush=True)
+
+    events: queue.Queue = queue.Queue()
+    bridge.on_disconnect = lambda ids: events.put(("disconnect", ids))
+    bridge.on_ready = lambda w: events.put(("ready", w))
+    workers = server.tracker.active_workers
+    bridge.wait_for_connected(workers, timeout=args.connect_timeout)
+
+    producer = batch_sink = None
+    reroute = {"rr": 0, "rerouted": 0, "dropped": 0}
+    if shard_id == 0:
+        # the data plane is on shard 0 only: run_server's sink and
+        # reroute policy
+        def sink(worker: int, features: dict[int, float],
+                 label: int) -> None:
+            deliverable = (failure_policy == "rebalance"
+                           or server.tracker.tracker[worker].active)
+            if deliverable and bridge.send_data(worker, features, label):
+                return
+            active = server.tracker.active_workers
+            for _ in range(len(active)):
+                alt = active[reroute["rr"] % len(active)]
+                reroute["rr"] += 1
+                if alt != worker and bridge.send_data(alt, features, label):
+                    reroute["rerouted"] += 1
+                    return
+            reroute["dropped"] += 1
+
+        batch_sink = _BatchingSink(
+            bridge, sink,
+            deliverable=lambda w: (failure_policy == "rebalance"
+                                   or server.tracker.tracker[w].active))
+        producer = CsvStreamProducer(
+            args.training_data_file_path, cfg.num_workers, batch_sink,
+            time_per_event_ms=cfg.stream.time_per_event_ms,
+            prefill_per_worker=cfg.stream.prefill_per_worker,
+            num_features=cfg.model.num_features)
+        producer.run_in_background()
+    bridge.wait_for_workers(workers, timeout=args.connect_timeout)
+
+    def apply_events() -> None:
+        while True:
+            try:
+                kind, val = events.get_nowait()
+            except queue.Empty:
+                return
+            if kind == "disconnect":
+                live = [w for w in val if server.tracker.tracker[w].active]
+                if not live:
+                    continue
+                if failure_policy == "halt":
+                    raise RuntimeError(
+                        f"shard {shard_id}: worker connection lost for "
+                        f"{sorted(live)} (failure_policy=halt)")
+                for w in live:
+                    try:
+                        server.remove_worker(w)
+                    except ValueError:
+                        raise RuntimeError(
+                            "all worker connections lost") from None
+            elif kind == "ready" and failure_policy == "rebalance":
+                w = int(val)
+                if not server.tracker.tracker[w].active:
+                    server.readmit_worker(w)
+
+    server.start_training_loop()
+    max_iters = args.max_iterations or sys.maxsize
+    t_first = None
+    try:
+        while server.iterations < max_iters:
+            bridge.raise_reader_error()
+            apply_events()
+            if batch_sink is not None:
+                batch_sink.flush_aged()
+            g = fabric.poll_blocking(fabric_mod.GRADIENTS_TOPIC, 0,
+                                     timeout=0.2)
+            if g is not None:
+                if t_first is None:
+                    t_first = time.time()
+                server.process(g)
+    except KeyboardInterrupt:
+        print(f"shard {shard_id}: interrupted — shutting down",
+              file=sys.stderr, flush=True)
+    finally:
+        if producer is not None:
+            producer.stop()
+        if batch_sink is not None:
+            batch_sink.flush_all()
+        bridge.close()
+        try:
+            if checkpoint_path:
+                # a commit point: the checkpoint and the committed log
+                # offsets describe one instant
+                server.save_checkpoint_now()
+        finally:
+            if inner.durable:
+                inner.close()
+            _print_stats("server", {
+                "role": "server", "device": str(device),
+                "shard_id": shard_id, "num_shards": num_shards,
+                "key_range": [key_range.start, key_range.end],
+                "server_iterations": server.iterations,
+                "final_clocks": server.tracker.clocks,
+                "first_gradient_ms": (None if t_first is None
+                                      else int(t_first * 1000)),
+                "end_ms": int(time.time() * 1000),
+                "restored": resuming, "replay": replay,
+                "sparse_applies": server.sparse_applies,
+                "empty_slices": server.empty_slices,
+                "composites": server.composites_received,
+                "membership": {
+                    "active": server.tracker.active_workers,
+                    "evictions": [w for _, kind, w in
+                                  server.membership_events
+                                  if kind == "evict"],
+                    "zombie_gradients_dropped":
+                        server.zombie_gradients_dropped,
+                    "duplicate_gradients_dropped":
+                        server.duplicate_gradients_dropped},
+                "rows": {"sent": (producer.rows_sent if producer
+                                  else 0), **reroute},
+                "durable": inner.stats() if inner.durable else None,
+                **bridge.stats()})
+    return 0
+
+
+def run_aggregator(args) -> int:
+    """The aggregator relay role (agg/relay.py), one per host:
+
+        python -m kafka_ps_tpu_torch.cli.agg_runner --connect hostA:8477 \\
+            --listen 8478 --agg-id 0 --worker_ids 0,1,2,3
+        python -m kafka_ps_tpu_torch.cli.worker_runner --aggregate \\
+            hostB:8478 --worker_ids 0,1 -test test.csv
+
+    The server sees one connection, one composite gradient frame per
+    flush and one grouped weights frame per release set.  With
+    `--compress` the relay owns the error-feedback residuals, saved to
+    `--checkpoint` after each upstream send.  Runs on the card unless
+    KPS_PLATFORM=cpu; prints `kafka_ps_tpu_torch aggregator: {json}` at
+    exit (relay.stats())."""
+    from kafka_ps_tpu_torch.agg.relay import AggregatorRelay
+    from kafka_ps_tpu_torch.models.task import get_task
+    from kafka_ps_tpu_torch.utils.config import resolve_device
+
+    host, _, port = args.connect.rpartition(":")
+    ids = [int(w) for w in args.worker_ids.split(",")]
+    cfg = _make_cfg(args)
+    device = resolve_device()
+    spec = _codec_spec(args)
+    relay = AggregatorRelay(
+        int(args.agg_id), host or "127.0.0.1", int(port), ids,
+        get_task(cfg.task, cfg.model).num_params,
+        listen_port=int(args.listen or 0),
+        codec_spec=spec if spec.codec_id != net.CODEC_NONE else None,
+        summed=bool(args.summed),
+        checkpoint_path=getattr(args, "checkpoint", None),
+        flush_interval=float(args.flush_interval or 0.002),
+        heartbeat_interval=1.0,
+        heartbeat_timeout=getattr(args, "heartbeat_timeout", None),
+        coalesce=getattr(args, "wire_coalesce", True), device=device)
+    if relay.restored:
+        print("restored aggregator error-feedback residuals",
+              file=sys.stderr, flush=True)
+    print(f"aggregator {relay.agg_id} listening on port {relay.port} "
+          f"(members {','.join(map(str, ids))}, upstream {args.connect}, "
+          f"codec {relay.upstream.negotiated.spec_str()})",
+          file=sys.stderr, flush=True)
+    try:
+        relay.run()               # until the server closes the run
+    except KeyboardInterrupt:
+        pass
+    finally:
+        relay.close()
+        _print_stats("aggregator", {"role": "aggregator",
+                                    "device": str(device),
+                                    "codec":
+                                        relay.upstream.negotiated.spec_str(),
+                                    **relay.stats()})
+    return 0
+
+
+class _AssemblerSink:
+    """One bridge's weights sink (WorkerBridge.set_weights_sink): its
+    shard's slices into the shared WeightsAssembler, under one lock (the
+    bridges' readers offer concurrently)."""
+
+    def __init__(self, shard_id: int, assembler, lock):
+        self._shard_id = shard_id
+        self._assembler = assembler
+        self._lock = lock
+
+    def send(self, topic: str, key: int, message) -> None:
+        with self._lock:
+            self._assembler.offer(self._shard_id, key, message)
+
+
+def _run_worker_sharded(args, addrs: list[str],
+                        aggregate: bool = False) -> int:
+    """The worker role against a `--shards N` fleet: one bridge per shard
+    address (shard-id order), a ShardRouter per logical worker and one
+    WeightsAssembler.  A dead shard is not fatal while another lives: the
+    supervisor reconnects to the restarted shard and its stale weights
+    slices make the routers resend from their caches.  The run ends when
+    every shard has closed.
+
+    `aggregate=True` points the one address at a relay: compression is
+    the relay's (raw float32 goes to it), a reconnect resends the whole
+    cache (nothing on a restarted relay asks for it), and a relay that
+    drops without a GOODBYE is waited for (AGG_RECONNECT_GRACE)."""
+    from kafka_ps_tpu_torch.cli.run import load_test_csv
+    from kafka_ps_tpu_torch.data.buffer import SlidingBuffer
+    from kafka_ps_tpu_torch.models.task import get_task
+    from kafka_ps_tpu_torch.ops import fused_update
+    from kafka_ps_tpu_torch.runtime.sharding import (ShardPlan, ShardRouter,
+                                                     WeightsAssembler)
+    from kafka_ps_tpu_torch.runtime.worker import WorkerNode
+    from kafka_ps_tpu_torch.utils import checkpoint as ckpt
+    from kafka_ps_tpu_torch.utils.asynclog import DeferredSink
+    from kafka_ps_tpu_torch.utils.config import resolve_device
+    from kafka_ps_tpu_torch.utils.csvlog import WORKER_HEADER, CsvLogSink
+
+    ids = [int(w) for w in args.worker_ids.split(",")]
+    cfg = _make_cfg(args)
+    spec = _codec_spec(args)
+    state_every = getattr(args, "state_every", 1.0)
+    if getattr(args, "checkpoint", None) and (state_every is None
+                                              or state_every <= 0):
+        raise SystemExit("--state_every must be > 0 (seconds between "
+                         "durable buffer snapshots)")
+    device = resolve_device()
+    import torch
+    test_x, test_y = load_test_csv(args.test_data_file_path,
+                                   args.num_features)
+    test_x = torch.as_tensor(test_x, dtype=torch.float32, device=device)
+    test_y = torch.as_tensor(test_y, dtype=torch.int32, device=device)
+    if device.type == "cuda":
+        fused_update.load(cfg.task, cfg.slab_dtype)
+    num_params = get_task(cfg.task, cfg.model).num_params
+    plan = ShardPlan(num_params, len(addrs))
+
+    def connect(addr: str, timeout: float = 30.0):
+        host, _, port = addr.rpartition(":")
+        return net.WorkerBridge(
+            host or "127.0.0.1", int(port), ids, connect_timeout=timeout,
+            heartbeat_timeout=getattr(args, "heartbeat_timeout", None),
+            coalesce=getattr(args, "wire_coalesce", True), device=device)
+
+    slots: list = [connect(a) for a in addrs]
+    retired: list = []                 # bridges replaced by a reconnect
+    fabric = fabric_mod.Fabric()       # local: assembled WEIGHTS only
+    assemble_lock = threading.Lock()
+    routers: dict[int, ShardRouter] = {}
+
+    def resend_cb(shard_id: int, worker: int, clock: int) -> bool:
+        router = routers.get(worker)
+        return router.resend(shard_id, clock) if router else False
+
+    assembler = WeightsAssembler(
+        plan, deliver=lambda w, m: fabric.send(fabric_mod.WEIGHTS_TOPIC, w,
+                                               m),
+        resend=resend_cb)
+    sinks = [_AssemblerSink(i, assembler, assemble_lock)
+             for i in range(len(addrs))]
+    for i, b in enumerate(slots):
+        b.set_weights_sink(sinks[i])
+
+    def safe_send(shard_id: int, message) -> None:
+        # a slice to a dead shard is dropped here; the router's cache
+        # has it, and the restarted shard's stale slice asks for it
+        try:
+            slots[shard_id].send_gradients(0, message)
+        except (ConnectionError, OSError):
+            pass
+
+    for w in ids:
+        routers[w] = ShardRouter(plan, send=safe_send)
+
+    compressors = None
+    if spec.codec_id != net.CODEC_NONE:
+        if aggregate:
+            # the relay encodes once, at its upstream edge
+            print(f"compression: {spec.spec_str()} (delegated to the "
+                  "aggregator)", file=sys.stderr, flush=True)
+        else:
+            # no negotiation in the sharded fleet: slices cross decoded
+            # (dense tid 1, sparse tid 6), --compress is the local
+            # sparsifier that makes a delta touch few shards
+            from kafka_ps_tpu_torch import compress
+            codec = compress.get_codec(spec, num_params)
+            compressors = {w: compress.ErrorFeedback(codec, device)
+                           for w in ids}
+            print(f"compression: {spec.spec_str()} (local sparsifier)",
+                  file=sys.stderr, flush=True)
+
+    buffers = {w: SlidingBuffer(cfg.model.num_features, cfg.buffer)
+               for w in ids}
+    # run continuity keys on slots[0]'s run id: the relay's (it advertises
+    # the server's), or shard 0's
+    run_id = slots[0].server_run_id
+    state_path = None
+    restoring = False
+    if getattr(args, "checkpoint", None):
+        state_path = ckpt.worker_state_path(args.checkpoint, ids)
+        stored = ckpt.peek_run_id(state_path)
+        restoring = stored is not None and stored == run_id
+        if not restoring and os.path.exists(state_path):
+            print(f"discarding stale worker state {state_path} (run "
+                  f"{stored} != server run {run_id})", file=sys.stderr,
+                  flush=True)
+            os.remove(state_path)
+    restored = False
+    if restoring and ckpt.maybe_restore_worker(
+            state_path, buffers, run_id=run_id, residuals=compressors):
+        restored = True
+        print("restored worker buffers: " + ", ".join(
+            f"{w}:{buffers[w].count} rows (seen "
+            f"{buffers[w].num_tuples_seen})" for w in ids),
+            file=sys.stderr, flush=True)
+    log = _open_worker_log(args, run_id, restoring, CsvLogSink,
+                           WORKER_HEADER)
+    worker_log = DeferredSink(log)
+    nodes = {w: WorkerNode(w, cfg, fabric, buffers[w], device, test_x,
+                           test_y, worker_log)
+             for w in ids}
+    for w in ids:
+        nodes[w].shard_router = routers[w]
+        if compressors is not None:
+            nodes[w].compressor = compressors[w]
+
+    saver = (None if state_path is None else _StateSaver(
+        state_path, buffers, nodes, run_id, compressors, state_every))
+
+    reader_threads: list[threading.Thread] = []
+
+    def start_reader(bridge) -> None:
+        t = threading.Thread(target=bridge.run_reader, args=(buffers,),
+                             daemon=True, name="kps-worker-reader")
+        t.start()
+        reader_threads.append(t)
+
+    for b in slots:
+        start_reader(b)
+
+    stop = threading.Event()
+    errors: list[BaseException] = []
+    ready_rows = max(1, int(getattr(args, "ready_rows", 1) or 1))
+
+    def announce_ready() -> None:
+        pending = [(i, w) for i in range(len(slots)) for w in ids]
+        while pending and not stop.is_set():
+            for i, w in list(pending):
+                if buffers[w].count >= ready_rows:
+                    try:
+                        slots[i].mark_ready(w)
+                    except (ConnectionError, OSError):
+                        continue
+                    pending.remove((i, w))
+            time.sleep(0.01)
+
+    ready_thread = threading.Thread(target=announce_ready, daemon=True,
+                                    name="kps-worker-ready")
+    ready_thread.start()
+
+    # a killed relay and the end of the run look alike on the socket; a
+    # relay that closes on purpose sends the GOODBYE first, so a drop
+    # without it is waited for this long.  Shards end the run when all
+    # have closed (a restarted shard recovers from its own log)
+    AGG_RECONNECT_GRACE = 30.0
+    down_since = [None]
+    reconnects = [0]
+
+    def fleet_is_done() -> bool:
+        if aggregate and any(s.run_over for s in slots):
+            return True     # the relay's GOODBYE: hang up, it waits
+        if not all(s.disconnected.is_set() for s in slots):
+            down_since[0] = None
+            return False
+        if not aggregate or any(s.run_over for s in slots):
+            return True
+        if down_since[0] is None:
+            down_since[0] = time.monotonic()
+        return time.monotonic() - down_since[0] > AGG_RECONNECT_GRACE
+
+    def supervise() -> None:
+        while not stop.is_set():
+            for s in slots:
+                if s.reader_error is not None:
+                    # a decode or device error is not a disconnect: end
+                    # the process with it instead of reconnecting
+                    errors.append(s.reader_error)
+                    stop.set()
+                    return
+            if fleet_is_done():
+                stop.set()
+                return
+            for i in range(len(slots)):
+                if not slots[i].disconnected.is_set() or slots[i].run_over:
+                    continue
+                try:
+                    nb = connect(addrs[i], timeout=3.0)
+                except (ConnectionError, OSError):
+                    continue        # still down; retry next sweep
+                nb.set_weights_sink(sinks[i])
+                start_reader(nb)
+                retired.append(slots[i])
+                slots[i] = nb
+                reconnects[0] += 1
+                for w in ids:
+                    if buffers[w].count >= ready_rows:
+                        try:
+                            nb.mark_ready(w)
+                        except (ConnectionError, OSError):
+                            pass
+                if aggregate:
+                    # the deltas a relay held died with it, and nothing
+                    # on the restarted one asks for them: resend the
+                    # whole cache (the server drops what it applied)
+                    for w in ids:
+                        routers[w].resend(i, 0)
+                print(("reconnected to aggregator" if aggregate else
+                       f"reconnected to shard {i}") + f" ({addrs[i]})",
+                      file=sys.stderr, flush=True)
+            time.sleep(0.2)
+
+    supervisor = threading.Thread(target=supervise, daemon=True,
+                                  name="kps-worker-supervisor")
+    supervisor.start()
+
+    def worker_loop(node: WorkerNode) -> None:
+        try:
+            if device.type == "cuda":
+                # a thread's first cuBLAS call needs a current device
+                torch.cuda.set_device(test_x.device)
+            while not stop.is_set():
+                msg = fabric.poll_blocking(fabric_mod.WEIGHTS_TOPIC,
+                                           node.worker_id, timeout=0.1)
+                if msg is not None:
+                    node.on_weights(msg)
+        except Exception as e:
+            errors.append(e)
+            stop.set()
+
+    threads = [threading.Thread(target=worker_loop, args=(nodes[w],),
+                                daemon=True, name=f"worker-{w}")
+               for w in ids]
+    for t in threads:
+        t.start()
+    stop.wait()                       # the supervisor ends the run
+    leftover = []
+    for t in threads:
+        t.join(timeout=120.0)
+        if t.is_alive():
+            leftover.append(t.name)
+    if saver is not None:
+        saver.close(leftover)
+    try:
+        worker_log.close()
+    except Exception as e:   # a device error surfacing in the rows
+        errors.append(e)
+    for b in slots:
+        b.close()
+    supervisor.join(timeout=10.0)
+    ready_thread.join(timeout=10.0)
+    for t in reader_threads:
+        t.join(timeout=10.0)
+    for t in [supervisor, ready_thread, *reader_threads]:
+        if t.is_alive():
+            leftover.append(t.name)
+    bridges = retired + slots
+    _print_stats("worker", {
+        "role": "worker", "device": str(device), "worker_ids": ids,
+        "shards": len(addrs), "aggregate": aggregate,
+        "rows": {str(w): nodes[w].iterations for w in ids},
+        "rows_received": {str(w): buffers[w].num_tuples_seen for w in ids},
+        "restored": restored, "codec": spec.spec_str(),
+        "reconnects": reconnects[0],
+        "router_resent": sum(r.resent for r in routers.values()),
+        "stale_slices": assembler.stale,
+        "kernels": fused_update.counts(),
+        "wire": _sum_wire([b.wire_stats() for b in bridges]),
+        "wire_per_shard": [b.wire_stats() for b in slots],
+        "writers": net._writer_stats(
+            [b._writer for b in bridges if b._writer is not None])})
+    rc = 0
+    if errors:
+        print(f"worker failed: {errors[0]!r}", file=sys.stderr, flush=True)
+        rc = 1
+    if leftover:
+        print(f"warning: threads still alive at exit: {leftover}; "
+              "exiting without finalization", file=sys.stderr, flush=True)
+        sys.stdout.flush()
+        os._exit(rc)
+    if errors:
+        raise RuntimeError("worker failed") from errors[0]
+    return 0
+
+
+class _StateSaver:
+    """A worker process's durable buffer state (the changelog analogue):
+    a snapshot every `every` seconds in which rows or iterations moved (a
+    killed process loses at most one interval of rows; under compression
+    the residuals advance on every iteration even when no row arrived),
+    and a last one at `close`."""
+
+    def __init__(self, path, buffers, nodes, run_id, residuals, every):
+        self._args = (path, buffers)
+        self._kw = {"run_id": run_id, "residuals": residuals}
+        self._fingerprint = lambda: (
+            tuple(b.num_tuples_seen for b in buffers.values()),
+            tuple(n.iterations for n in nodes.values()))
+        self._every = every
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="kps-worker-state")
+        self._thread.start()
+
+    def _save(self) -> None:
+        from kafka_ps_tpu_torch.utils import checkpoint as ckpt
+        ckpt.save_worker(*self._args, **self._kw)
+
+    def _loop(self) -> None:
+        last = None
+        while not self._stop.wait(self._every):
+            fp = self._fingerprint()
+            if fp != last:
+                self._save()
+                last = fp
+
+    def close(self, leftover: list) -> None:
+        """Stop, join, then the final snapshot: joined first, since two
+        concurrent saves share one tmp path.  A thread wedged in a
+        stalled write goes into `leftover` and no final snapshot is
+        taken."""
+        self._stop.set()
+        self._thread.join(timeout=60.0)
+        if self._thread.is_alive():
+            print("warning: state saver still writing; skipping final "
+                  "snapshot", file=sys.stderr, flush=True)
+            leftover.append(self._thread.name)
+        else:
+            self._save()
+
+
+def _open_worker_log(args, run_id, restoring: bool, sink_cls, header):
+    """The worker CSV sink, appending when the log on disk belongs to
+    this run (its `.runid` marker): log continuity follows the run, not
+    whether a state file restored."""
+    log_path = "./logs-worker.csv" if args.logging else None
+    append_log = restoring
+    if log_path is not None:
+        marker = log_path + ".runid"
+        try:
+            with open(marker) as fh:
+                append_log = append_log or int(fh.read().strip()) == run_id
+        except (OSError, ValueError):
+            pass
+        with open(marker, "w") as fh:
+            fh.write(str(run_id))
+    return sink_cls(log_path, header, append=append_log)
+
+
+def _sum_wire(stats: list[dict]) -> dict:
+    """Several bridges' wire_stats() as one: frames, bytes and serde
+    seconds added per topic."""
+    out: dict = {}
+    for st in stats:
+        for topic, t in st.items():
+            o = out.setdefault(topic, {})
+            for k, v in t.items():
+                if k == "serde_ms_per_frame":
+                    o["_serde_ms"] = (o.get("_serde_ms", 0.0)
+                                      + v * t["serde_frames"])
+                else:
+                    o[k] = o.get(k, 0) + v
+    for o in out.values():
+        ms = o.pop("_serde_ms", None)
+        if ms is not None:
+            o["serde_ms_per_frame"] = ms / o["serde_frames"]
+    return out

@@ -6,6 +6,9 @@ With `--connect HOST:PORT` the process hosts ONLY the logical workers in
 Without it, it hosts the whole system in process (cli/run.py's trainer)
 with the server-side knobs at their reference defaults (consistency 0,
 producer 200 ms/event).  Runs on the CUDA card unless KPS_PLATFORM=cpu.
+A comma-separated `--connect` dials a `--shards N` server group, one
+address per shard in shard-id order; `--aggregate HOST:PORT` dials the
+host's aggregator relay (cli/agg_runner.py) instead of the server.
 
     python -m kafka_ps_tpu_torch.cli.worker_runner --connect 127.0.0.1:8477 \\
         --worker_ids 0,1 -test test.csv -l
@@ -19,24 +22,24 @@ from kafka_ps_tpu_torch.cli import run as run_mod
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The worker-role flag surface: the JAX runner's flags, of which
-    the range-sharded worker (several --connect addresses) and
-    --aggregate are refused until their ROADMAP items are ported."""
+    """The worker-role flag surface: the JAX runner's flags."""
     parser = run_mod.build_parser(include_server_flags=False,
                                   include_worker_flags=True,
                                   prog="WorkerAppRunner")
     parser.add_argument(
-        "--connect", default=None, metavar="HOST:PORT",
+        "--connect", default=None, metavar="HOST:PORT[,HOST:PORT...]",
         help="split deployment: host ONLY the logical workers in "
              "--worker_ids against a remote --listen server "
-             "(cli/socket_mode.py)")
+             "(cli/socket_mode.py); a comma-separated list dials a "
+             "--shards N group, one address per shard in shard-id order")
     parser.add_argument("--worker_ids", default="0",
                         help="--connect: comma-separated logical worker "
                              "ids this process hosts")
     parser.add_argument(
         "--aggregate", default=None, metavar="HOST:PORT",
-        help="dial a per-host aggregator relay instead of the server (not "
-             "ported yet: ROADMAP item 23)")
+        help="dial a per-host aggregator relay (cli/agg_runner.py) "
+             "instead of the server: deltas are combined per host before "
+             "the server sees them, and compression is the relay's")
     parser.add_argument(
         "--ready-rows", dest="ready_rows", type=int, default=1,
         metavar="N",
@@ -56,10 +59,10 @@ def main(argv=None) -> int:
     args = argparse.Namespace(training_data_file_path="./data/train.csv",
                               consistency_model=0,
                               producer_time_per_event=200, **vars(args))
-    if args.aggregate is not None:
-        raise SystemExit("--aggregate: aggregator relays are not ported "
-                         "yet (ROADMAP item 23); --connect to the server")
-    if args.connect is not None:
+    if args.connect is not None and args.aggregate is not None:
+        raise SystemExit("--connect and --aggregate are exclusive: a "
+                         "worker dials its server or its host's relay")
+    if args.connect is not None or args.aggregate is not None:
         if args.durable_log:
             # same gate as server_runner: the split deployment's
             # durability is --checkpoint + worker-local state files

@@ -23,6 +23,9 @@ class KeyRange:
         if self.start < 0 or self.end < self.start:
             raise ValueError(f"invalid KeyRange [{self.start}, {self.end})")
 
+    def contains(self, key: int) -> bool:
+        return self.start <= key < self.end
+
     def __len__(self) -> int:
         return self.end - self.start
 

@@ -43,6 +43,19 @@ the server's own when both sides named the SAME one, `none` otherwise.
 Trailers are read with unpack_from, so an older peer never sees them and
 the pair falls back to plain f32 frames.
 
+Scale-out (runtime/sharding.py, agg/): a range-sharded worker process
+keeps one WorkerBridge per shard and plugs each into the weights
+assembler (`set_weights_sink`).  A HELLO with the aggregator-role byte
+registers a per-host relay for its member ids: its disconnect evicts
+nobody (the members live on behind a restarting relay), and a release
+set may go to it as ONE T_WEIGHTS_AGG frame (`send_weights_group`:
+<q n>, n x <q worker><q clock>, one serde weights body whose clock the
+relay rewrites per member).  The relay's side: `WorkerBridge(aggregator=
+True)`, `raw_forward` (rows and weights passed on as bytes),
+`send_payload` (a composite serialized once), and on its listener
+`forward_frame` and `send_goodbye` (the GOODBYE config that tells members
+the run ended, unlike a killed relay).
+
 What this package leaves out, each to the subsystem that brings it:
   * trace context: this side's tracer is off, so a worker offers 0 and
     a server answers 0 — no 16-byte trace suffix ever crosses a
@@ -50,11 +63,7 @@ What this package leaves out, each to the subsystem that brings it:
     interoperates (it sees the answer 0);
   * serving: the server bridge has no prediction engine — a PREDICT
     frame is answered PREDICT_FAILED, and a HELLO asking for the shared
-    memory channel gets the declined offer;
-  * aggregator relays: a HELLO with the aggregator-role byte is refused
-    (a line on stderr, the connection closed), never registered as a
-    plain worker; there is no grouped T_WEIGHTS_AGG fan-out;
-  * the range-sharded worker (one connection per server shard).
+    memory channel gets the declined offer.
 
 Decoded tensors land on the bridge's device (`device`, resolved once by
 utils.config.resolve_device when the bridge is made), passed explicitly
@@ -118,12 +127,14 @@ _TRACE_TRAILER = struct.Struct("<B")
 _SHM_TRAILER = struct.Struct("<B")
 _SHM_OFFER = struct.Struct("<B16s64s")
 # the optional aggregator-role byte AFTER the shm trailer on HELLO: 1
-# marks a per-host aggregator relay, which this package refuses
+# marks a per-host aggregator relay (its ids are its members)
 _AGG_TRAILER = struct.Struct("<B")
 # T_CONFIG re-sent mid-stream with this run id is a GOODBYE: the run is
 # over and the peer is closing on purpose.  Real run ids are time_ns()
 # or checkpointed positives; -1 can never collide.
 GOODBYE_RUN_ID = -1
+# a T_WEIGHTS_AGG member entry: <q worker> <q clock>
+_AGG_MEMBER = struct.Struct("<qq")
 
 # -- serving-plane payloads ---------------------------------------------------
 # PREDICT: the feature row plus the request's staleness bound; sentinel
@@ -387,7 +398,9 @@ class ServerBridge(_Counters):
         self.on_hello = None        # Callable[[list[int]], None]
         self.on_ready = None        # Callable[[int], None]
         self.dropped_sends = 0      # frames lost to dead connections
-        self.refused_aggregators = 0
+        # connections whose HELLO carried the aggregator-role byte
+        self._agg_conns: set[socket.socket] = set()
+        self.aggregators = 0        # relay HELLOs registered
         # the first non-connection exception of a reader
         self.reader_error: Exception | None = None
         self._hb_interval = heartbeat_interval
@@ -450,6 +463,54 @@ class ServerBridge(_Counters):
         self._serde(T_DATA_BATCH, t0)
         return self._send_raw(conn, T_DATA_BATCH, worker, payload)
 
+    def send_weights_group(self, release, builder) -> set:
+        """Grouped weights fan-out (ServerNode.weights_group_send): ONE
+        T_WEIGHTS_AGG frame per relay connection for the members of
+        `release` behind it.  `builder(clock)` makes the WeightsMessage
+        (once per relay, at its first member's clock).  Returns the
+        worker ids shipped; members on plain connections are left to
+        the caller."""
+        groups: dict[socket.socket, list] = {}
+        for worker, clock in release:
+            conn = self._conn_of.get(worker)
+            if conn is not None and conn in self._agg_conns:
+                groups.setdefault(conn, []).append((worker, clock))
+        handled: set = set()
+        for conn, members in groups.items():
+            msg = builder(members[0][1])
+            if (msg.encoded is not None
+                    and self._codec_of.get(conn, CODEC_SPEC_NONE).codec_id
+                    == CODEC_NONE):
+                # _send's rule: a none-negotiated relay gets the decoded
+                # float32 body its members train on
+                msg = dataclasses.replace(msg, encoded=None)
+            payload = b"".join(
+                [struct.pack("<q", len(members))]
+                + [_AGG_MEMBER.pack(w, c) for w, c in members]
+                + [self._encode(T_WEIGHTS_AGG, msg)])
+            if self._send_raw(conn, T_WEIGHTS_AGG, 0, payload):
+                handled.update(w for w, _ in members)
+        return handled
+
+    def send_goodbye(self) -> None:
+        """The end of the run, to every live connection (T_CONFIG with
+        GOODBYE_RUN_ID): a relay's last act before it closes, so its
+        members stop instead of waiting for a restart."""
+        payload = struct.pack("<dq", self._hb_interval or 0.0,
+                              GOODBYE_RUN_ID)
+        for conn in list(self._send_lock):
+            self._send_raw(conn, T_CONFIG, 0, payload)
+
+    def forward_frame(self, topic: int, worker: int,
+                      payload: bytes) -> bool:
+        """A pre-serialized frame to the connection owning `worker` (a
+        relay's downstream re-broadcast): the bytes cross without a
+        decode and encode.  False when the worker has no connection."""
+        conn = self._conn_of.get(worker)
+        if conn is None:
+            return False
+        return self._send_raw(conn, topic, worker, payload)
+
     def wait_for_connected(self, workers, timeout: float = 60.0) -> None:
         """Block until every worker id has a connection (HELLO seen) —
         before this the producer has nowhere to send their rows."""
@@ -460,6 +521,13 @@ class ServerBridge(_Counters):
         if not ok:
             missing = [w for w in workers if w not in self._conn_of]
             raise TimeoutError(f"workers {missing} not connected in time")
+
+    def wait_for_no_connections(self, timeout: float) -> bool:
+        """Block until no worker id has a connection (every peer hung
+        up), at most `timeout` seconds; True when none is left."""
+        with self._cv:
+            return self._cv.wait_for(lambda: not self._conn_of,
+                                     timeout=timeout)
 
     def wait_for_workers(self, workers, timeout: float = 60.0) -> None:
         """Block until every worker id has reported READY (its buffer
@@ -476,7 +544,7 @@ class ServerBridge(_Counters):
     def stats(self) -> dict:
         return {"wire": self.wire_stats(), "dropped_sends":
                 self.dropped_sends, "writers": _writer_stats(self._writers),
-                "refused_aggregators": self.refused_aggregators}
+                "aggregators": self.aggregators}
 
     def close(self) -> None:
         self._stop.set()
@@ -604,20 +672,17 @@ class ServerBridge(_Counters):
                     continue
                 self._send(conn, T_PING, 0)
 
-    def _hello(self, conn, payload) -> bool:
+    def _hello(self, conn, payload) -> None:
         """Negotiate, answer T_CONFIG and register the HELLO's worker
-        ids; False for an aggregator relay's HELLO, which is refused."""
+        ids (a relay's: its members)."""
         (n,) = struct.unpack_from("<q", payload, 0)
         ids = struct.unpack_from(f"<{n}q", payload, 8)
         off = 8 + 8 * n
         if _read_flag(_AGG_TRAILER, payload, off + _CODEC_TRAILER.size
                       + _TRACE_TRAILER.size + _SHM_TRAILER.size):
-            self.refused_aggregators += 1
-            print(f"refused an aggregator relay's HELLO for workers "
-                  f"{list(ids)}: relays and grouped weights fan-out are "
-                  "not ported yet (ROADMAP item 23); closing the "
-                  "connection", file=sys.stderr, flush=True)
-            return False
+            with self._cv:
+                self._agg_conns.add(conn)
+                self.aggregators += 1
         # negotiation: use our codec iff the peer asked for the SAME one
         # (old peers send no trailer -> NONE)
         peer = _read_codec_trailer(payload, off)
@@ -650,7 +715,6 @@ class ServerBridge(_Counters):
             self._cv.notify_all()
         if self.on_hello is not None:
             self.on_hello(list(ids))
-        return True
 
     def _reader(self, conn: socket.socket) -> None:
         # buffered receive (wire.RecvBuffer): one recv_into brings in
@@ -666,8 +730,7 @@ class ServerBridge(_Counters):
                 topic, key, payload = frame
                 self._count("in", topic, len(payload))
                 if topic == T_HELLO:
-                    if not self._hello(conn, payload):
-                        break
+                    self._hello(conn, payload)
                 elif topic == T_READY:
                     with self._cv:
                         self._ready.add(key)
@@ -713,11 +776,15 @@ class ServerBridge(_Counters):
             for w in ids:
                 del self._conn_of[w]
                 self._ready.discard(w)
+            was_agg = conn in self._agg_conns
+            self._agg_conns.discard(conn)
             self._send_lock.pop(conn, None)
             self._last_recv.pop(conn, None)
             self._codec_of.pop(conn, None)
             self._cv.notify_all()
-        if (notify and ids and not self._stop.is_set()
+        # a relay's disconnect is a relay restart, not its members'
+        # failure: they resend through the next relay, which re-HELLOs
+        if (notify and ids and not was_agg and not self._stop.is_set()
                 and self.on_disconnect is not None):
             self.on_disconnect(ids)
 
@@ -732,7 +799,8 @@ class WorkerBridge(_Counters):
                  connect_timeout: float = 30.0,
                  heartbeat_timeout: float | None = None,
                  codec: CodecSpec | None = None,
-                 coalesce: bool = True, device=None):
+                 coalesce: bool = True, device=None,
+                 aggregator: bool = False):
         """`heartbeat_timeout`: seconds of total server silence before
         the connection is declared dead (only sensible when the server
         PINGs; the advertised cadence floors or disables it).
@@ -741,10 +809,15 @@ class WorkerBridge(_Counters):
         caller builds its gradient compressors from THAT, not the flag.
         `coalesce`: queue outgoing frames behind a wire.FrameWriter;
         False is the locked-sendall-per-frame path.  `device`: where
-        decoded weights land (the worker process's)."""
+        decoded weights land (the worker process's).  `aggregator`:
+        HELLO as a relay for `worker_ids` (module docstring)."""
         super().__init__()
         self.device = resolve_device(device)
         self.worker_ids = list(worker_ids)
+        self.aggregator = bool(aggregator)
+        # a relay's hook: run_reader hands it rows and weights frames as
+        # bytes before any decode; True consumes the frame
+        self.raw_forward = None
         self._heartbeat_timeout = heartbeat_timeout
         self.codec = codec if codec is not None else CODEC_SPEC_NONE
         self.negotiated = CODEC_SPEC_NONE
@@ -776,6 +849,10 @@ class WorkerBridge(_Counters):
                    + _CODEC_TRAILER.pack(self.codec.codec_id,
                                          self.codec.param)
                    + _TRACE_TRAILER.pack(0))
+        if self.aggregator:
+            # trailers are positional: a not-requesting-shm byte, then
+            # the aggregator-role byte
+            payload += _SHM_TRAILER.pack(0) + _AGG_TRAILER.pack(1)
         locked_send(self._sock, self._send_lock, T_HELLO, 0, payload)
         self._count("out", T_HELLO, len(payload))
         # synchronous handshake: the server replies T_CONFIG before it
@@ -837,6 +914,17 @@ class WorkerBridge(_Counters):
         """Serialize one gradient message and send it on this bridge's
         socket (make_fabric's GRADIENTS route)."""
         self._enqueue(T_GRADIENTS, key, self._encode(T_GRADIENTS, message))
+
+    def send_payload(self, key: int, payload: bytes) -> None:
+        """One pre-serialized GRADIENTS frame (a relay's composite,
+        serialized once)."""
+        self._enqueue(T_GRADIENTS, key, payload)
+
+    def set_weights_sink(self, sink) -> None:
+        """Deliver received WEIGHTS into `sink.send(topic, key, msg)`
+        instead of a make_fabric() fabric (a sharded worker's per-shard
+        feed of the weights assembler)."""
+        self.fabric = sink
 
     def make_fabric(self) -> fabric_mod.Fabric:
         """Local fabric whose GRADIENTS sends cross the socket (the
@@ -909,6 +997,11 @@ class WorkerBridge(_Counters):
                         self.run_over = True
                     else:
                         self._apply_server_ping_interval(interval)
+                elif (self.raw_forward is not None
+                        and topic in (T_DATA, T_DATA_BATCH, T_WEIGHTS,
+                                      T_WEIGHTS_AGG)
+                        and self.raw_forward(topic, key, bytes(payload))):
+                    pass            # a relay passed the bytes on
                 elif topic == T_DATA_BATCH:
                     buffers[key].add_many(self._decode_rows(payload))
                 elif topic == T_DATA:

@@ -38,6 +38,25 @@ replayed reply is already queued.
 With compression on (`compressor`, compress/codecs.WeightsCompressor)
 every WeightsMessage carries the quantize-dequantized theta and its
 encoded parts; the master theta stays full precision.
+
+Range sharding (runtime/sharding.py): a node built with `key_range` owns
+that slice of the flat vector, polls its gradients under `grad_key` and
+answers with weights slices over its range.  A dense slice of its range
+applies as `t + lr*d`; a SparseDeltaMessage as a new tensor with
+theta[idx] + lr*vals written at its (unique, sorted) indices, and an
+empty one advances the gate with no device work; a gradient over a
+sub-range is spliced into a new tensor.  The defaults (the full range,
+shard 0 of 1, key 0) are the unsharded node.
+
+Aggregation relays (agg/): a CompositeDelta advances every member's
+clock as if its deltas had come one by one.  Stacked members apply in
+member order: under BSP through the round buffer (`_agg_pending`), whole
+rounds in worker-id order, which `bsp_order` extends to direct
+gradients; otherwise through `process_batch`.  A summed composite is one
+apply for all its members.  A member whose clock was applied already
+(a restarted relay's resend) gets the current weights again, at most
+once per composite.  `weights_group_send` (the socket bridge's grouped
+fan-out) may claim a release set and ship it in one frame per relay.
 """
 
 from __future__ import annotations
@@ -51,8 +70,9 @@ import torch
 from kafka_ps_tpu_torch.models.task import get_task
 from kafka_ps_tpu_torch.parallel.tracker import MessageTracker
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
-from kafka_ps_tpu_torch.runtime.messages import (GangNotice, GradientMessage,
-                                                 KeyRange, WeightsMessage)
+from kafka_ps_tpu_torch.runtime.messages import (CompositeDelta, GangNotice,
+                                                 GradientMessage, KeyRange,
+                                                 WeightsMessage)
 from kafka_ps_tpu_torch.utils import asynclog
 from kafka_ps_tpu_torch.utils.config import EVENTUAL, PSConfig
 
@@ -63,14 +83,26 @@ class ServerNode:
     """Central aggregator + consistency gate + online evaluator."""
 
     def __init__(self, cfg: PSConfig, fabric: fabric_mod.Fabric, device,
-                 test_x=None, test_y=None, log: LogSink | None = None):
+                 test_x=None, test_y=None, log: LogSink | None = None,
+                 key_range: KeyRange | None = None, shard_id: int = 0,
+                 num_shards: int = 1, grad_key: int = 0):
         self.cfg = cfg
         self.fabric = fabric
         self.device = torch.device(device)
         self.tracker = MessageTracker(cfg.num_workers)
         self.task = get_task(cfg.task, cfg.model)
-        self._range = KeyRange(0, self.task.num_params)
-        self.theta = self.task.init_params(self.device)
+        # range sharding: this node owns `key_range` of the flat vector
+        # (the module docstring); the defaults are the unsharded node
+        self.shard_id = shard_id
+        self.num_shards = num_shards
+        self._grad_key = grad_key
+        self._range = (key_range if key_range is not None
+                       else KeyRange(0, self.task.num_params))
+        theta = self.task.init_params(self.device)
+        if key_range is not None:
+            # a shard owns only its slice of the init vector
+            theta = theta[key_range.start:key_range.end].clone()
+        self.theta = theta
         self.test_x = (None if test_x is None else torch.as_tensor(
             test_x, dtype=torch.float32, device=self.device))
         self.test_y = (None if test_y is None else torch.as_tensor(
@@ -108,6 +140,15 @@ class ServerNode:
         # event as it happens
         self.membership_events: list[tuple[int, str, int]] = []
         self.membership_log = None
+        # aggregation (module docstring): the BSP round buffer (clock ->
+        # {worker: delta}), the ordering knob for direct gradients, and
+        # the socket bridge's grouped-fanout hook
+        self._agg_pending: dict[int, dict[int, GradientMessage]] = {}
+        self.bsp_order = False
+        self.weights_group_send = None
+        self.composites_received = 0
+        self.sparse_applies = 0          # non-empty sparse slices applied
+        self.empty_slices = 0            # empty ones: gate only
 
     def attach_eval_engine(self, engine):
         """Arm the async eval plane: eval-cadence applies stop fusing the
@@ -232,6 +273,12 @@ class ServerNode:
         gradients, and any round it was blocking is released."""
         self.tracker.deactivate_worker(worker)
         self.record_membership_event("evict", worker)
+        if self._agg_pending:
+            # the evictee's buffered round members go, and a round it was
+            # the last missing member of is applied now
+            for bucket in self._agg_pending.values():
+                bucket.pop(worker, None)
+            self._flush_agg_rounds()
         self._flush_gate()
 
     def readmit_worker(self, worker: int) -> int:
@@ -239,7 +286,7 @@ class ServerNode:
         The worker's pre-eviction traffic is purged first: a stale
         gradient or weights message becoming live again would break the
         clock protocol."""
-        self.fabric.purge(fabric_mod.GRADIENTS_TOPIC, 0,
+        self.fabric.purge(fabric_mod.GRADIENTS_TOPIC, self._grad_key,
                           lambda m: getattr(m, "worker_id", None) == worker)
         self.fabric.purge(fabric_mod.WEIGHTS_TOPIC, worker, lambda m: True)
         clock = self.tracker.reactivate_worker(worker)
@@ -272,20 +319,50 @@ class ServerNode:
     def dispatch_release_set(self, release) -> None:
         """Sorted per-worker sends (worker-id order keeps serial
         scheduling deterministic) plus the gang notice when several
-        workers were released at one moment."""
+        workers were released at one moment.  The grouped-fanout hook,
+        when attached, claims first: the members it shipped get the
+        bookkeeping of a send without the per-worker fabric send."""
         release = sorted(release)
+        handled = self._group_send(
+            release, lambda clock: self._prepared_message(clock,
+                                                          self.theta))
         for worker, clock in release:
-            self.send_weights(worker, clock)
+            if worker in handled:
+                self._mark_grouped_release(worker, clock)
+            else:
+                self.send_weights(worker, clock)
         self._emit_gang_notice(release)
 
-    # -- the hot path -----------------------------------------------------------
+    def _group_send(self, release, builder) -> set:
+        """Offer a sorted release set to `weights_group_send`;
+        `builder(clock)` makes the WeightsMessage a grouped frame
+        carries.  Returns the worker ids the hook shipped."""
+        if self.weights_group_send is None or not release:
+            return set()
+        return self.weights_group_send(release, builder)
 
-    def _check_range(self, msg: GradientMessage) -> None:
+    def _mark_grouped_release(self, worker: int, clock: int) -> None:
+        """send_weights' bookkeeping for a release that went out inside
+        a grouped frame."""
+        self.weights_sent_at[worker] = time.monotonic()
+        self.tracker.sent_message(worker, clock)
+
+    def serving_clock(self) -> int:
+        """The slowest active worker's clock: every weights message
+        released so far carries a clock >= it (the stable clock; a
+        sharded group's frontier is its minimum over the shards)."""
+        active = self.tracker.active_workers
+        if not active:
+            return 0
+        return min(self.tracker.tracker[w].vector_clock for w in active)
+
+    # -- the hot path ---------------------------------------------------------
+
+    def _full_dense(self, msg) -> bool:
+        """A dense gradient over exactly this node's range."""
         r = msg.key_range
-        if r.start != self._range.start or r.end != self._range.end:
-            raise ValueError(
-                f"gradient for keys [{r.start}, {r.end}): this server "
-                f"applies the full range [0, {self._range.end}) only")
+        return (getattr(msg, "indices", None) is None
+                and r.start == self._range.start and r.end == self._range.end)
 
     def _wants_eval(self, msg: GradientMessage) -> bool:
         return (msg.worker_id == 0 and self.test_x is not None
@@ -303,26 +380,193 @@ class ServerNode:
             return True
         return False
 
-    def process(self, msg: GradientMessage) -> None:
-        self._check_range(msg)
+    def process(self, msg) -> None:
+        if isinstance(msg, CompositeDelta):
+            self.process_composite(msg)
+            return
+        if (self.bsp_order and self.cfg.max_vector_clock_delay == 0
+                and self._full_dense(msg)):
+            # the round buffer composites use: a direct run applies each
+            # BSP round in worker-id order, as an aggregated run does
+            if self._buffer_round_member(msg):
+                self._flush_agg_rounds()
+            return
+        self._process_direct(msg)
+
+    def _process_direct(self, msg) -> None:
+        """One gradient, dense, sparse or sub-range, through the gate."""
         if self._dropped(msg, self.tracker.is_duplicate(msg.worker_id,
                                                         msg.vector_clock)):
             return
         self.tracker.received_message(msg.worker_id, msg.vector_clock)
-        want_eval = self._wants_eval(msg)
+        self._apply_and_release(msg, msg.vector_clock, [msg.worker_id])
+        self.maybe_checkpoint()
+
+    def _apply_and_release(self, msg, clock: int, live: list) -> None:
+        """Apply `msg`'s delta (dense, sparse or sub-range) for the
+        `live` workers, whose clock the tracker has recorded: evaluate
+        at `clock` when worker 0 is among them, count one iteration per
+        worker and send the replies their gradients release."""
+        want_eval = (0 in live and self.test_x is not None
+                     and clock % self.cfg.eval_every == 0)
         fused_eval = want_eval and self.eval_engine is None
-        if fused_eval:
-            self.theta, m = self._apply_full_eval(self.theta, msg.values)
+        m = None
+        if getattr(msg, "indices", None) is not None:
+            self._apply_sparse(msg)
+        elif self._full_dense(msg):
+            if fused_eval:
+                self.theta, m = self._apply_full_eval(self.theta, msg.values)
+            else:
+                self.theta = self._apply_full(self.theta, msg.values)
         else:
-            self.theta = self._apply_full(self.theta, msg.values)
-        self.iterations += 1
+            self.theta = self._apply_splice(msg)
+        self.iterations += len(live)
         if fused_eval:
-            self._emit_eval(msg.vector_clock, m)
+            if m is None:                # the sparse and splice paths
+                m = self.task.evaluate(self.theta, self.test_x, self.test_y)
+            self._emit_eval(clock, m)
         elif want_eval:
             # immutable alias hand-off; the engine evaluates off this thread
-            self.eval_engine.submit(self.theta, msg.vector_clock)
-        self.dispatch_release_set(
-            self.workers_to_respond_to(msg.vector_clock, msg.worker_id))
+            self.eval_engine.submit(self.theta, clock)
+        release: set = set()
+        for worker in live:
+            release |= self.workers_to_respond_to(clock, worker)
+        self.dispatch_release_set(release)
+
+    def _apply_sparse(self, msg) -> None:
+        """theta[idx] += lr * vals for a SparseDeltaMessage, into a new
+        tensor.  The indices are unique (a top-k survivor set), so the
+        indexed write is deterministic and each element is the same
+        `t + lr*d` the dense apply computes.  An empty slice only moved
+        the gate."""
+        if len(msg.indices) == 0:
+            self.empty_slices += 1
+            return
+        idx = msg.indices.to(self.device, torch.long)
+        vals = msg.values.to(self.device, torch.float32)
+        t = self.theta.clone()
+        t[idx] = self.theta[idx] + self.cfg.server_lr * vals
+        self.theta = t
+        self.sparse_applies += 1
+
+    def _apply_splice(self, msg) -> torch.Tensor:
+        """A dense gradient over a sub-range of this node's range,
+        spliced into a new tensor."""
+        r = msg.key_range
+        lo, hi = r.start - self._range.start, r.end - self._range.start
+        if lo < 0 or hi > len(self._range):
+            raise ValueError(
+                f"gradient range [{r.start}, {r.end}) outside this "
+                f"server's range [{self._range.start}, {self._range.end})")
+        t = self.theta
+        part = t[lo:hi] + self.cfg.server_lr * msg.values.to(t.device)
+        return torch.cat([t[:lo], part, t[hi:]])
+
+    # -- aggregation relays (agg/) -------------------------------------------
+
+    def process_composite(self, comp: CompositeDelta) -> None:
+        """Apply one relay composite (the module docstring): stacked
+        members through the BSP round buffer or `process_batch`, a
+        summed composite as one apply."""
+        self.composites_received += 1
+        if comp.summed:
+            self._process_summed(comp)
+            return
+        resent: set = set()
+        if self.cfg.max_vector_clock_delay == 0:
+            buffered = False
+            for d in comp.deltas:
+                buffered |= self._buffer_round_member(d, resent)
+            if buffered:
+                self._flush_agg_rounds()
+            return
+        live = [d for d in comp.deltas
+                if self._composite_member_live(d.worker_id,
+                                               d.vector_clock, resent)]
+        if live:
+            self.process_batch(live)
+
+    def _composite_member_live(self, worker: int, clock: int,
+                               resent: set | None = None) -> bool:
+        """The zombie and duplicate filter for one composite member.  A
+        duplicate whose reply was issued gets the current weights again:
+        the reply may have died inside a killed relay.  `resent` bounds
+        that to once per worker per composite (a reconnecting worker's
+        cache resend can hold many applied clocks)."""
+        status = self.tracker.tracker[worker]
+        if not status.active:
+            self.zombie_gradients_dropped += 1
+            return False
+        if self.tracker.is_duplicate(worker, clock):
+            self.duplicate_gradients_dropped += 1
+            if status.weights_message_sent and (resent is None
+                                                or worker not in resent):
+                if resent is not None:
+                    resent.add(worker)
+                self.send_weights(worker, status.vector_clock)
+            return False
+        return True
+
+    def _buffer_round_member(self, msg, resent: set | None = None) -> bool:
+        """Queue one BSP round member for the ordered flush."""
+        if not self._composite_member_live(msg.worker_id, msg.vector_clock,
+                                           resent):
+            return False
+        bucket = self._agg_pending.setdefault(msg.vector_clock, {})
+        if msg.worker_id in bucket:
+            self.duplicate_gradients_dropped += 1
+            return False
+        bucket[msg.worker_id] = msg
+        return True
+
+    def _flush_agg_rounds(self) -> None:
+        """Apply every complete buffered round, lowest clock first, in
+        worker-id order: one process_batch per round, so evals and
+        releases fall as in a worker-id-ordered serial direct run."""
+        while self._agg_pending:
+            clock = min(self._agg_pending)
+            bucket = self._agg_pending[clock]
+            expected = [w for w in self.tracker.active_workers
+                        if self.tracker.tracker[w].vector_clock == clock]
+            if not expected or any(w not in bucket for w in expected):
+                return
+            del self._agg_pending[clock]
+            self.process_batch([bucket[w] for w in sorted(expected)])
+
+    def _process_summed(self, comp: CompositeDelta) -> None:
+        """One apply of a summed composite, whose members share one
+        clock.  All members applied already: a redelivery, the released
+        replies are re-issued; some but not all: a protocol error (a sum
+        cannot be applied in part)."""
+        clocks = sorted({c for _, c in comp.members})
+        if len(clocks) != 1:
+            raise ValueError(f"summed composite spans clocks {clocks}")
+        clock = clocks[0]
+        live, dup = [], []
+        for worker, c in comp.members:
+            if not self.tracker.tracker[worker].active:
+                raise ValueError(
+                    f"summed composite includes evicted worker {worker}")
+            (dup if self.tracker.is_duplicate(worker, c)
+             else live).append(worker)
+        if not live:
+            self.duplicate_gradients_dropped += 1
+            for worker in dup:
+                status = self.tracker.tracker[worker]
+                if status.weights_message_sent:
+                    self.send_weights(worker, status.vector_clock)
+            return
+        if dup:
+            raise ValueError(
+                f"summed composite partially applied: duplicates {dup} "
+                f"alongside live members {live}")
+        for worker in live:
+            self.tracker.received_message(worker, clock)
+        self._apply_and_release(comp.deltas[0], clock, live)
+        if self._agg_pending:
+            # a round's members buffered from a stacked flush (a relay
+            # sends a one-member flush stacked) are its remainder now
+            self._flush_agg_rounds()
         self.maybe_checkpoint()
 
     def process_batch(self, msgs: list[GradientMessage]) -> None:
@@ -341,9 +585,12 @@ class ServerNode:
             filter seeing the clocks the earlier members will advance (a
             redelivered gradient can appear twice in one batch).
         All the releases of the batch form one gang notice; a checkpoint
-        is due at most once, at the end."""
-        for m in msgs:
-            self._check_range(m)
+        is due at most once, at the end.  Sparse and sub-range gradients
+        take the per-message path."""
+        if not all(self._full_dense(m) for m in msgs):
+            for m in msgs:
+                self._process_direct(m)
+            return
         live, ahead = [], {}
         for m in msgs:
             expected = ahead.get(
@@ -355,7 +602,7 @@ class ServerNode:
         msgs = live
         if len(msgs) < 2:
             for m in msgs:
-                self.process(m)
+                self._process_direct(m)
             return
         defer_eval = self.eval_engine is not None
         eval_at: dict[int, int] = {}              # position -> clock
@@ -381,9 +628,17 @@ class ServerNode:
                 else:
                     self._emit_eval(eval_at[i], self.task.evaluate(
                         t, self.test_x, self.test_y))
-            for worker, clock in release_at.get(i, ()):
-                self._send_weights_prepared(worker, clock, t)
-                batch_released.append((worker, clock))
+            rel = release_at.get(i, ())
+            if rel:
+                handled = self._group_send(
+                    rel, lambda clock, t=t: self._prepared_message(clock, t))
+                for worker, clock in rel:
+                    if worker in handled:
+                        # the tracker's bookkeeping ran at decision time
+                        self.weights_sent_at[worker] = time.monotonic()
+                    else:
+                        self._send_weights_prepared(worker, clock, t)
+                batch_released.extend(rel)
         self.theta = t
         self.iterations += len(msgs)
         self.batched_applies += 1

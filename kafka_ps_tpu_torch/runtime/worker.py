@@ -13,6 +13,12 @@ The iteration performs no host synchronization: theta, the delta and the
 row's loss/F1/accuracy stay device tensors (utils/asynclog.DeferredSink
 formats the row when they resolve).  An empty buffer raises
 RuntimeError, as the reference does.
+
+A weights message over a sub-range is spliced into the local replica (a
+new tensor; the other keys keep their values).  With a `shard_router`
+(runtime/sharding.ShardRouter, set for a range-sharded server group or
+an aggregation relay) the outgoing delta and its redelivery resend go
+through the router instead of the fabric.
 """
 
 from __future__ import annotations
@@ -109,6 +115,9 @@ class WorkerNode:
         # (_redelivered_weights)
         self._last_sent = None
         self.redelivered = 0         # redelivered clocks answered from it
+        # range sharding / relays: splits each delta into per-shard
+        # slices (None: the unsharded send)
+        self.shard_router = None
 
     def _prepare(self, msg: WeightsMessage):
         """Pre-dispatch half of an iteration: theta overwrite, slab
@@ -117,13 +126,19 @@ class WorkerNode:
         # heartbeat: a slow iteration is measured from its own start
         self.last_progress = time.monotonic()
         r = msg.key_range
-        if r.start != 0 or r.end != self.task.num_params:
-            raise ValueError(
-                f"weights for keys [{r.start}, {r.end}): this worker takes "
-                f"the full range [0, {self.task.num_params}) only")
-        # the server's theta is replaced, never mutated, so aliasing it
-        # is safe
-        self.theta = msg.values
+        if r.start == 0 and r.end == self.task.num_params:
+            # the server's theta is replaced, never mutated, so aliasing
+            # it is safe
+            self.theta = msg.values
+        else:
+            if r.end > self.task.num_params:
+                raise ValueError(
+                    f"weights for keys [{r.start}, {r.end}) outside the "
+                    f"model's [0, {self.task.num_params})")
+            t = self.theta
+            self.theta = torch.cat([t[:r.start],
+                                    msg.values.to(t.device, t.dtype),
+                                    t[r.end:]])
 
         seen = self.buffer.num_tuples_seen
         if self.buffer.count == 0:
@@ -169,7 +184,7 @@ class WorkerNode:
             vector_clock=msg.vector_clock,
             key_range=KeyRange(0, self.task.num_params),
             values=delta, encoded=encoded, worker_id=self.worker_id)
-        self.fabric.send(fabric_mod.GRADIENTS_TOPIC, 0, out)
+        self._send(out)
         if self.compressor is not None:
             self._last_sent = (msg.vector_clock, out)
         self.last_progress = time.monotonic()
@@ -188,9 +203,16 @@ class WorkerNode:
         if last is None or msg.vector_clock > last[0]:
             return False
         if msg.vector_clock == last[0]:
-            self.fabric.send(fabric_mod.GRADIENTS_TOPIC, 0, last[1])
+            self._send(last[1])
         self.redelivered += 1
         return True
+
+    def _send(self, out: GradientMessage) -> None:
+        if self.shard_router is not None:
+            # per-shard slices, cached for a recovering shard's resend
+            self.shard_router.route(out)
+        else:
+            self.fabric.send(fabric_mod.GRADIENTS_TOPIC, 0, out)
 
     def on_weights(self, msg: WeightsMessage) -> None:
         if self._redelivered_weights(msg):

@@ -21,6 +21,8 @@ bits (tests/test_torch_logreg_tiling.py models their summation order on
 the CPU).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -731,3 +733,70 @@ def test_one_bridge_round_on_the_card_is_bitwise_in_process(card, task,
     key = (("" if task == "logreg" else "mlp_")
            + ("" if slab == "f32" else "stream_") + "launches")
     assert n[key] == 8 and sum(n.values()) == 8
+
+
+# -- the scale-out paths on the card (tests/torch_scaleout_runs.py) ----------
+
+
+def _scaleout_cfg(c=0, task="logreg"):
+    from torch_scaleout_runs import config
+    return config(c, task, features=64, classes=5, hidden=32, workers=4,
+                  rows=32)
+
+
+@pytest.mark.parametrize("task", ["logreg", "mlp"])
+def test_sharded_groups_assemble_the_n1_theta_on_the_card(card, task):
+    from torch_scaleout_runs import dataset, group_run
+    cfg = _scaleout_cfg(0, task)
+    x, y = dataset(cfg, 128)
+    one, _ = group_run(card, 1, cfg, 24, x, y)
+    for n in (2, 4):
+        many, _ = group_run(card, n, cfg, 24, x, y)
+        assert many.assembled_theta().device.type == "cuda"
+        assert torch.equal(many.assembled_theta(), one.assembled_theta())
+
+
+def test_sparse_slices_match_the_dense_apply_on_the_card(card):
+    from torch_scaleout_runs import dataset, group_run
+    cfg = _scaleout_cfg(-1)
+    x, y = dataset(cfg, 128)
+    one, _ = group_run(card, 1, cfg, 24, x, y, topk="topk:0.05")
+    two, _ = group_run(card, 2, cfg, 24, x, y, topk="topk:0.05")
+    assert sum(s.sparse_applies for s in two.shards) > 0
+    assert torch.equal(two.assembled_theta(), one.assembled_theta())
+
+
+@pytest.mark.parametrize("c", [0, 3, -1])
+def test_n1_aggregator_is_bitwise_direct_on_the_card(card, c):
+    from torch_scaleout_runs import aggregated_run, dataset, direct_run
+    cfg = _scaleout_cfg(c)
+    x, y = dataset(cfg, 128)
+    test = dataset(cfg, 64, seed=1)
+    direct = direct_run(card, cfg, 24, x, y, test)
+    agg = aggregated_run(card, cfg, 24, x, y, test)
+    assert torch.equal(agg.server.theta, direct.server.theta)
+    assert [r.split(";", 1)[1] for r in agg.rows] == \
+        [r.split(";", 1)[1] for r in direct.rows]
+    if c == 0:
+        plain = aggregated_run(card, cfg, 24, x, y, test, codec="int8")
+        again = aggregated_run(card, cfg, 24, x, y, test, codec="int8",
+                               restart_at=3)
+        assert torch.equal(plain.server.theta, again.server.theta)
+        direct8 = direct_run(card, dataclasses.replace(cfg,
+                                                       compress="int8"),
+                             24, x, y, test)
+        assert torch.equal(direct8.server.theta, plain.server.theta)
+
+
+@pytest.mark.parametrize("task,slab", [("logreg", "f32"), ("mlp", "bf16")])
+def test_one_sharded_bridge_round_on_the_card_is_bitwise(card, task, slab):
+    """One -c 0 round at the reference width through two shard servers
+    behind localhost bridges: the workers' deltas and the assembled
+    theta are bitwise the unsharded in-process round's."""
+    from torch_scaleout_runs import sharded_bridge_round
+    (ref_grads, ref_theta), (grads, theta) = sharded_bridge_round(
+        card, task, shards=2, features=1024, classes=5, hidden=128,
+        workers=4, rows=256, slab=slab)
+    for a, b in zip(ref_grads, grads):
+        assert torch.equal(a.values, b.values)
+    assert torch.equal(ref_theta, theta) and theta.device.type == "cuda"

@@ -4,7 +4,7 @@ cover the ported surface — torn frames are ConnectionErrors, never an
 orderly shutdown; the ServerBridge purges and reports dead connections;
 heartbeats, PONGs, the run id and the heartbeat-config floor; the topic
 table; codec negotiation; batched ingest; the wire engine — and what
-the port adds: an aggregator's HELLO is refused, a shared-memory request
+the port adds: an aggregator's HELLO registers a relay, a shared-memory request
 gets the declined offer, a frame larger than the writer's queue goes
 alone, decoded tensors land on the bridge's device, and a reader's
 exception that is not a connection error is kept, never a disconnect.
@@ -279,17 +279,28 @@ def test_trace_offer_is_answered_zero_and_shm_request_declined():
 
 
 def test_aggregator_hello_is_refused(capsys):
+    """The aggregator-role HELLO is no longer refused: it is answered
+    with CONFIG and registers a relay connection for its member ids,
+    whose loss reports no disconnect (the members live on behind it)."""
     bridge = _server()
     hellos: list = []
+    lost: list = []
     bridge.on_hello = hellos.append
+    bridge.on_disconnect = lost.append
     hello = (struct.pack("<qq", 1, 9) + struct.pack("<Bf", 0, 0.0)
              + struct.pack("<BBB", 0, 0, 1))
     sock = _raw_hello(bridge.port, hello)
-    assert net.recv_frame(sock) is None       # closed, no CONFIG
-    assert bridge.refused_aggregators == 1
-    assert hellos == [] and 9 not in bridge._conn_of
-    assert "item 23" in capsys.readouterr().err
-    sock.close(), bridge.close()
+    assert net.recv_frame(sock)[0] == net.T_CONFIG
+    bridge.wait_for_connected([9], timeout=10.0)
+    assert bridge.aggregators == 1 and hellos == [[9]]
+    assert bridge._conn_of[9] in bridge._agg_conns
+    assert "refused" not in capsys.readouterr().err
+    sock.close()
+    deadline = time.monotonic() + 10.0
+    while 9 in bridge._conn_of and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert 9 not in bridge._conn_of and lost == []
+    bridge.close()
 
 
 def test_worker_tolerates_legacy_16_byte_config():

@@ -277,7 +277,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for m in ("ops.fused_update", "models.mlp", "runtime.gang",
               "evaluation.engine", "parallel.bsp", "native.binding",
               "runtime.wire", "runtime.net", "cli.socket_mode",
-              "cli.server_runner", "cli.worker_runner"):
+              "cli.server_runner", "cli.worker_runner",
+              "runtime.sharding", "agg", "agg.core", "agg.relay",
+              "cli.agg_runner"):
         assert f"kafka_ps_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -17,7 +17,9 @@ test_socket_mode.py), each process under its own timeout.
     readmitted (the port's tests/test_durability.py split case);
   * a JAX server_runner with a port worker_runner, and a port
     server_runner with a JAX worker_runner;
-  * the runners' in-process fallback and the flags they refuse;
+  * the runners' in-process fallback, the flags they refuse, and the
+    scale-out flags reaching their roles (tests/test_torch_scaleout_mode.py
+    runs those roles);
   * in process: one iteration through a localhost bridge pair is bitwise
     the in-process iteration (the gradient sent and the theta the server
     holds after applying it), for logreg and the MLP.
@@ -367,19 +369,67 @@ def test_split_worker_sigkill_restart_recovers_buffers(tmp_path):
 
 
 @pytest.mark.parametrize("runner,argv,item", [
-    (server_runner, ["--listen", "0", "--shards", "2"], "item 20"),
     (server_runner, ["--serve-replica"], "item 21"),
-    (server_runner, ["--listen", "0", "--bsp-order"], "item 23"),
     (server_runner, ["--listen", "0", "--durable-log", "wal"],
      "--checkpoint"),
-    (worker_runner, ["--aggregate", "127.0.0.1:1"], "item 23"),
-    (worker_runner, ["--connect", "127.0.0.1:1,127.0.0.1:2"], "item 20"),
     (worker_runner, ["--connect", "127.0.0.1:1", "--durable-log", "wal"],
-     "--checkpoint")])
+     "--checkpoint"),
+    (server_runner, ["--shards", "2", "--shard-id", "1"], "--listen"),
+    (server_runner, ["--listen", "0", "--shards", "2", "--shard-id", "2"],
+     "--shard-id"),
+    (worker_runner, ["--connect", "127.0.0.1:1", "--aggregate",
+                     "127.0.0.1:2"], "exclusive")])
 def test_runners_refuse_what_is_not_ported(runner, argv, item, monkeypatch):
     monkeypatch.setenv("KPS_PLATFORM", "cpu")
     with pytest.raises(SystemExit, match=item):
         runner.main(argv)
+
+
+@pytest.mark.parametrize("runner,argv,role,check", [
+    (server_runner, ["--listen", "0", "--shards", "2", "--shard-id", "1"],
+     "run_server_shard", lambda a: (a.shards, a.shard_id) == (2, 1)),
+    (server_runner, ["--listen", "0", "--bsp-order"], "run_server",
+     lambda a: a.bsp_order and a.shards == 1),
+    (server_runner, ["--listen", "0", "--shards", "2", "--bsp-order",
+                     "--durable-log", "wal"], "run_server_shard",
+     lambda a: a.bsp_order and a.durable_log == "wal"),
+    (worker_runner, ["--connect", "127.0.0.1:1,127.0.0.1:2"],
+     "_run_worker_sharded",
+     lambda a, addrs, aggregate=False: (addrs == ["127.0.0.1:1",
+                                                  "127.0.0.1:2"]
+                                        and not aggregate)),
+    (worker_runner, ["--aggregate", "127.0.0.1:3", "--worker_ids", "2,3"],
+     "_run_worker_sharded",
+     lambda a, addrs, aggregate=False: (addrs == ["127.0.0.1:3"]
+                                        and aggregate
+                                        and a.worker_ids == "2,3"))])
+def test_runners_start_the_scale_out_roles(runner, argv, role, check,
+                                           monkeypatch):
+    """--shards, --bsp-order, a comma-separated --connect and --aggregate
+    parse and reach the role that serves them."""
+    from kafka_ps_tpu_torch.cli import socket_mode
+    monkeypatch.setenv("KPS_PLATFORM", "cpu")
+    calls = []
+    monkeypatch.setattr(socket_mode, role,
+                        lambda *a, **kw: calls.append((a, kw)) or 0)
+    assert runner.main(argv) == 0
+    (args, kw), = calls
+    assert check(*args, **kw)
+
+
+def test_agg_runner_starts_the_relay_role(monkeypatch):
+    from kafka_ps_tpu_torch.cli import agg_runner, socket_mode
+    calls = []
+    monkeypatch.setattr(socket_mode, "run_aggregator",
+                        lambda a: calls.append(a) or 0)
+    assert agg_runner.main(["--connect", "127.0.0.1:9", "--listen", "7",
+                            "--agg-id", "2", "--worker_ids", "0,1",
+                            "--summed", "--flush-interval", "0.01"]) == 0
+    (a,) = calls
+    assert (a.connect, a.listen, a.agg_id, a.worker_ids, a.summed,
+            a.flush_interval) == ("127.0.0.1:9", 7, 2, "0,1", True, 0.01)
+    with pytest.raises(SystemExit):
+        agg_runner.main(["--listen", "7"])        # --connect is required
 
 
 @pytest.mark.parametrize("runner", [server_runner, worker_runner])
