@@ -124,7 +124,31 @@
    run of the same flags from phase 5, bytes per message and serde ms per
    frame by topic each way, and the relay's fan-in, composites and bytes
    against the direct path's.
-7. Profile: one more default serial -c 0 run per family, one of logreg
+7. Serving phase (serving/, tests/torch_serving_runs.py): in process on
+   the card, the engine's answers against its own answers on the CPU from
+   the same snapshot at every bucket size 1..16 (logreg, the MLP at H=128
+   and 4096; confidences within rtol 1e-5, atol 1e-6, labels equal where
+   the top-two logit margin exceeds 1e-5), the gang's prefix snapshots
+   bitwise the per-message sequence (-c 0, 3, -1), and a two-shard
+   ShardedServerGroup with attach_serving (N=1 bitwise the unsharded
+   registry, N=2 publishing only at frontier advances, each cut bitwise
+   N=1's theta at its clock); then under closed loads of PredictClients
+   (serving/loadgen.py): cli.run --serve --serve_port at serial -c 0 on
+   a 512-row CSV (every row buffered before the first iteration) beside
+   the same run without --serve, theta and the rows bitwise; threaded
+   -c 2; --fused --task mlp --hidden_dim 4096 (40 rounds); server_runner
+   --listen --serve --serve-shm with two worker processes, socket and shm
+   clients; server_runner --serve-replica following a cli.run
+   --durable-log -c 0 run while it trains, and following a --shards 2
+   -c 0 deployment's per-shard logs while it trains (the shards logging
+   the weights they send), each replica's last snapshot bitwise
+   the log's newest weights.  Every answer PREDICT_OK (STALE only before a
+   client's first answer), each client's clocks never going back, no
+   FAILED; every run's kernel calls checked as the main path's.  Per run:
+   p50/p99 ms, answered QPS, shed and stale shares, dispatches, rows per
+   dispatch, bypass share, the served clock's lag behind the stable clock
+   at the end, and iterations/s with and without the read load.
+8. Profile: one more default serial -c 0 run per family, one of logreg
    with int8 slabs, one of logreg --compress int8 and one of logreg
    --fused --eval_every 10 (200
    iterations each), under torch.profiler (CUDA activity only) and
@@ -133,8 +157,9 @@
    Python function, with the rank of the CSV parse's functions in it.
    In the fused run, whose chunks replay CUDA graphs, the K2 kernels the
    profiler traced must equal the launch counter.
-8. The `kernels` JSON line (the split and scale-out runs' worker calls
-   counted in the launches), the card line, and last the result line.
+9. The `kernels` JSON line (the split, scale-out and serving runs' worker
+   calls counted in the launches), the card line, and last the result
+   line.
 
 Any failed phase raises: the script exits non-zero and prints no result.
 It also exits non-zero without a card, and when the package is absent.
@@ -202,6 +227,9 @@ SPLIT_ITERS, SPLIT_SHORT, SPLIT_WIDE = 400, 200, 40
 # the scale-out phase: server iterations of its runs, and of its in-process
 # reference checks
 SCALE_ITERS, SCALE_SHORT, SCALE_WIDE, SCALE_REF_ITERS = 200, 100, 40, 40
+# the serving phase: the CSV of the bitwise pair (4 workers x the default
+# 128-row prefill), the closed load's clients, the engine's batch cap
+SERVE_TRAIN_ROWS, SERVE_CLIENTS, SERVE_BATCH = 512, 4, 16
 SLAB_KINDS = ("bf16", "int8")
 X_BYTES = {"bf16": 2, "int8": 1}
 # the Pallas body each storage form of K3 and K5 replaces
@@ -1329,7 +1357,8 @@ def write_data():
 
 
 def main_path_run(task: str, mode: str, c: int, iters: int,
-                  flags: tuple = (), hidden: int = H) -> dict:
+                  flags: tuple = (), hidden: int = H,
+                  train: str = "train.csv") -> dict:
     from kafka_ps_tpu_torch.cli import run as cli_run
     from kafka_ps_tpu_torch.ops import fused_update
 
@@ -1356,7 +1385,7 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
             rc = cli_run.main([
-                "-training", "train.csv", "-test", "test.csv",
+                "-training", train, "-test", "test.csv",
                 "--num_workers", str(WORKERS), "--num_features", str(F),
                 "--num_classes", str(C), "--task", task, "--hidden_dim",
                 str(hidden), "-max", str(MAX_BUFFER), "-p", "0", "-l",
@@ -1544,7 +1573,8 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
                                "captured, expected 1")
     return {"task": task, "kind": kind, "single": single,
             "gang_calls": gang_calls, "hidden": hidden, "fused": fused,
-            "rate": rate, "durable": dur}
+            "rate": rate, "durable": dur, "serving": stats.get("serving"),
+            "tag": tag}
 
 
 def durable_runs() -> list[dict]:
@@ -1690,7 +1720,7 @@ def _wire_line(side: str, stats: dict) -> str:
 
 
 def split_run(task: str, c: int, iters: int, flags: tuple = (),
-              hidden: int = H, kill: bool = False) -> dict:
+              hidden: int = H, kill: bool = False, during=None) -> dict:
     """The port's split deployment on the card: server_runner --listen 0
     and two worker_runner processes of 2 workers (F=1024, C=5, buffer max
     1024, k=2, lr 0.5) on write_data()'s CSV, each process in its own
@@ -1704,7 +1734,9 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
     rebalance --heartbeat_timeout 10, no iteration cap) is interrupted
     with SIGINT once both of its workers are readmitted and the restarted
     process has logged 50 rows; its restored buffers and readmission are
-    checked."""
+    checked.  `during(port, server_err_path)`, when given, is called once
+    the processes are started and returns a callable that is called once
+    they have ended (a serving load, serving_runs)."""
     import signal
     tag = "-".join(["split", task, f"c{c}",
                     *(f.lstrip("-") for f in flags)]
@@ -1751,6 +1783,8 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
              "w0": start("w0", worker_cmd(0)),
              "w1": start("w1", worker_cmd(1))}
     pre_rows = 0
+    finish = (during(port, os.path.join(dirs["server"], "err.txt"))
+              if during is not None else None)
     try:
         if kill:
             w1_log = os.path.join(dirs["w1"], "logs-worker.csv")
@@ -1795,6 +1829,8 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        if finish is not None:
+            finish()
     wall = time.perf_counter() - t0
     rcs = {n: p.returncode for n, p in procs.items()}
     errs = {n: os.path.join(d, "err-restart.txt" if kill and n == "w1"
@@ -1880,7 +1916,7 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
             raise RuntimeError(f"{tag}: codec not negotiated as {want}")
     return {"task": task, "kind": kind, "single": sum(calls),
             "gang_calls": 0, "hidden": hidden, "fused": False,
-            "rate": rate, "steady": steady_rate(all_rows)}
+            "rate": rate, "steady": steady_rate(all_rows), "server": server}
 
 
 def split_runs(direct: dict) -> list[dict]:
@@ -2058,7 +2094,8 @@ def _replay_is_bitwise(dirs, wal: str, task: str, hidden: int,
 def scaleout_run(topology: str, task: str, c: int, iters: int,
                  flags: tuple = (), hidden: int = H,
                  relay_flags: tuple = (), kill: bool = False,
-                 direct_rate: float | None = None) -> dict:
+                 direct_rate: float | None = None, durable: bool = False,
+                 during=None) -> dict:
     """One run of a scale-out topology on the card, every process in its
     own directory under OUT, on write_data()'s CSV (F=1024, C=5, 4
     workers, buffer max 1024, k=2): "shards" is server_runner --listen
@@ -2077,7 +2114,11 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
     once its gradient log holds about 40 slices, restarted with the same
     command, and must restore, replay its log and get resends from the
     workers' routers; then each shard's
-    whole log replayed serially must end bitwise at its checkpoint."""
+    whole log replayed serially must end bitwise at its checkpoint.
+    `durable` (shards): --durable-log without the kill.  `during(wal)`,
+    when given, is called once the processes are started and returns a
+    callable that is called once they have ended (a replica following
+    the shards' logs, serving_runs)."""
     import signal
     tag = "-".join(["scale", topology, task, f"c{c}",
                     *(f.lstrip("-") for f in flags + relay_flags)]
@@ -2109,7 +2150,8 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
                 "-training", "../../train.csv", "-p", "0", "-c", str(c),
                 "--max_iterations", str(iters), "--checkpoint", "job.npz",
                 "--checkpoint_every", "25" if kill else "1000000",
-                *common] + (["--durable-log", wal] if kill else [])
+                *common] + (["--durable-log", wal] if kill or durable
+                            else [])
         dial = ["--connect", ",".join(f"127.0.0.1:{p}" for p in ports)]
     else:
         cmds["server"] = mod + [
@@ -2136,6 +2178,7 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
 
     t0 = time.perf_counter()
     procs = {n: start(n) for n in names}
+    finish = during(wal) if during is not None else None
     try:
         if kill:
             logs = os.path.join(wal, "shard1of2", "gradients")
@@ -2172,6 +2215,8 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        if finish is not None:
+            finish()
     wall = time.perf_counter() - t0
     rcs = {n: p.returncode for n, p in procs.items()}
     errs = {n: os.path.join(d, "err-restart.txt" if kill and n == "s1"
@@ -2342,6 +2387,445 @@ def scaleout_runs(direct: dict) -> list[dict]:
                                  rflags, direct_rate=twin))
     runs.append(scaleout_run("shards", "logreg", 2, SCALE_ITERS, kill=True,
                              direct_rate=direct.get(("logreg", 2, (), H))))
+    return runs
+
+
+# -- the serving phase (serving/, tests/torch_serving_runs.py) ---------------
+
+class ServeLoad:
+    """A closed load of `concurrency` PredictClients (serving/loadgen.py's
+    SocketTarget, over shared memory when `shm`) on a port that may not be
+    up yet: it starts once `ready()` holds and the port accepts, and runs
+    until `finish()`.  Every answer is recorded per client, in order:
+    (status, clock, monotonic time) with status ok, stale, shed, failed
+    (PREDICT_FAILED) or closed (the server went away)."""
+
+    def __init__(self, port: int, concurrency: int = SERVE_CLIENTS,
+                 shm: bool = False, ready=None):
+        from kafka_ps_tpu_torch.serving import loadgen
+        self.port, self.concurrency, self.shm = port, concurrency, shm
+        self.ready = ready
+        self.target = loadgen.SocketTarget("127.0.0.1", port, shm=shm)
+        self.clients: list[list] = []
+        self.shm_active: list[bool] = []
+        self.result = None
+        self.stop = threading.Event()
+        self._lock = threading.Lock()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _accepts(self) -> bool:
+        import socket
+        try:
+            socket.create_connection(("127.0.0.1", self.port),
+                                     timeout=1.0).close()
+            return True
+        except OSError:
+            return False
+
+    def _run(self) -> None:
+        from kafka_ps_tpu_torch.serving import loadgen
+        deadline = time.monotonic() + 300.0
+        while not ((self.ready is None or self.ready()) and self._accepts()):
+            if self.stop.is_set() or time.monotonic() > deadline:
+                return
+            time.sleep(0.02)
+        self.result = loadgen.run_closed_loop(
+            self, F, concurrency=self.concurrency, duration_s=3600.0,
+            stop=self.stop)
+
+    def make_issue(self):
+        """The loadgen target protocol: SocketTarget's client, recorded."""
+        from kafka_ps_tpu_torch.serving import OverloadedError, StalenessError
+        rec: list = []
+        with self._lock:     # held across the dial: the last client is ours
+            issue = self.target.make_issue()
+            self.clients.append(rec)
+            self.shm_active.append(self.target._clients[-1].shm_active)
+
+        def _issue(x):
+            try:
+                p = issue(x)
+            except StalenessError:
+                rec.append(("stale", None, time.monotonic()))
+                raise
+            except OverloadedError:
+                rec.append(("shed", None, time.monotonic()))
+                raise
+            except (ConnectionError, OSError):
+                rec.append(("closed", None, time.monotonic()))
+                time.sleep(0.05)
+                raise
+            except RuntimeError:
+                rec.append(("failed", None, time.monotonic()))
+                raise
+            rec.append(("ok", p.vector_clock, time.monotonic()))
+            return p
+
+        return _issue
+
+    def close(self) -> None:
+        self.target.close()
+
+    def last_clock(self) -> int:
+        clocks = [c for rec in list(self.clients) for s, c, _ in rec[-5:]
+                  if s == "ok"]
+        return max(clocks, default=-1)
+
+    def finish(self) -> dict:
+        """Stop the load; per-client checks and the summary: answers by
+        status, accepted p50/p99 ms, answered QPS over the window of
+        accepted answers, each client's clocks non-decreasing."""
+        self.stop.set()
+        self.thread.join(timeout=120.0)
+        self.target.close()
+        if self.thread.is_alive():
+            raise RuntimeError("serving load: the clients did not stop")
+        counts = {k: 0 for k in ("ok", "stale", "shed", "failed", "closed")}
+        monotone, stale_after_ok = True, 0
+        stamps, last = [], []
+        for rec in self.clients:
+            clocks = [c for s, c, _ in rec if s == "ok"]
+            monotone &= clocks == sorted(clocks)
+            seen_ok = False
+            for s, c, t in rec:
+                counts[s] += 1
+                if s == "ok":
+                    seen_ok = True
+                    stamps.append(t)
+                elif s == "stale" and seen_ok:
+                    stale_after_ok += 1
+            if clocks:
+                last.append(clocks[-1])
+        answered = sum(v for k, v in counts.items() if k != "closed")
+        span = max(stamps) - min(stamps) if len(stamps) > 1 else 0.0
+        res = self.result
+        return {"counts": counts, "answered": answered,
+                "monotone": monotone, "stale_after_ok": stale_after_ok,
+                "qps": (len(stamps) - 1) / span if span > 0 else 0.0,
+                "p50_ms": None if res is None else res.p50_ms,
+                "p99_ms": None if res is None else res.p99_ms,
+                "last_clocks": last, "clients": len(self.clients),
+                "shm_active": list(self.shm_active)}
+
+
+def _file_has(path: str, text: str):
+    def check() -> bool:
+        try:
+            with open(path) as f:
+                return text in f.read()
+        except FileNotFoundError:
+            return False
+    return check
+
+
+def serve_report(name: str, load: dict, stats: dict | None,
+                 stable_clock: int | None = None) -> None:
+    """One line of serving metrics beside the card: latency, QPS, shed and
+    stale shares, dispatches, rows per dispatch, bypass share and the
+    served clock's lag behind the server's stable clock at the end."""
+    n = max(load["answered"], 1)
+    c = load["counts"]
+    line = (f"serving {name} [{card_line()}]: p50_ms={load['p50_ms']} "
+            f"p99_ms={load['p99_ms']} answered_qps={load['qps']:.1f} "
+            f"({load['clients']} clients, answers {c}) shed_share="
+            f"{c['shed'] / n:.4f} stale_share={c['stale'] / n:.4f}")
+    if stats is not None:
+        reqs = max(stats["requests"], 1)
+        line += (f"; engine: requests {stats['requests']} dispatches "
+                 f"{stats['batches']} rows_per_dispatch "
+                 f"{stats['occupancy']} bypass_share "
+                 f"{stats['bypasses'] / reqs:.4f} mode {stats['mode']} "
+                 f"errors {stats['errors']}")
+    if stable_clock is not None and load["last_clocks"]:
+        line += (f"; served clock lag at the end "
+                 f"{stable_clock - max(load['last_clocks'])}"
+                 f"..{stable_clock - min(load['last_clocks'])} clocks "
+                 f"(stable clock {stable_clock})")
+    print(line)
+
+
+def check_answers(name: str, load: dict, *, stale_ok: bool = True) -> None:
+    """No PREDICT_FAILED and no shed, STALE only before a client's first
+    accepted answer (`stale_ok`: at all), clocks never going back."""
+    c = load["counts"]
+    if not c["ok"] or c["failed"] or c["shed"] or not load["monotone"]:
+        raise RuntimeError(f"serving {name}: answers {c}, clocks monotone "
+                           f"{load['monotone']}")
+    if load["stale_after_ok"] or (c["stale"] and not stale_ok):
+        raise RuntimeError(f"serving {name}: {c['stale']} STALE answers, "
+                           f"{load['stale_after_ok']} after an accepted one")
+
+
+def serving_reference_check(dev) -> None:
+    """In process on the card: the engine against its own answers on the
+    CPU from the same snapshot at every bucket size (logreg, the MLP at
+    H=128 and 4096; F=1024, C=5); the gang's prefix snapshots bitwise the
+    per-message sequence (-c 0, 3, -1, F=1024); a two-shard
+    ShardedServerGroup with attach_serving: N=1 bitwise the unsharded
+    registry, N=2 publishing only at frontier advances, each cut bitwise
+    N=1's theta at its clock."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_serving_runs import (engine_card_vs_cpu, frontier_check,
+                                    serve_config, snapshot_sequence)
+    for task, hidden in (("logreg", H), ("mlp", H), ("mlp", WIDE_H)):
+        out = engine_card_vs_cpu(dev, task, hidden, F, C, SERVE_BATCH)
+        print(f"serving engine on the card against the CPU ({task}, H="
+              f"{hidden}, buckets 1..{SERVE_BATCH}, {out['rows']} rows): "
+              f"confidences max abs {out['max_abs_err']:.3e} within rtol "
+              f"1e-5 atol 1e-6 {out['within']}; labels equal where the "
+              f"top-two margin > 1e-5 ({out['defined']} of {SERVE_BATCH} "
+              f"rows): mismatches {out['label_mismatches']}; snapshot on "
+              f"{out['snapshot_device']}")
+        if (not out["within"] or out["label_mismatches"]
+                or out["snapshot_device"] != "cuda" or out["clock"] != 6):
+            raise RuntimeError(f"serving engine {task} H={hidden}: {out}")
+    for c in (0, 3, -1):
+        seqs = [snapshot_sequence(serve_config(c, use_gang=g, features=F,
+                                               classes=C), dev)
+                for g in (True, False)]
+        print(f"serving: gang prefix snapshots at -c {c} (F={F}): "
+              f"{len(seqs[0])} snapshots, bitwise the per-message "
+              f"sequence: {seqs[0] == seqs[1]}")
+        if seqs[0] != seqs[1] or len(seqs[0]) < 2:
+            raise RuntimeError(f"serving: gang snapshots differ at -c {c}")
+    out = frontier_check(dev, serve_config(0, use_gang=False,
+                                           eval_async=False, features=F,
+                                           classes=C))
+    print(f"serving: ShardedServerGroup.attach_serving on the card: N=1 "
+          f"bitwise the unsharded registry ({out['n1_snapshots']} "
+          f"snapshots) {out['n1_bitwise']}; N=2 {out['cuts']} cuts, "
+          f"increasing {out['cuts_increasing']}, the last at the frontier "
+          f"{out['last_is_frontier']}, each bitwise N=1's theta at its "
+          f"clock {out['cuts_bitwise']}, on {out['device']}")
+    if not (out["n1_bitwise"] and out["cuts_increasing"] and out["cuts"] > 3
+            and out["last_is_frontier"] and out["cuts_bitwise"]
+            and out["device"] == "cuda"):
+        raise RuntimeError(f"serving: frontier check failed: {out}")
+
+
+def _newest_weights(root: str) -> tuple[int, bytes]:
+    """(clock, float32 bytes) of the newest logged weights under a
+    durable-log root, read by the log's own reader
+    (DurableFabric.latest_logged_weights); a sharded root's slices
+    concatenated in key order, at the minimum of their clocks."""
+    from kafka_ps_tpu_torch.log import DurableFabric, LogConfig
+    dirs = sorted(d for d in os.listdir(root) if d.startswith("shard"))
+    parts = []
+    for d in (dirs or ["."]):
+        fab = DurableFabric(os.path.join(root, d), LogConfig(fsync="none"))
+        try:
+            msg = fab.latest_logged_weights()
+        finally:
+            fab.close()
+        parts.append((msg.key_range.start, msg.vector_clock, msg.values))
+    parts.sort(key=lambda p: p[0])
+    theta = torch.cat([v for _, _, v in parts]).cpu().numpy()
+    return min(c for _, c, _ in parts), theta.tobytes()
+
+
+def _replica(root: str, err: str):
+    """server_runner --serve-replica on `root`, on the card, its stderr to
+    `err`: (process, port)."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("KPS_PLATFORM", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kafka_ps_tpu_torch.cli.server_runner",
+         "--serve-replica", "--durable-log", root, "--serve_port", str(port),
+         "--num_features", str(F), "--num_classes", str(C), "--task",
+         "logreg"], cwd=OUT, env=env, stdout=subprocess.DEVNULL,
+        stderr=open(err, "w"))
+    return proc, port
+
+
+def _end_replica(name: str, proc, err: str, load: ServeLoad, root: str):
+    """Let the replica reach the log's newest weights (its load's answers
+    carry their clock), stop the load and the replica (SIGINT), and hold
+    its last snapshot bitwise to them.  Returns the load summary."""
+    import hashlib
+    import signal
+    clock, theta = _newest_weights(root)
+    deadline = time.monotonic() + 60.0
+    while load.last_clock() < clock and time.monotonic() < deadline:
+        time.sleep(0.05)
+    got = load.finish()
+    proc.send_signal(signal.SIGINT)
+    try:
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stats = _role_stats(err, "replica")
+    same = (stats["clock"] == clock and stats["snapshot_sha256"]
+            == hashlib.sha256(theta).hexdigest())
+    print(f"serving {name}: {stats['shards']} shard logs, "
+          f"{stats['records_read']} records read, "
+          f"{stats['publications']} publications, on "
+          f"{stats['device']}; its last snapshot at clock {stats['clock']} "
+          f"bitwise the log's newest weights at clock {clock}: {same}")
+    serve_report(name, got, stats["serving"], clock)
+    check_answers(name, got)
+    if (proc.returncode != 0 or not same
+            or not stats["device"].startswith("cuda")
+            or stats["serving"]["errors"]):
+        raise RuntimeError(f"serving {name}: rc {proc.returncode}, {stats}")
+    return got
+
+
+def serving_runs(threaded_rate: float) -> list[dict]:
+    """Through the entry points, under closed loads of PredictClients
+    (serving/loadgen.py): cli.run --serve --serve_port at serial -c 0 on
+    a 512-row CSV (4 workers x the 128-row prefill: every row buffered
+    before the first iteration) beside the same run without --serve,
+    theta (the exit checkpoint) and the rows bitwise; threaded -c 2 (its
+    iterations/s against the main path's run without serving,
+    `threaded_rate`); --fused --task mlp --hidden_dim 4096 (40 rounds);
+    server_runner --listen --serve --serve-shm with two worker processes,
+    socket and shm clients; a read replica following a cli.run
+    --durable-log run while it trains, and one following a --shards 2
+    deployment's per-shard logs while it trains.  Every run's kernel
+    calls are checked as the main path's are (main_path_run, split_run,
+    scaleout_run)."""
+    runs = []
+    with open(os.path.join(OUT, "train.csv")) as f:
+        head = [next(f) for _ in range(SERVE_TRAIN_ROWS + 1)]
+    with open(os.path.join(OUT, "serve-train.csv"), "w") as f:
+        f.writelines(head)
+    # serial -c 0 with and without a read load: bitwise
+    ck = ("--checkpoint_every", "1000000")
+    for name in ("ck-serve-on.npz", "ck-serve-off.npz"):
+        remove(os.path.join(OUT, name))
+    port = _free_port()
+    load = ServeLoad(port)
+    on = main_path_run("logreg", "serial", 0, ITERS,
+                       ("--serve", "--serve_port", str(port),
+                        "--checkpoint", "ck-serve-on.npz", *ck),
+                       train="serve-train.csv")
+    got = load.finish()
+    off = main_path_run("logreg", "serial", 0, ITERS,
+                        ("--checkpoint", "ck-serve-off.npz", *ck),
+                        train="serve-train.csv")
+    with np.load(os.path.join(OUT, "ck-serve-on.npz")) as a, \
+            np.load(os.path.join(OUT, "ck-serve-off.npz")) as b:
+        theta_same = a["theta"].tobytes() == b["theta"].tobytes()
+    rows_same = all(
+        strip_stamps(open(os.path.join(OUT, f"{k}-{on['tag']}.csv"))
+                     .read().splitlines()[1:])
+        == strip_stamps(open(os.path.join(OUT, f"{k}-{off['tag']}.csv"))
+                        .read().splitlines()[1:])
+        for k in ("server", "worker"))
+    st = on["serving"]
+    serve_report("cli.run serial -c 0", got, st, st["stable_clock"])
+    print(f"serving cli.run serial -c 0 under load against the same run "
+          f"without --serve: theta bitwise {theta_same}, rows (less "
+          f"stamps) bitwise {rows_same}; iterations/s {on['rate']:.1f} "
+          f"against {off['rate']:.1f} "
+          f"({on['rate'] / off['rate']:.3f}x) [{card_line()}]")
+    check_answers("cli.run serial", got, stale_ok=False)
+    if not theta_same or not rows_same or st["errors"]:
+        raise RuntimeError("serving: the served serial run differs from "
+                           "the run without --serve")
+    runs += [on, off]
+    # threaded -c 2 under the same load
+    port = _free_port()
+    load = ServeLoad(port)
+    run = main_path_run("logreg", "threaded", 2, ITERS,
+                        ("--serve", "--serve_port", str(port)))
+    got = load.finish()
+    st = run["serving"]
+    serve_report("cli.run threaded -c 2", got, st, st["stable_clock"])
+    print(f"serving cli.run threaded -c 2: iterations/s {run['rate']:.1f} "
+          f"under the read load against {threaded_rate:.1f} without "
+          f"({run['rate'] / threaded_rate:.3f}x) [{card_line()}]")
+    check_answers("cli.run threaded", got)
+    runs.append(run)
+    # the fused MLP at H=4096
+    port = _free_port()
+    load = ServeLoad(port)
+    run = main_path_run("mlp", "serial", 0, FUSED_MLP_ROUNDS * WORKERS,
+                        ("--fused", "--eval_every", "10", "--serve",
+                         "--serve_port", str(port)), hidden=WIDE_H)
+    got = load.finish()
+    st = run["serving"]
+    serve_report("cli.run --fused --task mlp H=4096", got, st,
+                 st["stable_clock"])
+    check_answers("cli.run fused", got)
+    if max(got["last_clocks"]) > st["stable_clock"]:
+        raise RuntimeError("serving fused: an answer's clock is past the "
+                           "server's stable clock")
+    runs.append(run)
+    # the split server, by socket and by shm
+    loads: list = []
+
+    def split_load(port, err):
+        ready = _file_has(err, "serving predictions on port")
+        loads.extend([ServeLoad(port, 2, ready=ready),
+                      ServeLoad(port, 2, shm=True, ready=ready)])
+        return lambda: loads.extend([ld.finish() for ld in loads[:2]])
+
+    run = split_run("logreg", 2, SPLIT_SHORT, ("--serve", "--serve-shm"),
+                    during=split_load)
+    server = run["server"]
+    st = server["serving"]
+    for name, got, shm in (("split --listen --serve (socket)", loads[2],
+                            False),
+                           ("split --listen --serve (shm)", loads[3], True)):
+        serve_report(name, got, st, st["stable_clock"])
+        check_answers(name, got)
+        if any(a != shm for a in got["shm_active"]):
+            raise RuntimeError(f"serving {name}: shm active "
+                               f"{got['shm_active']}")
+    print(f"serving split: the server answered {st['requests']} requests, "
+          f"{server['shm_predictions']} over shared memory; errors "
+          f"{st['errors']}")
+    if (not server["shm_predictions"] or st["errors"]
+            or not server["device"].startswith("cuda")):
+        raise RuntimeError(f"serving split: shm predictions "
+                           f"{server['shm_predictions']}, errors "
+                           f"{st['errors']}, server on {server['device']}")
+    runs.append(run)
+    # a replica following a trainer's log while it trains
+    root = os.path.join(OUT, "wal-serve")
+    remove(root)
+    remove(os.path.join(OUT, "ck-wal-serve.npz"))
+    err = os.path.join(OUT, "replica-err.txt")
+    proc, port = _replica(root, err)
+    ready = _file_has(err, "replica serving on")
+    deadline = time.monotonic() + 120.0
+    while not ready():          # the replica follows from the first record
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise RuntimeError("serving: the replica did not start:\n"
+                               + open(err).read()[-2000:])
+        time.sleep(0.05)
+    load = ServeLoad(port, 2, ready=ready)
+    try:
+        run = main_path_run("logreg", "threaded", 0, SLICE1_ITERS,
+                            ("--durable-log", "wal-serve", "--checkpoint",
+                             "ck-wal-serve.npz"))
+    except BaseException:
+        load.finish()
+        proc.kill()
+        raise
+    _end_replica("replica of cli.run --durable-log", proc, err, load, root)
+    runs.append(run)
+    remove(root)
+    # a replica following a --shards 2 deployment's logs while it trains,
+    # started with the shard processes, before their log directories exist
+
+    def shard_replica(wal):
+        proc, port = _replica(wal, err)
+        load = ServeLoad(port, 2, ready=_file_has(err, "replica serving"))
+
+        def finish():
+            _end_replica("replica of --shards 2", proc, err, load, wal)
+            remove(wal)
+
+        return finish
+
+    runs.append(scaleout_run("shards", "logreg", 0, SCALE_ITERS,
+                             durable=True, during=shard_replica))
     return runs
 
 
@@ -2634,9 +3118,16 @@ def main() -> int:
         t_runs = time.perf_counter()
         runs += scaleout_runs(direct)
         t_end = time.perf_counter()
+        serving_reference_check(dev)
+        t_serve_runs = time.perf_counter()
+        runs += serving_runs(runs[1]["rate"])
+        t_serve = time.perf_counter()
         print(f"phase times: split {t_scale - t_split:.1f} s; scale-out "
               f"{t_end - t_scale:.1f} s (in-process checks "
-              f"{t_runs - t_scale:.1f} s, runs {t_end - t_runs:.1f} s)")
+              f"{t_runs - t_scale:.1f} s, runs {t_end - t_runs:.1f} s); "
+              f"serving {t_serve - t_end:.1f} s (in-process checks "
+              f"{t_serve_runs - t_end:.1f} s, runs "
+              f"{t_serve - t_serve_runs:.1f} s)")
         profile_run("logreg")
         profile_run("logreg", flags=("--durable-log", "wal-profile"))
         profile_run("mlp")

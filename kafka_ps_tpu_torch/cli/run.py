@@ -14,11 +14,13 @@ on every change), `--fused` runs the sequential model as fused BSP rounds
 (compress/), `--checkpoint` saves every `--checkpoint_every` server
 iterations and at exit and resumes from the file when it exists, and
 `--failure_policy rebalance` evicts a crashed or hung worker (threaded
-mode), and `--durable-log DIR` (`--fsync`) logs every message and stream
-row and, on a restart, replays the tail past the checkpoint (log/).  Runs
-on the CUDA card; KPS_PLATFORM=cpu runs it on the CPU.  At exit it prints
-one line of run statistics on stderr:
-`kafka_ps_tpu_torch run: {json}`.
+mode), `--durable-log DIR` (`--fsync`) logs every message and stream
+row and, on a restart, replays the tail past the checkpoint (log/), and
+`--serve` answers predictions while training (serving/): a snapshot at
+every gate release, in process or, with `--serve_port P`, over a socket
+(0 = ephemeral, printed as "serving on port N").  Runs on the CUDA card;
+KPS_PLATFORM=cpu runs it on the CPU.  At exit it prints one line of run
+statistics on stderr: `kafka_ps_tpu_torch run: {json}`.
 
 `build_parser` also serves the role runners (cli/server_runner.py,
 cli/worker_runner.py), which leave out the other role's flags and run
@@ -144,6 +146,45 @@ def build_parser(include_server_flags: bool = True,
                    help="re-upload the whole slab whenever the buffer "
                         "changes instead of scattering only the dirty "
                         "rows (bitwise the same slab)")
+    # -- the online serving plane (serving/) --
+    p.add_argument("--serve", action="store_true",
+                   help="serve predictions while training: the server "
+                        "publishes a weights snapshot at every gate "
+                        "release and a micro-batching engine answers "
+                        "staleness-bounded reads against the newest one")
+    p.add_argument("--serve_port", type=int, default=None, metavar="PORT",
+                   help="with --serve: also accept PREDICT frames on this "
+                        "TCP port (0 = ephemeral; the bound port is "
+                        "printed to stderr)")
+    p.add_argument("--serve_batch", type=int, default=16,
+                   help="serving micro-batch size cap")
+    p.add_argument("--serve_deadline_ms", type=float, default=2.0,
+                   help="max milliseconds a prediction waits for its "
+                        "micro-batch to fill")
+    p.add_argument("--serve_snapshots", type=int, default=8,
+                   help="snapshot ring capacity (exact-clock reads)")
+    p.add_argument("--serve-queue", dest="serve_queue", type=int, default=0,
+                   metavar="N",
+                   help="admission control: max outstanding requests per "
+                        "model before the engine sheds with a typed "
+                        "OVERLOADED answer (0 = unbounded)")
+    p.add_argument("--serve-shed", dest="serve_shed_ms", type=float,
+                   default=0.0, metavar="MS",
+                   help="predictive shedding: refuse a request whose "
+                        "estimated queueing delay exceeds MS milliseconds "
+                        "(0 = off)")
+    p.add_argument("--serve-auto", dest="serve_auto", action="store_true",
+                   default=True,
+                   help="adaptive dispatch (default): the engine learns "
+                        "the dispatch cost per batch size, serves inline "
+                        "below the break-even occupancy and sizes the "
+                        "batch window from the arrival rate")
+    p.add_argument("--no-serve-auto", dest="serve_auto",
+                   action="store_false",
+                   help="always micro-batch with the full window")
+    p.add_argument("--serve-shm", dest="serve_shm", action="store_true",
+                   help="offer co-located PredictClients a shared-memory "
+                        "channel; other clients stay on the socket")
     p.add_argument("--wire-coalesce", dest="wire_coalesce",
                    action="store_true", default=True,
                    help="split deployment (cli/socket_mode.py): frame "
@@ -193,7 +234,8 @@ def make_app_from_args(args, device=None, resuming: bool = False):
         use_gang=not args.no_gang,
         slab_dtype=args.slab_dtype,
         slab_incremental=not args.full_slab_upload,
-        compress=args.compress)
+        compress=args.compress,
+        serving=serving_config(args))
     test_x, test_y = load_test_csv(args.test_data_file_path,
                                    args.num_features)
     # a resumed run continues its logs
@@ -233,6 +275,8 @@ def run_with_args(args) -> int:
             "--slab-dtype applies to the per-node worker slab "
             "(compress/slab.py); the --fused BSP path keeps its own "
             "slab cache — drop one of the two flags")
+    if args.serve_port is not None and not args.serve:
+        raise SystemExit("--serve_port requires --serve")
     if args.compress != "none":
         from kafka_ps_tpu_torch.compress.wire import parse_codec
         try:
@@ -277,6 +321,7 @@ def run_with_args(args) -> int:
         if args.verbose:
             print(f"    durable-log replay: {counts}")
     producer = app.make_producer(args.training_data_file_path)
+    serve_bridge = start_serving(app, args) if args.serve else None
     try:
         producer.run_in_background()
         app.wait_for_prefill(min_per_worker=1, timeout=120.0)
@@ -297,6 +342,11 @@ def run_with_args(args) -> int:
     finally:
         # join every thread before the interpreter finalizes
         producer.stop()
+        # serving: the socket first (no new requests), then the engine's
+        # batcher thread
+        if serve_bridge is not None:
+            serve_bridge.close()
+        app.close_serving()
         if args.checkpoint:
             # on a durable fabric the final save is a commit point too
             app.server.save_checkpoint_now()
@@ -310,6 +360,55 @@ def run_with_args(args) -> int:
     return 0
 
 
+def serving_config(args):
+    """The --serve flags as a utils.config.ServingConfig; a namespace from
+    a parser that does not add them gets the defaults."""
+    from kafka_ps_tpu_torch.utils.config import ServingConfig
+    if not hasattr(args, "serve"):
+        return ServingConfig()
+    return ServingConfig(
+        enabled=args.serve, port=args.serve_port, max_batch=args.serve_batch,
+        deadline_ms=args.serve_deadline_ms,
+        ring_capacity=args.serve_snapshots, queue_limit=args.serve_queue,
+        shed_deadline_ms=args.serve_shed_ms, auto=args.serve_auto,
+        shm=args.serve_shm)
+
+
+def serving_stats(engine, server=None) -> dict:
+    """A stats line's `serving` block: the engine's stats and, with the
+    server, the snapshots it published, the last one's clock and its
+    stable clock now."""
+    out = dict(engine.stats())
+    if server is not None:
+        out.update(snapshots_published=server.snapshots_published,
+                   last_published_clock=server.last_published_clock,
+                   stable_clock=server.serving_clock())
+    return out
+
+
+def start_serving(app, args):
+    """The serving plane's cold start: the engine, the restored (or
+    fresh) theta published, then the durable log's newest released
+    weights when they are ahead of the stable clock (a restarted process
+    serves at once what the dead one had promised a worker), then the
+    socket when `--serve_port` is given.  Returns the bridge or None."""
+    engine = app.enable_serving()
+    app.server.publish_snapshot()
+    if args.durable_log:
+        latest = app.fabric.latest_logged_weights()
+        if (latest is not None
+                and latest.vector_clock > app.server.serving_clock()):
+            app.server.publish_snapshot(latest.values, latest.vector_clock)
+    if args.serve_port is None:
+        return None
+    from kafka_ps_tpu_torch.runtime import net
+    bridge = net.ServerBridge(port=args.serve_port, run_id=app.server.run_id,
+                              device=app.device, shm=args.serve_shm,
+                              engine=engine)
+    print(f"serving on port {bridge.port}", file=sys.stderr, flush=True)
+    return bridge
+
+
 def run_stats(app, producer) -> dict:
     """Host counters of a finished run: server iterations, membership
     (active workers, dropped gradients, rerouted rows, evictions), gang
@@ -319,7 +418,8 @@ def run_stats(app, producer) -> dict:
     chunk dispatches, CUDA graphs captured), the producer's parser,
     rows and the seconds of its native one-pass parse, and on a durable
     log its counters (log/durable_fabric.DurableFabric.stats) with the
-    replay's counts and seconds and the re-ingested rows skipped."""
+    replay's counts and seconds and the re-ingested rows skipped, and
+    with --serve the engine's stats and the snapshots published."""
     stores = [w._slab_store for w in app.workers]
     server = app.server
     out = {"server_iterations": server.iterations,
@@ -353,6 +453,8 @@ def run_stats(app, producer) -> dict:
                               replayed=app.replay_counts,
                               replay_s=app.replay_s,
                               skipped_rows=app.skipped_rows)
+    if app.serving_engine is not None:
+        out["serving"] = serving_stats(app.serving_engine, server)
     if server.checkpoint_path:
         out["checkpoint"] = {"restored_at": app.restored_at,
                              "restore_s": app.restore_s,

@@ -15,6 +15,9 @@ KPS_PLATFORM=cpu.
 range-sharded group (cli/socket_mode.run_server_shard, one process per
 shard; workers --connect to all N).  `--bsp-order` applies each -c 0
 round in worker-id order, as an aggregation relay's composites are.
+`--listen P --serve` also answers predictions on P (not on a shard);
+`--serve-replica --durable-log DIR` is a read replica
+(cli/socket_mode.run_replica) that answers them on `--serve_port`.
 """
 
 from __future__ import annotations
@@ -25,9 +28,7 @@ from kafka_ps_tpu_torch.cli import run as run_mod
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The server-role flag surface: the JAX runner's flags, of which
-    the read replica (--serve-replica) is refused until its ROADMAP item
-    is ported."""
+    """The server-role flag surface: the JAX runner's flags."""
     parser = run_mod.build_parser(include_server_flags=True,
                                   include_worker_flags=False,
                                   prog="ServerAppRunner")
@@ -55,8 +56,11 @@ def build_parser() -> argparse.ArgumentParser:
              "comparable with a direct one")
     parser.add_argument(
         "--serve-replica", dest="serve_replica", action="store_true",
-        help="read-replica serving process (not ported yet: ROADMAP item "
-             "21)")
+        help="read-replica serving process: follow --durable-log DIR "
+             "read-only and answer PREDICT frames on --serve_port, never "
+             "joining the training fabric; against a --shards N "
+             "deployment's per-shard logs it serves the assembled theta "
+             "stamped with the frontier clock")
     return parser
 
 
@@ -74,8 +78,13 @@ def main(argv=None) -> int:
                          "server process per port); in process, sharding "
                          "is the runtime.sharding.ShardedServerGroup API")
     if args.serve_replica:
-        raise SystemExit("--serve-replica: the read replica is not ported "
-                         "yet (ROADMAP item 21)")
+        if args.listen is not None:
+            raise SystemExit("--serve-replica is a standalone serving "
+                             "process; drop --listen (the replica only "
+                             "follows --durable-log, it never hosts the "
+                             "training fabric)")
+        from kafka_ps_tpu_torch.cli import socket_mode
+        return socket_mode.run_replica(args)
     if args.listen is not None:
         if args.shards > 1:
             # each shard process owns a durable-log directory, replayed

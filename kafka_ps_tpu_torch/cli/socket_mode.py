@@ -45,7 +45,23 @@ slices are sparse) and reassembles the weights slices; a dead shard is
 not fatal (it reconnects and the router resends what the shard missed).
 With `--aggregate` the same worker dials the relay, which compresses for
 it; after a relay restart it resends its whole cache.  The tier store
-(22), serving (21) and the telemetry planes (24) have no flags here.
+(22) and the telemetry planes (24) have no flags here.
+
+Serving (serving/):
+
+    # the unsharded server answers PREDICT on its own port, from worker
+    # connections and plain clients, by socket and (--serve-shm) by
+    # shared memory
+    python -m kafka_ps_tpu_torch.cli.server_runner --listen 8477 --serve ...
+
+    # a read replica following a durable log (one server's, or the
+    # per-shard logs of a --shards N deployment) read-only
+    python -m kafka_ps_tpu_torch.cli.server_runner --serve-replica \
+        --durable-log DIR --serve_port 8480 --num_features 1024 ...
+
+A shard process refuses --serve: it holds one slice of theta, so a
+sharded deployment's reads go through a replica, which serves the
+assembled theta at the frontier clock.
 
 At exit each role prints one line of run statistics on stderr,
 `kafka_ps_tpu_torch server: {json}` or `kafka_ps_tpu_torch worker:
@@ -59,6 +75,7 @@ and for a worker its kernel calls by family and form
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import queue
@@ -66,6 +83,7 @@ import sys
 import threading
 import time
 
+from kafka_ps_tpu_torch.cli import run as run_mod
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
 from kafka_ps_tpu_torch.runtime import net
 
@@ -98,7 +116,8 @@ def _make_cfg(args):
         use_gang=False,
         slab_dtype=getattr(args, "slab_dtype", "f32") or "f32",
         slab_incremental=not getattr(args, "full_slab_upload", False),
-        compress=getattr(args, "compress", "none") or "none")
+        compress=getattr(args, "compress", "none") or "none",
+        serving=run_mod.serving_config(args))
 
 
 def _codec_spec(args):
@@ -222,11 +241,24 @@ def run_server(args) -> int:
     run_id = ckpt.peek_run_id(checkpoint_path) if resuming else None
     if run_id is None:
         run_id = time.time_ns()
+    # the serving plane on the workers' port: the engine is there before
+    # the port listens (a read before the first snapshot is STALE), and a
+    # prediction client sends no HELLO, so the bridge routes it nothing
+    # but its own replies
+    engine = registry = None
+    if cfg.serving.enabled:
+        from kafka_ps_tpu_torch.models.task import get_task
+        from kafka_ps_tpu_torch.serving.engine import make_engine
+        from kafka_ps_tpu_torch.serving.snapshot import SnapshotRegistry
+        registry = SnapshotRegistry(capacity=cfg.serving.ring_capacity)
+        engine = make_engine(get_task(cfg.task, cfg.model), registry,
+                             cfg.serving)
     bridge = net.ServerBridge(
         port=args.listen,
         heartbeat_interval=min(1.0, hb_timeout / 3) if hb_timeout else 1.0,
         heartbeat_timeout=hb_timeout, run_id=run_id, codec=codec_spec,
-        coalesce=getattr(args, "wire_coalesce", True), device=device)
+        coalesce=getattr(args, "wire_coalesce", True), device=device,
+        shm=cfg.serving.shm, engine=engine)
     print(f"listening on port {bridge.port}", file=sys.stderr, flush=True)
     fabric = bridge.wrap(fabric_mod.Fabric())
     server = ServerNode(cfg, fabric, device, test_x, test_y,
@@ -263,6 +295,15 @@ def run_server(args) -> int:
         if resuming:
             print(f"restored checkpoint at iteration {server.iterations}",
                   file=sys.stderr, flush=True)
+
+    if engine is not None:
+        server.serving = registry
+        server.publish_snapshot()    # cold start: restored or fresh theta
+        # every bucket shape dispatched and the cost model calibrated
+        # now, not in some client's p99
+        engine.warmup()
+        print(f"serving predictions on port {bridge.port}",
+              file=sys.stderr, flush=True)
 
     # membership events cross threads (bridge readers -> main loop):
     # ServerNode is single-threaded by design, so evictions/readmissions
@@ -387,6 +428,8 @@ def run_server(args) -> int:
         batch_sink.flush_all()   # after the pump join: no concurrent adds
         bridge.close()       # workers see EOF and shut down; joins the
                              # accept/heartbeat/reader threads
+        if engine is not None:
+            engine.close()   # after the bridge: no reader submits now
         try:
             if eval_engine is not None:
                 eval_engine.close()   # drains pending evals into server.log
@@ -418,6 +461,8 @@ def run_server(args) -> int:
                          "dropped": reroute["dropped"]},
                 "eval": (None if eval_engine is None
                          else eval_engine.stats()),
+                "serving": (None if engine is None
+                            else run_mod.serving_stats(engine, server)),
                 **bridge.stats()})
     return 0
 
@@ -652,6 +697,12 @@ def run_server_shard(args) -> int:
     from kafka_ps_tpu_torch.utils import checkpoint as ckpt
     from kafka_ps_tpu_torch.utils.config import resolve_device
 
+    if getattr(args, "serve", False):
+        raise SystemExit(
+            "--serve is unsharded-only in split mode: a shard process "
+            "holds one slice of theta; serve a --shards N deployment "
+            "through a read replica (--serve-replica --durable-log DIR), "
+            "which assembles the slices at the frontier clock")
     cfg = _make_cfg(args)
     num_shards, shard_id = args.shards, args.shard_id
     plan = ShardPlan(get_task(cfg.task, cfg.model).num_params, num_shards)
@@ -704,6 +755,12 @@ def run_server_shard(args) -> int:
         # the tracker drops what the checkpoint covers
         t0 = time.perf_counter()
         replay = inner.recover(server.restored_log_offsets)
+        # the weights the workers were sent are logged for read replicas,
+        # not for replay: start_training_loop re-sends each its current
+        # weights over its new connection
+        for w in range(cfg.num_workers):
+            inner.purge(fabric_mod.WEIGHTS_TOPIC, w, lambda m: True)
+        replay[fabric_mod.WEIGHTS_TOPIC] = 0
         replay_s = time.perf_counter() - t0
         if any(replay.values()):
             print(f"shard {shard_id}: durable-log replay {replay} in "
@@ -1286,3 +1343,85 @@ def _sum_wire(stats: list[dict]) -> dict:
         if ms is not None:
             o["serde_ms_per_frame"] = ms / o["serde_frames"]
     return out
+
+
+# -- log-following read replicas ---------------------------------------------
+
+def run_replica(args) -> int:
+    """A read-replica serving process: follow `--durable-log DIR` and
+    answer PREDICT frames on `--serve_port`, never touching the training
+    deployment.
+
+    The replica tails the log read-only (log/tail.py), so it can follow a
+    live trainer's directory: reads scale by starting more replicas and
+    training is unperturbed.  For a `--shards N` deployment it assembles
+    the per-shard slices through FrontierCutPublisher and serves the
+    full-range theta stamped with the frontier clock.  It serves until
+    SIGINT, or until its follower fails (exit non-zero); at exit it
+    prints `kafka_ps_tpu_torch replica: {json}`."""
+    from kafka_ps_tpu_torch.models.task import get_task
+    from kafka_ps_tpu_torch.serving.engine import make_engine
+    from kafka_ps_tpu_torch.serving.replica import ReplicaFollower
+    from kafka_ps_tpu_torch.serving.snapshot import SnapshotRegistry
+    from kafka_ps_tpu_torch.utils.config import resolve_device
+
+    root = getattr(args, "durable_log", None)
+    if not root:
+        raise SystemExit("--serve-replica requires --durable-log DIR (the "
+                         "training deployment's commit log to follow)")
+    cfg = _make_cfg(args)
+    device = resolve_device()       # CUDA, or KPS_PLATFORM's choice
+    task = get_task(cfg.task, cfg.model)
+    registry = SnapshotRegistry(capacity=cfg.serving.ring_capacity)
+    follower = ReplicaFollower(root, registry, device=device)
+    engine = make_engine(task, registry, cfg.serving)
+    follower.catch_up()              # cold start: serve what is logged
+    port = cfg.serving.port
+    bridge = net.ServerBridge(port=0 if port is None else port,
+                              run_id=time.time_ns(),
+                              coalesce=getattr(args, "wire_coalesce", True),
+                              device=device,
+                              shm=cfg.serving.shm, engine=engine)
+    follower.start()
+    mode = (f"{follower.num_shards}-shard assembled" if follower.num_shards
+            else "single-server" if follower.records_read
+            else "layout not made yet:")
+    print(f"replica serving on port {bridge.port} ({mode} log {root}, "
+          f"clock {follower.clock})", file=sys.stderr, flush=True)
+    warmed = threading.Event()
+
+    def warm(clock) -> None:
+        if not warmed.is_set() and engine.warmup():
+            warmed.set()
+            print(f"replica warm at clock {clock}", file=sys.stderr,
+                  flush=True)
+
+    if follower.clock is not None:
+        warm(follower.clock)
+    else:
+        # started on an empty log: warm the moment theta appears
+        follower.on_publish = warm
+    try:
+        while follower.error is None:
+            time.sleep(0.2)
+        if follower.error is not None:
+            raise RuntimeError("the replica stopped following its log"
+                               ) from follower.error
+    except KeyboardInterrupt:
+        pass
+    finally:
+        follower.stop()
+        bridge.close()
+        engine.close()
+        latest = registry.latest
+        _print_stats("replica", {
+            "role": "replica", "device": str(device), "log": root,
+            "shards": follower.num_shards, "clock": follower.clock,
+            "records_read": follower.records_read,
+            "publications": follower.publications,
+            # the newest snapshot's digest: an audit can match it to the
+            # log's weights without the replica's memory
+            "snapshot_sha256": (None if latest is None else hashlib.sha256(
+                latest.theta.cpu().numpy().tobytes()).hexdigest()),
+            "serving": run_mod.serving_stats(engine), **bridge.stats()})
+    return 0

@@ -139,8 +139,12 @@ class DurableFabric(Fabric):
         consumes at send time (the INPUT_DATA hop: the producer sinks the
         row straight into a buffer).  The caller marks the offset
         consumed with `mark_consumed` once the row is applied."""
-        return self.manager.get(topic, key).append(
-            self._frame(topic, message))
+        return self.append_frame(topic, key, self._frame(topic, message))
+
+    def append_frame(self, topic: str, key: int, frame: bytes) -> int:
+        """`persist` of a message its caller already framed with
+        `_frame` (a socket bridge that sends the same bytes)."""
+        return self.manager.get(topic, key).append(frame)
 
     def mark_consumed(self, topic: str, key: int, offset: int) -> None:
         with self._cond:

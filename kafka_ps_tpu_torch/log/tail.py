@@ -1,6 +1,5 @@
 """Read-only commit-log tailing for log-following read replicas (a copy
-of kafka_ps_tpu/log/tail.py; its reader, a serving replica, is not
-ported yet).
+of kafka_ps_tpu/log/tail.py; its reader is serving/replica.py).
 
 A replica process follows a training deployment's durable log without
 ever attaching to the live fabric — and, critically, without ever

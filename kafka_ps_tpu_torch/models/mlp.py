@@ -157,3 +157,8 @@ class MLPTask:
     def evaluate_batch(self, thetas, x_test, y_test) -> metrics_mod.Metrics:
         return metrics_mod.stack_evaluations(self.evaluate, thetas, x_test,
                                              y_test)
+
+    def predict_logits(self, theta, x):
+        """(B, F) -> (B, C) class scores: the serving plane's forward
+        (serving/engine.py)."""
+        return logits(unflatten(theta, self.cfg), x)

@@ -32,6 +32,11 @@ class LogRegTask:
         return metrics_mod.stack_evaluations(self.evaluate, thetas, x_test,
                                              y_test)
 
+    def predict_logits(self, theta, x):
+        """(B, F) -> (B, C+1) class scores: the serving plane's forward
+        (serving/engine.py)."""
+        return logreg.logits(logreg.unflatten(theta, self.cfg), x)
+
 
 _REGISTRY = {"logreg": LogRegTask, "mlp": MLPTask}
 

@@ -22,7 +22,9 @@ worker an error-feedback residual (compress/); rows meant for an evicted
 worker go round-robin to the survivors.  On a durable fabric
 (log/durable_fabric.py) every message and stream row is logged, and
 `recover_durable` replays the unconsumed tail after a checkpoint
-restore.
+restore.  `enable_serving` attaches the online serving plane (serving/):
+the server publishes a snapshot at every gate release, the fused loop at
+every chunk boundary, and a PredictionEngine answers reads from them.
 """
 
 from __future__ import annotations
@@ -113,6 +115,8 @@ class StreamingPSApp:
         self._fused_programs: dict = {}
         self._fused_slab = None
         self.fused_stats = {"rounds": 0, "chunk_rounds": 0, "chunks": 0}
+        # the serving plane's engine (enable_serving); None: a trainer only
+        self.serving_engine = None
         # compressed delta transport: one weights compressor on the
         # server, one error-feedback residual per worker ({} when off);
         # the residuals ride the server's checkpoint beside the buffers
@@ -163,6 +167,29 @@ class StreamingPSApp:
         """Evaluate what is pending and join the engine thread."""
         if self.eval_engine is not None:
             self.eval_engine.close()
+
+    # -- serving plane (serving/) ---------------------------------------------
+
+    def enable_serving(self):
+        """Attach the serving plane: a SnapshotRegistry on the server (a
+        publication at every gate release) and a PredictionEngine
+        batching reads against it, sized by cfg.serving.  Idempotent;
+        returns the engine."""
+        if self.serving_engine is None:
+            from kafka_ps_tpu_torch.serving.engine import make_engine
+            from kafka_ps_tpu_torch.serving.snapshot import SnapshotRegistry
+            registry = SnapshotRegistry(
+                capacity=self.cfg.serving.ring_capacity)
+            self.server.serving = registry
+            self.serving_engine = make_engine(self.server.task, registry,
+                                              self.cfg.serving)
+        return self.serving_engine
+
+    def close_serving(self) -> None:
+        """Join the engine's batcher thread (it may be inside a CUDA call:
+        join it before interpreter exit)."""
+        if self.serving_engine is not None:
+            self.serving_engine.close()
 
     # -- ingestion sink (the INPUT_DATA topic hop) ----------------------------
 
@@ -644,6 +671,9 @@ class StreamingPSApp:
                 self.workers[w].iterations += r
                 self.server.tracker.tracker[w].vector_clock = clock
                 self.server.tracker.tracker[w].weights_message_sent = True
+            # the chunk boundary is the gate release: every active worker
+            # reached `clock`
+            self.server.publish_snapshot()
             self.server.maybe_checkpoint()
             if not evaluate:
                 continue

@@ -56,14 +56,22 @@ True)`, `raw_forward` (rows and weights passed on as bytes),
 `forward_frame` and `send_goodbye` (the GOODBYE config that tells members
 the run ended, unlike a killed relay).
 
-What this package leaves out, each to the subsystem that brings it:
-  * trace context: this side's tracer is off, so a worker offers 0 and
-    a server answers 0 — no 16-byte trace suffix ever crosses a
-    connection of this package, and a JAX peer with tracing on still
-    interoperates (it sees the answer 0);
-  * serving: the server bridge has no prediction engine — a PREDICT
-    frame is answered PREDICT_FAILED, and a HELLO asking for the shared
-    memory channel gets the declined offer.
+Serving (serving/): a ServerBridge made with `engine=` answers PREDICT
+frames from any connection, worker or plain client (a client
+sends no HELLO and registers no ids, so routing never sees it), through
+the engine asynchronously: the reader never waits on a batch window, and
+the reply leaves from the engine's callback.  Without an engine a
+PREDICT is answered PREDICT_FAILED.  A bridge made with `shm=True` and an
+engine offers a client whose HELLO asks for it a shared-memory channel
+(serving/shm.py) on its CONFIG; a declined offer (shm off, no engine, no
+segment) keeps the client on the socket.  `PredictClient` is the client:
+one outstanding request per connection, typed StalenessError and
+OverloadedError, the shm upgrade and reconnects.
+
+Left out until the telemetry plane: trace context.  This side's tracer
+is off, so a worker offers 0 and a server answers 0 — no 16-byte trace
+suffix ever crosses a connection of this package, and a JAX peer with
+tracing on still interoperates (it sees the answer 0).
 
 Decoded tensors land on the bridge's device (`device`, resolved once by
 utils.config.resolve_device when the bridge is made), passed explicitly
@@ -101,6 +109,10 @@ from kafka_ps_tpu_torch.runtime import serde
 from kafka_ps_tpu_torch.runtime.messages import LabeledData
 from kafka_ps_tpu_torch.runtime.wire import (_FRAME, FrameWriter, RecvBuffer,
                                              force_close, sendmsg_all)
+from kafka_ps_tpu_torch.serving.engine import Prediction
+from kafka_ps_tpu_torch.serving.policy import (OverloadedError, ReadBound,
+                                               StalenessError)
+from kafka_ps_tpu_torch.serving.shm import ShmChannel, ShmError
 from kafka_ps_tpu_torch.utils.config import resolve_device
 
 (T_WEIGHTS, T_GRADIENTS, T_DATA, T_HELLO, T_READY,
@@ -183,6 +195,32 @@ def encode_prediction(status: int, label: int = -1, confidence: float = 0.0,
 def decode_prediction(payload: bytes):
     """(status, label, confidence, vector_clock, wall_time)."""
     return _PREDICTION.unpack_from(payload, 0)
+
+
+def _encode_result(result) -> bytes:
+    """A PredictionEngine callback's argument (a Prediction, or the typed
+    failure passed instead) as a PREDICTION payload; one mapping for the
+    socket and the shm replies."""
+    if isinstance(result, OverloadedError):
+        return encode_prediction(PREDICT_OVERLOADED)
+    if isinstance(result, StalenessError):
+        return encode_prediction(PREDICT_STALE)
+    if isinstance(result, BaseException):
+        return encode_prediction(PREDICT_FAILED)
+    return encode_prediction(PREDICT_OK, result.label, result.confidence,
+                             result.vector_clock, result.wall_time)
+
+
+def _read_shm_offer(payload, offset: int) -> tuple[str, bytes] | None:
+    """The optional shm offer after the trace trailer on CONFIG:
+    (segment name, nonce), or None when absent (an older server) or
+    declined (granted byte 0)."""
+    if len(payload) < offset + _SHM_OFFER.size:
+        return None
+    granted, nonce, name = _SHM_OFFER.unpack_from(payload, offset)
+    if not granted:
+        return None
+    return name.rstrip(b"\0").decode("ascii", "replace"), nonce
 
 
 def send_frame(sock: socket.socket, topic: int, key: int,
@@ -364,7 +402,8 @@ class ServerBridge(_Counters):
                  heartbeat_interval: float | None = None,
                  heartbeat_timeout: float | None = None,
                  run_id: int = 0, codec: CodecSpec | None = None,
-                 coalesce: bool = True, device=None):
+                 coalesce: bool = True, device=None, shm: bool = False,
+                 engine=None):
         super().__init__()
         # `device`: where decoded gradients land (the ServerNode's)
         self.device = resolve_device(device)
@@ -397,6 +436,15 @@ class ServerBridge(_Counters):
         self.on_disconnect = None   # Callable[[list[int]], None]
         self.on_hello = None        # Callable[[list[int]], None]
         self.on_ready = None        # Callable[[int], None]
+        # the PredictionEngine answering PREDICT, set before the listener
+        # accepts (no client can find the port without one)
+        self._serving = engine
+        # offer the shared-memory channel (module docstring); one channel
+        # and one serve thread per connection that took it
+        self._shm_enabled = bool(shm)
+        self._shm_of: dict[socket.socket, object] = {}
+        self._shm_threads: list[threading.Thread] = []
+        self.shm_predictions = 0    # predictions answered over shm
         self.dropped_sends = 0      # frames lost to dead connections
         # connections whose HELLO carried the aggregator-role byte
         self._agg_conns: set[socket.socket] = set()
@@ -428,10 +476,23 @@ class ServerBridge(_Counters):
             def send(self, topic, key, message):
                 conn = bridge._conn_of.get(key) \
                     if topic == fabric_mod.WEIGHTS_TOPIC else None
-                if conn is not None:
-                    bridge._send(conn, T_WEIGHTS, key, message)
-                else:
+                if conn is None:
                     super().send(topic, key, message)
+                    return
+                if not self.durable:
+                    bridge._send(conn, T_WEIGHTS, key, message)
+                    return
+                # logged for read replicas (serving/replica.py) and
+                # consumed at once: the socket delivers it, and a
+                # restarted server re-sends current weights itself.  The
+                # JAX bridge logs none of these (ROADMAP C.14).  The log's
+                # frame is the socket's payload, encoded once
+                t0 = time.perf_counter()
+                frame = self._frame(topic, message)
+                bridge._serde(T_WEIGHTS, t0)
+                self.mark_consumed(topic, key,
+                                   self.append_frame(topic, key, frame))
+                bridge._send(conn, T_WEIGHTS, key, message, payload=frame)
 
         out = object.__new__(BridgedFabric)
         # share ALL state with the original (queues, cond, and any
@@ -439,6 +500,12 @@ class ServerBridge(_Counters):
         out.__dict__ = fabric.__dict__
         self._fabric = out
         return out
+
+    def attach_serving(self, engine) -> None:
+        """The JAX bridge's way to set `engine` after the listener starts,
+        kept so that code written for it runs here; the port's entry points
+        pass `engine=` to the constructor."""
+        self._serving = engine
 
     def send_data(self, worker: int, features: dict[int, float],
                   label: int) -> bool:
@@ -476,8 +543,18 @@ class ServerBridge(_Counters):
             if conn is not None and conn in self._agg_conns:
                 groups.setdefault(conn, []).append((worker, clock))
         handled: set = set()
+        fab = self._fabric
         for conn, members in groups.items():
             msg = builder(members[0][1])
+            if fab is not None and fab.durable:
+                # logged for read replicas like BridgedFabric.send's
+                # weights, once per frame: the newest member's clock under
+                # its key, the record a replica would pick of theirs
+                worker, clock = max(members, key=lambda m: m[1])
+                fab.mark_consumed(fabric_mod.WEIGHTS_TOPIC, worker,
+                                  fab.persist(fabric_mod.WEIGHTS_TOPIC,
+                                              worker, dataclasses.replace(
+                                                  msg, vector_clock=clock)))
             if (msg.encoded is not None
                     and self._codec_of.get(conn, CODEC_SPEC_NONE).codec_id
                     == CODEC_NONE):
@@ -544,7 +621,8 @@ class ServerBridge(_Counters):
     def stats(self) -> dict:
         return {"wire": self.wire_stats(), "dropped_sends":
                 self.dropped_sends, "writers": _writer_stats(self._writers),
-                "aggregators": self.aggregators}
+                "aggregators": self.aggregators,
+                "shm_predictions": self.shm_predictions}
 
     def close(self) -> None:
         self._stop.set()
@@ -570,6 +648,14 @@ class ServerBridge(_Counters):
         # every live connection, including ones that never sent HELLO
         for conn in list(self._send_lock):
             force_close(conn)        # wakes the blocked reader thread
+        # shm channels whose connection cleanup has not run yet: close
+        # and unlink (this side owns the segments), then join their
+        # serve threads
+        for chan in list(self._shm_of.values()):
+            chan.close()
+        for t in list(self._shm_threads):
+            if t is not threading.current_thread():
+                t.join(timeout=10.0)
         # readers hand gradients into the fabric (device tensors): join
         # every thread before returning
         for t in (*self._reader_threads, self._hb_thread):
@@ -578,11 +664,14 @@ class ServerBridge(_Counters):
 
     # -- internals ---------------------------------------------------------
 
-    def _send(self, conn, topic, key, message=None) -> bool:
+    def _send(self, conn, topic, key, message=None,
+              payload: bytes | None = None) -> bool:
         """False (never raises) when the connection is gone: the message
         is dropped, like a Kafka send to a dead consumer — the reader's
         disconnect cleanup drives the actual eviction, so a send from
-        inside the consistency gate can't crash the server."""
+        inside the consistency gate can't crash the server.  `payload`,
+        when given, is `message` already encoded (a durable fabric's log
+        frame), sent as is unless the peer needs the decoded values."""
         if (message is not None
                 and getattr(message, "encoded", None) is not None
                 and self._codec_of.get(conn,
@@ -593,8 +682,10 @@ class ServerBridge(_Counters):
             # compressed peer decodes to, so a mixed fleet stays
             # consistent
             message = dataclasses.replace(message, encoded=None)
-        payload = (self._encode(topic, message) if message is not None
-                   else b"")
+            payload = None
+        if payload is None:
+            payload = (self._encode(topic, message) if message is not None
+                       else b"")
         return self._send_raw(conn, topic, key, payload)
 
     def _dropped(self, count: bool) -> None:
@@ -691,12 +782,15 @@ class ServerBridge(_Counters):
             # the result lands under the state lock BEFORE T_CONFIG goes
             # out: once the peer sees CONFIG it may send coded frames
             self._codec_of[conn] = negotiated
-        # shm: no serving engine here, so a request gets the declined
-        # offer; worker handshakes (no request) stay byte-identical
+        # shm: the offer rides CONFIG only when the peer asked, so worker
+        # handshakes stay byte-identical; declined without an engine
         shm_tail = b""
         if _read_flag(_SHM_TRAILER, payload, off + _CODEC_TRAILER.size
                       + _TRACE_TRAILER.size):
-            shm_tail = _SHM_OFFER.pack(0, b"", b"")
+            chan = self._offer_shm(conn)
+            shm_tail = (_SHM_OFFER.pack(0, b"", b"") if chan is None else
+                        _SHM_OFFER.pack(1, chan.nonce,
+                                        chan.name.encode("ascii")))
         # T_CONFIG goes out BEFORE the ids are registered: once
         # registered, the producer thread may race data rows onto this
         # connection, and the worker-side handshake relies on T_CONFIG
@@ -743,10 +837,7 @@ class ServerBridge(_Counters):
                     msg = self._decode(T_GRADIENTS, payload)
                     self._fabric.send(fabric_mod.GRADIENTS_TOPIC, 0, msg)
                 elif topic == T_PREDICT:
-                    # no prediction engine on this bridge: an explicit
-                    # failure beats a silent hang on the client side
-                    self._send_raw(conn, T_PREDICTION, key,
-                                   encode_prediction(PREDICT_FAILED))
+                    self._handle_predict(conn, key, payload)
         except (ConnectionError, OSError):
             pass
         except Exception as e:
@@ -758,6 +849,89 @@ class ServerBridge(_Counters):
                     self.reader_error = e
         finally:
             self._cleanup_conn(conn, disconnect)
+
+    def _handle_predict(self, conn, key: int, payload) -> None:
+        """One PREDICT frame: submitted to the engine, answered from its
+        callback; PREDICT_FAILED without an engine (an explicit failure
+        beats a silent hang on the client) or for a malformed frame,
+        PREDICT_OVERLOADED at once for an admission shed."""
+        engine = self._serving
+        if engine is None:
+            self._send_raw(conn, T_PREDICTION, key,
+                           encode_prediction(PREDICT_FAILED))
+            return
+        try:
+            x, min_clock, max_age_s, model_id = \
+                decode_predict_request(payload)
+            bound = ReadBound(min_clock=min_clock, max_age_s=max_age_s)
+        except (struct.error, ValueError):      # a malformed frame
+            self._send_raw(conn, T_PREDICTION, key,
+                           encode_prediction(PREDICT_FAILED))
+            return
+
+        def reply(result, conn=conn, key=key):
+            self._send_raw(conn, T_PREDICTION, key, _encode_result(result))
+
+        try:
+            engine.submit(x, bound, reply, model_id=model_id)
+        except OverloadedError:
+            # the shed is synchronous: answered now, nothing was queued
+            self._send_raw(conn, T_PREDICTION, key,
+                           encode_prediction(PREDICT_OVERLOADED))
+        except (ValueError, RuntimeError):
+            # an unknown model id, or the engine closed (shutdown race)
+            self._send_raw(conn, T_PREDICTION, key,
+                           encode_prediction(PREDICT_FAILED))
+
+    def _offer_shm(self, conn):
+        """A shm channel and its serve thread for `conn`; None (the
+        declined offer) when shm is off here, no engine is attached or
+        the segment cannot be made (e.g. /dev/shm full)."""
+        if not self._shm_enabled or self._serving is None:
+            return None
+        try:
+            chan = ShmChannel.create()
+        except OSError:
+            return None
+        t = threading.Thread(target=self._shm_serve, args=(chan,),
+                             daemon=True, name="kps-shm-serve")
+        with self._cv:
+            self._shm_of[conn] = chan
+            self._shm_threads.append(t)
+        t.start()
+        return chan
+
+    def _shm_serve(self, chan) -> None:
+        """One channel's poll loop: pop the pending request, submit it to
+        the engine asynchronously (as the socket path does), publish the
+        reply from the engine's callback.  Depth 1: an unanswered request
+        holds back exactly one client."""
+        engine = self._serving
+        while not self._stop.is_set() and not chan.closed:
+            got = chan.serve_once()
+            if got is None:
+                time.sleep(0.0002)
+                continue
+            seq, raw = got
+            try:
+                x, min_clock, max_age_s, model_id = \
+                    decode_predict_request(raw)
+                bound = ReadBound(min_clock=min_clock, max_age_s=max_age_s)
+            except (struct.error, ValueError):  # a malformed payload
+                chan.respond(seq, encode_prediction(PREDICT_FAILED))
+                continue
+
+            def reply(result, seq=seq):
+                chan.respond(seq, _encode_result(result))
+                with self._wire_lock:
+                    self.shm_predictions += 1
+
+            try:
+                engine.submit(x, bound, reply, model_id=model_id)
+            except OverloadedError as err:
+                reply(err)
+            except (ValueError, RuntimeError) as err:
+                reply(err)
 
     def _cleanup_conn(self, conn: socket.socket, notify: bool) -> None:
         """Purge a dead connection's registrations and, for a disconnect
@@ -781,7 +955,10 @@ class ServerBridge(_Counters):
             self._send_lock.pop(conn, None)
             self._last_recv.pop(conn, None)
             self._codec_of.pop(conn, None)
+            chan = self._shm_of.pop(conn, None)
             self._cv.notify_all()
+        if chan is not None:
+            chan.close()    # ends the connection's shm serve thread
         # a relay's disconnect is a relay restart, not its members'
         # failure: they resend through the next relay, which re-HELLOs
         if (notify and ids and not was_agg and not self._stop.is_set()
@@ -1051,4 +1228,182 @@ class WorkerBridge(_Counters):
             self._writer.close(flush=True)
         # shutdown + close: wakes a reader still blocked in recv (a
         # worker loop's failure closes the bridge under it)
+        force_close(self._sock)
+
+
+class PredictClient:
+    """A prediction client of the serving plane.
+
+    Not a worker: it sends no HELLO (unless it asks for shared memory,
+    with an empty id list), registers no worker ids and so never receives
+    weights or data frames; the connection carries PREDICT/PREDICTION and
+    the server's PINGs, answered here.  Synchronous: one outstanding
+    request per client; run several clients for concurrency.
+
+    `shm=True` asks the server for a shared-memory channel
+    (serving/shm.py) and uses it while it lasts; any failure to set it up
+    or a channel dying between requests falls back to the socket, which
+    the caller never sees.  `reconnect=True` survives a dropped server
+    connection: the client re-dials with exponential backoff up to
+    `reconnect_timeout` seconds and replays the in-flight request.  A
+    STALE or OVERLOADED reply comes from a healthy connection and never
+    re-dials."""
+
+    def __init__(self, host: str, port: int, timeout: float = 30.0, *,
+                 reconnect: bool = False, reconnect_timeout: float = 10.0,
+                 model_id: int = 0, shm: bool = False):
+        self._host, self._port = host, port
+        self._timeout = timeout
+        self._reconnect = reconnect
+        self._reconnect_timeout = reconnect_timeout
+        self._model_id = int(model_id)
+        self._send_lock = threading.Lock()
+        self._req = 0
+        self._closed = False
+        self.reconnects = 0          # successful re-dials
+        self._shm = bool(shm)
+        self._chan = None            # the ShmChannel once negotiated
+        self._sock = self._dial()
+        if self._shm:
+            self._chan = self._negotiate_shm()
+
+    def _dial(self) -> socket.socket:
+        sock = socket.create_connection((self._host, self._port),
+                                        timeout=5.0)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        sock.settimeout(self._timeout)
+        return sock
+
+    def _negotiate_shm(self):
+        """Ask for a shared-memory channel: an empty-ids HELLO carrying
+        the shm request, answered by a CONFIG whose offer names the
+        segment.  Any failure (an older server, a declined offer, a
+        remote peer whose segment does not exist here, a nonce mismatch)
+        returns None and the client stays on its socket."""
+        try:
+            locked_send(self._sock, self._send_lock, T_HELLO, 0,
+                        struct.pack("<q", 0)
+                        + _CODEC_TRAILER.pack(CODEC_SPEC_NONE.codec_id,
+                                              CODEC_SPEC_NONE.param)
+                        + _TRACE_TRAILER.pack(0)
+                        + _SHM_TRAILER.pack(1))
+            while True:
+                frame = recv_frame(self._sock)
+                if frame is None:
+                    return None
+                topic, _key, payload = frame
+                if topic == T_PING:
+                    locked_send(self._sock, self._send_lock, T_PONG, 0)
+                    continue
+                if topic != T_CONFIG:
+                    continue
+                offer = _read_shm_offer(
+                    payload, 16 + _CODEC_TRAILER.size + _TRACE_TRAILER.size)
+                if offer is None:
+                    return None
+                name, nonce = offer
+                return ShmChannel.attach(name, nonce)
+        except (OSError, ShmError, struct.error):
+            return None
+
+    def _drop_chan(self) -> None:
+        chan, self._chan = self._chan, None
+        if chan is not None:
+            chan.close()
+
+    def _redial(self) -> None:
+        """Replace the dead socket, backing off from 0.05 s doubling to 1 s
+        until `reconnect_timeout` is spent."""
+        force_close(self._sock)
+        deadline = time.monotonic() + self._reconnect_timeout
+        backoff = 0.05
+        while not self._closed:
+            try:
+                self._sock = self._dial()
+                self.reconnects += 1
+                if self._shm:
+                    # the old segment died with the old server process
+                    self._drop_chan()
+                    self._chan = self._negotiate_shm()
+                return
+            except OSError as err:
+                if time.monotonic() + backoff > deadline:
+                    raise ConnectionError(
+                        f"serving endpoint {self._host}:{self._port} did "
+                        f"not come back within {self._reconnect_timeout}s"
+                    ) from err
+                time.sleep(backoff)
+                backoff = min(backoff * 2, 1.0)
+        raise ConnectionError("client closed during reconnect")
+
+    def predict(self, x, min_clock: int | None = None,
+                max_age_s: float | None = None,
+                model_id: int | None = None):
+        """A serving.engine.Prediction (label, confidence, vector_clock,
+        wall_time); raises serving.policy.StalenessError when the bound
+        rejects and serving.policy.OverloadedError when the server shed
+        the request (back off and retry)."""
+        self._req += 1
+        payload = encode_predict_request(
+            x, min_clock, max_age_s,
+            self._model_id if model_id is None else model_id)
+        chan = self._chan
+        if chan is not None:
+            try:
+                raw = chan.rpc(payload, timeout=self._timeout)
+            except ShmError:
+                # the channel died: fall through to the socket
+                self._drop_chan()
+            else:
+                return self._decode_reply(raw, min_clock, max_age_s)
+        while True:
+            try:
+                locked_send(self._sock, self._send_lock, T_PREDICT,
+                            self._req, payload)
+                return self._await_reply(min_clock, max_age_s)
+            except (ConnectionError, OSError):
+                if not self._reconnect or self._closed:
+                    raise
+                # a fresh socket holds no stale frames: replaying the
+                # request id is unambiguous (a prediction is idempotent)
+                self._redial()
+
+    def _await_reply(self, min_clock, max_age_s):
+        while True:
+            frame = recv_frame(self._sock)
+            if frame is None:
+                raise ConnectionError(
+                    "server closed before the prediction arrived")
+            topic, key, payload = frame
+            if topic == T_PING:
+                locked_send(self._sock, self._send_lock, T_PONG, 0)
+                continue
+            if topic != T_PREDICTION or key != self._req:
+                continue            # a stray control frame (a CONFIG)
+            return self._decode_reply(payload, min_clock, max_age_s)
+
+    def _decode_reply(self, payload, min_clock, max_age_s):
+        """One PREDICTION payload (a socket frame or the shm response) as
+        the caller's result: a Prediction, or the typed error."""
+        status, label, conf, clock, wall = decode_prediction(payload)
+        if status == PREDICT_STALE:
+            raise StalenessError(
+                f"server rejected the read bound (min_clock="
+                f"{min_clock}, max_age_s={max_age_s})",
+                min_clock=min_clock, max_age_s=max_age_s)
+        if status == PREDICT_OVERLOADED:
+            raise OverloadedError(
+                "server shed the request (admission queue full)")
+        if status != PREDICT_OK:
+            raise RuntimeError("prediction failed on the server")
+        return Prediction(label, conf, clock, wall)
+
+    @property
+    def shm_active(self) -> bool:
+        """True while predict() rides the shared-memory channel."""
+        return self._chan is not None
+
+    def close(self) -> None:
+        self._closed = True
+        self._drop_chan()
         force_close(self._sock)

@@ -39,6 +39,15 @@ With compression on (`compressor`, compress/codecs.WeightsCompressor)
 every WeightsMessage carries the quantize-dequantized theta and its
 encoded parts; the master theta stays full precision.
 
+Serving (serving/): with a SnapshotRegistry attached (`serving`), every
+gate release publishes (theta, stable clock): the per-message and gang
+releases, the bootstrap broadcast, a membership flush and the fused
+loop's chunk boundaries (runtime/app.py).  A snapshot aliases theta,
+which no path writes in place, so publishing copies nothing, waits on
+nothing and leaves training bitwise as it is; a gang publishes each
+release's prefix theta at the clock its gate decision saw, the sequence
+the per-message path publishes.
+
 Range sharding (runtime/sharding.py): a node built with `key_range` owns
 that slice of the flat vector, polls its gradients under `grad_key` and
 answers with weights slices over its range.  A dense slice of its range
@@ -149,6 +158,11 @@ class ServerNode:
         self.composites_received = 0
         self.sparse_applies = 0          # non-empty sparse slices applied
         self.empty_slices = 0            # empty ones: gate only
+        # serving (module docstring): the registry releases publish to,
+        # None to publish nothing; the publications and the last clock
+        self.serving = None
+        self.snapshots_published = 0
+        self.last_published_clock: int | None = None
 
     def attach_eval_engine(self, engine):
         """Arm the async eval plane: eval-cadence applies stop fusing the
@@ -215,6 +229,9 @@ class ServerNode:
         else:
             released.extend(self._flush_gate(notify=False))
         self._emit_gang_notice(sorted(released))
+        # the weights the loop starts from (cold start or restore) are
+        # servable before any gradient arrives
+        self.publish_snapshot()
 
     def _prepared_message(self, clock: int, theta) -> WeightsMessage:
         """WeightsMessage over `theta` (immutable by contract: safe to
@@ -307,6 +324,8 @@ class ServerNode:
             self.send_weights(worker, clock)
         if notify:
             self._emit_gang_notice(release)
+            if release:
+                self.publish_snapshot()
         return release
 
     def _emit_gang_notice(self, release: list[tuple[int, int]]) -> None:
@@ -332,6 +351,8 @@ class ServerNode:
             else:
                 self.send_weights(worker, clock)
         self._emit_gang_notice(release)
+        if release:
+            self.publish_snapshot()
 
     def _group_send(self, release, builder) -> set:
         """Offer a sorted release set to `weights_group_send`;
@@ -355,6 +376,21 @@ class ServerNode:
         if not active:
             return 0
         return min(self.tracker.tracker[w].vector_clock for w in active)
+
+    def publish_snapshot(self, theta=None, clock=None, trace=None) -> None:
+        """Publish (theta, stable clock) to the attached registry; a no-op
+        with serving off.  `theta` defaults to the current theta, `clock`
+        to `serving_clock()`; `trace` rides on the snapshot (None: the
+        port has no tracer yet).  O(1) on the host: the snapshot aliases
+        the tensor."""
+        registry = self.serving
+        if registry is None:
+            return
+        clock = self.serving_clock() if clock is None else int(clock)
+        registry.publish(self.theta if theta is None else theta, clock,
+                         trace=trace)
+        self.snapshots_published += 1
+        self.last_published_clock = clock
 
     # -- the hot path ---------------------------------------------------------
 
@@ -607,6 +643,7 @@ class ServerNode:
         defer_eval = self.eval_engine is not None
         eval_at: dict[int, int] = {}              # position -> clock
         release_at: dict[int, list[tuple[int, int]]] = {}
+        snap_clocks: dict[int, int] = {}          # position -> stable clock
         for i, m in enumerate(msgs):
             self.tracker.received_message(m.worker_id, m.vector_clock)
             if self._wants_eval(m):
@@ -617,6 +654,11 @@ class ServerNode:
                 self.tracker.sent_message(w, c)
             if release:
                 release_at[i] = release
+                if self.serving is not None:
+                    # the stable clock at gate-decision time: the tracker
+                    # here is the per-message path's after message i
+                    # (sent_message moves no clock)
+                    snap_clocks[i] = self.serving_clock()
         lr = self.cfg.server_lr
         t = self.theta
         batch_released: list[tuple[int, int]] = []
@@ -639,6 +681,10 @@ class ServerNode:
                     else:
                         self._send_weights_prepared(worker, clock, t)
                 batch_released.extend(rel)
+                if self.serving is not None:
+                    # the prefix theta this release observed, one snapshot
+                    # per release event, as the per-message path publishes
+                    self.publish_snapshot(t, snap_clocks[i])
         self.theta = t
         self.iterations += len(msgs)
         self.batched_applies += 1

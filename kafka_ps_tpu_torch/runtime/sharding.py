@@ -20,14 +20,18 @@ flat parameter vector with their own vector clocks and gate:
     the router to resend;
   * `ShardedServerGroup`: N ServerNodes behind one facade.  N=1 builds
     the unsharded node through the same code, so theta and the CSV rows
-    are the unsharded server's by construction.
+    are the unsharded server's by construction.  `attach_serving` serves
+    it: at N=1 the node publishes at every release, as the unsharded
+    server does; at N>1 the group publishes the assembled theta at the
+    clock frontier (serving/snapshot.FrontierCutPublisher) between
+    drive-loop passes, only when the frontier advanced, never a torn mix
+    of shard states.
 
 Splitting and assembly are functions of (shard id, worker id, clock)
 alone: no set or dict iteration decides an order in these paths.
 
-Left to their ROADMAP items: tiered residency per shard
-(`attach_param_stores`, item 22) and serving at the frontier
-(`attach_serving`, item 21); both raise.
+Left to its ROADMAP item: tiered residency per shard
+(`attach_param_stores`, item 22) raises.
 """
 
 from __future__ import annotations
@@ -265,6 +269,7 @@ class ShardedServerGroup:
         self.routers: dict[int, ShardRouter] = {}
         self._eval_clock = -1
         self.eval_engine = None
+        self._cut_publisher = None      # attach_serving at N>1
         if num_shards == 1:
             node = ServerNode(cfg, fabric, self.device, test_x, test_y,
                               self.log)
@@ -333,8 +338,20 @@ class ShardedServerGroup:
             "tiered residency per shard is not ported yet (ROADMAP item 22)")
 
     def attach_serving(self, registry) -> None:
-        raise NotImplementedError(
-            "serving at the frontier is not ported yet (ROADMAP item 21)")
+        """Serve the group from `registry`: at N=1 the node publishes at
+        every release (the unsharded plane); at N>1 `publish_frontier`
+        publishes consistent cuts of the assembled theta."""
+        if self.single is not None:
+            self.single.serving = registry
+            return
+        from kafka_ps_tpu_torch.serving.snapshot import FrontierCutPublisher
+        self._cut_publisher = FrontierCutPublisher(registry)
+
+    def publish_frontier(self) -> None:
+        """Publish a cut if the frontier advanced.  Called by the drive
+        loop between passes, where no shard is mid-apply."""
+        if self._cut_publisher is not None:
+            self._cut_publisher.maybe_publish(self.snapshot_cut())
 
     # -- eval at the frontier ----------------------------------------------
 
@@ -416,6 +433,7 @@ class ShardedServerGroup:
     def start(self) -> None:
         for s in self.shards:
             s.start_training_loop()
+        self.publish_frontier()
 
     def run_serial(self, workers, max_server_iterations: int,
                    pump=None) -> None:
@@ -442,6 +460,7 @@ class ShardedServerGroup:
                     shard.process(g)
                     progressed = True
             self.maybe_eval()
+            self.publish_frontier()
             if pump is not None:
                 pump()
             stalled = 0 if progressed else stalled + 1

@@ -2,8 +2,8 @@
 plus the port's device rule.
 
 The dataclasses keep the reference's names and defaults for the fields
-this package implements, compression among them; options of subsystems
-not yet ported (serving, tiering) are absent rather than accepted and
+this package implements, compression and serving among them; options of
+subsystems not yet ported (tiering) are absent rather than accepted and
 ignored.  There is no Pallas switch: on the card the hand-written
 kernels are the only path.
 """
@@ -63,6 +63,23 @@ class StreamConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Online serving plane (serving/): the snapshot ring and the
+    micro-batching prediction engine.  The `--serve` flags of
+    cli/run.py."""
+
+    enabled: bool = False
+    port: int | None = None       # socket endpoint; None = in-process only
+    max_batch: int = 16           # micro-batch size cap
+    deadline_ms: float = 2.0      # max wait to fill a micro-batch
+    ring_capacity: int = 8        # retained snapshots (at_clock reads)
+    queue_limit: int = 0          # per-tenant admission budget; 0 = none
+    shed_deadline_ms: float = 0.0  # predictive shed threshold; 0 = off
+    auto: bool = True             # adaptive dispatch (costmodel.py)
+    shm: bool = False             # offer the same-host shared-memory path
+
+
+@dataclasses.dataclass(frozen=True)
 class PSConfig:
     """Top-level parameter-server configuration."""
 
@@ -95,6 +112,7 @@ class PSConfig:
     # error-feedback residuals.  "none" runs without any codec.  Not
     # with the fused BSP path (its rounds send no messages)
     compress: str = "none"
+    serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
 
     @property
     def server_lr(self) -> float:

@@ -800,3 +800,34 @@ def test_one_sharded_bridge_round_on_the_card_is_bitwise(card, task, slab):
     for a, b in zip(ref_grads, grads):
         assert torch.equal(a.values, b.values)
     assert torch.equal(ref_theta, theta) and theta.device.type == "cuda"
+
+
+# -- the serving plane on the card (tests/torch_serving_runs.py) -------------
+
+
+@pytest.mark.parametrize("task,hidden", [("logreg", 128), ("mlp", 128),
+                                         ("mlp", 4096)])
+def test_serving_engine_on_the_card_matches_the_cpu(card, task, hidden):
+    """The engine's answers on the card against its answers on the CPU
+    from the same snapshot at F=1024, C=5, at every bucket size 1..16:
+    confidences within rtol 1e-5, atol 1e-6, labels equal wherever the
+    top-two logit margin exceeds 1e-5."""
+    from torch_serving_runs import engine_card_vs_cpu
+    out = engine_card_vs_cpu(card, task, hidden)
+    assert out["snapshot_device"] == "cuda" and out["clock"] == 6
+    assert out["within"], out
+    assert out["label_mismatches"] == 0 and out["defined"] >= 14, out
+
+
+@pytest.mark.parametrize("c", [0, 3, -1])
+def test_serving_does_not_perturb_a_serial_run_on_the_card(card, c):
+    """A serial run on the card under a live read load: theta and the
+    rows bitwise the same run without serving."""
+    from torch_serving_runs import read_load_run, serve_config, strip_ts
+    cfg = serve_config(c)
+    on = read_load_run(cfg, card, serve=True)
+    off = read_load_run(cfg, card, serve=False)
+    assert on["stats"]["requests"] > 0 and on["stats"]["errors"] == 0
+    assert torch.equal(on["theta"], off["theta"])
+    assert strip_ts(on["worker"]) == strip_ts(off["worker"])
+    assert strip_ts(on["server"]) == strip_ts(off["server"])

@@ -10,8 +10,9 @@ alone, decoded tensors land on the bridge's device, and a reader's
 exception that is not a connection error is kept, never a disconnect.
 
 Every comparison is exact (bytes, or values that crossed a lossless f32
-frame).  The prediction, shared-memory and relay cases of the JAX file
-wait for their subsystems.
+frame).  The prediction and shared-memory cases of the JAX file are in
+tests/test_torch_serving_net.py; here, without an engine, a PREDICT is
+answered PREDICT_FAILED and a shm request gets the declined offer.
 """
 
 from __future__ import annotations

@@ -449,8 +449,14 @@ def test_group_refuses_what_is_not_ported():
                                device="cpu")
     with pytest.raises(NotImplementedError, match="item 22"):
         group.attach_param_stores(lambda s: None)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        group.attach_serving(object())
+    # serving at the frontier is ported: attaching no longer raises, and
+    # the start publishes the assembled theta at frontier clock 0
+    from kafka_ps_tpu_torch.serving.snapshot import SnapshotRegistry
+    registry = SnapshotRegistry()
+    group.attach_serving(registry)
+    group.start()
+    assert registry.latest.vector_clock == 0
+    assert torch.equal(registry.latest.theta, group.assembled_theta())
 
 
 # -- per-shard checkpoints -------------------------------------------------

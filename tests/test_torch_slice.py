@@ -279,7 +279,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "runtime.wire", "runtime.net", "cli.socket_mode",
               "cli.server_runner", "cli.worker_runner",
               "runtime.sharding", "agg", "agg.core", "agg.relay",
-              "cli.agg_runner"):
+              "cli.agg_runner", "serving", "serving.policy",
+              "serving.snapshot", "serving.costmodel", "serving.engine",
+              "serving.shm", "serving.replica", "serving.loadgen",
+              "utils.trace"):
         assert f"kafka_ps_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -369,7 +369,11 @@ def test_split_worker_sigkill_restart_recovers_buffers(tmp_path):
 
 
 @pytest.mark.parametrize("runner,argv,item", [
-    (server_runner, ["--serve-replica"], "item 21"),
+    # the read replica (ROADMAP item 21) is ported: what it still refuses
+    # is --listen, and running without --durable-log
+    pytest.param(server_runner, ["--serve-replica", "--listen", "0",
+                                 "--durable-log", "wal"], "standalone",
+                 id="kafka_ps_tpu_torch.cli.server_runner-argv0-item 21"),
     (server_runner, ["--listen", "0", "--durable-log", "wal"],
      "--checkpoint"),
     (worker_runner, ["--connect", "127.0.0.1:1", "--durable-log", "wal"],
@@ -378,7 +382,8 @@ def test_split_worker_sigkill_restart_recovers_buffers(tmp_path):
     (server_runner, ["--listen", "0", "--shards", "2", "--shard-id", "2"],
      "--shard-id"),
     (worker_runner, ["--connect", "127.0.0.1:1", "--aggregate",
-                     "127.0.0.1:2"], "exclusive")])
+                     "127.0.0.1:2"], "exclusive"),
+    (server_runner, ["--serve-replica"], "requires --durable-log")])
 def test_runners_refuse_what_is_not_ported(runner, argv, item, monkeypatch):
     monkeypatch.setenv("KPS_PLATFORM", "cpu")
     with pytest.raises(SystemExit, match=item):
