@@ -148,7 +148,27 @@
    p50/p99 ms, answered QPS, shed and stale shares, dispatches, rows per
    dispatch, bypass share, the served clock's lag behind the stable clock
    at the end, and iterations/s with and without the read load.
-8. Profile: one more default serial -c 0 run per family, one of logreg
+8. Tier phase (store/): a TieredParamStore on the card over the MLP's
+   theta at H=4096 in 65 pages of 65,536 keys, 32 hot, 16 warm and 17
+   cold under the caps, pins shifting the heat so that pages move between
+   every pair of tiers, `assembled()` bitwise after every rebalance, the
+   hot bytes under the hot cap and a per-page apply bitwise the whole
+   apply; then cli.run under --tier-hot-bytes / --tier-warm-bytes /
+   --tier-page-params with --durable-log beside the same run without
+   the caps on a 512-row CSV, theta (SHA-256 of the exit checkpoint) and
+   the rows bitwise, every tier occupied at exit, faults and migrations:
+   the MLP at H=4096 serial -c 0 (40 iterations) and logreg serial at
+   -c 0, 2 and -1; a threaded -c 2 capped run (eval lag 0, the policy
+   thread migrating); a capped run killed after a checkpoint and resumed,
+   the recorded residency applied and the final checkpoint bitwise the
+   uninterrupted capped run's; then server_runner --listen with a hot cap
+   and two worker processes (-c 2), and --shards 2 --durable-log with
+   per-shard caps at H=128, dense and with --compress topk:0.01, each
+   shard's cold pages under its own shard<I>of2 directory, each run's
+   final F1 within 1/len(test) of its uncapped twin's.  Per run: the
+   store's stats (tiers, pins, faults, migrations, bytes on the card,
+   bytes uploaded and fetched) and iterations/s capped and resident.
+9. Profile: one more default serial -c 0 run per family, one of logreg
    with int8 slabs, one of logreg --compress int8 and one of logreg
    --fused --eval_every 10 (200
    iterations each), under torch.profiler (CUDA activity only) and
@@ -157,9 +177,9 @@
    Python function, with the rank of the CSV parse's functions in it.
    In the fused run, whose chunks replay CUDA graphs, the K2 kernels the
    profiler traced must equal the launch counter.
-9. The `kernels` JSON line (the split, scale-out and serving runs' worker
-   calls counted in the launches), the card line, and last the result
-   line.
+10. The `kernels` JSON line (the split, scale-out, serving and tier
+   runs' worker calls counted in the launches), the card line, and last
+   the result line.
 
 Any failed phase raises: the script exits non-zero and prints no result.
 It also exits non-zero without a card, and when the package is absent.
@@ -230,6 +250,14 @@ SCALE_ITERS, SCALE_SHORT, SCALE_WIDE, SCALE_REF_ITERS = 200, 100, 40, 40
 # the serving phase: the CSV of the bitwise pair (4 workers x the default
 # 128-row prefill), the closed load's clients, the engine's batch cap
 SERVE_TRAIN_ROWS, SERVE_CLIENTS, SERVE_BATCH = 512, 4, 16
+# the tier phase: keys per page and the hot and warm caps in bytes, for the
+# store and the run at H=4096 (65 pages: 32 hot, 16 warm, 17 cold), for
+# logreg (25 pages: 2 hot, 4 warm) and a shard at H=128 (17 pages: 1 hot,
+# 2 warm); server iterations of the wide run
+TIER_WIDE_PAGE, TIER_WIDE_HOT, TIER_WIDE_WARM = 65536, 8388608, 4194304
+TIER_PAGE, TIER_HOT, TIER_WARM = 256, 2048, 4096
+TIER_SHARD_PAGE, TIER_SHARD_HOT, TIER_SHARD_WARM = 4096, 16384, 32768
+TIER_WIDE_ITERS = 40
 SLAB_KINDS = ("bf16", "int8")
 X_BYTES = {"bf16": 2, "int8": 1}
 # the Pallas body each storage form of K3 and K5 replaces
@@ -1521,6 +1549,9 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
               f"; iters_per_s={rate:.1f}")
         if not dur["commits"] or not sum(dur["appends"].values()):
             raise RuntimeError(f"{tag}: the log took no appends or commits")
+    tier = stats.get("tier")
+    if tier is not None:
+        print(f"  tier: {tier_line(tier)}; iters_per_s={rate:.1f}")
     if rc != 0 or len(new_worker) < iters_run or not server:
         raise RuntimeError(f"{tag}: short run")
     # every worker iteration logs one worker row and runs one kernel
@@ -1574,7 +1605,7 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
     return {"task": task, "kind": kind, "single": single,
             "gang_calls": gang_calls, "hidden": hidden, "fused": fused,
             "rate": rate, "durable": dur, "serving": stats.get("serving"),
-            "tag": tag}
+            "tag": tag, "tier": tier, "eval": ev}
 
 
 def durable_runs() -> list[dict]:
@@ -1720,7 +1751,8 @@ def _wire_line(side: str, stats: dict) -> str:
 
 
 def split_run(task: str, c: int, iters: int, flags: tuple = (),
-              hidden: int = H, kill: bool = False, during=None) -> dict:
+              hidden: int = H, kill: bool = False, during=None,
+              server_flags: tuple = ()) -> dict:
     """The port's split deployment on the card: server_runner --listen 0
     and two worker_runner processes of 2 workers (F=1024, C=5, buffer max
     1024, k=2, lr 0.5) on write_data()'s CSV, each process in its own
@@ -1736,10 +1768,11 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
     process has logged 50 rows; its restored buffers and readmission are
     checked.  `during(port, server_err_path)`, when given, is called once
     the processes are started and returns a callable that is called once
-    they have ended (a serving load, serving_runs)."""
+    they have ended (a serving load, serving_runs).  `server_flags` go
+    to the server process only (the tier caps)."""
     import signal
     tag = "-".join(["split", task, f"c{c}",
-                    *(f.lstrip("-") for f in flags)]
+                    *(f.lstrip("-") for f in flags + server_flags)]
                    + ([f"H{hidden}"] if hidden != H else [])
                    + (["kill"] if kill else []))
     base = os.path.join(OUT, tag)
@@ -1758,7 +1791,8 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
     server_cmd = [sys.executable, "-m", "kafka_ps_tpu_torch.cli."
                   "server_runner", "--listen", str(port), "-training",
                   "../../train.csv", "-p", "0", "-c", str(c),
-                  "--max_iterations", str(0 if kill else iters), *common]
+                  "--max_iterations", str(0 if kill else iters), *common,
+                  *server_flags]
     if kill:
         server_cmd += ["--failure_policy", "rebalance",
                        "--heartbeat_timeout", "10"]
@@ -1916,7 +1950,9 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
             raise RuntimeError(f"{tag}: codec not negotiated as {want}")
     return {"task": task, "kind": kind, "single": sum(calls),
             "gang_calls": 0, "hidden": hidden, "fused": False,
-            "rate": rate, "steady": steady_rate(all_rows), "server": server}
+            "rate": rate, "steady": steady_rate(all_rows), "server": server,
+            "f1": f1, "topology": "split", "c": c, "flags": flags,
+            "server_flags": server_flags, "kill": kill}
 
 
 def split_runs(direct: dict) -> list[dict]:
@@ -2095,7 +2131,7 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
                  flags: tuple = (), hidden: int = H,
                  relay_flags: tuple = (), kill: bool = False,
                  direct_rate: float | None = None, durable: bool = False,
-                 during=None) -> dict:
+                 during=None, server_flags: tuple = ()) -> dict:
     """One run of a scale-out topology on the card, every process in its
     own directory under OUT, on write_data()'s CSV (F=1024, C=5, 4
     workers, buffer max 1024, k=2): "shards" is server_runner --listen
@@ -2118,10 +2154,12 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
     `durable` (shards): --durable-log without the kill.  `during(wal)`,
     when given, is called once the processes are started and returns a
     callable that is called once they have ended (a replica following
-    the shards' logs, serving_runs)."""
+    the shards' logs, serving_runs).  `server_flags` go to the shard or
+    server processes only (the tier caps)."""
     import signal
     tag = "-".join(["scale", topology, task, f"c{c}",
-                    *(f.lstrip("-") for f in flags + relay_flags)]
+                    *(f.lstrip("-") for f in flags + relay_flags
+                      + server_flags)]
                    + ([f"H{hidden}"] if hidden != H else [])
                    + (["kill"] if kill else []))
     base = os.path.join(OUT, tag)
@@ -2150,14 +2188,15 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
                 "-training", "../../train.csv", "-p", "0", "-c", str(c),
                 "--max_iterations", str(iters), "--checkpoint", "job.npz",
                 "--checkpoint_every", "25" if kill else "1000000",
-                *common] + (["--durable-log", wal] if kill or durable
-                            else [])
+                *common, *server_flags] + (["--durable-log", wal]
+                                           if kill or durable else [])
         dial = ["--connect", ",".join(f"127.0.0.1:{p}" for p in ports)]
     else:
         cmds["server"] = mod + [
             "kafka_ps_tpu_torch.cli.server_runner", "--listen",
             str(ports[0]), "-training", "../../train.csv", "-p", "0", "-c",
-            str(c), "--max_iterations", str(iters), *common]
+            str(c), "--max_iterations", str(iters), *common,
+            *server_flags]
         cmds["relay"] = mod + [
             "kafka_ps_tpu_torch.cli.agg_runner", "--connect",
             f"127.0.0.1:{ports[0]}", "--listen", str(ports[1]),
@@ -2349,7 +2388,10 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
         raise RuntimeError(f"{tag}: bad final F1 {f1}")
     return {"task": task, "kind": kind, "single": sum(calls),
             "gang_calls": 0, "hidden": hidden, "fused": False,
-            "rate": min(rates), "steady": steady}
+            "rate": min(rates), "steady": steady, "f1": f1, "dir": base,
+            "shards": shards if topology == "shards" else None,
+            "topology": topology, "c": c, "flags": flags + relay_flags,
+            "server_flags": server_flags, "kill": kill}
 
 
 def scaleout_runs(direct: dict) -> list[dict]:
@@ -2829,6 +2871,364 @@ def serving_runs(threaded_rate: float) -> list[dict]:
     return runs
 
 
+# -- the tier phase (store/: tiered parameter residency) ---------------------
+
+def tier_flags(page: int, hot: int, warm: int) -> tuple:
+    return (("--tier-hot-bytes", str(hot))
+            + (("--tier-warm-bytes", str(warm)) if warm else ())
+            + ("--tier-page-params", str(page)))
+
+
+def tier_line(st: dict) -> str:
+    """A store's stats (store/tiered.TieredParamStore.stats) in one line."""
+    return (f"{st['pages']} pages of {st['page_params']} keys, tiers "
+            f"{st['tiers']} (after the last rebalance "
+            f"{st['settled_tiers']}), pins {st['pins']}, faults "
+            f"{st['faults']}, "
+            f"promotions {st['promotions']}, demotions {st['demotions']}, "
+            f"rebalances {st['rebalances']}, device_bytes "
+            f"{st['device_bytes']}, upload_bytes {st['upload_bytes']}, "
+            f"host_upload_bytes {st['host_upload_bytes']}, "
+            f"host_fetch_bytes {st['host_fetch_bytes']}, cold appends "
+            f"{st['cold_appends']} reads {st['cold_reads']}")
+
+
+def _sha(path: str):
+    """(SHA-256 of a checkpoint's theta, its recorded residency or None)."""
+    import hashlib
+    with np.load(path) as z:
+        theta = z["theta"]
+        residency = (z["tier_residency"].copy()
+                     if "tier_residency" in z.files else None)
+    return hashlib.sha256(theta.tobytes()).hexdigest(), residency
+
+
+def _stripped(run: dict) -> list:
+    return [strip_stamps(open(os.path.join(OUT, f"{k}-{run['tag']}.csv"))
+                         .read().splitlines()[1:])
+            for k in ("server", "worker")]
+
+
+def tier_store_check(dev) -> None:
+    """A TieredParamStore on the card over the MLP's initial theta at
+    H=4096 (4,222,982 parameters) in pages of TIER_WIDE_PAGE keys: 65
+    pages (64 full, one of 28,678), 32 hot, 16 warm and 17 cold in a
+    ColdStore under the caps.  Pins shift the heat twice, so that pages
+    move hot -> warm -> cold and back; after every rebalance the tier
+    counts hold, the hot pages' bytes on the card stay under the hot cap,
+    `assembled()` is bitwise the values written, and a per-page apply
+    (t + lr*d per page, on the card, as the server's) is bitwise the
+    whole-vector apply."""
+    from kafka_ps_tpu_torch.models.task import get_task
+    from kafka_ps_tpu_torch.runtime.messages import KeyRange
+    from kafka_ps_tpu_torch.store import (TIER_NAMES, ColdStore,
+                                          TieredParamStore)
+    from kafka_ps_tpu_torch.utils.config import ModelConfig
+    cfg = ModelConfig(num_features=F, num_classes=C, hidden_dim=WIDE_H)
+    theta = get_task("mlp", cfg).init_params(dev)
+    n = theta.numel()
+    wal = os.path.join(OUT, "wal-tier-store")
+    remove(wal)
+    store = TieredParamStore(theta, KeyRange(0, n), hot_bytes=TIER_WIDE_HOT,
+                             warm_bytes=TIER_WIDE_WARM,
+                             page_params=TIER_WIDE_PAGE,
+                             cold=ColdStore.open(wal), device=dev)
+    last = store.page_range(store.num_pages - 1)
+    print(f"tier store on the card: {n} parameters, {store.num_pages} pages "
+          f"of {TIER_WIDE_PAGE} keys (the last {last.end - last.start}), "
+          f"caps hot {TIER_WIDE_HOT} B warm {TIER_WIDE_WARM} B")
+    if (store.num_pages != -(-n // TIER_WIDE_PAGE)
+            or last.end - last.start != n - (n - 1) // TIER_WIDE_PAGE
+            * TIER_WIDE_PAGE):
+        raise RuntimeError("tier store: page geometry")
+    # the caps hold whole full pages; the short last page starts cold
+    hot = TIER_WIDE_HOT // (4 * TIER_WIDE_PAGE)
+    warm = TIER_WIDE_WARM // (4 * TIER_WIDE_PAGE)
+    want_counts = {"hot": hot, "warm": warm,
+                   "cold": store.num_pages - hot - warm}
+    gen = torch.Generator(device=dev).manual_seed(12)
+    lr = 1.0 / WORKERS
+    state = {"theta": theta, "residency": store.residency_vector()}
+    moves: dict = {}
+
+    def settle(step: str) -> None:
+        t0 = time.perf_counter()
+        moved = store.rebalance()
+        ms = (time.perf_counter() - t0) * 1e3
+        now = store.residency_vector()
+        for a, b in zip(state["residency"], now):
+            if a != b:
+                key = f"{TIER_NAMES[a]}->{TIER_NAMES[b]}"
+                moves[key] = moves.get(key, 0) + 1
+        state["residency"] = now
+        counts = store.tier_counts()
+        dbytes = store.stats()["device_bytes"]
+        current = state["theta"]
+        same = store.assembled().tobytes() == current.cpu().numpy().tobytes()
+        # a per-page apply against the whole-vector apply, on the card
+        delta = torch.randn(n, generator=gen, device=dev)
+        full = current + lr * delta
+        for i, kr, value in store.pin_pages(KeyRange(0, n)):
+            store.update_page(i, store.to_device(value)
+                              + lr * delta[kr.start:kr.end])
+        paged = torch.equal(store.assembled_tensor(), full)
+        state["theta"] = full
+        print(f"  {step}: rebalance {ms:.1f} ms (host clock), moved "
+              f"{moved['moved']} pages, tiers {counts}, device_bytes "
+              f"{dbytes} (cap {TIER_WIDE_HOT}), assembled() bitwise {same},"
+              f" per-page apply bitwise the whole apply {paged}")
+        if counts != want_counts or dbytes > TIER_WIDE_HOT or not same \
+                or not paged:
+            raise RuntimeError(f"tier store: {step} failed")
+
+    settle("initial residency")
+    # heat on the last `hot` pages (warm and cold), then back on the first
+    top = store.num_pages - hot
+    for i in range(top, store.num_pages):
+        for _ in range(8):
+            store.pin(store.page_range(i))
+    settle(f"heat on pages {top}-{store.num_pages - 1}")
+    for i in range(hot):
+        for _ in range(16):
+            store.pin(store.page_range(i))
+    settle(f"heat back on pages 0-{hot - 1}")
+    st = store.stats()
+    store.close()
+    remove(wal)
+    print(f"  moves by rebalance {moves}; {tier_line(st)}")
+    for key in ("hot->warm", "warm->cold", "cold->hot", "hot->cold",
+                "warm->hot"):
+        if not moves.get(key):
+            raise RuntimeError(f"tier store: no {key} move")
+    if not st["faults"]:
+        raise RuntimeError("tier store: no cold fault")
+
+
+def tier_cli_pair(task: str, mode: str, c: int, iters: int, tier: tuple,
+                  hidden: int = H, name: str = "") -> list[dict]:
+    """`cli.run` on the 512-row CSV with --durable-log and an exit
+    checkpoint, under the tier caps and without them: the final theta's
+    SHA-256 and the rows (less their stamps) equal (the capped run's
+    checkpoint stays, as `ck-tier-<name>-capped.npz`); the capped store's
+    last rebalance left pages in every tier, and pages were faulted in
+    from the log and migrated.  (A dense apply writes every page, a cold
+    one landing warm, and a read of theta faults the cold pages in, so
+    the residency at exit, which the checkpoint records, may hold no cold
+    page until the policy's next pass.)"""
+    runs = []
+    for arm, flags in (("capped", tier), ("plain", ())):
+        wal, ck = f"wal-tier-{name}-{arm}", f"ck-tier-{name}-{arm}.npz"
+        for stale in (wal, ck):
+            remove(os.path.join(OUT, stale))
+        runs.append(main_path_run(
+            task, mode, c, iters, ("--durable-log", wal, "--checkpoint", ck,
+                                   "--checkpoint_every", "1000000", *flags),
+            hidden, train="tier-train.csv"))
+        remove(os.path.join(OUT, wal))
+    capped, plain = runs
+    (a, residency), (b, _) = (
+        _sha(os.path.join(OUT, f"ck-tier-{name}-{arm}.npz"))
+        for arm in ("capped", "plain"))
+    rows = _stripped(capped) == _stripped(plain)
+    st = capped["tier"]
+    counts = np.bincount(residency, minlength=3).tolist()
+    settled = [st["settled_tiers"][t] for t in ("hot", "warm", "cold")]
+    print(f"tier {name}: {task} {mode} -c {c} H={hidden} {' '.join(tier)}: "
+          f"theta SHA-256 {a[:16]}.. against {b[:16]}.. equal {a == b}, "
+          f"rows (less stamps) equal {rows}; (hot, warm, cold) pages after "
+          f"the last rebalance {settled}, at exit {counts}; iterations/s "
+          f"{capped['rate']:.1f} "
+          f"capped against {plain['rate']:.1f} resident "
+          f"({capped['rate'] / plain['rate']:.3f}x) [{card_line()}]")
+    if a != b or not rows:
+        raise RuntimeError(f"tier {name}: the capped run differs from the "
+                           "resident run")
+    if min(settled) < 1 or not st["faults"] or not (st["promotions"]
+                                                    and st["demotions"]):
+        raise RuntimeError(f"tier {name}: tiers {settled}, faults "
+                           f"{st['faults']}, promotions {st['promotions']},"
+                           f" demotions {st['demotions']}")
+    remove(os.path.join(OUT, f"ck-tier-{name}-plain.npz"))
+    return runs
+
+
+def tier_crash_check(base: str) -> None:
+    """A capped serial -c 0 run (logreg, the 512-row CSV, --durable-log,
+    --checkpoint_every 50, --eval_every 10) killed with SIGKILL right after
+    iteration CLI_KILL_AT (scripts/torch_kill_at.py), then the same
+    command again, which restores into a tiered store (`-v` prints its
+    tier counts after the restore) and replays: the final checkpoint
+    equals `base`, the exit checkpoint of the uninterrupted capped run of
+    tier_cli_pair (theta, clocks, iterations; its other eval cadence and
+    checkpoint period change no value).  The residency the killed run's
+    checkpoint recorded is printed beside the restored store's: they may
+    differ, because the policy thread runs from the store's attach on and
+    moves pages by heat at once (a dense run's checkpoint records its cold
+    pages faulted warm); `tests/test_torch_store.py` and
+    `tests/test_torch_tier_runs.py` hold `set_residency` and the
+    checkpoint's residency to the JAX package's without that thread."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    args = ["-training", "tier-train.csv", "-test", "test.csv",
+            "--num_workers", str(WORKERS), "--num_features", str(F),
+            "--num_classes", str(C), "--mode", "serial", "-c", "0",
+            "-p", "2", "--eval_every", "10", "--max_iterations",
+            str(ITERS), "--checkpoint_every", "50", "-v",
+            *tier_flags(TIER_PAGE, TIER_HOT, TIER_WARM)]
+    cli = [sys.executable, "-m", "kafka_ps_tpu_torch.cli.run"]
+    kill = [sys.executable, os.path.join(REPO, "scripts", "torch_kill_at.py"),
+            str(CLI_KILL_AT), "--"]
+    names = ("ck-tier-crash.npz", "ck-tier-killed.npz", "wal-tier-crash")
+    for stale in names:
+        remove(os.path.join(OUT, stale))
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=OUT, env=env, capture_output=True,
+                           text=True, timeout=300)
+        return r, time.perf_counter() - t0
+
+    wal = ["--checkpoint", "ck-tier-crash.npz", "--durable-log",
+           "wal-tier-crash"]
+    killed, killed_s = run(kill + args + wal)
+    if killed.returncode != -9:
+        raise RuntimeError(f"tier crash check: the killed run ended with "
+                           f"{killed.returncode}:\n{killed.stderr[-2000:]}")
+    shutil.copy(os.path.join(OUT, "ck-tier-crash.npz"),
+                os.path.join(OUT, "ck-tier-killed.npz"))
+    again, again_s = run(cli + args + wal)
+    if again.returncode != 0:
+        raise RuntimeError("tier crash check: the restart failed:\n"
+                           + again.stderr[-2000:])
+    _, recorded = _sha(os.path.join(OUT, "ck-tier-killed.npz"))
+    want = dict(zip(("hot", "warm", "cold"),
+                    np.bincount(recorded, minlength=3).tolist()))
+    restored = [ln.strip() for ln in again.stdout.splitlines()
+                if "restored tier residency" in ln]
+    stats = [json.loads(line.split(": ", 1)[1])
+             for line in again.stderr.splitlines()
+             if line.startswith("kafka_ps_tpu_torch run: ")][-1]
+    with np.load(os.path.join(OUT, base)) as a, \
+            np.load(os.path.join(OUT, "ck-tier-crash.npz")) as b:
+        same = (a["theta"].tobytes() == b["theta"].tobytes()
+                and np.array_equal(a["clocks"], b["clocks"])
+                and int(a["iterations"]) == int(b["iterations"]) == ITERS)
+    print(f"tier crash check on the card: killed at {CLI_KILL_AT} after "
+          f"{killed_s:.1f} s, restart "
+          f"{again_s:.1f} s: {restored} (the killed run's last checkpoint "
+          f"recorded {want}); restore {stats['checkpoint']['restore_s']:.4f}"
+          f" s, replay {stats['durable']['replay_s']:.4f} s "
+          f"({stats['durable']['replayed']}); restarted store: "
+          f"{tier_line(stats['tier'])}; final checkpoint equal to the "
+          f"uninterrupted capped run's (theta, clocks, {ITERS} iterations): "
+          f"{same}")
+    if not same or len(restored) != 1:
+        raise RuntimeError("tier crash check: the resumed run differs from "
+                           "the uninterrupted capped run, or it did not "
+                           "restore into a tiered store:\n"
+                           + again.stdout[-1500:] + again.stderr[-1500:])
+    for stale in names:
+        remove(os.path.join(OUT, stale))
+
+
+def tier_runs(dev, twins: dict) -> list[dict]:
+    """The tier phase: the store on the card (tier_store_check); cli.run
+    under the caps beside the same run without them on a 512-row CSV (4
+    workers x the 128-row prefill: every row buffered before the first
+    iteration, so the pair is deterministic), bitwise: the MLP at H=4096
+    serial -c 0 (TIER_WIDE_ITERS iterations, 65 pages) and logreg serial
+    at -c 0, 2 and -1 (25 pages of TIER_PAGE keys); a threaded -c 2
+    capped logreg run on the whole CSV (the policy thread racing real
+    applies: eval lag 0, rebalances and migrations); the crash and resume
+    (tier_crash_check); then, held to completion and to F1 within
+    1/len(test) of the uncapped twin (arrival order makes these runs
+    differ run to run): server_runner --listen with a hot cap (a split
+    server refuses --durable-log, so it has no cold tier) and two worker
+    processes at -c 2 (SPLIT_ITERS), and --shards 2 --durable-log with
+    per-shard caps for the MLP at H=128 -c -1 (17 pages of
+    TIER_SHARD_PAGE keys a shard), dense and with --compress topk:0.01
+    (the tiered sparse apply), each shard's cold partition under its
+    shard<I>of2 directory.  `twins` holds the uncapped runs of the split
+    and scale-out phases with the same flags ("split": logreg -c 2,
+    "shards": the MLP at H=128 -c -1); the top-k twin runs here."""
+    runs = []
+    with open(os.path.join(OUT, "train.csv")) as f:
+        head = [next(f) for _ in range(SERVE_TRAIN_ROWS + 1)]
+    with open(os.path.join(OUT, "tier-train.csv"), "w") as f:
+        f.writelines(head)
+    tier_store_check(dev)
+    wide = tier_flags(TIER_WIDE_PAGE, TIER_WIDE_HOT, TIER_WIDE_WARM)
+    runs += tier_cli_pair("mlp", "serial", 0, TIER_WIDE_ITERS, wide,
+                          hidden=WIDE_H, name="wide")
+    small = tier_flags(TIER_PAGE, TIER_HOT, TIER_WARM)
+    for c in (0, 2, -1):
+        runs += tier_cli_pair("logreg", "serial", c, ITERS, small,
+                              name=f"logreg-c{c}")
+    tier_crash_check("ck-tier-logreg-c0-capped.npz")
+    wal, ck = "wal-tier-threaded", "ck-tier-threaded.npz"
+    for stale in (wal, ck):
+        remove(os.path.join(OUT, stale))
+    run = main_path_run("logreg", "threaded", 2, ITERS,
+                        ("--durable-log", wal, "--checkpoint", ck,
+                         "--checkpoint_every", "1000000", *small))
+    for stale in (wal, ck):
+        remove(os.path.join(OUT, stale))
+    st = run["tier"]
+    print(f"tier threaded -c 2: eval lag {run['eval']['lag_clocks']}, "
+          f"rebalances {st['rebalances']}, migrations "
+          f"{st['promotions'] + st['demotions']}, iterations/s "
+          f"{run['rate']:.1f}")
+    if run["eval"]["lag_clocks"] != 0 or not st["rebalances"] \
+            or not st["promotions"] + st["demotions"]:
+        raise RuntimeError("tier threaded -c 2: the policy thread did not "
+                           "race the applies")
+    runs.append(run)
+    # within one test row: a flipped row moves the weighted F1 of this
+    # test set by 1/len(test) +- 3e-8, so the bound has 1e-6 of room
+    tol = 1.0 / TEST_ROWS + 1e-6
+    split_tier = tier_flags(TIER_PAGE, TIER_HOT, 0)
+    capped = split_run("logreg", 2, SPLIT_ITERS, server_flags=split_tier)
+    pairs = [("split", capped, twins["split"])]
+    print(f"  tier split server: {tier_line(capped['server']['tier'])}")
+    shard_tier = tier_flags(TIER_SHARD_PAGE, TIER_SHARD_HOT, TIER_SHARD_WARM)
+    for flags in ((), ("--compress", "topk:0.01")):
+        capped = scaleout_run("shards", "mlp", -1, SCALE_SHORT, flags,
+                              durable=True, server_flags=shard_tier)
+        plain = (twins["shards"] if not flags else
+                 scaleout_run("shards", "mlp", -1, SCALE_SHORT, flags))
+        for i, st in enumerate(capped["shards"]):
+            cold = os.path.join(capped["dir"], "wal", f"shard{i}of2",
+                                "param-cold")
+            print(f"  tier shard {i}: {tier_line(st['tier'])}; cold "
+                  f"partition {os.path.relpath(cold, OUT)} present "
+                  f"{os.path.isdir(cold)}")
+            if not os.path.isdir(cold) or os.path.exists(os.path.join(
+                    capped["dir"], "wal", "param-cold")):
+                raise RuntimeError(f"tier shards: shard {i}'s cold pages "
+                                   "are not under its own directory")
+            lo, hi = st["key_range"]
+            if st["tier"]["pages"] != -(-(hi - lo) // TIER_SHARD_PAGE):
+                raise RuntimeError(f"tier shards: {st['tier']['pages']} "
+                                   "pages a shard")
+        if flags and not all(st["sparse_applies"]
+                             for st in capped["shards"]):
+            raise RuntimeError("tier shards: no tiered sparse apply")
+        remove(os.path.join(capped["dir"], "wal"))
+        pairs.append(("shards " + " ".join(flags or ("dense",)), capped,
+                      plain))
+        runs.append(capped)
+        if flags:
+            runs.append(plain)
+    for name, capped, plain in pairs:
+        print(f"tier {name}: final F1 {capped['f1']:.6f} capped against "
+              f"{plain['f1']:.6f} uncapped (tolerance {tol}); iterations/s "
+              f"{capped['rate']:.1f} against {plain['rate']:.1f}")
+        if abs(capped["f1"] - plain["f1"]) > tol:
+            raise RuntimeError(f"tier {name}: F1 off the uncapped twin's")
+    runs.append(pairs[0][1])
+    remove(os.path.join(OUT, "ck-tier-logreg-c0-capped.npz"))
+    return runs
+
+
 @contextlib.contextmanager
 def observed_graphs():
     """(graphs, added): every CUDA graph made inside, its captured graph
@@ -3122,12 +3522,23 @@ def main() -> int:
         t_serve_runs = time.perf_counter()
         runs += serving_runs(runs[1]["rate"])
         t_serve = time.perf_counter()
+        # the uncapped runs the tier phase's split and shard runs stand
+        # beside: the same topology, task, H, -c and flags
+        twins = {name: next(
+            r for r in runs if r.get("topology") == top
+            and (r["task"], r["hidden"], r["c"], r["flags"]) == key
+            and not r["kill"] and not r["server_flags"])
+            for name, top, key in (("split", "split", ("logreg", H, 2, ())),
+                                   ("shards", "shards", ("mlp", H, -1, ())))}
+        runs += tier_runs(dev, twins)
+        t_tier = time.perf_counter()
         print(f"phase times: split {t_scale - t_split:.1f} s; scale-out "
               f"{t_end - t_scale:.1f} s (in-process checks "
               f"{t_runs - t_scale:.1f} s, runs {t_end - t_runs:.1f} s); "
               f"serving {t_serve - t_end:.1f} s (in-process checks "
               f"{t_serve_runs - t_end:.1f} s, runs "
-              f"{t_serve - t_serve_runs:.1f} s)")
+              f"{t_serve - t_serve_runs:.1f} s); tier "
+              f"{t_tier - t_serve:.1f} s")
         profile_run("logreg")
         profile_run("logreg", flags=("--durable-log", "wal-profile"))
         profile_run("mlp")

@@ -15,10 +15,13 @@ on every change), `--fused` runs the sequential model as fused BSP rounds
 iterations and at exit and resumes from the file when it exists, and
 `--failure_policy rebalance` evicts a crashed or hung worker (threaded
 mode), `--durable-log DIR` (`--fsync`) logs every message and stream
-row and, on a restart, replays the tail past the checkpoint (log/), and
+row and, on a restart, replays the tail past the checkpoint (log/),
 `--serve` answers predictions while training (serving/): a snapshot at
 every gate release, in process or, with `--serve_port P`, over a socket
-(0 = ephemeral, printed as "serving on port N").  Runs on the CUDA card;
+(0 = ephemeral, printed as "serving on port N"), and `--tier-hot-bytes`
+/ `--tier-warm-bytes` / `--tier-page-params` cap the server's parameter
+vector on the card and in host memory, the rest as records under
+`--durable-log DIR/param-cold` (store/; the same bits either way).  Runs on the CUDA card;
 KPS_PLATFORM=cpu runs it on the CPU.  At exit it prints one line of run
 statistics on stderr: `kafka_ps_tpu_torch run: {json}`.
 
@@ -146,6 +149,27 @@ def build_parser(include_server_flags: bool = True,
                    help="re-upload the whole slab whenever the buffer "
                         "changes instead of scattering only the dirty "
                         "rows (bitwise the same slab)")
+    # -- tiered parameter residency (store/) --
+    p.add_argument("--tier-hot-bytes", dest="tier_hot_bytes", type=int,
+                   default=0, metavar="BYTES",
+                   help="tiered parameter residency (store/): cap the "
+                        "device-resident (hot) tier of the server's "
+                        "parameter vector at BYTES; overflow pages live "
+                        "in host RAM (warm).  0 = unbounded, fully "
+                        "resident.  Capped runs compute the same bits; "
+                        "they only bound resident bytes.  Per process.  "
+                        "Incompatible with --fused")
+    p.add_argument("--tier-warm-bytes", dest="tier_warm_bytes", type=int,
+                   default=0, metavar="BYTES",
+                   help="cap the host-RAM (warm) tier at BYTES; overflow "
+                        "pages demote to CRC-framed records in the commit "
+                        "log and fault back in on demand; requires "
+                        "--durable-log (the cold partition lives under "
+                        "it).  0 = unbounded")
+    p.add_argument("--tier-page-params", dest="tier_page_params", type=int,
+                   default=1024, metavar="KEYS",
+                   help="keys per residency page (the promotion/demotion "
+                        "unit; must match across checkpoint resumes)")
     # -- the online serving plane (serving/) --
     p.add_argument("--serve", action="store_true",
                    help="serve predictions while training: the server "
@@ -213,7 +237,8 @@ def load_test_csv(path: str, num_features: int):
 def make_app_from_args(args, device=None, resuming: bool = False):
     from kafka_ps_tpu_torch.runtime.app import StreamingPSApp
     from kafka_ps_tpu_torch.utils.config import (BufferConfig, ModelConfig,
-                                                 PSConfig, StreamConfig)
+                                                 PSConfig, StreamConfig,
+                                                 TierConfig)
     from kafka_ps_tpu_torch.utils.csvlog import (SERVER_HEADER,
                                                  WORKER_HEADER, CsvLogSink)
     cfg = PSConfig(
@@ -235,7 +260,10 @@ def make_app_from_args(args, device=None, resuming: bool = False):
         slab_dtype=args.slab_dtype,
         slab_incremental=not args.full_slab_upload,
         compress=args.compress,
-        serving=serving_config(args))
+        serving=serving_config(args),
+        tier=TierConfig(hot_bytes=args.tier_hot_bytes,
+                        warm_bytes=args.tier_warm_bytes,
+                        page_params=args.tier_page_params))
     test_x, test_y = load_test_csv(args.test_data_file_path,
                                    args.num_features)
     # a resumed run continues its logs
@@ -275,6 +303,7 @@ def run_with_args(args) -> int:
             "--slab-dtype applies to the per-node worker slab "
             "(compress/slab.py); the --fused BSP path keeps its own "
             "slab cache — drop one of the two flags")
+    check_tier_flags(args)
     if args.serve_port is not None and not args.serve:
         raise SystemExit("--serve_port requires --serve")
     if args.compress != "none":
@@ -306,11 +335,20 @@ def run_with_args(args) -> int:
                   if args.logging else NullLogSink())
     app.server.membership_log = events_log
     logs = [*logs, events_log]
+    if app.cfg.tier.enabled:
+        # before the checkpoint restore, which applies the recorded
+        # residency (utils/checkpoint.py)
+        from kafka_ps_tpu_torch.log.durable_fabric import COLD_PARTITION_DIR
+        app.enable_tiering(os.path.join(args.durable_log, COLD_PARTITION_DIR)
+                           if args.durable_log else None)
     if args.checkpoint:
         restored = app.restore_checkpoint(args.checkpoint)
         if restored and args.verbose:
             print(f"    restored checkpoint at iteration "
                   f"{app.server.iterations}")
+            if app.server.param_store is not None:
+                print(f"    restored tier residency "
+                      f"{app.server.param_store.tier_counts()}")
         app.server.checkpoint_path = args.checkpoint
         app.server.checkpoint_every = args.checkpoint_every
         app.server.checkpoint_buffers = app.buffers
@@ -350,6 +388,8 @@ def run_with_args(args) -> int:
         if args.checkpoint:
             # on a durable fabric the final save is a commit point too
             app.server.save_checkpoint_now()
+        # after the save, which may still read cold pages
+        app.close_tiering()
         if args.durable_log:
             app.fabric.close()
         app.close_logs()
@@ -358,6 +398,27 @@ def run_with_args(args) -> int:
     print("kafka_ps_tpu_torch run: "
           + json.dumps(run_stats(app, producer)), file=sys.stderr)
     return 0
+
+
+def check_tier_flags(args) -> None:
+    """The JAX trainer's checks of the --tier-* flags."""
+    tier_hot, tier_warm = args.tier_hot_bytes, args.tier_warm_bytes
+    if tier_hot < 0 or tier_warm < 0:
+        raise SystemExit("--tier-*-bytes caps must be >= 0")
+    if (tier_hot or tier_warm) and args.fused:
+        # the fused rounds keep theta inside their own program: ignoring
+        # the caps would misreport what ran
+        raise SystemExit(
+            "--tier-hot-bytes/--tier-warm-bytes apply to the per-node "
+            "server (kafka_ps_tpu/store/); the --fused BSP path keeps "
+            "theta inside its mesh program — drop one of the two flags")
+    if tier_warm and not args.durable_log:
+        raise SystemExit(
+            "--tier-warm-bytes demotes pages to commit-log records; "
+            "run with --durable-log DIR so the cold partition has a "
+            "home (docs/TIERING.md)")
+    if args.tier_page_params < 1:
+        raise SystemExit("--tier-page-params must be >= 1")
 
 
 def serving_config(args):
@@ -418,8 +479,9 @@ def run_stats(app, producer) -> dict:
     chunk dispatches, CUDA graphs captured), the producer's parser,
     rows and the seconds of its native one-pass parse, and on a durable
     log its counters (log/durable_fabric.DurableFabric.stats) with the
-    replay's counts and seconds and the re-ingested rows skipped, and
-    with --serve the engine's stats and the snapshots published."""
+    replay's counts and seconds and the re-ingested rows skipped, with
+    --serve the engine's stats and the snapshots published, and with a
+    tiered store its stats (store/tiered.TieredParamStore.stats)."""
     stores = [w._slab_store for w in app.workers]
     server = app.server
     out = {"server_iterations": server.iterations,
@@ -455,6 +517,8 @@ def run_stats(app, producer) -> dict:
                               skipped_rows=app.skipped_rows)
     if app.serving_engine is not None:
         out["serving"] = serving_stats(app.serving_engine, server)
+    if server.param_store is not None:
+        out["tier"] = server.param_store.stats()
     if server.checkpoint_path:
         out["checkpoint"] = {"restored_at": app.restored_at,
                              "restore_s": app.restore_s,

@@ -44,8 +44,13 @@ per shard (`--compress topk:R` is then its local sparsifier and the
 slices are sparse) and reassembles the weights slices; a dead shard is
 not fatal (it reconnects and the router resends what the shard missed).
 With `--aggregate` the same worker dials the relay, which compresses for
-it; after a relay restart it resends its whole cache.  The tier store
-(22) and the telemetry planes (24) have no flags here.
+it; after a relay restart it resends its whole cache.  The telemetry
+planes (ROADMAP item 24) have no flags here.
+
+Tiered residency (store/): `--tier-hot-bytes`, `--tier-warm-bytes` and
+`--tier-page-params` give a server's (or a shard's) slice to a tiered
+store before its checkpoint restore; a warm cap needs `--durable-log`,
+under which a shard's cold pages live in `DIR/shard<I>of<N>/param-cold`.
 
 Serving (serving/):
 
@@ -90,9 +95,16 @@ from kafka_ps_tpu_torch.runtime import net
 
 def _make_cfg(args):
     from kafka_ps_tpu_torch.utils.config import (BufferConfig, ModelConfig,
-                                                 PSConfig, StreamConfig)
+                                                 PSConfig, StreamConfig,
+                                                 TierConfig)
     if getattr(args, "eval_every", 1) < 1:
         raise SystemExit("--eval_every must be >= 1")
+    if getattr(args, "tier_warm_bytes", 0) \
+            and not getattr(args, "durable_log", None):
+        raise SystemExit(
+            "--tier-warm-bytes demotes pages to commit-log records; "
+            "run with --durable-log DIR so the cold partition has a "
+            "home (docs/TIERING.md)")
     return PSConfig(
         num_workers=args.num_workers,
         consistency_model=getattr(args, "consistency_model", 0),
@@ -117,7 +129,30 @@ def _make_cfg(args):
         slab_dtype=getattr(args, "slab_dtype", "f32") or "f32",
         slab_incremental=not getattr(args, "full_slab_upload", False),
         compress=getattr(args, "compress", "none") or "none",
-        serving=run_mod.serving_config(args))
+        serving=run_mod.serving_config(args),
+        tier=TierConfig(
+            hot_bytes=getattr(args, "tier_hot_bytes", 0),
+            warm_bytes=getattr(args, "tier_warm_bytes", 0),
+            page_params=getattr(args, "tier_page_params", 1024)))
+
+
+def _attach_tier_store(server, cfg, key_range, cold_dir):
+    """Attach tiered residency per cfg.tier (store/) and start its policy
+    thread; None when both caps are 0.  Called before the checkpoint
+    restore, so that the restore applies the recorded residency; the
+    caller closes the store after the final save, which may still read
+    cold pages."""
+    from kafka_ps_tpu_torch.store import attach_tiered_store
+    store = attach_tiered_store(server, cfg.tier, key_range, cold_dir)
+    if store is None:
+        return None
+    t = cfg.tier
+    caps = {k: v for k, v in (("hot", t.hot_bytes),
+                              ("warm", t.warm_bytes)) if v}
+    print(f"tiered residency: caps {caps}, "
+          f"{store.num_pages} pages of {t.page_params} keys",
+          file=sys.stderr, flush=True)
+    return store
 
 
 def _codec_spec(args):
@@ -288,6 +323,12 @@ def run_server(args) -> int:
         from kafka_ps_tpu_torch.evaluation.engine import EvalEngine
         eval_engine = server.attach_eval_engine(EvalEngine(
             server.task, server.test_x, server.test_y, server._emit_eval))
+    from kafka_ps_tpu_torch.log.durable_fabric import COLD_PARTITION_DIR
+    from kafka_ps_tpu_torch.runtime.messages import KeyRange
+    tier_store = _attach_tier_store(
+        server, cfg, KeyRange(0, server.task.num_params),
+        cold_dir=(os.path.join(args.durable_log, COLD_PARTITION_DIR)
+                  if getattr(args, "durable_log", None) else None))
     if checkpoint_path:
         ckpt.maybe_restore(checkpoint_path, server)
         server.checkpoint_path = checkpoint_path
@@ -436,6 +477,8 @@ def run_server(args) -> int:
             if checkpoint_path:
                 server.save_checkpoint_now()
         finally:
+            if tier_store is not None:
+                tier_store.close()   # after the save: it may read cold pages
             if reroute["dropped"] or bridge.dropped_sends:
                 print(f"dropped rows: {reroute['dropped']}, dropped sends: "
                       f"{bridge.dropped_sends}", file=sys.stderr, flush=True)
@@ -463,6 +506,8 @@ def run_server(args) -> int:
                          else eval_engine.stats()),
                 "serving": (None if engine is None
                             else run_mod.serving_stats(engine, server)),
+                "tier": (None if tier_store is None
+                         else tier_store.stats()),
                 **bridge.stats()})
     return 0
 
@@ -742,6 +787,10 @@ def run_server_shard(args) -> int:
     server.weights_group_send = bridge.send_weights_group
     if getattr(args, "bsp_order", False):
         server.bsp_order = True
+    # a shard's cold pages live under its own shard-suffixed log root
+    tier_store = _attach_tier_store(
+        server, cfg, key_range,
+        cold_dir=inner.cold_dir() if inner.durable else None)
     if checkpoint_path:
         ckpt.maybe_restore(checkpoint_path, server)
         server.checkpoint_path = checkpoint_path
@@ -859,6 +908,8 @@ def run_server_shard(args) -> int:
                 # offsets describe one instant
                 server.save_checkpoint_now()
         finally:
+            if tier_store is not None:
+                tier_store.close()   # after the save: it may read cold pages
             if inner.durable:
                 inner.close()
             _print_stats("server", {
@@ -886,6 +937,8 @@ def run_server_shard(args) -> int:
                 "rows": {"sent": (producer.rows_sent if producer
                                   else 0), **reroute},
                 "durable": inner.stats() if inner.durable else None,
+                "tier": (None if tier_store is None
+                         else tier_store.stats()),
                 **bridge.stats()})
     return 0
 

@@ -211,3 +211,63 @@ class SlabStore:
         x, y, mask = self.arrays()
         parts = tuple(x) if isinstance(x, QuantizedSlab) else (x,)
         return sum(t.nbytes for t in (*parts, y, mask))
+
+
+class ParamPageSlab:
+    """The hot tier of the tiered parameter store (store/tiered.py): page
+    index -> float32 tensor on `device`, the server's device.
+
+    `put` uploads a host array (counted in `bytes_uploaded` and
+    `uploads`) and keeps a tensor as it is: an apply's output stays
+    where it was computed, so a hot page's steady state moves no host
+    bytes.  A tensor on another device is refused, never moved quietly.
+    Page tensors are replaced whole and never written in place (the
+    server's replacement rule), so a reader may keep one it fetched.
+    Copies run on the current stream of the calling thread, which for
+    every thread of a run is the default stream: an upload or a fetch
+    is ordered after the kernels queued before it."""
+
+    def __init__(self, device):
+        from kafka_ps_tpu_torch.utils.config import canonical_device
+        self.device = canonical_device(device)
+        self._pages: dict[int, torch.Tensor] = {}
+        self.bytes_uploaded = 0
+        self.uploads = 0
+
+    def __contains__(self, page: int) -> bool:
+        return page in self._pages
+
+    def __len__(self) -> int:
+        return len(self._pages)
+
+    def upload(self, values: np.ndarray) -> torch.Tensor:
+        """A host array's copy on the slab's device (counted), not yet
+        installed."""
+        host = np.ascontiguousarray(values, dtype=np.float32)
+        self.bytes_uploaded += host.nbytes
+        self.uploads += 1
+        return torch.tensor(host, device=self.device)
+
+    def put(self, page: int, values) -> torch.Tensor:
+        """Install a page value and return the stored tensor."""
+        if isinstance(values, np.ndarray):
+            values = self.upload(values)
+        elif values.device != self.device:
+            raise ValueError(f"page {page} is on {values.device}, the hot "
+                             f"tier on {self.device}")
+        self._pages[page] = values
+        return values
+
+    def get(self, page: int) -> torch.Tensor:
+        return self._pages[page]
+
+    def pop_host(self, page: int) -> np.ndarray:
+        """A demotion's fetch: the page leaves the slab as a host array."""
+        return self._pages.pop(page).detach().to("cpu").numpy().copy()
+
+    def drop(self, page: int) -> None:
+        self._pages.pop(page, None)
+
+    def device_bytes(self) -> int:
+        """Bytes of the resident pages."""
+        return sum(t.nbytes for t in list(self._pages.values()))

@@ -38,6 +38,7 @@ unless the caller asks for the CPU).
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 
@@ -92,6 +93,12 @@ class DurableFabric(Fabric):
         self.serde_s: dict[str, float] = {}
         self.frames_shared = 0       # weights frames reused for a release
         self.commits = 0
+
+    def cold_dir(self) -> str:
+        """The reserved cold-partition directory under this fabric's
+        root: one `--durable-log DIR` holds the message log and a tiered
+        store's cold pages (store/cold.py)."""
+        return os.path.join(self.manager.root, COLD_PARTITION_DIR)
 
     # -- producer side -----------------------------------------------------
 

@@ -25,6 +25,8 @@ worker go round-robin to the survivors.  On a durable fabric
 restore.  `enable_serving` attaches the online serving plane (serving/):
 the server publishes a snapshot at every gate release, the fused loop at
 every chunk boundary, and a PredictionEngine answers reads from them.
+`enable_tiering` gives the server's theta to a tiered store (store/)
+under cfg.tier's byte caps, with its policy thread running.
 """
 
 from __future__ import annotations
@@ -190,6 +192,28 @@ class StreamingPSApp:
         join it before interpreter exit)."""
         if self.serving_engine is not None:
             self.serving_engine.close()
+
+    # -- tiered residency (store/) --------------------------------------------
+
+    def enable_tiering(self, cold_dir: str | None = None):
+        """Attach a TieredParamStore over the whole parameter vector, on
+        the server's device, per cfg.tier, and start its policy thread.
+        `cold_dir` holds the cold partition (needed when the warm tier is
+        capped; the CLI passes `<durable-log>/param-cold`).  Returns the
+        store, or None when both caps are 0 (theta stays resident)."""
+        if self.server.param_store is not None:
+            return self.server.param_store
+        from kafka_ps_tpu_torch.runtime.messages import KeyRange
+        from kafka_ps_tpu_torch.store import attach_tiered_store
+        return attach_tiered_store(
+            self.server, self.cfg.tier,
+            KeyRange(0, self.server.task.num_params), cold_dir)
+
+    def close_tiering(self) -> None:
+        """Join the policy thread and close the cold log; after the final
+        checkpoint save, which may still read cold pages."""
+        if self.server.param_store is not None:
+            self.server.param_store.close()
 
     # -- ingestion sink (the INPUT_DATA topic hop) ----------------------------
 

@@ -66,6 +66,18 @@ apply for all its members.  A member whose clock was applied already
 (a restarted relay's resend) gets the current weights again, at most
 once per composite.  `weights_group_send` (the socket bridge's grouped
 fan-out) may claim a release set and ship it in one frame per relay.
+
+Tiered residency (store/): with a TieredParamStore attached
+(`attach_param_store`) the store owns the slice and `theta` is a
+property: the getter assembles a new tensor on the server's device from
+the pages (hot pages as they are, warm ones uploaded, cold ones read
+from the log), the setter scatters into them.  A dense apply runs per
+page, the same `t + lr*d` on the device for hot and warm pages alike,
+so each element is bitwise the whole-slice apply; an eval apply runs the
+whole-slice apply and evaluation on the assembled slice and scatters the
+result back; a sparse slice applies per touched page.  `process_batch`
+then runs per message, bitwise by the gang contract.  Residency never
+changes a value, so a capped run is bitwise the fully resident one.
 """
 
 from __future__ import annotations
@@ -74,6 +86,7 @@ import contextlib
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from kafka_ps_tpu_torch.models.task import get_task
@@ -83,7 +96,8 @@ from kafka_ps_tpu_torch.runtime.messages import (CompositeDelta, GangNotice,
                                                  GradientMessage, KeyRange,
                                                  WeightsMessage)
 from kafka_ps_tpu_torch.utils import asynclog
-from kafka_ps_tpu_torch.utils.config import EVENTUAL, PSConfig
+from kafka_ps_tpu_torch.utils.config import (EVENTUAL, PSConfig,
+                                             canonical_device)
 
 LogSink = Callable[[str], None]
 
@@ -111,6 +125,8 @@ class ServerNode:
         if key_range is not None:
             # a shard owns only its slice of the init vector
             theta = theta[key_range.start:key_range.end].clone()
+        # tiered residency (store/); None: theta is one device tensor
+        self.param_store = None
         self.theta = theta
         self.test_x = (None if test_x is None else torch.as_tensor(
             test_x, dtype=torch.float32, device=self.device))
@@ -163,6 +179,43 @@ class ServerNode:
         self.serving = None
         self.snapshots_published = 0
         self.last_published_clock: int | None = None
+
+    # -- tiered residency (store/) --------------------------------------------
+
+    @property
+    def theta(self) -> torch.Tensor:
+        """The owned slice: one device tensor when fully resident, else a
+        new tensor assembled from the store's pages.  Either way nothing
+        writes it in place; writers go through the setter."""
+        if self.param_store is not None:
+            return self.param_store.assembled_tensor()
+        return self._theta
+
+    @theta.setter
+    def theta(self, value) -> None:
+        if self.param_store is not None:
+            self.param_store.replace_all(value)
+            return
+        self._theta = value
+
+    def attach_param_store(self, store) -> None:
+        """Give this node's slice to a TieredParamStore over its range and
+        on its device: the store is seeded from the current theta (before
+        or after a checkpoint restore alike), dense applies then run per
+        page, and one rebalance settles residency under the caps."""
+        if (store.key_range.start != self._range.start
+                or store.key_range.end != self._range.end):
+            raise ValueError(
+                f"store range [{store.key_range.start}, "
+                f"{store.key_range.end}) != shard range "
+                f"[{self._range.start}, {self._range.end})")
+        if store.device != canonical_device(self.device):
+            raise ValueError(f"store on {store.device}, server on "
+                             f"{self.device}")
+        store.replace_all(self._theta)
+        self.param_store = store
+        self._theta = None           # the store owns the values now
+        store.rebalance()
 
     def attach_eval_engine(self, engine):
         """Arm the async eval plane: eval-cadence applies stop fusing the
@@ -446,11 +499,14 @@ class ServerNode:
         want_eval = (0 in live and self.test_x is not None
                      and clock % self.cfg.eval_every == 0)
         fused_eval = want_eval and self.eval_engine is None
-        m = None
+        m = deferred = None
         if getattr(msg, "indices", None) is not None:
             self._apply_sparse(msg)
         elif self._full_dense(msg):
-            if fused_eval:
+            if self.param_store is not None:
+                m, deferred = self._apply_tiered(msg.values, fused_eval,
+                                                 want_eval and not fused_eval)
+            elif fused_eval:
                 self.theta, m = self._apply_full_eval(self.theta, msg.values)
             else:
                 self.theta = self._apply_full(self.theta, msg.values)
@@ -462,8 +518,10 @@ class ServerNode:
                 m = self.task.evaluate(self.theta, self.test_x, self.test_y)
             self._emit_eval(clock, m)
         elif want_eval:
-            # immutable alias hand-off; the engine evaluates off this thread
-            self.eval_engine.submit(self.theta, clock)
+            # immutable alias hand-off; the engine evaluates off this
+            # thread (the tiered apply's own new slice where it made one)
+            self.eval_engine.submit(
+                self.theta if deferred is None else deferred, clock)
         release: set = set()
         for worker in live:
             release |= self.workers_to_respond_to(clock, worker)
@@ -478,12 +536,66 @@ class ServerNode:
         if len(msg.indices) == 0:
             self.empty_slices += 1
             return
+        if self.param_store is not None:
+            self._apply_sparse_tiered(msg)
+            self.sparse_applies += 1
+            return
         idx = msg.indices.to(self.device, torch.long)
         vals = msg.values.to(self.device, torch.float32)
         t = self.theta.clone()
         t[idx] = self.theta[idx] + self.cfg.server_lr * vals
         self.theta = t
         self.sparse_applies += 1
+
+    def _apply_tiered(self, delta, fused_eval: bool, defer_eval: bool):
+        """A dense apply over this node's range against the tiered store.
+        Returns (metrics, deferred theta); at most one is not None.
+
+        Without an eval: `t_p + lr*d_p` per page, on the server's device
+        for a warm page too (uploaded; `update_page` fetches the result
+        back to the host), so each element is bitwise the whole-slice
+        apply.  With the fused eval: the resident path's `_apply_full_eval`
+        on the assembled slice, scattered back, so the row is bitwise the
+        resident run's.  With a deferred eval: the whole-slice apply on
+        the assembled slice, scattered back, and the new slice returned
+        for the engine, a tensor later page updates cannot touch."""
+        store = self.param_store
+        if fused_eval or defer_eval:
+            t = store.assembled_tensor()
+            if fused_eval:
+                t2, m = self._apply_full_eval(t, delta)
+            else:
+                t2, m = self._apply_full(t, delta), None
+            store.replace_all(t2)
+            return m, (t2 if defer_eval else None)
+        base = self._range.start
+        for i, kr, value in store.pin_pages(self._range):
+            lo, hi = kr.start - base, kr.end - base
+            store.update_page(i, self._apply_full(store.to_device(value),
+                                                  delta[lo:hi]))
+        return None, None
+
+    def _apply_sparse_tiered(self, msg) -> None:
+        """A sparse slice against the tiered store: the indices grouped
+        by page (sorted, as the slice's indices are), and per touched
+        page the resident path's indexed write into a new page tensor.
+        Pages the slice skips stay untouched, and so stay cool: the skew
+        the heat policy feeds on."""
+        store = self.param_store
+        size = store.page_params
+        # the (few) indices on the host for the grouping; values stay put
+        idx = msg.indices.to("cpu", torch.long).numpy()
+        pages = idx // size
+        for page in np.unique(pages):
+            page = int(page)
+            a, b = np.searchsorted(pages, [page, page + 1])
+            local = torch.from_numpy(idx[a:b] - page * size).to(self.device)
+            vals = msg.values[a:b].to(self.device, torch.float32)
+            (_, _, value), = store.pin_pages(store.page_range(page))
+            t = store.to_device(value)
+            t2 = t.clone()
+            t2[local] = t[local] + self.cfg.server_lr * vals
+            store.update_page(page, t2)
 
     def _apply_splice(self, msg) -> torch.Tensor:
         """A dense gradient over a sub-range of this node's range,
@@ -622,8 +734,10 @@ class ServerNode:
             redelivered gradient can appear twice in one batch).
         All the releases of the batch form one gang notice; a checkpoint
         is due at most once, at the end.  Sparse and sub-range gradients
-        take the per-message path."""
-        if not all(self._full_dense(m) for m in msgs):
+        take the per-message path, and so does every gradient when a
+        tiered store holds the slice (bitwise by the contract above)."""
+        if (self.param_store is not None
+                or not all(self._full_dense(m) for m in msgs)):
             for m in msgs:
                 self._process_direct(m)
             return

@@ -29,9 +29,8 @@ flat parameter vector with their own vector clocks and gate:
 
 Splitting and assembly are functions of (shard id, worker id, clock)
 alone: no set or dict iteration decides an order in these paths.
-
-Left to its ROADMAP item: tiered residency per shard
-(`attach_param_stores`, item 22) raises.
+`attach_param_stores` gives each shard a tiered store over its range
+(store/).
 """
 
 from __future__ import annotations
@@ -329,13 +328,19 @@ class ShardedServerGroup:
     def snapshot_cut(self) -> list[tuple]:
         """The consistent cut, read at a quiescent point of the drive
         loop: per shard (a zero-argument reader of its slice, its stable
-        clock), in shard-id order."""
+        clock), in shard-id order.  The reader is lazy: a tiered slice
+        is assembled (its cold pages read) only for a cut that
+        publishes."""
         return [((lambda s=s: s.theta), s.serving_clock())
                 for s in self.shards]
 
     def attach_param_stores(self, make_store) -> None:
-        raise NotImplementedError(
-            "tiered residency per shard is not ported yet (ROADMAP item 22)")
+        """Tiered residency per shard (store/): each shard gets its own
+        TieredParamStore over its range, built by `make_store(shard)`, so
+        the caller picks per-shard caps and cold partitions (residency is
+        a per-process resource)."""
+        for s in self.shards:
+            s.attach_param_store(make_store(s))
 
     def attach_serving(self, registry) -> None:
         """Serve the group from `registry`: at N=1 the node publishes at

@@ -47,7 +47,8 @@ from kafka_ps_tpu_torch.log.tail import TopicTailer
 from kafka_ps_tpu_torch.runtime import serde
 from kafka_ps_tpu_torch.serving.snapshot import (FrontierCutPublisher,
                                                  SnapshotRegistry)
-from kafka_ps_tpu_torch.utils.config import resolve_device
+from kafka_ps_tpu_torch.utils.config import (canonical_device,
+                                             resolve_device)
 
 _SHARD_DIR = re.compile(r"^shard(\d+)of(\d+)$")
 
@@ -83,10 +84,8 @@ class ReplicaFollower:
         self.registry = registry if registry is not None \
             else SnapshotRegistry()
         self.poll_interval_s = poll_interval_s
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            # the tail thread makes this card current: name it
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        # the tail thread makes this card current: name it
+        self.device = canonical_device(resolve_device(device))
         # one driver advances the follower: the tail thread, or a caller's
         # catch_up loop
         self.records_read = 0

@@ -12,9 +12,11 @@ one state file per worker process (`save_worker`,
 Keys and dtypes are the JAX package's, so a checkpoint written by either
 package restores into the other.  θ, the buffers and the residuals are
 written as host arrays (np.savez of a CUDA tensor raises) and restored
-onto the server's and the workers' devices.  The JAX package's `tier_*`
-keys (tiered residency) are not written here and are ignored on restore:
-this package has no parameter store.
+onto the server's and the workers' devices.  With a tiered store on the
+server (store/) the file also records each page's tier and heat
+(`tier_residency`, `tier_reads`, `tier_writes`, `tier_page_params`),
+taken before θ is assembled; a restore checks the page size and applies
+the recorded residency once θ is scattered into the pages.
 """
 
 from __future__ import annotations
@@ -82,7 +84,20 @@ def _atomic_savez(path: str, arrays: dict) -> None:
 
 def save(path: str, server, buffers=None, log_offsets=None,
          residuals=None) -> None:
-    arrays = dict(
+    arrays = {}
+    store = getattr(server, "param_store", None)
+    if store is not None:
+        # residency and heat BEFORE theta: assembling the slice faults
+        # every cold page warm, so the other order would record all
+        # pages resident and a restore would never demote again.  They
+        # never change the restored values, only the policy's start
+        reads, writes = store.heat_vectors()
+        arrays["tier_residency"] = store.residency_vector()
+        arrays["tier_reads"] = reads
+        arrays["tier_writes"] = writes
+        arrays["tier_page_params"] = np.asarray(store.page_params,
+                                                dtype=np.int64)
+    arrays.update(
         theta=server.theta.detach().cpu().numpy(),
         clocks=np.asarray(server.tracker.clocks, dtype=np.int64),
         sent=np.asarray([s.weights_message_sent
@@ -126,6 +141,18 @@ def restore(path: str, server, buffers=None, residuals=None) -> None:
             server.restored_log_offsets = {
                 k: int(v) for k, v
                 in json.loads(str(z["log_offsets"])).items()}
+        store = getattr(server, "param_store", None)
+        if store is not None and "tier_residency" in z.files:
+            if int(z["tier_page_params"]) != store.page_params:
+                raise ValueError(
+                    f"checkpoint page size {int(z['tier_page_params'])} "
+                    f"!= store page size {store.page_params}")
+            # after the theta assignment above put every page hot or
+            # warm: recorded-cold pages are demoted again with fresh
+            # appends, so the checkpoint never refers to cold records a
+            # crash may have torn off the log's tail
+            store.set_residency(z["tier_residency"], z["tier_reads"],
+                                z["tier_writes"])
         _unpack_buffers(z, buffers)
         _unpack_residuals(z, residuals)
     # the stop killed every in-flight message: start_training_loop

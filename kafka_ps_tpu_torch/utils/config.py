@@ -2,10 +2,10 @@
 plus the port's device rule.
 
 The dataclasses keep the reference's names and defaults for the fields
-this package implements, compression and serving among them; options of
-subsystems not yet ported (tiering) are absent rather than accepted and
-ignored.  There is no Pallas switch: on the card the hand-written
-kernels are the only path.
+this package implements, compression, serving and tiered residency among
+them; options of subsystems not yet ported are absent rather than
+accepted and ignored.  There is no Pallas switch: on the card the
+hand-written kernels are the only path.
 """
 
 from __future__ import annotations
@@ -80,6 +80,27 @@ class ServingConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TierConfig:
+    """Tiered parameter residency (store/): byte caps for the hot (device)
+    and warm (host RAM) tiers of the server's parameter vector; pages
+    over the caps live as commit-log records (cold).  The `--tier-*`
+    flags of cli/run.py.
+
+    0 = unbounded: fully resident, and no store is built.  A warm cap
+    needs a cold log to overflow into (`--durable-log`, or a standalone
+    cold directory).  Caps are per process."""
+
+    hot_bytes: int = 0
+    warm_bytes: int = 0
+    page_params: int = 1024        # keys per page (the residency unit)
+    rebalance_interval_s: float = 0.05   # the policy thread's period
+
+    @property
+    def enabled(self) -> bool:
+        return self.hot_bytes > 0 or self.warm_bytes > 0
+
+
+@dataclasses.dataclass(frozen=True)
 class PSConfig:
     """Top-level parameter-server configuration."""
 
@@ -113,6 +134,10 @@ class PSConfig:
     # with the fused BSP path (its rounds send no messages)
     compress: str = "none"
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
+    # tiered parameter residency (store/): both caps 0 keeps theta fully
+    # resident on the device; a capped run computes the same bits, it
+    # only bounds the bytes resident on the device and the host
+    tier: TierConfig = dataclasses.field(default_factory=TierConfig)
 
     @property
     def server_lr(self) -> float:
@@ -148,4 +173,13 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA card found: kafka_ps_tpu_torch runs on an NVIDIA GPU. "
             "Pass device='cpu' or set KPS_PLATFORM=cpu to run on the CPU.")
+    return dev
+
+
+def canonical_device(device) -> torch.device:
+    """`device` with its index: a bare "cuda" names the current card, so
+    that it compares equal to the device of a tensor made there."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -831,3 +831,88 @@ def test_serving_does_not_perturb_a_serial_run_on_the_card(card, c):
     assert torch.equal(on["theta"], off["theta"])
     assert strip_ts(on["worker"]) == strip_ts(off["worker"])
     assert strip_ts(on["server"]) == strip_ts(off["server"])
+
+
+# -- tiered residency on the card (store/) -------------------------------------
+
+
+def test_param_page_slab_on_the_card(card):
+    """The hot tier holds its pages on the card: a host page is uploaded
+    and counted, a card tensor is kept as it is, a tensor elsewhere is
+    refused, and the demotion's fetch gives back the same bytes."""
+    from kafka_ps_tpu_torch.compress.slab import ParamPageSlab
+    slab = ParamPageSlab(card)
+    host = np.random.default_rng(0).normal(size=1024).astype(np.float32)
+    t = slab.put(0, host)
+    assert t.device.type == "cuda" and slab.uploads == 1
+    assert slab.bytes_uploaded == host.nbytes
+    on_card = torch.ones(512, device=card)
+    assert slab.put(1, on_card) is on_card and slab.uploads == 1
+    assert slab.device_bytes() == host.nbytes + on_card.nbytes
+    with pytest.raises(ValueError, match="hot tier"):
+        slab.put(2, torch.ones(4))
+    assert slab.pop_host(0).tobytes() == host.tobytes()
+    assert slab.device_bytes() == on_card.nbytes
+
+
+def _tier_run(dev, c, task, cold_dir=None, iters=24):
+    from kafka_ps_tpu_torch.utils.config import StreamConfig, TierConfig
+    x, y = generate(160, 32, 3, seed=2)
+    tier = TierConfig()
+    if cold_dir is not None:
+        # 99 (logreg) or 627 (the MLP at H=16) parameters in pages of 8:
+        # two pages hot, three warm, the rest cold
+        tier = TierConfig(hot_bytes=64, warm_bytes=96, page_params=8,
+                          rebalance_interval_s=0.002)
+    cfg = PSConfig(num_workers=3, consistency_model=c, task=task,
+                   model=ModelConfig(num_features=32, num_classes=3,
+                                     hidden_dim=16),
+                   buffer=BufferConfig(min_size=8, max_size=48),
+                   stream=StreamConfig(time_per_event_ms=1.0), tier=tier)
+    server, worker = [], []
+    app = StreamingPSApp(cfg, test_x=x[-32:], test_y=y[-32:],
+                         server_log=server.append, worker_log=worker.append,
+                         device=dev)
+    store = app.enable_tiering(cold_dir)
+    for i in range(128):
+        app.data_sink(i % 3, {j: float(v) for j, v in enumerate(x[i]) if v},
+                      int(y[i]))
+    app.run_serial(iters)
+    stats = store.stats() if store is not None else None
+    theta = app.server.theta.cpu()
+    app.close_tiering()
+    app.close_logs()
+    strip = [[r.split(";")[1:] for r in rows] for rows in (server, worker)]
+    return theta, strip, stats
+
+
+@pytest.mark.parametrize("task", ["logreg", "mlp"])
+@pytest.mark.parametrize("c", [0, 2, -1])
+def test_capped_run_is_bitwise_resident_on_the_card(card, tmp_path, c, task):
+    """Per-page applies on the card (warm pages uploaded, applied there
+    and fetched back) and the eval applies on the assembled slice give
+    the resident run's bits: theta and the rows."""
+    theta, rows, _ = _tier_run(card, c, task)
+    ctheta, crows, stats = _tier_run(card, c, task, str(tmp_path / "cold"))
+    assert torch.equal(ctheta, theta) and crows == rows
+    assert stats["faults"] > 0 and stats["demotions"] > 0
+    assert stats["device_bytes"] <= 64
+    assert stats["host_upload_bytes"] > 0 and stats["host_fetch_bytes"] > 0
+
+
+def test_per_page_apply_is_bitwise_the_full_apply_on_the_card(card):
+    from kafka_ps_tpu_torch.runtime.messages import KeyRange
+    from kafka_ps_tpu_torch.store import TieredParamStore
+    rng = np.random.default_rng(3)
+    n, page, lr = 70001, 4096, 0.25
+    theta = torch.tensor(rng.normal(size=n).astype(np.float32), device=card)
+    delta = torch.tensor(rng.normal(size=n).astype(np.float32), device=card)
+    full = theta + lr * delta
+    store = TieredParamStore(theta, KeyRange(0, n), hot_bytes=8 * page * 4,
+                             page_params=page, device=card)
+    for i, kr, value in store.pin_pages(KeyRange(0, n)):
+        store.update_page(i, store.to_device(value)
+                          + lr * delta[kr.start:kr.end])
+    assert torch.equal(store.assembled_tensor(), full)
+    assert store.assembled().tobytes() == full.cpu().numpy().tobytes()
+    store.close()

@@ -447,8 +447,16 @@ def test_group_async_eval_rows_equal_inline():
 def test_group_refuses_what_is_not_ported():
     group = ShardedServerGroup(_cfg(config, 0), fabric_mod.Fabric(), 2,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        group.attach_param_stores(lambda s: None)
+    # tiered residency per shard is ported: attaching gives each shard a
+    # store over its own range, seeded with its slice (values unchanged)
+    from kafka_ps_tpu_torch.store import TieredParamStore
+    before = group.assembled_theta()
+    group.attach_param_stores(lambda s: TieredParamStore(
+        s.theta, s._range, hot_bytes=64, page_params=8, device=s.device))
+    for s, r in zip(group.shards, group.plan.ranges):
+        assert s.param_store.key_range == r
+        assert s.param_store.tier_counts()["hot"] == 2
+    assert torch.equal(group.assembled_theta(), before)
     # serving at the frontier is ported: attaching no longer raises, and
     # the start publishes the assembled theta at frontier clock 0
     from kafka_ps_tpu_torch.serving.snapshot import SnapshotRegistry
