@@ -58,14 +58,16 @@
    which one member fails on its leader's thread (evicted alone, the run
    finishes), and the same crash under halt raising.
 4. Main path, through the real entry point kafka_ps_tpu_torch.cli.run:
-   4 workers, buffer max 1024, a synthetic 1024-feature CSV.  logreg with
+   4 workers, buffer max 1024, a synthetic 1024-feature CSV, 200 server
+   iterations a run unless noted (400 until the telemetry phase came and
+   the script neared its time limit).  logreg with
    the default flags (gang dispatch and async eval): serial -c 0,
    threaded -c 2, threaded -c -1; the MLP with the default flags: serial
    -c 0, threaded -c -1; logreg with --no-gang --no-eval-async: serial
    -c 0, threaded -c 2, threaded -c -1; and with --slab-dtype: logreg
    bf16 serial -c 0, logreg int8 threaded -c 2, the MLP int8 serial -c 0
    and bf16 threaded -c -1; then the fused BSP path (--fused): logreg at
-   --eval_every 1 and 10 (400 iterations), the MLP at --hidden_dim 4096
+   --eval_every 1 and 10, the MLP at --hidden_dim 4096
    --eval_every 10 (40 rounds); then logreg --compress int8 serial -c 0,
    logreg --compress topk:0.01 threaded -c 2 --failure_policy rebalance
    --heartbeat_timeout 30, the MLP --compress bf16 serial -c 0, the MLP
@@ -85,10 +87,10 @@
    4 workers, F=1024, rows as DATA_BATCH frames; logreg and the MLP, f32
    and stored slabs) bitwise the in-process round; then the port's split
    deployment, server_runner --listen and two worker_runner processes of
-   2 workers, on the same CSV: logreg at -c 0, -c 2 and -c -1 (400
-   iterations), the MLP at -c -1, logreg --slab-dtype int8 at -c 2, the
-   MLP --slab-dtype bf16 at -c -1, logreg --compress int8 at -c 2 (200
-   each), the MLP at H=4096 -c -1 (40), each beside the in-process
+   2 workers, on the same CSV: logreg at -c 0, -c 2 and -c -1, the MLP
+   at -c -1, logreg --slab-dtype int8 at -c 2, the MLP --slab-dtype bf16
+   at -c -1, logreg --compress int8 at -c 2 (200 iterations each), the
+   MLP at H=4096 -c -1 (40), each beside the in-process
    trainer with the same flags (threaded, --no-gang); and logreg -c 10
    with one worker process killed by SIGKILL and restarted
    (--checkpoint, --failure_policy rebalance).  Each worker process's
@@ -168,7 +170,24 @@
    final F1 within 1/len(test) of its uncapped twin's.  Per run: the
    store's stats (tiers, pins, faults, migrations, bytes on the card,
    bytes uploaded and fetched) and iterations/s capped and resident.
-9. Profile: one more default serial -c 0 run per family, one of logreg
+9. Telemetry phase (telemetry/, utils/trace.py, utils/status.py):
+   cli.run with --trace, --metrics-file (--metrics-every 0.5),
+   --flight-dir, --health-port 0 and --status_every 0.5: logreg serial
+   -c 0 (400 iterations on the 512-row CSV) beside the same run without
+   them, theta (SHA-256 of the exit checkpoint), the rows and the kernel
+   counters bitwise, /healthz answering 200 mid-run (polled from a thread
+   of this script); threaded -c 2 beside its untraced twin (eval lag 0,
+   one clock_lag observation per gradient, the gate watchdog quiet);
+   --fused --eval_every 10 with --trace bitwise its twin, one bsp.step
+   span and count per dispatch.  Each traced run: gradients_applied_total
+   equal to the server iterations, one worker.local_update span per kernel
+   call and one dispatch.device per kernel call and server apply, rising
+   [status] iters, an exit flight dump with gate events.  Then
+   --device_trace runs (logreg and the MLP, serial -c 0, 100 iterations)
+   whose trace must hold the hand kernels' CUDA events, and a threaded run
+   with --flight-dir killed by SIGTERM (its dump read back).  Prints
+   iterations/s with every flag over without, beside the card line.
+10. Profile: one more default serial -c 0 run per family, one of logreg
    with int8 slabs, one of logreg --compress int8 and one of logreg
    --fused --eval_every 10 (200
    iterations each), under torch.profiler (CUDA activity only) and
@@ -177,9 +196,9 @@
    Python function, with the rank of the CSV parse's functions in it.
    In the fused run, whose chunks replay CUDA graphs, the K2 kernels the
    profiler traced must equal the launch counter.
-10. The `kernels` JSON line (the split, scale-out, serving and tier
-   runs' worker calls counted in the launches), the card line, and last
-   the result line.
+11. The `kernels` JSON line (the split, scale-out, serving, tier and
+   telemetry runs' worker calls counted in the launches), the card line,
+   and last the result line.
 
 Any failed phase raises: the script exits non-zero and prints no result.
 It also exits non-zero without a card, and when the package is absent.
@@ -230,7 +249,7 @@ WIDE_H = 4096                      # the fused MLP path's hidden width
 FUSED_MLP_ROUNDS = 40
 BIG_B = 16384                      # K1's re-staged case: 64 MiB of x
 WORKERS, MAX_BUFFER, TRAIN_ROWS, TEST_ROWS = 4, 1024, 6000, 2000
-ITERS, SLICE1_ITERS = 400, 200
+ITERS, SLICE1_ITERS = 200, 200
 # the codecs of --compress at logreg's, the MLP's (H=128) and the wide
 # MLP's (H=4096) parameter counts
 CODEC_NAMES = ("bf16", "int8", "topk:0.01")
@@ -243,7 +262,7 @@ DURABLE_ITERS, DURABLE_CRASH_AT = 200, 120
 CLI_CRASH_ROWS, CLI_KILL_AT = 512, 130
 COMPRESSED_WIDE_ITERS, RESUME_ITERS = 40, 200
 # the split phase: server iterations of its runs
-SPLIT_ITERS, SPLIT_SHORT, SPLIT_WIDE = 400, 200, 40
+SPLIT_ITERS, SPLIT_SHORT, SPLIT_WIDE = 200, 200, 40
 # the scale-out phase: server iterations of its runs, and of its in-process
 # reference checks
 SCALE_ITERS, SCALE_SHORT, SCALE_WIDE, SCALE_REF_ITERS = 200, 100, 40, 40
@@ -258,6 +277,9 @@ TIER_WIDE_PAGE, TIER_WIDE_HOT, TIER_WIDE_WARM = 65536, 8388608, 4194304
 TIER_PAGE, TIER_HOT, TIER_WARM = 256, 2048, 4096
 TIER_SHARD_PAGE, TIER_SHARD_HOT, TIER_SHARD_WARM = 4096, 16384, 32768
 TIER_WIDE_ITERS = 40
+# the telemetry phase: server iterations of its runs, and of its
+# --device_trace runs
+TEL_ITERS, TEL_TRACE_ITERS = 400, 100
 SLAB_KINDS = ("bf16", "int8")
 X_BYTES = {"bf16": 2, "int8": 1}
 # the Pallas body each storage form of K3 and K5 replaces
@@ -1089,7 +1111,7 @@ def threaded_order_check(dev) -> None:
 def cli_crash_check() -> None:
     """The CLI on the card, 512 rows at F=1024, C=5 (4 workers x the
     default 128 prefill: the whole stream is buffered before the first
-    iteration): an uninterrupted serial -c 0 run to 400 iterations with
+    iteration): an uninterrupted serial -c 0 run to ITERS iterations with
     --checkpoint, against a run with --durable-log --fsync interval
     --checkpoint_every 50 that kills itself with SIGKILL right after
     iteration CLI_KILL_AT (scripts/torch_kill_at.py), past its second
@@ -1386,7 +1408,11 @@ def write_data():
 
 def main_path_run(task: str, mode: str, c: int, iters: int,
                   flags: tuple = (), hidden: int = H,
-                  train: str = "train.csv") -> dict:
+                  train: str = "train.csv", watch=None) -> dict:
+    """One cli.run in this process.  `watch(err)`, when given, is
+    called with the run's stderr buffer just before the run and returns
+    a callable that is called just after it (a poller of the health
+    plane)."""
     from kafka_ps_tpu_torch.cli import run as cli_run
     from kafka_ps_tpu_torch.ops import fused_update
 
@@ -1412,13 +1438,18 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
         fused_update.reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
-            rc = cli_run.main([
-                "-training", train, "-test", "test.csv",
-                "--num_workers", str(WORKERS), "--num_features", str(F),
-                "--num_classes", str(C), "--task", task, "--hidden_dim",
-                str(hidden), "-max", str(MAX_BUFFER), "-p", "0", "-l",
-                "--mode", mode, "-c", str(c), "--max_iterations",
-                str(iters), *flags])
+            done = watch(err) if watch is not None else None
+            try:
+                rc = cli_run.main([
+                    "-training", train, "-test", "test.csv",
+                    "--num_workers", str(WORKERS), "--num_features", str(F),
+                    "--num_classes", str(C), "--task", task, "--hidden_dim",
+                    str(hidden), "-max", str(MAX_BUFFER), "-p", "0", "-l",
+                    "--mode", mode, "-c", str(c), "--max_iterations",
+                    str(iters), *flags])
+            finally:
+                if done is not None:
+                    done()
         # main() returns after the drive loop's flush_logs, which waits on
         # the card: the window from the first worker row to here holds
         # all the device work of the run
@@ -1605,7 +1636,9 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
     return {"task": task, "kind": kind, "single": single,
             "gang_calls": gang_calls, "hidden": hidden, "fused": fused,
             "rate": rate, "durable": dur, "serving": stats.get("serving"),
-            "tag": tag, "tier": tier, "eval": ev}
+            "tag": tag, "tier": tier, "eval": ev, "counts": n,
+            "submit_rate": submit_rate,
+            "stats": stats, "stderr": err.getvalue()}
 
 
 def durable_runs() -> list[dict]:
@@ -3229,6 +3262,310 @@ def tier_runs(dev, twins: dict) -> list[dict]:
     return runs
 
 
+def tel_flags(name: str) -> tuple:
+    """Every telemetry flag of cli.run but --device_trace, with file
+    names under `name`."""
+    return ("--trace", f"{name}-trace.json", "--metrics-file",
+            f"{name}.prom", "--metrics-every", "0.5", "--flight-dir",
+            f"{name}-flight", "--health-port", "0", "--status_every", "0.5")
+
+
+class HealthPoller:
+    """Polls a run's /healthz from a thread of this script: it reads the
+    port from the run's "health plane on port N" line and keeps the first
+    answer (status, JSON) and the iterations the run had made then."""
+
+    def __init__(self):
+        self.answer = None
+        self._stop = threading.Event()
+
+    def __call__(self, err):
+        import urllib.request
+        from kafka_ps_tpu_torch.telemetry import FLIGHT
+
+        def poll():
+            while not self._stop.is_set() and self.answer is None:
+                m = re.search(r"health plane on port (\d+)", err.getvalue())
+                if m:
+                    try:
+                        with urllib.request.urlopen(
+                                f"http://127.0.0.1:{m.group(1)}/healthz",
+                                timeout=5) as r:
+                            self.answer = (r.status, json.loads(r.read()),
+                                           FLIGHT.total_events())
+                    except OSError:
+                        pass
+                time.sleep(0.01)
+
+        t = threading.Thread(target=poll, daemon=True)
+        t.start()
+
+        def done():
+            self._stop.set()
+            t.join(10)
+        return done
+
+
+def _prom(path: str) -> dict:
+    """{family: {labels: value}} of a Prometheus text file."""
+    out: dict = {}
+    for line in open(path).read().splitlines():
+        if line.startswith("#") or not line:
+            continue
+        key, value = line.rsplit(" ", 1)
+        name, _, labels = key.partition("{")
+        out.setdefault(name, {})[labels.rstrip("}")] = float(value)
+    return out
+
+
+def _status_iters(stderr: str) -> list[int]:
+    return [int(m) for m in re.findall(r"^\[status\] iters=(\d+)", stderr,
+                                       re.M)]
+
+
+def telemetry_checks(name: str, run: dict) -> dict:
+    """The files and lines of one run with tel_flags(name): the counting
+    rules, rising [status] iters, the exit flight dump; returns the
+    metrics and the flight dump."""
+    from kafka_ps_tpu_torch.telemetry.flight import DUMP_SCHEMA
+    trace = json.load(open(os.path.join(OUT, f"{name}-trace.json")))
+    prom = _prom(os.path.join(OUT, f"{name}.prom"))
+    (dump_path,) = [os.path.join(OUT, f"{name}-flight", f) for f in
+                    os.listdir(os.path.join(OUT, f"{name}-flight"))]
+    dump = json.load(open(dump_path))
+    spans: dict = {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    counters = trace["counters"]
+    applied = sum(prom["gradients_applied_total"].values())
+    iters = run["stats"]["server_iterations"]
+    calls = run["single"] + run["gang_calls"]
+    status = _status_iters(run["stderr"])
+    kinds = {e["kind"] for e in dump["events"]}
+    print(f"  telemetry {name}: spans {dict(sorted(spans.items()))}; "
+          f"dispatch.device {counters.get('dispatch.device')} (kernel calls "
+          f"{calls} + server applies {spans.get('server.apply', 0)}); "
+          f"gradients_applied_total {applied:.0f} of {iters} iterations; "
+          f"[status] iters {status}; flight dump {os.path.basename(dump_path)}"
+          f" ({dump['reason']}, {len(dump['events'])} events, kinds "
+          f"{sorted(kinds)}, watchdogs {dump['watchdogs']})")
+    if applied != iters or counters.get("server.gradients_applied") != iters:
+        raise RuntimeError(f"{name}: {applied} gradients counted for "
+                           f"{iters} server iterations")
+    # the rule tests/test_torch_trace.py pins against the JAX package: one
+    # worker.local_update span and one dispatch.device per kernel call, one
+    # dispatch.device per server apply
+    if spans.get("worker.local_update") != calls or \
+            counters.get("dispatch.device") != calls + spans.get(
+                "server.apply", 0):
+        raise RuntimeError(f"{name}: spans and dispatch.device off the "
+                           f"counting rule ({calls} kernel calls)")
+    # a 400-iteration run lasts about a second: one or two lines at 0.5 s
+    # (the SIGTERM run, which runs until killed, shows them rising)
+    if not status or status != sorted(status) or status[-1] <= 0:
+        raise RuntimeError(f"{name}: [status] iters {status}")
+    if dump["schema"] != DUMP_SCHEMA or dump["reason"] != "shutdown" or \
+            not {"gate.arrive", "gate.release"} <= kinds:
+        raise RuntimeError(f"{name}: flight dump {dump['schema']} "
+                           f"{dump['reason']} {sorted(kinds)}")
+    return {"prom": prom, "dump": dump, "spans": spans,
+            "counters": counters}
+
+
+def _theta_sha(path: str) -> str:
+    import hashlib
+    with np.load(path) as z:
+        return hashlib.sha256(z["theta"].tobytes()).hexdigest()
+
+
+def _bitwise_pair(name: str, on: dict, off: dict) -> None:
+    a, b = (_theta_sha(os.path.join(OUT, f"ck-{name}-{arm}.npz"))
+            for arm in ("on", "off"))
+    rows = _stripped(on) == _stripped(off)
+    counts = on["counts"] == off["counts"]
+    print(f"  telemetry {name}: theta SHA-256 {a[:16]}.. against "
+          f"{b[:16]}.. equal {a == b}; rows (less stamps) equal {rows}; "
+          f"kernel counters equal {counts} ({on['counts']})")
+    if a != b or not rows or not counts:
+        raise RuntimeError(f"{name}: the traced run differs from its "
+                           "untraced twin")
+    for arm in ("on", "off"):
+        remove(os.path.join(OUT, f"ck-{name}-{arm}.npz"))
+
+
+def sigterm_check() -> None:
+    """A threaded cli.run with --flight-dir on the card, killed by
+    SIGTERM once two of its [status] lines show rising iterations: the
+    process dies by the signal and leaves flightdump-<pid>.json, read
+    here."""
+    import signal
+    from kafka_ps_tpu_torch.telemetry.flight import DUMP_SCHEMA
+    d = os.path.join(OUT, "tel-sigterm")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("KPS_PLATFORM", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kafka_ps_tpu_torch.cli.run", "-training",
+         os.path.join(OUT, "train.csv"), "-test",
+         os.path.join(OUT, "test.csv"), "--num_workers", str(WORKERS),
+         "--num_features", str(F), "--num_classes", str(C), "-max",
+         str(MAX_BUFFER), "-p", "0", "--mode", "threaded", "-c", "2",
+         "--max_iterations", "1000000", "--flight-dir", d,
+         "--status_every", "0.5"],
+        cwd=d, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    seen: list[int] = []
+    try:
+        for line in proc.stderr:
+            m = re.match(r"\[status\] iters=(\d+)", line)
+            if m and int(m.group(1)) > 0:
+                seen.append(int(m.group(1)))
+            if len(seen) == 2:
+                proc.send_signal(signal.SIGTERM)
+                break
+        proc.wait(timeout=120)
+    finally:
+        proc.kill()
+        proc.stderr.close()
+    path = os.path.join(d, f"flightdump-{proc.pid}.json")
+    if proc.returncode != -signal.SIGTERM or not os.path.exists(path) \
+            or len(seen) != 2 or seen[1] <= seen[0]:
+        raise RuntimeError(f"SIGTERM run: rc {proc.returncode}, dump "
+                           f"{os.path.exists(path)}, [status] iters {seen}")
+    dump = json.load(open(path))
+    kinds = {e["kind"] for e in dump["events"]}
+    threads = [t for t in dump["threads"] if t.startswith("worker-")]
+    print(f"  telemetry sigterm: rc {proc.returncode} after [status] iters "
+          f"{seen}; {os.path.basename(path)}: schema {dump['schema']}, "
+          f"reason {dump['reason']}, role {dump['role']}, "
+          f"{len(dump['events'])} events of kinds {sorted(kinds)}, worker "
+          f"threads {threads}, watchdogs {dump['watchdogs']}")
+    if dump["schema"] != DUMP_SCHEMA or dump["reason"] != "signal:SIGTERM" \
+            or dump["role"] != "run" or "gate" not in dump["watchdogs"] \
+            or not {"gate.arrive", "gate.release"} <= kinds \
+            or len(threads) != WORKERS:
+        raise RuntimeError("SIGTERM run: the flight dump is incomplete")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def device_trace_check(task: str, symbols: tuple) -> dict:
+    """cli.run --device_trace DIR (serial -c 0, TEL_TRACE_ITERS): the
+    trace holds CUDA kernel events of the hand kernels' symbols (presence
+    only: torch.profiler loses events now and then)."""
+    from kafka_ps_tpu_torch.utils.trace import device_trace_path, kernel_names
+    d = os.path.join(OUT, f"tel-dtrace-{task}")
+    shutil.rmtree(d, ignore_errors=True)
+    run = main_path_run(task, "serial", 0, TEL_TRACE_ITERS,
+                        ("--device_trace", f"tel-dtrace-{task}"))
+    path = device_trace_path(d)
+    names = kernel_names(path)
+    found = {s: sorted(n for n in names if s in n)[:2] for s in symbols}
+    print(f"  telemetry device trace {task}: {os.path.basename(path)} "
+          f"{os.path.getsize(path)} bytes, {len(names)} kernel names; "
+          f"hand kernels {found}")
+    if not all(found.values()):
+        raise RuntimeError(f"device trace {task}: no event of {symbols}")
+    shutil.rmtree(d, ignore_errors=True)
+    return run
+
+
+def telemetry_phase() -> list[dict]:
+    """cli.run with the telemetry flags on the card: logreg serial -c 0
+    (TEL_ITERS, 512-row CSV) and --fused --eval_every 10 with --trace,
+    each bitwise its untraced twin with the same kernel counters; threaded
+    -c 2 on the whole CSV (eval lag 0, one clock_lag observation per
+    gradient, the gate watchdog quiet); /healthz answered mid-run; the
+    overhead of telemetry as iterations/s on over off; --device_trace
+    runs; a SIGTERM dump."""
+    with open(os.path.join(OUT, "train.csv")) as f:
+        head = [next(f) for _ in range(SERVE_TRAIN_ROWS + 1)]
+    with open(os.path.join(OUT, "tel-train.csv"), "w") as f:
+        f.writelines(head)
+    ck = ("--checkpoint_every", "1000000")
+    for name in os.listdir(OUT):
+        if name.startswith("tel-") and not name.endswith(".csv"):
+            shutil.rmtree(os.path.join(OUT, name), ignore_errors=True)
+    runs = []
+    # 1. serial -c 0 with every flag, beside its untraced twin
+    off = main_path_run("logreg", "serial", 0, TEL_ITERS,
+                        ("--checkpoint", "ck-tel-serial-off.npz", *ck),
+                        train="tel-train.csv")
+    poller = HealthPoller()
+    on = main_path_run("logreg", "serial", 0, TEL_ITERS,
+                       ("--checkpoint", "ck-tel-serial-on.npz", *ck,
+                        *tel_flags("tel-serial")),
+                       train="tel-train.csv", watch=poller)
+    runs += [off, on]
+    _bitwise_pair("tel-serial", on, off)
+    telemetry_checks("tel-serial", on)
+    print(f"  telemetry tel-serial: /healthz mid-run {poller.answer}")
+    if poller.answer is None or poller.answer[0] != 200 or \
+            not poller.answer[1]["healthy"]:
+        raise RuntimeError(f"/healthz did not answer 200: {poller.answer}")
+    # 2. threaded -c 2, beside its untraced twin
+    t_off = main_path_run("logreg", "threaded", 2, TEL_ITERS)
+    t_on = main_path_run("logreg", "threaded", 2, TEL_ITERS,
+                         tel_flags("tel-threaded"))
+    runs += [t_off, t_on]
+    got = telemetry_checks("tel-threaded", t_on)
+    lag_n = got["prom"]["clock_lag_count"]['model="bounded"']
+    gate = got["dump"]["watchdogs"]["gate"]
+    print(f"  telemetry tel-threaded: final eval lag "
+          f"{t_on['eval']['lag_clocks']}; clock_lag observations {lag_n:.0f}"
+          f" for {t_on['stats']['server_iterations']} gradients; gate "
+          f"watchdog {gate}")
+    if lag_n != t_on["stats"]["server_iterations"] or gate["trip_count"]:
+        raise RuntimeError("tel-threaded: clock_lag observations or the "
+                           "gate watchdog")
+    # 3. --fused --eval_every 10 with --trace, beside its untraced twin
+    fused = ("--fused", "--eval_every", "10")
+    f_off = main_path_run("logreg", "serial", 0, TEL_ITERS,
+                          (*fused, "--checkpoint", "ck-tel-fused-off.npz",
+                           *ck), train="tel-train.csv")
+    f_on = main_path_run("logreg", "serial", 0, TEL_ITERS,
+                         (*fused, "--checkpoint", "ck-tel-fused-on.npz",
+                          *ck, "--trace", "tel-fused-trace.json"),
+                         train="tel-train.csv")
+    runs += [f_off, f_on]
+    _bitwise_pair("tel-fused", f_on, f_off)
+    trace = json.load(open(os.path.join(OUT, "tel-fused-trace.json")))
+    steps = sum(1 for e in trace["traceEvents"]
+                if e["ph"] == "X" and e["name"] == "bsp.step")
+    fs = f_on["stats"]["fused"]
+    dispatches = fs["chunks"] + fs["rounds"] - fs["chunk_rounds"]
+    print(f"  telemetry tel-fused: bsp.step spans {steps}, bsp.steps "
+          f"{trace['counters'].get('bsp.steps')}, dispatches {dispatches} "
+          f"({fs['chunks']} chunks, {fs['rounds'] - fs['chunk_rounds']} "
+          f"single rounds); iterations/s {f_on['rate']:.1f} traced against "
+          f"{f_off['rate']:.1f}")
+    if steps != dispatches or trace["counters"].get("bsp.steps") != \
+            dispatches:
+        raise RuntimeError("tel-fused: bsp.step spans off the dispatches")
+    # 4. --device_trace on each family
+    runs.append(device_trace_check("logreg", ("logreg_update",)))
+    runs.append(device_trace_check("mlp", ("hidden_pass", "update_pass")))
+    # 5. SIGTERM
+    sigterm_check()
+    # 6. the overhead of telemetry
+    # iterations/s runs to the CLI's return, so it holds the teardown too
+    # (the health server's shutdown waits up to its 0.5 s poll, the trace
+    # and metrics are written); worker rows/s on their host submit stamps
+    # is the drive loop alone
+    card = card_line()
+    for name, a, b in (("serial -c 0", on, off),
+                       ("threaded -c 2", t_on, t_off)):
+        print(f"telemetry overhead, logreg {name}: iterations/s "
+              f"{a['rate']:.1f} with every flag against {b['rate']:.1f} "
+              f"without ({a['rate'] / b['rate']:.3f}x); worker rows/s on "
+              f"host submit stamps {a['submit_rate']:.1f} against "
+              f"{b['submit_rate']:.1f} "
+              f"({a['submit_rate'] / b['submit_rate']:.3f}x) [{card}]")
+    remove(os.path.join(OUT, "tel-train.csv"))
+    return runs
+
+
 @contextlib.contextmanager
 def observed_graphs():
     """(graphs, added): every CUDA graph made inside, its captured graph
@@ -3532,13 +3869,15 @@ def main() -> int:
                                    ("shards", "shards", ("mlp", H, -1, ())))}
         runs += tier_runs(dev, twins)
         t_tier = time.perf_counter()
+        runs += telemetry_phase()
+        t_tel = time.perf_counter()
         print(f"phase times: split {t_scale - t_split:.1f} s; scale-out "
               f"{t_end - t_scale:.1f} s (in-process checks "
               f"{t_runs - t_scale:.1f} s, runs {t_end - t_runs:.1f} s); "
               f"serving {t_serve - t_end:.1f} s (in-process checks "
               f"{t_serve_runs - t_end:.1f} s, runs "
               f"{t_serve - t_serve_runs:.1f} s); tier "
-              f"{t_tier - t_serve:.1f} s")
+              f"{t_tier - t_serve:.1f} s; telemetry {t_tel - t_tier:.1f} s")
         profile_run("logreg")
         profile_run("logreg", flags=("--durable-log", "wal-profile"))
         profile_run("mlp")

@@ -51,6 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    run_mod.refuse_telemetry_flags(args)
     from kafka_ps_tpu_torch.cli import socket_mode
     return socket_mode.run_aggregator(args)
 

@@ -25,6 +25,19 @@ vector on the card and in host memory, the rest as records under
 KPS_PLATFORM=cpu runs it on the CPU.  At exit it prints one line of run
 statistics on stderr: `kafka_ps_tpu_torch run: {json}`.
 
+Telemetry (telemetry/, utils/trace.py, utils/status.py), the JAX
+trainer's flags: `--status_every S` prints a `[status]` line every S
+seconds, `--trace PATH` writes the tracer's Chrome trace JSON at exit
+and prints its span stats, `--metrics-file PATH` (`--metrics-every S`)
+writes the metrics registry in Prometheus text, `--flight-dir DIR`
+arms the flight recorder (DIR/flightdump-<pid>.json at exit, on
+SIGTERM/SIGABRT and on a watchdog trip), `--health-port P` serves
+/healthz, /varz, /flightz and /evalz (0 = ephemeral, printed as "health
+plane on port N"), and `--device_trace DIR` records the run with
+torch.profiler into DIR/devicetrace-<pid>.json (utils/trace.device_trace).
+The role runners refuse these seven flags (`refuse_telemetry_flags`):
+their telemetry is ROADMAP item 24b.
+
 `build_parser` also serves the role runners (cli/server_runner.py,
 cli/worker_runner.py), which leave out the other role's flags and run
 `run_with_args` when not split; `--wire-coalesce` / `--no-wire-coalesce`
@@ -209,6 +222,47 @@ def build_parser(include_server_flags: bool = True,
     p.add_argument("--serve-shm", dest="serve_shm", action="store_true",
                    help="offer co-located PredictClients a shared-memory "
                         "channel; other clients stay on the socket")
+    # -- telemetry (telemetry/, utils/trace.py, utils/status.py) --
+    p.add_argument("--status_every", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="emit a [status] line to stderr every N seconds "
+                        "(iters/s, per-worker clocks, membership, queue "
+                        "depths, buffer fill) (utils/status.py; 0 = off)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="write a Chrome trace-event JSON (spans + message "
+                        "counters) on exit and print span stats")
+    p.add_argument("--metrics-file", dest="metrics_file", default=None,
+                   metavar="PATH",
+                   help="enable the metrics registry (telemetry/) and "
+                        "write a Prometheus-style text dump of every "
+                        "counter/gauge/histogram family to PATH at exit "
+                        "(and every --metrics-every seconds); also folds a "
+                        "flat metrics summary into each [status] line")
+    p.add_argument("--metrics-every", dest="metrics_every", type=float,
+                   default=0.0, metavar="SECONDS",
+                   help="with --metrics-file: rewrite the dump every N "
+                        "seconds (atomic replace; 0 = only at exit)")
+    p.add_argument("--flight-dir", dest="flight_dir", default=None,
+                   metavar="DIR",
+                   help="enable the always-on flight recorder "
+                        "(telemetry/flight.py): per-thread rings of "
+                        "structured events (gate decisions, fsyncs, "
+                        "snapshot publishes, eval dispatches) dumped "
+                        "atomically to DIR/flightdump-<pid>.json on "
+                        "SIGTERM/SIGABRT/fatal signals, on watchdog trips, "
+                        "and at clean exit")
+    p.add_argument("--health-port", dest="health_port", type=int,
+                   default=None, metavar="PORT",
+                   help="serve the health/introspection plane on this "
+                        "port (0 = ephemeral, printed to stderr): "
+                        "/healthz watchdog-derived liveness/readiness, "
+                        "/varz Prometheus metrics snapshot, /flightz "
+                        "recent flight-ring tail, /evalz the async eval "
+                        "engine")
+    p.add_argument("--device_trace", default=None, metavar="LOGDIR",
+                   help="capture a torch.profiler device trace (Chrome "
+                        "trace JSON, LOGDIR/devicetrace-<pid>.json) for "
+                        "the whole run")
     p.add_argument("--wire-coalesce", dest="wire_coalesce",
                    action="store_true", default=True,
                    help="split deployment (cli/socket_mode.py): frame "
@@ -271,19 +325,53 @@ def make_app_from_args(args, device=None, resuming: bool = False):
                             SERVER_HEADER, append=resuming)
     worker_log = CsvLogSink("./logs-worker.csv" if args.logging else None,
                             WORKER_HEADER, append=resuming)
+    tracer = None
+    if args.trace:
+        from kafka_ps_tpu_torch.utils.trace import Tracer
+        tracer = Tracer()
+    from kafka_ps_tpu_torch.telemetry import maybe_telemetry
+    # /varz serves this same registry, so a health plane arms metrics even
+    # without a --metrics-file dump target
+    telemetry = maybe_telemetry(
+        tracer, want_metrics=bool(args.metrics_file)
+        or args.health_port is not None)
     fabric = None
     if args.durable_log:
         from kafka_ps_tpu_torch.log import DurableFabric, LogConfig
         fabric = DurableFabric(args.durable_log,
-                               LogConfig(fsync=args.fsync), device=device)
+                               LogConfig(fsync=args.fsync), device=device,
+                               tracer=tracer, telemetry=telemetry)
     app = StreamingPSApp(cfg, test_x=test_x, test_y=test_y,
                          server_log=server_log, worker_log=worker_log,
-                         device=device, fabric=fabric)
+                         device=device, fabric=fabric, tracer=tracer,
+                         telemetry=telemetry)
     return app, (server_log, worker_log)
 
 
 def main(argv=None) -> int:
     return run_with_args(build_parser().parse_args(argv))
+
+
+# the telemetry flags' parser destinations, flags and defaults
+TELEMETRY_FLAGS = (("status_every", "--status_every", 0.0),
+                   ("trace", "--trace", None),
+                   ("metrics_file", "--metrics-file", None),
+                   ("metrics_every", "--metrics-every", 0.0),
+                   ("flight_dir", "--flight-dir", None),
+                   ("health_port", "--health-port", None),
+                   ("device_trace", "--device_trace", None))
+
+
+def refuse_telemetry_flags(args) -> None:
+    """The role runners share this parser but not yet its telemetry:
+    a runner given a telemetry flag exits instead of ignoring it."""
+    given = [flag for dest, flag, default in TELEMETRY_FLAGS
+             if getattr(args, dest, default) != default]
+    if given:
+        raise SystemExit(
+            f"{', '.join(given)}: the role runners do not take the "
+            "telemetry flags yet (ROADMAP item 24b); "
+            "python -m kafka_ps_tpu_torch.cli.run takes them")
 
 
 def run_with_args(args) -> int:
@@ -360,20 +448,30 @@ def run_with_args(args) -> int:
             print(f"    durable-log replay: {counts}")
     producer = app.make_producer(args.training_data_file_path)
     serve_bridge = start_serving(app, args) if args.serve else None
+    ops = start_ops(app, args)
+    if args.metrics_file and args.metrics_every > 0:
+        # the periodic dump (atomic replace); the exit path writes the
+        # final state either way
+        app.telemetry.start_dumper(args.metrics_file, args.metrics_every)
+    from kafka_ps_tpu_torch.utils.trace import device_trace
     try:
         producer.run_in_background()
         app.wait_for_prefill(min_per_worker=1, timeout=120.0)
         app.wait_for_stream_settle(producer)
         max_iters = args.max_iterations or sys.maxsize
-        if args.fused:
-            app.run_fused_bsp(max_server_iterations=max_iters)
-        elif args.mode == "serial":
-            app.run_serial(max_server_iterations=max_iters,
-                           pump=lambda: None)
-        else:
-            app.run_threaded(max_server_iterations=max_iters,
-                             failure_policy=args.failure_policy,
-                             heartbeat_timeout=args.heartbeat_timeout)
+        with device_trace(args.device_trace, app.device):
+            if args.fused:
+                app.run_fused_bsp(max_server_iterations=max_iters,
+                                  status_every=args.status_every)
+            elif args.mode == "serial":
+                app.run_serial(max_server_iterations=max_iters,
+                               pump=lambda: None,
+                               status_every=args.status_every)
+            else:
+                app.run_threaded(max_server_iterations=max_iters,
+                                 failure_policy=args.failure_policy,
+                                 heartbeat_timeout=args.heartbeat_timeout,
+                                 status_every=args.status_every)
     except KeyboardInterrupt:
         print("interrupted — shutting down", file=sys.stderr)
         app.stop()
@@ -385,6 +483,9 @@ def run_with_args(args) -> int:
         if serve_bridge is not None:
             serve_bridge.close()
         app.close_serving()
+        # the ops plane after serving, before the logs: the final flight
+        # dump still sees live telemetry and a coherent ring
+        ops.close()
         if args.checkpoint:
             # on a durable fabric the final save is a commit point too
             app.server.save_checkpoint_now()
@@ -395,9 +496,34 @@ def run_with_args(args) -> int:
         app.close_logs()
         for log in logs:
             log.close()
+        if args.metrics_file:
+            app.telemetry.stop_dumper()
+            app.telemetry.write_prometheus(args.metrics_file)
+        if args.trace:
+            print(app.tracer.dump(args.trace), file=sys.stderr)
+            print(json.dumps({"spans": app.tracer.span_stats(),
+                              "counters": app.tracer.counters()},
+                             indent=2), file=sys.stderr)
     print("kafka_ps_tpu_torch run: "
           + json.dumps(run_stats(app, producer)), file=sys.stderr)
     return 0
+
+
+def start_ops(app, args):
+    """The flight recorder, watchdogs and health plane
+    (telemetry/health.OpsPlane), started: the gate watchdog, the fsync
+    watchdog on a durable log, the eval engine on /evalz.  Inert without
+    --flight-dir and --health-port."""
+    from kafka_ps_tpu_torch.telemetry.health import OpsPlane
+    ops = OpsPlane(flight_dir=args.flight_dir, health_port=args.health_port,
+                   telemetry=app.telemetry, role="run")
+    ops.add_gate_watchdog(app.server)
+    if args.durable_log:
+        ops.add_fsync_watchdog()
+    if app.eval_engine is not None:
+        ops.add_eval_engine(app.eval_engine)
+    ops.start()
+    return ops
 
 
 def check_tier_flags(args) -> None:

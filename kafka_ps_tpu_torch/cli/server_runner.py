@@ -66,6 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    run_mod.refuse_telemetry_flags(args)
     # worker-side defaults (WorkerAppRunner.java:55-58)
     args = argparse.Namespace(min_buffer_size=128, max_buffer_size=1024,
                               buffer_size_coefficient=0.3, **vars(args))

@@ -44,8 +44,9 @@ per shard (`--compress topk:R` is then its local sparsifier and the
 slices are sparse) and reassembles the weights slices; a dead shard is
 not fatal (it reconnects and the router resends what the shard missed).
 With `--aggregate` the same worker dials the relay, which compresses for
-it; after a relay restart it resends its whole cache.  The telemetry
-planes (ROADMAP item 24) have no flags here.
+it; after a relay restart it resends its whole cache.  The role runners
+refuse the telemetry flags cli.run takes (cli/run.refuse_telemetry_flags):
+the roles' telemetry is ROADMAP item 24b.
 
 Tiered residency (store/): `--tier-hot-bytes`, `--tier-warm-bytes` and
 `--tier-page-params` give a server's (or a shard's) slice to a tiered

@@ -55,6 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    run_mod.refuse_telemetry_flags(args)
     # server-side defaults (ServerAppRunner.java:59-63, BaseKafkaApp.java:35)
     args = argparse.Namespace(training_data_file_path="./data/train.csv",
                               consistency_model=0,

@@ -24,7 +24,9 @@ carry one spare row at index `capacity`: every sentinel lands there and
 `arrays()` slices it off.  Real slots are unique (a drained set), so the
 only repeated index is the sentinel's, and index_copy_'s unordered writes
 touch nothing that is read.  Incremental and full uploads give
-bitwise-equal slabs in every storage form.
+bitwise-equal slabs in every storage form.  With telemetry on,
+`slab_upload_bytes_total{path=full|incremental}` mirrors the host bytes
+each path shipped.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
 
 SLAB_DTYPES = ("f32", "bf16", "int8")
 MIN_BUCKET = 4
@@ -113,7 +117,7 @@ class SlabStore:
     bytes each path shipped, as the reference does."""
 
     def __init__(self, dtype: str, capacity: int, num_features: int,
-                 device):
+                 device, telemetry=None):
         if dtype not in SLAB_DTYPES:
             raise ValueError(f"slab dtype {dtype!r} not in {SLAB_DTYPES}")
         self.dtype = dtype
@@ -127,6 +131,14 @@ class SlabStore:
         self.full_uploads = 0
         self.incremental_applies = 0
         self.rows_applied = 0
+        # the metrics mirror of bytes_uploaded by upload path (host
+        # array sizes: no device sync)
+        telemetry = telemetry or NULL_TELEMETRY
+        self._telemetry = telemetry
+        self._m_full = telemetry.counter("slab_upload_bytes_total",
+                                         path="full")
+        self._m_rows = telemetry.counter("slab_upload_bytes_total",
+                                         path="incremental")
 
     @property
     def ready(self) -> bool:
@@ -140,6 +152,8 @@ class SlabStore:
         mask = np.ascontiguousarray(mask, dtype=np.float32)
         self.bytes_uploaded += x.nbytes + y.nbytes + mask.nbytes
         self.full_uploads += 1
+        if self._telemetry.enabled:
+            self._m_full.inc(x.nbytes + y.nbytes + mask.nbytes)
         cap, dev = self.capacity, self.device
         sx = torch.zeros((cap + 1, self.num_features), dtype=torch.float32,
                          device=dev)
@@ -176,6 +190,9 @@ class SlabStore:
                                 + yr_p.nbytes + mr_p.nbytes)
         self.incremental_applies += 1
         self.rows_applied += n
+        if self._telemetry.enabled:
+            self._m_rows.inc(slots_p.nbytes + xr_p.nbytes
+                             + yr_p.nbytes + mr_p.nbytes)
         dev = self.device
         idx = torch.from_numpy(slots_p).to(dev, dtype=torch.int64)
         enc = encode_x(self.dtype, torch.from_numpy(xr_p).to(dev))

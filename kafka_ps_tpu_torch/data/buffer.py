@@ -11,6 +11,9 @@ Each worker owns fixed-capacity dense numpy arrays plus a validity mask:
     overwrite the oldest; above target (target shrank) → delete the n
     oldest, then overwrite the next-oldest survivor;
   * insertion IDs: new ID = max ID in the buffer + 1 (1 when empty).
+
+With telemetry on, `buffer_rows_ingested_total{worker}` counts the rows
+inserted.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Callable
 import numpy as np
 
 from kafka_ps_tpu_torch.models.logreg import sparse_to_dense
+from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
 from kafka_ps_tpu_torch.utils.config import BufferConfig
 
 
@@ -34,9 +38,14 @@ class SlidingBuffer:
     """Fixed-capacity masked ring buffer with a rate-adaptive target size."""
 
     def __init__(self, num_features: int, cfg: BufferConfig,
-                 clock_ms: Callable[[], float] | None = None):
+                 clock_ms: Callable[[], float] | None = None,
+                 telemetry=None, worker: int | None = None):
         self.cfg = cfg
         self.num_features = num_features
+        self._telemetry = telemetry or NULL_TELEMETRY
+        self._m_rows = self._telemetry.counter(
+            "buffer_rows_ingested_total",
+            worker="all" if worker is None else str(worker))
         cap = cfg.max_size
         self.x = np.zeros((cap, num_features), dtype=np.float32)
         self.y = np.zeros((cap,), dtype=np.int32)
@@ -80,14 +89,20 @@ class SlidingBuffer:
         """Insert one sample, evicting per the dynamic-target policy."""
         with self._lock:
             self._add_locked(features, label)
+        if self._telemetry.enabled:
+            self._m_rows.inc()
 
     def add_many(self, rows) -> None:
         """Insert (features, label) samples under ONE lock acquisition,
         policy-identical to one add() per row: arrival recording and the
         dynamic-target eviction run per row."""
+        n = 0
         with self._lock:
             for features, label in rows:
                 self._add_locked(features, label)
+                n += 1
+        if n and self._telemetry.enabled:
+            self._m_rows.inc(n)
 
     def _add_locked(self, features, label: int) -> None:
         self._record_arrival()

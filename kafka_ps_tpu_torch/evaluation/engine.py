@@ -22,6 +22,12 @@ backlog past MAX_PENDING makes the SUBMITTER drain (every clock owes a
 row, so nothing is dropped; each queued theta pins a device tensor).  A
 failed evaluation is kept and raised by the next `drain()` or `close()`
 on the caller's thread.
+
+Telemetry (tracer=, telemetry=; null by default): each batch is a
+`server.eval` span (`coalesced=k`) with an `eval.dispatch_async` count,
+the `eval_coalesce_width` histogram and an `eval.dispatch` flight
+record; the `eval_lag_clocks` gauge follows the backlog.  `stats()`
+backs the health plane's /evalz.
 """
 
 from __future__ import annotations
@@ -30,6 +36,13 @@ import threading
 from collections import deque
 
 import torch
+
+from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
+from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
+from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
+
+# the eval_coalesce_width histogram's buckets (thetas per batch)
+WIDTH_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
 
 # backlog past which `submit` drains on the submitter's thread
 MAX_PENDING = 64
@@ -68,7 +81,18 @@ class EvalEngine:
     draining caller's) in strict clock order; the caller owns row
     formatting and timestamps."""
 
-    def __init__(self, task, test_x, test_y, emit):
+    def __init__(self, task, test_x, test_y, emit, *, telemetry=None,
+                 tracer=None):
+        self.tracer = tracer or NULL_TRACER
+        self.telemetry = telemetry or NULL_TELEMETRY
+        self._m_lag = self.telemetry.gauge(
+            "eval_lag_clocks",
+            help_text="newest submitted eval clock minus newest "
+                      "evaluated eval clock (async eval backlog)")
+        self._m_width = self.telemetry.histogram(
+            "eval_coalesce_width", buckets=WIDTH_BUCKETS,
+            help_text="pending thetas coalesced per batched eval "
+                      "dispatch")
         self._task = task
         self._tx = test_x
         self._ty = test_y
@@ -98,6 +122,8 @@ class EvalEngine:
             self._submitted_clock = clock
             backlog = len(self._pending)
             self._cv.notify_all()
+        if self.telemetry.enabled:
+            self._m_lag.set(self._submitted_clock - self._evaluated_clock)
         self._ensure_thread()
         if backlog > MAX_PENDING:
             self.drain()
@@ -169,16 +195,27 @@ class EvalEngine:
     def _dispatch(self, batch) -> None:
         """The standalone evaluation of every popped theta, then emission
         in clock order."""
-        mets = self._task.evaluate_batch([theta for theta, _ in batch],
-                                         self._tx, self._ty)
+        k = len(batch)
+        clock_lo, clock_hi = batch[0][1], batch[-1][1]
+        with self.tracer.span("server.eval", clock=clock_hi, coalesced=k):
+            mets = self._task.evaluate_batch([theta for theta, _ in batch],
+                                             self._tx, self._ty)
+            self.tracer.count("eval.dispatch_async")
         with self._cv:
             self._dispatches += 1
-            self._evals += len(batch)
-            self._width_counts[len(batch)] = \
-                self._width_counts.get(len(batch), 0) + 1
+            self._evals += k
+            self._width_counts[k] = self._width_counts.get(k, 0) + 1
+        if self.telemetry.enabled:
+            self._m_width.observe(k)
+        if FLIGHT.enabled:
+            FLIGHT.record("eval.dispatch", width=k,
+                          clock_lo=clock_lo, clock_hi=clock_hi)
         for i, (_, clock) in enumerate(batch):
             self._emit(clock, type(mets)(*(field[i] for field in mets)))
             self._evaluated_clock = clock
+        if self.telemetry.enabled:
+            self._m_lag.set(max(
+                0, self._submitted_clock - self._evaluated_clock))
 
     # -- lifecycle / introspection ---------------------------------------
 

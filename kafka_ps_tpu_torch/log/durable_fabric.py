@@ -34,6 +34,10 @@ the same clock and range, is reused instead of copied again.
 
 Replayed tensors land on `device` (utils.config.resolve_device: the card
 unless the caller asks for the CPU).
+
+Telemetry (tracer=, telemetry=; null by default): `send.<topic>` per
+send, `log.replays.<topic>` and `log_replays_total{topic}` per replayed
+message, and the partitions' CommitLogs get both (log/log.py).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from kafka_ps_tpu_torch.runtime.fabric import (GRADIENTS_TOPIC,
                                                INPUT_DATA_TOPIC,
                                                WEIGHTS_TOPIC, Fabric)
 from kafka_ps_tpu_torch.runtime.messages import WeightsMessage
+from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
 from kafka_ps_tpu_torch.utils.config import resolve_device
 
 # consuming role per topic (the consumer-group ids on disk)
@@ -72,10 +77,16 @@ class DurableFabric(Fabric):
     durable = True
 
     def __init__(self, root: str, config: LogConfig | None = None,
-                 device=None):
-        super().__init__()
+                 device=None, tracer=None, telemetry=None):
+        super().__init__(tracer)
         self.device = resolve_device(device)
-        self.manager = LogManager(root, config)
+        telemetry = telemetry or NULL_TELEMETRY
+        self._telemetry = telemetry
+        self._m_replays = {
+            t: telemetry.counter("log_replays_total", topic=t)
+            for t in (WEIGHTS_TOPIC, GRADIENTS_TOPIC)}
+        self.manager = LogManager(root, config, tracer=self._tracer,
+                                  telemetry=telemetry)
         # next undelivered offset per partition; starts at the replay
         # position set by recover() and advances on every poll
         self._delivered: dict[tuple[str, int], int] = {}
@@ -124,6 +135,7 @@ class DurableFabric(Fabric):
 
     def send(self, topic: str, key: int, message) -> None:
         payload = self._frame(topic, message)
+        self._tracer.count(f"send.{topic}")
         log = self.manager.get(topic, key)
         with log.lock:
             offset = log.append(payload)
@@ -137,6 +149,7 @@ class DurableFabric(Fabric):
         a replayed notice would promise weights messages whose delivery
         already happened.  Queued as (None, message); polls skip the
         offset bookkeeping for such entries."""
+        self._tracer.count(f"send.{topic}")
         with self._cond:
             self._q(topic, key).append((None, message))
             self._cond.notify_all()
@@ -146,7 +159,9 @@ class DurableFabric(Fabric):
         consumes at send time (the INPUT_DATA hop: the producer sinks the
         row straight into a buffer).  The caller marks the offset
         consumed with `mark_consumed` once the row is applied."""
-        return self.append_frame(topic, key, self._frame(topic, message))
+        offset = self.append_frame(topic, key, self._frame(topic, message))
+        self._tracer.count(f"send.{topic}")
+        return offset
 
     def append_frame(self, topic: str, key: int, frame: bytes) -> int:
         """`persist` of a message its caller already framed with
@@ -285,6 +300,9 @@ class DurableFabric(Fabric):
                         msg = serde.from_bytes(payload, self.device)
                     q.append((offset, msg))
                     counts[topic] = counts.get(topic, 0) + 1
+                    self._tracer.count(f"log.replays.{topic}")
+                    if self._telemetry.enabled:
+                        self._m_replays[topic].inc()
             self._cond.notify_all()
         return counts
 

@@ -27,7 +27,11 @@ the append (the durable fabric's enqueue) holds `lock` around both.
 
 The counters are plain integers on the object: appends, bytes appended,
 segment rolls, fsyncs with their total and largest milliseconds, and
-segments deleted by retention.
+segments deleted by retention.  Telemetry (tracer=, telemetry=; null by
+default) adds the JAX log's: `log.*` counts on the tracer,
+`log_appends_total` and `log_fsync_ms` in the registry, and the flight
+recorder's `log.append` / `log.fsync` records; each fsync is bracketed by
+`FLIGHT.enter/exit("log.fsync")`, which the fsync watchdog reads.
 """
 
 from __future__ import annotations
@@ -39,6 +43,9 @@ import threading
 import time
 
 from kafka_ps_tpu_torch.log.segment import LogSegment, segment_basename
+from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
+from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
+from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,9 +69,13 @@ class CommitLog:
     """Segmented append-only log for one partition."""
 
     def __init__(self, directory: str, config: LogConfig | None = None,
-                 name: str = ""):
+                 name: str = "", tracer=None, telemetry=None):
         self.directory = directory
         self.config = config or LogConfig()
+        self.tracer = tracer or NULL_TRACER
+        self.telemetry = telemetry or NULL_TELEMETRY
+        self._m_appends = self.telemetry.counter("log_appends_total")
+        self._m_fsync_ms = self.telemetry.histogram("log_fsync_ms")
         self.name = name or directory
         self.lock = threading.RLock()
         os.makedirs(directory, exist_ok=True)
@@ -93,6 +104,8 @@ class CommitLog:
                              self.config.index_interval_bytes)
             self.truncated_bytes += seg.truncated_bytes
             self.segments.append(seg)
+        if self.truncated_bytes:
+            self.tracer.count("log.truncated_bytes", self.truncated_bytes)
 
     # -- append ------------------------------------------------------------
 
@@ -117,6 +130,12 @@ class CommitLog:
             offset = self.active.append(payload)
             self.appends += 1
             self.bytes_appended += len(payload)
+            self.tracer.count("log.appends")
+            if self.telemetry.enabled:
+                self._m_appends.inc()
+            if FLIGHT.enabled:
+                FLIGHT.record("log.append", log=self.name, offset=offset,
+                              bytes=len(payload))
             self._maybe_fsync()
             return offset
 
@@ -126,6 +145,7 @@ class CommitLog:
                          self.config.index_interval_bytes)
         self.segments.append(seg)
         self.rolls += 1
+        self.tracer.count("log.segment_rolls")
 
     def _maybe_fsync(self) -> None:
         policy = self.config.fsync
@@ -143,12 +163,19 @@ class CommitLog:
     def _timed_fsync(self) -> None:
         """The single sync-flush site: its latency is the durability tax
         the fsync policy buys."""
+        FLIGHT.enter("log.fsync")      # the watchdog sees a wedged call
         t0 = time.perf_counter()
         self.active.flush(sync=True)
         dt_ms = (time.perf_counter() - t0) * 1e3
+        FLIGHT.exit("log.fsync")
         self.fsyncs += 1
         self.fsync_ms += dt_ms
         self.fsync_ms_max = max(self.fsync_ms_max, dt_ms)
+        self.tracer.count("log.fsyncs")
+        if self.telemetry.enabled:
+            self._m_fsync_ms.observe(dt_ms)
+        if FLIGHT.enabled:
+            FLIGHT.record("log.fsync", log=self.name, ms=round(dt_ms, 3))
 
     def flush(self) -> None:
         """Force an fsync of the active segment regardless of policy —
@@ -196,6 +223,8 @@ class CommitLog:
                 self.segments.pop(0).delete()
                 deleted += 1
             self.segments_deleted += deleted
+        if deleted:
+            self.tracer.count("log.segments_deleted", deleted)
         return deleted
 
     def close(self) -> None:

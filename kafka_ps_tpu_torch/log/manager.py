@@ -27,6 +27,8 @@ import os
 import threading
 
 from kafka_ps_tpu_torch.log.log import CommitLog, LogConfig
+from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
+from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
 
 
 def partition_key(topic: str, key: int) -> str:
@@ -37,11 +39,15 @@ class LogManager:
     """Partition registry + consumer-group offset store over one root
     directory, for one process.  Partitions are created under a lock: the
     first sends of several worker threads to one partition must open one
-    CommitLog, not one each."""
+    CommitLog, not one each.  `tracer` and `telemetry` (null by default)
+    go to every partition's CommitLog."""
 
-    def __init__(self, root: str, config: LogConfig | None = None):
+    def __init__(self, root: str, config: LogConfig | None = None,
+                 tracer=None, telemetry=None):
         self.root = root
         self.config = config or LogConfig()
+        self.tracer = tracer or NULL_TRACER
+        self.telemetry = telemetry or NULL_TELEMETRY
         self._logs: dict[tuple[str, int], CommitLog] = {}
         self._lock = threading.Lock()
         self.commits = 0
@@ -76,7 +82,9 @@ class LogManager:
                 if log is None:
                     log = CommitLog(os.path.join(self.root, topic, str(key)),
                                     self.config,
-                                    name=partition_key(topic, key))
+                                    name=partition_key(topic, key),
+                                    tracer=self.tracer,
+                                    telemetry=self.telemetry)
                     self._logs[(topic, key)] = log
         return log
 
@@ -116,6 +124,7 @@ class LogManager:
             os.fsync(fh.fileno())
         os.replace(tmp, path)
         self.commits += 1
+        self.tracer.count("log.offset_commits")
         self.apply_retention()
 
     def apply_retention(self) -> int:

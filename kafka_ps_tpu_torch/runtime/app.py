@@ -27,6 +27,13 @@ the server publishes a snapshot at every gate release, the fused loop at
 every chunk boundary, and a PredictionEngine answers reads from them.
 `enable_tiering` gives the server's theta to a tiered store (store/)
 under cfg.tier's byte caps, with its policy thread running.
+
+Telemetry: `tracer` and `telemetry` (null by default) go to the fabric,
+the buffers, the server, the workers, the gang and the eval engine.  The
+app counts `data.replay_skipped_rows` and `data.rerouted_rows`, the fused
+loop's rounds are `bsp.step` spans with a `bsp.steps` count, and
+`status()` is the pulse the drive loops print every `status_every`
+seconds as a `[status]` line (utils/status.py).
 """
 
 from __future__ import annotations
@@ -45,11 +52,13 @@ from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
 from kafka_ps_tpu_torch.runtime.messages import LabeledData
 from kafka_ps_tpu_torch.runtime.server import LogSink, ServerNode
 from kafka_ps_tpu_torch.runtime.worker import WorkerNode
+from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
 from kafka_ps_tpu_torch.utils import asynclog
 from kafka_ps_tpu_torch.utils.asynclog import DeferredSink
 from kafka_ps_tpu_torch.utils.config import (SEQUENTIAL, PSConfig,
                                              resolve_device)
 from kafka_ps_tpu_torch.utils.csvlog import NullLogSink
+from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
 
 
 def _device_fault(e: BaseException | None) -> bool:
@@ -82,16 +91,22 @@ class StreamingPSApp:
                  worker_log: LogSink | None = None,
                  clock_ms=None,
                  device=None,
-                 fabric=None):
+                 fabric=None,
+                 tracer=None,
+                 telemetry=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.tracer = tracer or NULL_TRACER
+        self.telemetry = telemetry or NULL_TELEMETRY
         # a durable fabric (log/durable_fabric.py, `--durable-log`) may be
         # handed in; the default is the volatile in-memory one
-        self.fabric = fabric if fabric is not None else fabric_mod.Fabric()
+        self.fabric = (fabric if fabric is not None
+                       else fabric_mod.Fabric(tracer=self.tracer))
         self.buffers = [
             SlidingBuffer(cfg.model.num_features, cfg.buffer,
-                          clock_ms=clock_ms)
-            for _ in range(cfg.num_workers)]
+                          clock_ms=clock_ms, telemetry=self.telemetry,
+                          worker=w)
+            for w in range(cfg.num_workers)]
         # one device copy of the test set, read by the server and every
         # worker
         if test_x is not None:
@@ -104,10 +119,12 @@ class StreamingPSApp:
         server_log = DeferredSink(server_log or NullLogSink())
         worker_log = DeferredSink(worker_log or NullLogSink())
         self.server = ServerNode(cfg, self.fabric, self.device, test_x,
-                                 test_y, server_log)
+                                 test_y, server_log, tracer=self.tracer,
+                                 telemetry=self.telemetry)
         self.workers = [
             WorkerNode(w, cfg, self.fabric, self.buffers[w], self.device,
-                       test_x, test_y, worker_log)
+                       test_x, test_y, worker_log, tracer=self.tracer,
+                       telemetry=self.telemetry)
             for w in range(cfg.num_workers)]
         self._stop = threading.Event()
         self.gang = None             # the last drive loop's dispatcher
@@ -162,7 +179,8 @@ class StreamingPSApp:
             from kafka_ps_tpu_torch.evaluation.engine import EvalEngine
             self.eval_engine = self.server.attach_eval_engine(EvalEngine(
                 self.server.task, self.server.test_x, self.server.test_y,
-                self.server._emit_eval))
+                self.server._emit_eval, telemetry=self.telemetry,
+                tracer=self.tracer))
         return self.eval_engine
 
     def close_eval(self) -> None:
@@ -228,6 +246,7 @@ class StreamingPSApp:
             # buffer) already holds this row
             self._ingest_skip -= 1
             self.skipped_rows += 1
+            self.tracer.count("data.replay_skipped_rows")
             return
         if not self.server.tracker.tracker[worker].active:
             # partition reassignment: an evicted worker's rows go
@@ -235,6 +254,7 @@ class StreamingPSApp:
             active = self.server.tracker.active_workers
             worker = active[self.rerouted_rows % len(active)]
             self.rerouted_rows += 1
+            self.tracer.count("data.rerouted_rows")
         if not self.fabric.durable:
             self.buffers[worker].add(features, label)
             return
@@ -356,6 +376,45 @@ class StreamingPSApp:
             from kafka_ps_tpu_torch.ops import _build
             _build.build(_build.sources())
 
+    # -- live observability (utils/status.py) --------------------------------
+
+    def status(self) -> dict:
+        """One sample of the runtime's pulse, printed by StatusReporter
+        as the periodic `[status]` line (`status_every`): the JAX app's
+        keys, less `critpath` and `modelhealth` (their planes are not
+        ported yet).  Host state only."""
+        tr = self.server.tracker
+        active = tr.active_workers
+        out = {
+            "iters": self.server.iterations,
+            "clocks": [f"{w}:{tr.tracker[w].vector_clock}"
+                       for w in range(self.cfg.num_workers)],
+            "active": f"{len(active)}/{self.cfg.num_workers}",
+            "pending": {
+                "weights": self.fabric.total_pending(
+                    fabric_mod.WEIGHTS_TOPIC),
+                "gradients": self.fabric.total_pending(
+                    fabric_mod.GRADIENTS_TOPIC)},
+            "buffers": [b.count for b in self.buffers],
+        }
+        if self.eval_engine is not None:
+            out["eval_lag"] = self.eval_engine.lag_clocks
+        if self.serving_engine is not None:
+            s = self.serving_engine.stats()
+            # a cumulative count under a *_per_s key: the reporter prints
+            # the rate since the last line (predictions per second)
+            out["predictions_per_s"] = s["requests"]
+            out["serving"] = {
+                "occ": s["occupancy"], "p50_ms": s["p50_ms"],
+                "p99_ms": s["p99_ms"], "stale": s["rejections"]}
+        if self.telemetry.enabled:
+            out["metrics"] = self.telemetry.summary()
+        return out
+
+    def _start_status(self, status_every: float | None):
+        from kafka_ps_tpu_torch.utils.status import StatusReporter
+        return StatusReporter(status_every or 0.0, self.status).start()
+
     # -- drive loops ----------------------------------------------------------
 
     def _sinks(self):
@@ -391,7 +450,9 @@ class StreamingPSApp:
         if not self.cfg.use_gang:
             return None
         from kafka_ps_tpu_torch.runtime.gang import GangDispatcher
-        self.gang = GangDispatcher(self.workers, self.fabric, self.cfg)
+        self.gang = GangDispatcher(self.workers, self.fabric, self.cfg,
+                                   tracer=self.tracer,
+                                   telemetry=self.telemetry)
         return self.gang
 
     def _queued_gradients(self, max_server_iterations: int, first=None):
@@ -411,7 +472,8 @@ class StreamingPSApp:
         elif batch:
             self.server.process(batch[0])
 
-    def run_serial(self, max_server_iterations: int, pump=None) -> None:
+    def run_serial(self, max_server_iterations: int, pump=None,
+                   status_every: float | None = None) -> None:
         """Deterministic scheduler: alternate weights delivery and
         gradient processing until the server has applied
         `max_server_iterations` gradient messages.  `pump()` (optional)
@@ -421,7 +483,9 @@ class StreamingPSApp:
         gang notices first (one batched kernel call per set), then the
         per-message stragglers, then the queued gradients as one batch
         for the server's chained apply.  Without it each round is
-        strictly per message."""
+        strictly per message.  `status_every` > 0 prints a `[status]`
+        line that often."""
+        reporter = self._start_status(status_every)
         stalled_rounds = 0
         gang = self._make_gang()
         try:
@@ -453,12 +517,14 @@ class StreamingPSApp:
                 if stalled_rounds > (1000 if pump is not None else 0):
                     raise RuntimeError("deadlock: no deliverable messages")
         finally:
+            reporter.stop()
             self.flush_logs()
 
     def run_threaded(self, max_server_iterations: int,
                      poll_timeout: float = 0.1,
                      failure_policy: str = "halt",
-                     heartbeat_timeout: float | None = None) -> None:
+                     heartbeat_timeout: float | None = None,
+                     status_every: float | None = None) -> None:
         """One thread per worker; the server on the calling thread, also
         the supervisor.
 
@@ -471,7 +537,8 @@ class StreamingPSApp:
         active worker is never evicted: its failure halts.  A CUDA error
         halts under either policy: it poisons the context every worker
         shares.  The kernels are built before the supervisor's clock
-        starts."""
+        starts.  `status_every` > 0 prints a `[status]` line that
+        often."""
         if failure_policy not in ("halt", "rebalance"):
             raise ValueError(f"unknown failure_policy {failure_policy!r}")
         self._stop.clear()
@@ -558,6 +625,7 @@ class StreamingPSApp:
                    for w in self.workers]
         for t in threads:
             t.start()
+        reporter = self._start_status(status_every)
         try:
             self.server.start_training_loop()
             while (self.server.iterations < max_server_iterations
@@ -575,6 +643,7 @@ class StreamingPSApp:
                 if failure_policy == "rebalance":
                     supervise()
         finally:
+            reporter.stop()
             self._stop.set()
             for t in threads:
                 t.join(timeout=60.0)
@@ -589,11 +658,13 @@ class StreamingPSApp:
     FUSED_CHUNK_ROUNDS = 8
 
     def run_fused_bsp(self, max_server_iterations: int,
-                      log_metrics: bool = True) -> None:
+                      log_metrics: bool = True,
+                      status_every: float | None = None) -> None:
         """Sequential consistency as fused BSP rounds: each round is one
         full iteration of every active worker (all advance one clock),
         one gang kernel call on their slabs plus the server's apply
-        (parallel/bsp.py).  Resumes from the minimum active clock."""
+        (parallel/bsp.py).  Resumes from the minimum active clock.
+        `status_every` > 0 prints a `[status]` line that often."""
         if self.cfg.consistency_model != SEQUENTIAL:
             raise ValueError("fused path implements the sequential model only")
         # only active workers take part
@@ -611,10 +682,12 @@ class StreamingPSApp:
         # one
         clock = min(self.server.tracker.tracker[w].vector_clock
                     for w in active)
+        reporter = self._start_status(status_every)
         try:
             self._run_fused_loop(max_server_iterations, log_metrics, progs,
                                  self.server.theta, clock, active)
         finally:
+            reporter.stop()
             self.flush_logs()
 
     def _upload_fused_slab(self, active):
@@ -679,13 +752,26 @@ class StreamingPSApp:
                 r = min(r, self.cfg.eval_every
                         - (clock % self.cfg.eval_every))
             losses = None
-            if r == CHUNK:
-                theta, losses = multi_step(theta, x, y, mask)
+            use_chunk = r == CHUNK
+            if not use_chunk:
+                r = 1
+            with self.tracer.span("bsp.step", clock=clock + 1, rounds=r):
+                if use_chunk:
+                    theta, losses = multi_step(theta, x, y, mask)
+                    last_loss = losses[-1]
+                else:
+                    theta, mean_loss = step(theta, x, y, mask)
+                    last_loss = mean_loss
+                if self.tracer.enabled:
+                    # the span waits for the round's loss, so that it
+                    # measures the step and not its launch (a graph
+                    # replay, outside any capture); the rows keep the
+                    # device tensor
+                    float(last_loss)
+            self.tracer.count("bsp.steps")
+            if use_chunk:
                 self.fused_stats["chunks"] += 1
                 self.fused_stats["chunk_rounds"] += r
-            else:
-                r = 1
-                theta, mean_loss = step(theta, x, y, mask)
             self.fused_stats["rounds"] += r
             clock += r
             self.server.iterations += r * n

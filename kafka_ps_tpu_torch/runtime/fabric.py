@@ -8,7 +8,8 @@ for deterministic scheduling.  INPUT_DATA names the stream rows' topic,
 which only a durable fabric logs (log/durable_fabric.py).  GANG carries
 the server's advisory gang notices (runtime/gang.py), sent with
 `send_transient`: control traffic with no reference topic, never made
-durable.
+durable.  A tracer (null by default) counts the sends per topic,
+`send.<topic>`: the message-flow view.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from __future__ import annotations
 import threading
 from collections import deque
 from typing import Any
+
+from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
 
 WEIGHTS_TOPIC = "weights"
 GRADIENTS_TOPIC = "gradients"
@@ -28,14 +31,16 @@ class Fabric:
 
     durable = False              # log/durable_fabric.DurableFabric: True
 
-    def __init__(self):
+    def __init__(self, tracer=None):
         self._queues: dict[tuple[str, int], deque] = {}
         self._cond = threading.Condition()
+        self._tracer = tracer or NULL_TRACER
 
     def _q(self, topic: str, key: int) -> deque:
         return self._queues.setdefault((topic, key), deque())
 
     def send(self, topic: str, key: int, message: Any) -> None:
+        self._tracer.count(f"send.{topic}")
         with self._cond:
             self._q(topic, key).append(message)
             self._cond.notify_all()
@@ -78,3 +83,10 @@ class Fabric:
     def pending(self, topic: str, key: int = 0) -> int:
         with self._cond:
             return len(self._q(topic, key))
+
+    def total_pending(self, topic: str) -> int:
+        """Queued messages of `topic` over all its keys (the status
+        line's pending counts)."""
+        with self._cond:
+            return sum(len(q) for (t, _), q in self._queues.items()
+                       if t == topic)

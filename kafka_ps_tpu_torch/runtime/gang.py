@@ -33,6 +33,12 @@ Threaded mode coalesces by first arrival: the thread that pops a
 message covered by a notice leads the gang and claims the siblings'
 messages that are ALREADY queued — it never waits; members whose threads
 took their own message first run solo there.
+
+Telemetry (tracer=, telemetry=; null by default): a `worker.local_update`
+span around each kernel call (`gang=k` on a batched one) with a
+`dispatch.device` count, `gang.batched_dispatches` /
+`gang.batched_members` on the tracer and `gang_dispatches_total` /
+`gang_members_total` in the registry, as in the JAX dispatcher.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from kafka_ps_tpu_torch.models.task import get_task
 from kafka_ps_tpu_torch.ops import fused_update
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
 from kafka_ps_tpu_torch.runtime import worker as worker_mod
+from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
+from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
 
 # the batched kernel of each task family (K2/K3, K6/K5 by slab form)
 BATCHED_SOLVERS = {"logreg": fused_update.local_update_batched,
@@ -108,10 +116,14 @@ class GangDispatcher:
     `dispatches` and `members` count the batched calls and the members
     they covered."""
 
-    def __init__(self, workers, fabric, cfg):
+    def __init__(self, workers, fabric, cfg, tracer=None, telemetry=None):
         self.workers = {w.worker_id: w for w in workers}
         self.fabric = fabric
         self.cfg = cfg
+        self.tracer = tracer or NULL_TRACER
+        self.telemetry = telemetry or NULL_TELEMETRY
+        self._m_dispatches = self.telemetry.counter("gang_dispatches_total")
+        self._m_members = self.telemetry.counter("gang_members_total")
         self._offer_lock = threading.Lock()
         # (worker_id, clock) -> the member tuple of its notice
         self._notices: dict[tuple[int, int], tuple] = {}
@@ -238,22 +250,37 @@ class GangDispatcher:
             w, msg, theta, x, y, mask, _, _ = grp[0]
             update_fn, update_eval_fn = worker_mod._solver_fns(
                 self.cfg.task, self.cfg.model)
-            if with_eval:
-                out = update_eval_fn(theta, x, y, mask, w.test_x, w.test_y)
-            else:
-                out = update_fn(theta, x, y, mask) + (-1.0, -1.0)
+            with self.tracer.span("worker.local_update",
+                                  worker=w.worker_id,
+                                  clock=msg.vector_clock):
+                if with_eval:
+                    out = update_eval_fn(theta, x, y, mask, w.test_x,
+                                         w.test_y)
+                else:
+                    out = update_fn(theta, x, y, mask) + (-1.0, -1.0)
+            self.tracer.count("dispatch.device")
             results[(w.worker_id, msg.vector_clock)] = out
             return
         update, update_and_eval = _gang_solver_fns(self.cfg.task,
                                                    self.cfg.model)
         args = [[p[i] for p in grp] for i in (2, 3, 4, 5)]
         k = len(grp)
-        if with_eval:
-            deltas, losses, f1s, accs = update_and_eval(
-                *args, lead.test_x, lead.test_y)
-        else:
-            deltas, losses = update(*args)
-            f1s = accs = (-1.0,) * k
+        # the per-message span's name: one entry covers k members (the
+        # `gang` arg tells them apart); it times the launch, not the card
+        with self.tracer.span("worker.local_update", gang=k,
+                              workers=[p[0].worker_id for p in grp]):
+            if with_eval:
+                deltas, losses, f1s, accs = update_and_eval(
+                    *args, lead.test_x, lead.test_y)
+            else:
+                deltas, losses = update(*args)
+                f1s = accs = (-1.0,) * k
+        self.tracer.count("dispatch.device")
+        self.tracer.count("gang.batched_dispatches")
+        self.tracer.count("gang.batched_members", k)
+        if self.telemetry.enabled:
+            self._m_dispatches.inc()
+            self._m_members.inc(k)
         with self._count_lock:
             self.dispatches += 1
             self.members += k

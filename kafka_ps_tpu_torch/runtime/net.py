@@ -68,10 +68,11 @@ segment) keeps the client on the socket.  `PredictClient` is the client:
 one outstanding request per connection, typed StalenessError and
 OverloadedError, the shm upgrade and reconnects.
 
-Left out until the telemetry plane: trace context.  This side's tracer
-is off, so a worker offers 0 and a server answers 0 — no 16-byte trace
-suffix ever crosses a connection of this package, and a JAX peer with
-tracing on still interoperates (it sees the answer 0).
+Left out until ROADMAP item 24b: trace context.  The tracer is ported
+(utils/trace.py) but the bridges carry none, so a worker offers 0 and a
+server answers 0 — no 16-byte trace suffix ever crosses a connection of
+this package, and a JAX peer with tracing on still interoperates (it
+sees the answer 0).
 
 Decoded tensors land on the bridge's device (`device`, resolved once by
 utils.config.resolve_device when the bridge is made), passed explicitly
@@ -1020,7 +1021,8 @@ class WorkerBridge(_Counters):
         self.reader_error: Exception | None = None
         self.server_run_id: int | None = None
         self.fabric: fabric_mod.Fabric | None = None
-        # HELLO: ids + codec offer + trace offer 0 (no tracer here)
+        # HELLO: ids + codec offer + trace offer 0 (trace context waits
+        # for ROADMAP item 24b)
         payload = (struct.pack(f"<q{len(self.worker_ids)}q",
                                len(self.worker_ids), *self.worker_ids)
                    + _CODEC_TRAILER.pack(self.codec.codec_id,

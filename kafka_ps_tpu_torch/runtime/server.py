@@ -78,6 +78,20 @@ whole-slice apply and evaluation on the assembled slice and scatters the
 result back; a sparse slice applies per touched page.  `process_batch`
 then runs per message, bitwise by the gang contract.  Residency never
 changes a value, so a capped run is bitwise the fully resident one.
+
+Telemetry (tracer=, telemetry=; null by default), the JAX node's hooks
+at the same sites under the same names: the `server.apply` span (a
+nested `server.eval` on a fused eval) with a `dispatch.device` count,
+the retroactive `gate.wait` span at each release, the `server.*`
+counters on the tracer, and the families `gate_wait_ms`, `clock_lag`
+(CLOCK_BUCKETS), `worker_clock_lag{worker}`,
+`gradients_applied_total{worker}`, `snapshots_published_total` and
+`serving_clock`, each with a `shard` label on a node of a sharded group.
+Their children are resolved here, so the hot path never takes the
+registry's family lock.  With the flight recorder armed, every arrival
+and release is a `gate.arrive` / `gate.release` record and a beat of the
+gate watchdog.  Everything read for them is a host int or the host
+clock: nothing waits on the device.
 """
 
 from __future__ import annotations
@@ -95,9 +109,14 @@ from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
 from kafka_ps_tpu_torch.runtime.messages import (CompositeDelta, GangNotice,
                                                  GradientMessage, KeyRange,
                                                  WeightsMessage)
+from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
+from kafka_ps_tpu_torch.telemetry.registry import (CLOCK_BUCKETS,
+                                                   NULL_TELEMETRY,
+                                                   model_name)
 from kafka_ps_tpu_torch.utils import asynclog
 from kafka_ps_tpu_torch.utils.config import (EVENTUAL, PSConfig,
                                              canonical_device)
+from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
 
 LogSink = Callable[[str], None]
 
@@ -108,7 +127,10 @@ class ServerNode:
     def __init__(self, cfg: PSConfig, fabric: fabric_mod.Fabric, device,
                  test_x=None, test_y=None, log: LogSink | None = None,
                  key_range: KeyRange | None = None, shard_id: int = 0,
-                 num_shards: int = 1, grad_key: int = 0):
+                 num_shards: int = 1, grad_key: int = 0, tracer=None,
+                 telemetry=None):
+        self.tracer = tracer or NULL_TRACER
+        self.telemetry = telemetry or NULL_TELEMETRY
         self.cfg = cfg
         self.fabric = fabric
         self.device = torch.device(device)
@@ -119,6 +141,31 @@ class ServerNode:
         self.shard_id = shard_id
         self.num_shards = num_shards
         self._grad_key = grad_key
+        # the consistency model's observations (the module docstring);
+        # a node of a sharded group labels every family with its shard
+        model = model_name(cfg.consistency_model)
+        self._model = model          # span label, stable per node
+        shard_labels = ({"shard": str(shard_id)} if num_shards > 1 else {})
+        self._m_gate_wait = self.telemetry.histogram(
+            "gate_wait_ms", model=model, **shard_labels)
+        self._m_clock_lag = self.telemetry.histogram(
+            "clock_lag", buckets=CLOCK_BUCKETS, model=model,
+            **shard_labels)
+        self._m_worker_lag = [
+            self.telemetry.gauge("worker_clock_lag", worker=str(w),
+                                 **shard_labels)
+            for w in range(cfg.num_workers)]
+        self._m_grads = [
+            self.telemetry.counter("gradients_applied_total", worker=str(w),
+                                   **shard_labels)
+            for w in range(cfg.num_workers)]
+        self._m_snapshots = self.telemetry.counter(
+            "snapshots_published_total", **shard_labels)
+        self._m_serving_clock = self.telemetry.gauge("serving_clock",
+                                                     **shard_labels)
+        # (perf_counter stamp, clock) of each worker's last unanswered
+        # gradient: gate wait = release time - arrival time
+        self._grad_arrived: dict[int, tuple[float, int]] = {}
         self._range = (key_range if key_range is not None
                        else KeyRange(0, self.task.num_params))
         theta = self.task.init_params(self.device)
@@ -305,6 +352,11 @@ class ServerNode:
                          self._prepared_message(clock, self.theta))
         self.weights_sent_at[worker] = time.monotonic()
         self.tracker.sent_message(worker, clock)
+        self._observe_gate_release(worker)
+        if FLIGHT.enabled:
+            FLIGHT.record("gate.release", shard=self.shard_id,
+                          worker=worker, clock=clock)
+            FLIGHT.beat("gate")
 
     def _send_weights_prepared(self, worker: int, clock: int,
                                theta) -> None:
@@ -315,6 +367,36 @@ class ServerNode:
         self.fabric.send(fabric_mod.WEIGHTS_TOPIC, worker,
                          self._prepared_message(clock, theta))
         self.weights_sent_at[worker] = time.monotonic()
+        self._observe_gate_release(worker)
+        if FLIGHT.enabled:
+            FLIGHT.record("gate.release", shard=self.shard_id,
+                          worker=worker, clock=clock, gang=True)
+            FLIGHT.beat("gate")
+
+    def _observe_gate_release(self, worker: int) -> None:
+        """Gate-wait sample: how long this worker's gradient sat at the
+        gate before its reply went out, and the retroactive `gate.wait`
+        span over that hold (the gate holds releases, not applies, so
+        the hold is known only now).  Bootstrap and readmission sends
+        have no arrival stamp and record nothing.  The tracer's default
+        clock is the perf_counter the arrival stamp used."""
+        if not self.telemetry.enabled:
+            return
+        entry = self._grad_arrived.pop(worker, None)
+        if entry is not None:
+            arrived, clock = entry
+            now = time.perf_counter()
+            self._m_gate_wait.observe((now - arrived) * 1e3)
+            self.tracer.span_at("gate.wait", arrived, now, worker=worker,
+                                clock=clock, model=self._model,
+                                shard=self.shard_id)
+
+    def gate_waiting(self) -> int:
+        """Active workers parked at the gate (gradient received, reply
+        withheld): the gate watchdog's demand (telemetry/health.py).
+        Host ints only; safe from any thread."""
+        return sum(1 for w in self.tracker.active_workers
+                   if not self.tracker.tracker[w].weights_message_sent)
 
     # -- consistency gate -----------------------------------------------------
 
@@ -343,6 +425,7 @@ class ServerNode:
         gradients, and any round it was blocking is released."""
         self.tracker.deactivate_worker(worker)
         self.record_membership_event("evict", worker)
+        self.tracer.count("server.workers_removed")
         if self._agg_pending:
             # the evictee's buffered round members go, and a round it was
             # the last missing member of is applied now
@@ -361,6 +444,7 @@ class ServerNode:
         self.fabric.purge(fabric_mod.WEIGHTS_TOPIC, worker, lambda m: True)
         clock = self.tracker.reactivate_worker(worker)
         self.record_membership_event("readmit", worker)
+        self.tracer.count("server.workers_readmitted")
         self.send_weights(worker, clock)
         return clock
 
@@ -387,6 +471,7 @@ class ServerNode:
         if self.cfg.use_gang and len(release) > 1:
             self.fabric.send_transient(fabric_mod.GANG_TOPIC, 0,
                                        GangNotice(members=tuple(release)))
+            self.tracer.count("server.gang_release_sets")
 
     def dispatch_release_set(self, release) -> None:
         """Sorted per-worker sends (worker-id order keeps serial
@@ -420,6 +505,11 @@ class ServerNode:
         a grouped frame."""
         self.weights_sent_at[worker] = time.monotonic()
         self.tracker.sent_message(worker, clock)
+        self._observe_gate_release(worker)
+        if FLIGHT.enabled:
+            FLIGHT.record("gate.release", shard=self.shard_id,
+                          worker=worker, clock=clock, grouped=True)
+            FLIGHT.beat("gate")
 
     def serving_clock(self) -> int:
         """The slowest active worker's clock: every weights message
@@ -433,9 +523,9 @@ class ServerNode:
     def publish_snapshot(self, theta=None, clock=None, trace=None) -> None:
         """Publish (theta, stable clock) to the attached registry; a no-op
         with serving off.  `theta` defaults to the current theta, `clock`
-        to `serving_clock()`; `trace` rides on the snapshot (None: the
-        port has no tracer yet).  O(1) on the host: the snapshot aliases
-        the tensor."""
+        to `serving_clock()`; `trace` rides on the snapshot (None until
+        the port carries trace context, ROADMAP item 24b).  O(1) on the
+        host: the snapshot aliases the tensor."""
         registry = self.serving
         if registry is None:
             return
@@ -444,6 +534,13 @@ class ServerNode:
                          trace=trace)
         self.snapshots_published += 1
         self.last_published_clock = clock
+        self.tracer.count("serving.snapshots_published")
+        if self.telemetry.enabled:
+            self._m_snapshots.inc()
+            self._m_serving_clock.set(clock)
+        if FLIGHT.enabled:
+            FLIGHT.record("snapshot.publish", shard=self.shard_id,
+                          clock=clock)
 
     # -- the hot path ---------------------------------------------------------
 
@@ -463,11 +560,52 @@ class ServerNode:
         clock was applied before)."""
         if not self.tracker.tracker[msg.worker_id].active:
             self.zombie_gradients_dropped += 1
+            self.tracer.count("server.zombie_gradients_dropped")
             return True
         if duplicate:
             self.duplicate_gradients_dropped += 1
+            self.tracer.count("server.duplicate_gradients_dropped")
             return True
         return False
+
+    def _arrived(self, worker: int, clock: int) -> None:
+        """One gradient past the gate's filters, its clock recorded:
+        the applied count and, when on, the consistency observations and
+        the flight record."""
+        self.tracer.count("server.gradients_applied")
+        if self.telemetry.enabled:
+            self._observe_arrival(worker, clock)
+        if FLIGHT.enabled:
+            self._flight_arrival(worker, clock)
+
+    def _observe_arrival(self, worker: int, clock: int) -> None:
+        """Per-gradient consistency observations, all host ints: the
+        arrival stamp (the gate-wait baseline), the applied count, every
+        active worker's lag behind the fastest and this worker's."""
+        self._grad_arrived[worker] = (time.perf_counter(), clock)
+        self._m_grads[worker].inc()
+        active = self.tracker.active_workers
+        if active:
+            fastest = max(self.tracker.tracker[w].vector_clock
+                          for w in active)
+            for w in active:
+                lag = fastest - self.tracker.tracker[w].vector_clock
+                self._m_worker_lag[w].set(lag)
+            self._m_clock_lag.observe(
+                fastest - self.tracker.tracker[worker].vector_clock)
+
+    def _flight_arrival(self, worker: int, clock: int) -> None:
+        """The flight recorder's view of one arrival: the whole vector
+        clock at the gate's decision (evicted workers' clocks frozen),
+        this worker's lag and how many wait at the gate."""
+        states = self.tracker.tracker
+        clocks = [st.vector_clock for st in states]
+        waiting = sum(1 for st in states
+                      if st.active and not st.weights_message_sent)
+        FLIGHT.record("gate.arrive", shard=self.shard_id, worker=worker,
+                      clock=clock, lag=max(clocks) - clock,
+                      waiting=waiting, clocks=clocks)
+        FLIGHT.beat("gate")
 
     def process(self, msg) -> None:
         if isinstance(msg, CompositeDelta):
@@ -488,34 +626,47 @@ class ServerNode:
                                                         msg.vector_clock)):
             return
         self.tracker.received_message(msg.worker_id, msg.vector_clock)
-        self._apply_and_release(msg, msg.vector_clock, [msg.worker_id])
+        self._arrived(msg.worker_id, msg.vector_clock)
+        self._apply_and_release(msg, msg.vector_clock, [msg.worker_id],
+                                worker=msg.worker_id)
         self.maybe_checkpoint()
 
-    def _apply_and_release(self, msg, clock: int, live: list) -> None:
+    def _apply_and_release(self, msg, clock: int, live: list,
+                           **span_args) -> None:
         """Apply `msg`'s delta (dense, sparse or sub-range) for the
         `live` workers, whose clock the tracker has recorded: evaluate
         at `clock` when worker 0 is among them, count one iteration per
-        worker and send the replies their gradients release."""
+        worker and send the replies their gradients release.  The apply
+        is the `server.apply` span, `span_args` its arguments."""
         want_eval = (0 in live and self.test_x is not None
                      and clock % self.cfg.eval_every == 0)
         fused_eval = want_eval and self.eval_engine is None
         m = deferred = None
-        if getattr(msg, "indices", None) is not None:
-            self._apply_sparse(msg)
-        elif self._full_dense(msg):
-            if self.param_store is not None:
-                m, deferred = self._apply_tiered(msg.values, fused_eval,
-                                                 want_eval and not fused_eval)
-            elif fused_eval:
-                self.theta, m = self._apply_full_eval(self.theta, msg.values)
+        with self.tracer.span("server.apply", **span_args, clock=clock,
+                              shard=self.shard_id, model=self._model):
+            if getattr(msg, "indices", None) is not None:
+                self._apply_sparse(msg)
+            elif self._full_dense(msg):
+                if self.param_store is not None:
+                    m, deferred = self._apply_tiered(
+                        msg.values, fused_eval, want_eval and not fused_eval,
+                        clock)
+                elif fused_eval:
+                    with self.tracer.span("server.eval", clock=clock):
+                        self.theta, m = self._apply_full_eval(self.theta,
+                                                              msg.values)
+                else:
+                    self.theta = self._apply_full(self.theta, msg.values)
+                self.tracer.count("dispatch.device")
             else:
-                self.theta = self._apply_full(self.theta, msg.values)
-        else:
-            self.theta = self._apply_splice(msg)
-        self.iterations += len(live)
+                self.theta = self._apply_splice(msg)
+            self.iterations += len(live)
         if fused_eval:
             if m is None:                # the sparse and splice paths
-                m = self.task.evaluate(self.theta, self.test_x, self.test_y)
+                with self.tracer.span("server.eval", clock=clock):
+                    m = self.task.evaluate(self.theta, self.test_x,
+                                           self.test_y)
+                    self.tracer.count("dispatch.device")
             self._emit_eval(clock, m)
         elif want_eval:
             # immutable alias hand-off; the engine evaluates off this
@@ -535,19 +686,21 @@ class ServerNode:
         the gate."""
         if len(msg.indices) == 0:
             self.empty_slices += 1
+            self.tracer.count("dispatch.skipped_empty_slice")
             return
         if self.param_store is not None:
             self._apply_sparse_tiered(msg)
-            self.sparse_applies += 1
-            return
-        idx = msg.indices.to(self.device, torch.long)
-        vals = msg.values.to(self.device, torch.float32)
-        t = self.theta.clone()
-        t[idx] = self.theta[idx] + self.cfg.server_lr * vals
-        self.theta = t
+        else:
+            idx = msg.indices.to(self.device, torch.long)
+            vals = msg.values.to(self.device, torch.float32)
+            t = self.theta.clone()
+            t[idx] = self.theta[idx] + self.cfg.server_lr * vals
+            self.theta = t
         self.sparse_applies += 1
+        self.tracer.count("dispatch.device")
 
-    def _apply_tiered(self, delta, fused_eval: bool, defer_eval: bool):
+    def _apply_tiered(self, delta, fused_eval: bool, defer_eval: bool,
+                      clock: int):
         """A dense apply over this node's range against the tiered store.
         Returns (metrics, deferred theta); at most one is not None.
 
@@ -563,7 +716,8 @@ class ServerNode:
         if fused_eval or defer_eval:
             t = store.assembled_tensor()
             if fused_eval:
-                t2, m = self._apply_full_eval(t, delta)
+                with self.tracer.span("server.eval", clock=clock):
+                    t2, m = self._apply_full_eval(t, delta)
             else:
                 t2, m = self._apply_full(t, delta), None
             store.replace_all(t2)
@@ -617,6 +771,11 @@ class ServerNode:
         members through the BSP round buffer or `process_batch`, a
         summed composite as one apply."""
         self.composites_received += 1
+        self.tracer.count("server.composites_received")
+        if FLIGHT.enabled:
+            FLIGHT.record("agg.composite", shard=self.shard_id,
+                          agg=comp.agg_id, fan_in=comp.fan_in,
+                          summed=comp.summed)
         if comp.summed:
             self._process_summed(comp)
             return
@@ -644,9 +803,11 @@ class ServerNode:
         status = self.tracker.tracker[worker]
         if not status.active:
             self.zombie_gradients_dropped += 1
+            self.tracer.count("server.zombie_gradients_dropped")
             return False
         if self.tracker.is_duplicate(worker, clock):
             self.duplicate_gradients_dropped += 1
+            self.tracer.count("server.duplicate_gradients_dropped")
             if status.weights_message_sent and (resent is None
                                                 or worker not in resent):
                 if resent is not None:
@@ -663,6 +824,7 @@ class ServerNode:
         bucket = self._agg_pending.setdefault(msg.vector_clock, {})
         if msg.worker_id in bucket:
             self.duplicate_gradients_dropped += 1
+            self.tracer.count("server.duplicate_gradients_dropped")
             return False
         bucket[msg.worker_id] = msg
         return True
@@ -699,6 +861,7 @@ class ServerNode:
              else live).append(worker)
         if not live:
             self.duplicate_gradients_dropped += 1
+            self.tracer.count("server.duplicate_gradients_dropped")
             for worker in dup:
                 status = self.tracker.tracker[worker]
                 if status.weights_message_sent:
@@ -710,7 +873,9 @@ class ServerNode:
                 f"alongside live members {live}")
         for worker in live:
             self.tracker.received_message(worker, clock)
-        self._apply_and_release(comp.deltas[0], clock, live)
+            self._arrived(worker, clock)
+        self._apply_and_release(comp.deltas[0], clock, live,
+                                agg=comp.agg_id, fan_in=len(live))
         if self._agg_pending:
             # a round's members buffered from a stacked flush (a relay
             # sends a one-member flush stacked) are its remainder now
@@ -760,6 +925,7 @@ class ServerNode:
         snap_clocks: dict[int, int] = {}          # position -> stable clock
         for i, m in enumerate(msgs):
             self.tracker.received_message(m.worker_id, m.vector_clock)
+            self._arrived(m.worker_id, m.vector_clock)
             if self._wants_eval(m):
                 eval_at[i] = m.vector_clock
             release = sorted(self.workers_to_respond_to(m.vector_clock,
@@ -775,32 +941,50 @@ class ServerNode:
                     snap_clocks[i] = self.serving_clock()
         lr = self.cfg.server_lr
         t = self.theta
+        # the per-message path's span name: one entry covers the k
+        # chained applies, and the evals and sends between them
         batch_released: list[tuple[int, int]] = []
-        for i, m in enumerate(msgs):
-            t = t + lr * m.values
-            if i in eval_at:
-                if defer_eval:
-                    self.eval_engine.submit(t, eval_at[i])
-                else:
-                    self._emit_eval(eval_at[i], self.task.evaluate(
-                        t, self.test_x, self.test_y))
-            rel = release_at.get(i, ())
-            if rel:
-                handled = self._group_send(
-                    rel, lambda clock, t=t: self._prepared_message(clock, t))
-                for worker, clock in rel:
-                    if worker in handled:
-                        # the tracker's bookkeeping ran at decision time
-                        self.weights_sent_at[worker] = time.monotonic()
+        with self.tracer.span("server.apply", gang=len(msgs),
+                              workers=[m.worker_id for m in msgs],
+                              model=self._model):
+            for i, m in enumerate(msgs):
+                t = t + lr * m.values
+                if i in eval_at:
+                    if defer_eval:
+                        self.eval_engine.submit(t, eval_at[i])
                     else:
-                        self._send_weights_prepared(worker, clock, t)
-                batch_released.extend(rel)
-                if self.serving is not None:
-                    # the prefix theta this release observed, one snapshot
-                    # per release event, as the per-message path publishes
-                    self.publish_snapshot(t, snap_clocks[i])
-        self.theta = t
-        self.iterations += len(msgs)
+                        with self.tracer.span("server.eval",
+                                              clock=eval_at[i], fused=True):
+                            self._emit_eval(eval_at[i], self.task.evaluate(
+                                t, self.test_x, self.test_y))
+                rel = release_at.get(i, ())
+                if rel:
+                    handled = self._group_send(
+                        rel,
+                        lambda clock, t=t: self._prepared_message(clock, t))
+                    for worker, clock in rel:
+                        if worker in handled:
+                            # the tracker's bookkeeping ran at decision time
+                            self.weights_sent_at[worker] = time.monotonic()
+                            self._observe_gate_release(worker)
+                            if FLIGHT.enabled:
+                                FLIGHT.record("gate.release",
+                                              shard=self.shard_id,
+                                              worker=worker, clock=clock,
+                                              gang=True, grouped=True)
+                                FLIGHT.beat("gate")
+                        else:
+                            self._send_weights_prepared(worker, clock, t)
+                    batch_released.extend(rel)
+                    if self.serving is not None:
+                        # the prefix theta this release observed, one
+                        # snapshot per release event, as the per-message
+                        # path publishes
+                        self.publish_snapshot(t, snap_clocks[i])
+            self.theta = t
+            self.iterations += len(msgs)
+        self.tracer.count("dispatch.device")
+        self.tracer.count("server.gang_batched_applies")
         self.batched_applies += 1
         self._emit_gang_notice(sorted(batch_released))
         self.maybe_checkpoint()

@@ -19,6 +19,13 @@ new tensor; the other keys keep their values).  With a `shard_router`
 (runtime/sharding.ShardRouter, set for a range-sharded server group or
 an aggregation relay) the outgoing delta and its redelivery resend go
 through the router instead of the fabric.
+
+Telemetry (tracer=, telemetry=; null by default): the
+`worker.local_update` span around the kernel call and a
+`dispatch.device` count per call, `worker_updates_total{worker}` per
+iteration and `worker_update_ms{worker}`, the host time of the call.
+The span and the histogram time the kernel's LAUNCH: nothing waits on
+the device to take them (its time is what `--device_trace` records).
 """
 
 from __future__ import annotations
@@ -36,8 +43,10 @@ from kafka_ps_tpu_torch.ops import fused_update
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
 from kafka_ps_tpu_torch.runtime.messages import (GradientMessage, KeyRange,
                                                  WeightsMessage)
+from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
 from kafka_ps_tpu_torch.utils import asynclog
 from kafka_ps_tpu_torch.utils.config import ModelConfig, PSConfig
+from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
 
 LogSink = Callable[[str], None]
 
@@ -82,7 +91,15 @@ class WorkerNode:
     def __init__(self, worker_id: int, cfg: PSConfig,
                  fabric: fabric_mod.Fabric, buffer: SlidingBuffer,
                  device, test_x=None, test_y=None,
-                 log: LogSink | None = None):
+                 log: LogSink | None = None, tracer=None, telemetry=None):
+        self.tracer = tracer or NULL_TRACER
+        self.telemetry = telemetry or NULL_TELEMETRY
+        # resolved here: one leaf-lock inc / observe per iteration with
+        # telemetry on, nothing with it off
+        self._m_updates = self.telemetry.counter(
+            "worker_updates_total", worker=str(worker_id))
+        self._m_update_ms = self.telemetry.histogram(
+            "worker_update_ms", worker=str(worker_id))
         self.worker_id = worker_id
         self.cfg = cfg
         self.fabric = fabric
@@ -98,7 +115,8 @@ class WorkerNode:
         # (unless cfg.slab_incremental is off)
         self._slab_version: int | None = None
         self._slab_store = SlabStore(cfg.slab_dtype, buffer.cfg.max_size,
-                                     buffer.num_features, self.device)
+                                     buffer.num_features, self.device,
+                                     telemetry=self.telemetry)
         self.iterations = 0
         # iterations counted at (re)admission: the supervisor grants the
         # first iteration SINCE joining its 10x grace (runtime/app.py)
@@ -187,6 +205,8 @@ class WorkerNode:
         self._send(out)
         if self.compressor is not None:
             self._last_sent = (msg.vector_clock, out)
+        if self.telemetry.enabled:
+            self._m_updates.inc()
         self.last_progress = time.monotonic()
 
     def _redelivered_weights(self, msg: WeightsMessage) -> bool:
@@ -222,10 +242,17 @@ class WorkerNode:
                                                 self.cfg.model)
         # off-cadence clocks log the reference's -1 "not computed"
         f1, acc = -1.0, -1.0
-        if want_eval:
-            delta, loss, f1, acc = update_eval_fn(
-                theta, x, y, mask, self.test_x, self.test_y)
-        else:
-            delta, loss = update_fn(theta, x, y, mask)
+        t0 = time.perf_counter()
+        with self.tracer.span("worker.local_update", worker=self.worker_id,
+                              clock=msg.vector_clock):
+            if want_eval:
+                delta, loss, f1, acc = update_eval_fn(
+                    theta, x, y, mask, self.test_x, self.test_y)
+            else:
+                delta, loss = update_fn(theta, x, y, mask)
+        self.tracer.count("dispatch.device")
+        if self.telemetry.enabled:
+            # the launch's host time: nothing syncs the device for it
+            self._m_update_ms.observe((time.perf_counter() - t0) * 1e3)
         self._finish(msg, seen, delta, loss, f1, acc)
 

@@ -36,7 +36,8 @@ class Snapshot(NamedTuple):
     wall_time: float       # publication time (the registry's clock)
     seq: int               # publication number, increasing
     # trace context of the release that published it (always None here:
-    # the port has no tracer yet; kept so the tuple has the JAX fields)
+    # the port carries no trace context until ROADMAP item 24b; kept so
+    # the tuple has the JAX fields)
     trace: object = None
 
 

@@ -916,3 +916,66 @@ def test_per_page_apply_is_bitwise_the_full_apply_on_the_card(card):
     assert torch.equal(store.assembled_tensor(), full)
     assert store.assembled().tobytes() == full.cpu().numpy().tobytes()
     store.close()
+
+
+# -- telemetry on the card (kafka_ps_tpu_torch/telemetry/, utils/trace.py) --
+
+def _telemetry_run(device, c, task, on):
+    """_serial_run with the tracer, the registry and the flight recorder
+    all on, or all off."""
+    from kafka_ps_tpu_torch.telemetry import FLIGHT, Telemetry
+    from kafka_ps_tpu_torch.utils.trace import Tracer
+    kw = {}
+    if on:
+        tracer = Tracer(counter_sample_s=0.0)
+        kw = {"tracer": tracer, "telemetry": Telemetry(tracer=tracer)}
+        FLIGHT.enable(role="run")
+    try:
+        cfg = PSConfig(num_workers=3, consistency_model=c, task=task,
+                       model=ModelConfig(num_features=64, num_classes=5,
+                                         hidden_dim=32),
+                       buffer=BufferConfig(min_size=8, max_size=32))
+        x, y = generate(200, 64, 5, seed=2, center_scale=0.3)
+        server, worker = [], []
+        app = StreamingPSApp(cfg, test_x=x[150:], test_y=y[150:],
+                             server_log=server.append,
+                             worker_log=worker.append,
+                             clock_ms=iter(range(0, 10 ** 9, 40)).__next__,
+                             device=device, **kw)
+        for i in range(150):
+            app.data_sink(i % 3, x[i], int(y[i]))
+        fused_update.reset_counts()
+        app.run_serial(30)
+        app.close_logs()
+        return app, server, worker, fused_update.counts(), kw
+    finally:
+        FLIGHT.disable()
+
+
+@pytest.mark.parametrize("task", ["logreg", "mlp"])
+@pytest.mark.parametrize("c", [0, 2, -1])
+def test_telemetry_on_is_bitwise_off_on_the_card(card, c, task):
+    def strip(rows):
+        return [r.split(";", 1)[1] for r in rows]
+    off_app, off_s, off_w, off_n, _ = _telemetry_run(card, c, task, False)
+    on_app, on_s, on_w, on_n, kw = _telemetry_run(card, c, task, True)
+    assert torch.equal(on_app.server.theta, off_app.server.theta)
+    assert strip(on_s) == strip(off_s) and strip(on_w) == strip(off_w)
+    assert on_n == off_n                   # the same kernel launches
+    snap = kw["telemetry"].snapshot()
+    assert sum(snap["gradients_applied_total"].values()) == 30
+    assert kw["tracer"].counters()["server.gradients_applied"] == 30
+
+
+@pytest.mark.parametrize("task,symbol", [("logreg", "logreg_update"),
+                                         ("mlp", "hidden_pass")])
+def test_telemetry_device_trace_names_the_hand_kernels(card, task, symbol,
+                                                        tmp_path):
+    from kafka_ps_tpu_torch.utils import trace
+    with trace.device_trace(str(tmp_path), card):
+        _telemetry_run(card, 0, task, False)
+    names = trace.kernel_names(trace.device_trace_path(str(tmp_path)))
+    assert any(symbol in name for name in names), sorted(names)[:20]
+    with pytest.raises(RuntimeError, match="no CUDA kernel"):
+        with trace.device_trace(str(tmp_path / "idle"), card):
+            pass                           # nothing ran on the card

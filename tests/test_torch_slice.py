@@ -282,7 +282,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "cli.agg_runner", "serving", "serving.policy",
               "serving.snapshot", "serving.costmodel", "serving.engine",
               "serving.shm", "serving.replica", "serving.loadgen",
-              "utils.trace", "store", "store.cold", "store.tiered"):
+              "utils.trace", "store", "store.cold", "store.tiered",
+              "utils.status", "telemetry", "telemetry.registry",
+              "telemetry.flight", "telemetry.health"):
         assert f"kafka_ps_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
