@@ -4,7 +4,9 @@
 
 1. Setup: the card's name and power limit, torch and CUDA versions, and
    the build of every CUDA kernel from the sources in the checkout (one
-   nvcc per source, all started together), with ptxas's register and
+   nvcc per source, all started together, each compiling on threads),
+   every process the script starts sharing one bytecode cache
+   (.pycache/ in the checkout), with ptxas's register and
    shared-memory report and the MLP tensor passes' dynamic shared memory.
 2. Kernel phase, at the main path's shapes (F=1024, B=1024 with masked
    rows and one out-of-range label, C=5, k=2; the MLP at H=128): K1
@@ -58,9 +60,10 @@
    which one member fails on its leader's thread (evicted alone, the run
    finishes), and the same crash under halt raising.
 4. Main path, through the real entry point kafka_ps_tpu_torch.cli.run:
-   4 workers, buffer max 1024, a synthetic 1024-feature CSV, 200 server
-   iterations a run unless noted (400 until the telemetry phase came and
-   the script neared its time limit).  logreg with
+   4 workers, buffer max 1024, a synthetic 1024-feature CSV, 100 server
+   iterations a run unless noted (400 until the telemetry phase came, 200
+   until the role telemetry phase came, each time for the script's time
+   limit).  logreg with
    the default flags (gang dispatch and async eval): serial -c 0,
    threaded -c 2, threaded -c -1; the MLP with the default flags: serial
    -c 0, threaded -c -1; logreg with --no-gang --no-eval-async: serial
@@ -73,7 +76,7 @@
    --heartbeat_timeout 30, the MLP --compress bf16 serial -c 0, the MLP
    at --hidden_dim 4096 --compress int8 serial -c 0 (40 iterations), and
    two resume pairs, logreg serial -c 0 --checkpoint --checkpoint_every
-   50 -v for 200 iterations and then to 400, plain and --compress int8
+   50 -v for 100 iterations and then to 200, plain and --compress int8
    (the restore printed, a resume event, the server rows continuing, the
    residuals in the file).  Launch counters are zeroed just before each
    run and read just after it: the single and gang-member kernel calls
@@ -89,9 +92,11 @@
    deployment, server_runner --listen and two worker_runner processes of
    2 workers, on the same CSV: logreg at -c 0, -c 2 and -c -1, the MLP
    at -c -1, logreg --slab-dtype int8 at -c 2, the MLP --slab-dtype bf16
-   at -c -1, logreg --compress int8 at -c 2 (200 iterations each), the
-   MLP at H=4096 -c -1 (40), each beside the in-process
-   trainer with the same flags (threaded, --no-gang); and logreg -c 10
+   at -c -1, logreg --compress int8 at -c 2 (100 iterations each), the
+   MLP at H=4096 -c -1 (40), two deployments at a time (their rates
+   are under that shared load, and every line they print says so), each
+   beside the in-process trainer with the same flags (threaded,
+   --no-gang); and logreg -c 10
    with one worker process killed by SIGKILL and restarted
    (--checkpoint, --failure_policy rebalance).  Each worker process's
    kernel calls must equal its worker CSV rows, of the run's family and
@@ -109,23 +114,26 @@
    2e-5, atol 2e-6; then through the entry points, on the same CSV: two
    shard servers (server_runner --listen --shards 2 --shard-id 0|1) with
    two worker_runner processes of 2 workers dialing both, logreg at -c 0
-   and -c 2 (200 iterations), logreg --slab-dtype int8 -c 2 (100), logreg
-   --compress topk:0.01 -c 2 (200; sparse slices), the MLP at H=128 and
-   H=4096 -c -1 (100, 40), and logreg -c 2 with --durable-log in which
+   and -c 2, logreg --slab-dtype int8 -c 2, logreg --compress topk:0.01
+   -c 2 (sparse slices; 100 iterations each), the MLP at H=128 and
+   H=4096 -c -1 (100, 40), and logreg -c 2 (200) with --durable-log in which
    shard 1 is killed by SIGKILL and restarted (its log replayed serially
    afterwards must end bitwise at its final checkpoint); then agg_runner
    between a server_runner --listen and two worker_runner --aggregate
-   processes: logreg -c 0 and -c -1, --summed -c 0, --compress int8 -c 2,
-   the MLP --slab-dtype bf16 -c -1 (100 each) and the MLP at H=4096 -c -1
-   (40).  Each worker process's kernel calls must equal its CSV rows, of
-   the run's family and form only, on cuda; shards reach the iterations,
+   processes: logreg -c 0 and -c -1, --summed -c 0, --compress int8 -c 2
+   (100 each) and the MLP at H=4096 -c -1 (40); the MLP --slab-dtype bf16
+   -c -1 relay runs in phase 10, with the telemetry flags.  Each worker
+   process's kernel calls must equal its CSV rows, of the run's family
+   and form only, on cuda; shards reach the iterations,
    their final clocks per worker differ by at most one (none at -c 0),
    the theta assembled from their checkpoints gives F1 in (0.5, 1]; a
    relayed server's eval lag is 0 and its F1 in (0.5, 1].  Per run:
    iterations/s per shard (or of the relayed server) against the split
    run of the same flags from phase 5, bytes per message and serde ms per
    frame by topic each way, and the relay's fan-in, composites and bytes
-   against the direct path's.
+   against the direct path's; a shards run and a relay run go at once
+   (the killed-shard run alone), so their rates are under that load, and
+   every line they print says so.
 7. Serving phase (serving/, tests/torch_serving_runs.py): in process on
    the card, the engine's answers against its own answers on the CPU from
    the same snapshot at every bucket size 1..16 (logreg, the MLP at H=128
@@ -138,13 +146,12 @@
    (serving/loadgen.py): cli.run --serve --serve_port at serial -c 0 on
    a 512-row CSV (every row buffered before the first iteration) beside
    the same run without --serve, theta and the rows bitwise; threaded
-   -c 2; --fused --task mlp --hidden_dim 4096 (40 rounds); server_runner
-   --listen --serve --serve-shm with two worker processes, socket and shm
-   clients; server_runner --serve-replica following a cli.run
-   --durable-log -c 0 run while it trains, and following a --shards 2
-   -c 0 deployment's per-shard logs while it trains (the shards logging
-   the weights they send), each replica's last snapshot bitwise
-   the log's newest weights.  Every answer PREDICT_OK (STALE only before a
+   -c 2; --fused --task mlp --hidden_dim 4096 (40 rounds);
+   server_runner --serve-replica following a cli.run --durable-log -c 0
+   run while it trains, its last snapshot bitwise the log's newest
+   weights (the split server's socket and shm clients and the replica of
+   a --shards 2 deployment's per-shard logs run in phase 10, with the
+   telemetry flags).  Every answer PREDICT_OK (STALE only before a
    client's first answer), each client's clocks never going back, no
    FAILED; every run's kernel calls checked as the main path's.  Per run:
    p50/p99 ms, answered QPS, shed and stale shares, dispatches, rows per
@@ -160,19 +167,21 @@
    the caps on a 512-row CSV, theta (SHA-256 of the exit checkpoint) and
    the rows bitwise, every tier occupied at exit, faults and migrations:
    the MLP at H=4096 serial -c 0 (40 iterations) and logreg serial at
-   -c 0, 2 and -1; a threaded -c 2 capped run (eval lag 0, the policy
-   thread migrating); a capped run killed after a checkpoint and resumed,
-   the recorded residency applied and the final checkpoint bitwise the
-   uninterrupted capped run's; then server_runner --listen with a hot cap
-   and two worker processes (-c 2), and --shards 2 --durable-log with
-   per-shard caps at H=128, dense and with --compress topk:0.01, each
-   shard's cold pages under its own shard<I>of2 directory, each run's
-   final F1 within 1/len(test) of its uncapped twin's.  Per run: the
-   store's stats (tiers, pins, faults, migrations, bytes on the card,
-   bytes uploaded and fetched) and iterations/s capped and resident.
+   -c 0, 2 and -1 (200, the crash checks' depth); a threaded -c 2
+   capped run (eval lag 0, the policy thread migrating); a capped run
+   killed after a checkpoint and resumed, the recorded residency applied
+   and the final checkpoint bitwise the uninterrupted capped run's; then
+   server_runner --listen with a hot cap and two worker processes (-c 2),
+   and --shards 2 --durable-log with per-shard caps at H=128, dense and
+   with --compress topk:0.01 (these four deployments two at a time, under
+   that shared load), each shard's cold pages under its own shard<I>of2
+   directory, each run's final F1 within 1/len(test) of its uncapped
+   twin's.  Per run: the store's stats (tiers, pins, faults, migrations,
+   bytes on the card, bytes uploaded and fetched) and iterations/s capped
+   and resident.
 9. Telemetry phase (telemetry/, utils/trace.py, utils/status.py):
    cli.run with --trace, --metrics-file (--metrics-every 0.5),
-   --flight-dir, --health-port 0 and --status_every 0.5: logreg serial
+   --flight-dir, --health-port 0 and --status_every 0.1: logreg serial
    -c 0 (400 iterations on the 512-row CSV) beside the same run without
    them, theta (SHA-256 of the exit checkpoint), the rows and the kernel
    counters bitwise, /healthz answering 200 mid-run (polled from a thread
@@ -187,7 +196,43 @@
    whose trace must hold the hand kernels' CUDA events, and a threaded run
    with --flight-dir killed by SIGTERM (its dump read back).  Prints
    iterations/s with every flag over without, beside the card line.
-10. Profile: one more default serial -c 0 run per family, one of logreg
+10. Role telemetry phase (cli/socket_mode.py's telemetry flags, 100
+   server iterations a run, 300 for the split runs, every process with
+   --trace, --metrics-file,
+   --flight-dir and --health-port 0, a split server --status_every; the
+   processes' /healthz polled from a thread of this script while they
+   run): the bridge round on the card with tracers and registries on both
+   sides bitwise the untraced round, trace context negotiated and every
+   gradients and weights frame 16 bytes longer (logreg and the MLP, f32
+   and stored slabs); server_runner --listen with two worker processes,
+   logreg -c 2, untraced, traced, traced and untraced back to back and
+   alone on the card, the first traced run checked (the gradients frames the
+   server read are its iterations plus its drops and its queue at the
+   stop, every worker's delta.wire flow steps at the server but for
+   frames in flight at its stop, rising [status] lines, exit dumps with
+   net.* records; iterations/s traced over untraced, each pair's and
+   their median); --shards 2
+   --slab-dtype int8 -c 2 with shard 1 killed by SIGKILL after its first
+   checkpoint and shard 0 stopped by SIGTERM (the workers' dumps hold
+   both shards' shard.weights records; the postmortem's rule names shard
+   1 dead and its last acknowledged (worker, clock); shard 0's families
+   carry its shard label); agg_runner between a server and two
+   --aggregate workers, the MLP bf16 -c -1 (agg_composites_total and the
+   agg_fan_in observations equal the relay's composites, the members'
+   delta.wire flows step through the relay); server_runner --listen
+   --serve --serve-shm, the MLP -c -1, under a socket and a shm client
+   (serving_requests_total and serving_dispatch_mode{mode="shm"} equal
+   the engine's and the bridge's counts, the serving watchdog quiet, a
+   delta.wire flow ending at a serving read); --shards 2 --durable-log
+   with per-shard hot and warm caps, logreg -c 0, followed by a
+   --serve-replica from the start (the tier families equal each store's
+   counters, store.* records; replica.publish records, the replica and
+   serving watchdogs quiet, its last snapshot bitwise the logs' newest
+   weights); the relay, serving, killed-shard and capped replica runs run
+   at once (their rates and latencies are under that shared load, and
+   every line they print says so).  Every
+   run's kernel calls checked as the main path's.
+11. Profile: one more default serial -c 0 run per family, one of logreg
    with int8 slabs, one of logreg --compress int8 and one of logreg
    --fused --eval_every 10 (200
    iterations each), under torch.profiler (CUDA activity only) and
@@ -196,9 +241,9 @@
    Python function, with the rank of the CSV parse's functions in it.
    In the fused run, whose chunks replay CUDA graphs, the K2 kernels the
    profiler traced must equal the launch counter.
-11. The `kernels` JSON line (the split, scale-out, serving, tier and
-   telemetry runs' worker calls counted in the launches), the card line,
-   and last the result line.
+12. The `kernels` JSON line (the split, scale-out, serving, tier,
+   telemetry and role telemetry runs' worker calls counted in the
+   launches), the phase times, the card line, and last the result line.
 
 Any failed phase raises: the script exits non-zero and prints no result.
 It also exits non-zero without a card, and when the package is absent.
@@ -209,6 +254,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -249,7 +295,7 @@ WIDE_H = 4096                      # the fused MLP path's hidden width
 FUSED_MLP_ROUNDS = 40
 BIG_B = 16384                      # K1's re-staged case: 64 MiB of x
 WORKERS, MAX_BUFFER, TRAIN_ROWS, TEST_ROWS = 4, 1024, 6000, 2000
-ITERS, SLICE1_ITERS = 200, 200
+ITERS, SLICE1_ITERS = 100, 100
 # the codecs of --compress at logreg's, the MLP's (H=128) and the wide
 # MLP's (H=4096) parameter counts
 CODEC_NAMES = ("bf16", "int8", "topk:0.01")
@@ -259,10 +305,10 @@ EF_STEPS, CRASH_AT = 50, 20
 # CLI crash (512 rows = 4 workers x the default 128 prefill) and the
 # main-path runs on the log
 DURABLE_ITERS, DURABLE_CRASH_AT = 200, 120
-CLI_CRASH_ROWS, CLI_KILL_AT = 512, 130
-COMPRESSED_WIDE_ITERS, RESUME_ITERS = 40, 200
+CLI_CRASH_ROWS, CLI_KILL_AT, CRASH_ITERS = 512, 130, 200
+COMPRESSED_WIDE_ITERS, RESUME_ITERS = 40, 100
 # the split phase: server iterations of its runs
-SPLIT_ITERS, SPLIT_SHORT, SPLIT_WIDE = 200, 200, 40
+SPLIT_ITERS, SPLIT_SHORT, SPLIT_WIDE = 100, 100, 40
 # the scale-out phase: server iterations of its runs, and of its in-process
 # reference checks
 SCALE_ITERS, SCALE_SHORT, SCALE_WIDE, SCALE_REF_ITERS = 200, 100, 40, 40
@@ -280,6 +326,15 @@ TIER_WIDE_ITERS = 40
 # the telemetry phase: server iterations of its runs, and of its
 # --device_trace runs
 TEL_ITERS, TEL_TRACE_ITERS = 400, 100
+# the role telemetry phase: server iterations of its runs, and the shard
+# checkpoint cadence of its killed-shard run
+ROLE_ITERS, ROLE_CK_EVERY = 100, 10
+# the role telemetry phase's traced and untraced split runs, alternated
+ROLE_PAIR_ITERS = 300
+# the [status] cadence of the telemetry phases' runs: a run of a few
+# hundred iterations can end within half a second, and a reporter prints
+# no line at its stop
+STATUS_EVERY = "0.1"
 SLAB_KINDS = ("bf16", "int8")
 X_BYTES = {"bf16": 2, "int8": 1}
 # the Pallas body each storage form of K3 and K5 replaces
@@ -1111,7 +1166,8 @@ def threaded_order_check(dev) -> None:
 def cli_crash_check() -> None:
     """The CLI on the card, 512 rows at F=1024, C=5 (4 workers x the
     default 128 prefill: the whole stream is buffered before the first
-    iteration): an uninterrupted serial -c 0 run to ITERS iterations with
+    iteration): an uninterrupted serial -c 0 run to CRASH_ITERS iterations
+    with
     --checkpoint, against a run with --durable-log --fsync interval
     --checkpoint_every 50 that kills itself with SIGKILL right after
     iteration CLI_KILL_AT (scripts/torch_kill_at.py), past its second
@@ -1125,7 +1181,7 @@ def cli_crash_check() -> None:
             "--num_workers", str(WORKERS), "--num_features", str(F),
             "--num_classes", str(C), "--mode", "serial", "-c", "0",
             "-p", "2", "--eval_every", "10", "--max_iterations",
-            str(ITERS), "--checkpoint_every", "50", "-v"]
+            str(CRASH_ITERS), "--checkpoint_every", "50", "-v"]
     cli = [sys.executable, "-m", "kafka_ps_tpu_torch.cli.run"]
     kill = [sys.executable, os.path.join(REPO, "scripts", "torch_kill_at.py"),
             str(CLI_KILL_AT), "--"]
@@ -1159,7 +1215,8 @@ def cli_crash_check() -> None:
             np.load(os.path.join(OUT, "ck-crash.npz")) as b:
         same = (np.array_equal(a["theta"], b["theta"])
                 and np.array_equal(a["clocks"], b["clocks"])
-                and int(a["iterations"]) == int(b["iterations"]) == ITERS)
+                and int(a["iterations"]) == int(b["iterations"])
+                == CRASH_ITERS)
     d = stats["durable"]
     print(f"CLI crash check on the card: uninterrupted {base_s:.1f} s, "
           f"killed at {CLI_KILL_AT} after {killed_s:.1f} s (rc "
@@ -1168,7 +1225,8 @@ def cli_crash_check() -> None:
           f"{d['replay_s']:.4f} s ({d['replayed']}), re-ingested rows "
           f"skipped {d['skipped_rows']}, duplicates dropped "
           f"{stats['membership']['duplicate_gradients_dropped']}; final "
-          f"checkpoints equal (theta, clocks, {ITERS} iterations): {same}")
+          f"checkpoints equal (theta, clocks, {CRASH_ITERS} iterations): "
+          f"{same}")
     if not same or len(restored) != 2:
         raise RuntimeError("CLI crash check: the restarted run differs from "
                            "the uninterrupted one, or did not restore and "
@@ -1715,11 +1773,23 @@ def split_reference_check(dev) -> None:
                                "one")
 
 
+_PORTS_GIVEN: set = set()
+_PORTS_LOCK = threading.Lock()
+
+
 def _free_port() -> int:
+    """A free port never handed out before in this script: runs started
+    together (the role telemetry phase) cannot draw the same port before
+    its process binds it."""
     import socket
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    with _PORTS_LOCK:
+        while True:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            if port not in _PORTS_GIVEN:
+                _PORTS_GIVEN.add(port)
+                return port
 
 
 def _role_stats(path: str, role: str) -> dict:
@@ -1785,7 +1855,7 @@ def _wire_line(side: str, stats: dict) -> str:
 
 def split_run(task: str, c: int, iters: int, flags: tuple = (),
               hidden: int = H, kill: bool = False, during=None,
-              server_flags: tuple = ()) -> dict:
+              server_flags: tuple = (), tel: bool = False) -> dict:
     """The port's split deployment on the card: server_runner --listen 0
     and two worker_runner processes of 2 workers (F=1024, C=5, buffer max
     1024, k=2, lr 0.5) on write_data()'s CSV, each process in its own
@@ -1802,12 +1872,16 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
     checked.  `during(port, server_err_path)`, when given, is called once
     the processes are started and returns a callable that is called once
     they have ended (a serving load, serving_runs).  `server_flags` go
-    to the server process only (the tier caps)."""
+    to the server process only (the tier caps).  `tel`: every process
+    also gets the role telemetry flags (tests/torch_role_runs.TEL_FLAGS,
+    its files in its own directory), the server `--status_every
+    STATUS_EVERY`."""
     import signal
     tag = "-".join(["split", task, f"c{c}",
                     *(f.lstrip("-") for f in flags + server_flags)]
                    + ([f"H{hidden}"] if hidden != H else [])
-                   + (["kill"] if kill else []))
+                   + (["kill"] if kill else []) + (["tel"] if tel else []))
+    tel_flags = role_tel_flags() if tel else ()
     base = os.path.join(OUT, tag)
     remove(base)
     dirs = {n: os.path.join(base, n) for n in ("server", "w0", "w1")}
@@ -1825,7 +1899,9 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
                   "server_runner", "--listen", str(port), "-training",
                   "../../train.csv", "-p", "0", "-c", str(c),
                   "--max_iterations", str(0 if kill else iters), *common,
-                  *server_flags]
+                  *server_flags, *tel_flags]
+    if tel:
+        server_cmd += ["--status_every", STATUS_EVERY]
     if kill:
         server_cmd += ["--failure_policy", "rebalance",
                        "--heartbeat_timeout", "10"]
@@ -1834,7 +1910,7 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
         cmd = [sys.executable, "-m", "kafka_ps_tpu_torch.cli."
                "worker_runner", "--connect", f"127.0.0.1:{port}",
                "--worker_ids", SPLIT_IDS[i], "-max", str(MAX_BUFFER),
-               *common]
+               *common, *tel_flags]
         return cmd + (["--checkpoint", "job.npz", "--state_every", "0.2"]
                       if kill else [])
 
@@ -1985,7 +2061,8 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
             "gang_calls": 0, "hidden": hidden, "fused": False,
             "rate": rate, "steady": steady_rate(all_rows), "server": server,
             "f1": f1, "topology": "split", "c": c, "flags": flags,
-            "server_flags": server_flags, "kill": kill}
+            "server_flags": server_flags, "kill": kill, "dirs": dirs,
+            "workers": workers}
 
 
 def split_runs(direct: dict) -> list[dict]:
@@ -1993,7 +2070,9 @@ def split_runs(direct: dict) -> list[dict]:
     the in-process trainer with the same flags (threaded, --no-gang: a
     split worker process runs no gang) in this script run.  Each split
     run's iterations/s goes into `direct`, keyed (task, c, flags, H),
-    for the scale-out runs to stand beside."""
+    for the scale-out runs to stand beside.  The split runs go two at a
+    time (_at_once; the killed-worker run alone), so their rates are
+    taken under two runs' load."""
     runs = []
     specs = [("logreg", c, SPLIT_ITERS, (), H) for c in (0, 2, -1)]
     specs += [("mlp", -1, SPLIT_SHORT, (), H),
@@ -2001,15 +2080,22 @@ def split_runs(direct: dict) -> list[dict]:
               ("mlp", -1, SPLIT_SHORT, ("--slab-dtype", "bf16"), H),
               ("logreg", 2, SPLIT_SHORT, ("--compress", "int8"), H),
               ("mlp", -1, SPLIT_WIDE, (), WIDE_H)]
-    for task, c, iters, flags, hidden in specs:
-        split = split_run(task, c, iters, flags, hidden)
+    # two deployments at a time share the card and the host: the checks
+    # are of function, and their rates are taken under that load (the
+    # role telemetry phase times the split run alone)
+    splits = []
+    for k in range(0, len(specs), 2):
+        splits += _at_once([functools.partial(split_run, *spec)
+                            for spec in specs[k:k + 2]])
+    for (task, c, iters, flags, hidden), split in zip(specs, splits):
         direct[(task, c, flags, hidden)] = split["steady"]
         inproc = main_path_run(task, "threaded", c, iters,
                                ("--no-gang", *flags), hidden)
         runs += [split, inproc]
         print(f"split against in-process: {task} -c {c} {' '.join(flags)} "
-              f"H={hidden}: iters_per_s {split['rate']:.1f} against "
-              f"{inproc['rate']:.1f} ({split['rate'] / inproc['rate']:.3f}x)")
+              f"H={hidden}: iters_per_s {split['rate']:.1f} (under shared "
+              f"load) against {inproc['rate']:.1f} alone "
+              f"({split['rate'] / inproc['rate']:.3f}x)")
     runs.append(split_run("logreg", 10, SPLIT_SHORT, kill=True))
     return runs
 
@@ -2164,7 +2250,8 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
                  flags: tuple = (), hidden: int = H,
                  relay_flags: tuple = (), kill: bool = False,
                  direct_rate: float | None = None, durable: bool = False,
-                 during=None, server_flags: tuple = ()) -> dict:
+                 during=None, server_flags: tuple = (),
+                 tel: bool = False) -> dict:
     """One run of a scale-out topology on the card, every process in its
     own directory under OUT, on write_data()'s CSV (F=1024, C=5, 4
     workers, buffer max 1024, k=2): "shards" is server_runner --listen
@@ -2188,13 +2275,14 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
     when given, is called once the processes are started and returns a
     callable that is called once they have ended (a replica following
     the shards' logs, serving_runs).  `server_flags` go to the shard or
-    server processes only (the tier caps)."""
+    server processes only (the tier caps).  `tel`: every process also
+    gets the role telemetry flags (files in its own directory)."""
     import signal
     tag = "-".join(["scale", topology, task, f"c{c}",
                     *(f.lstrip("-") for f in flags + relay_flags
                       + server_flags)]
                    + ([f"H{hidden}"] if hidden != H else [])
-                   + (["kill"] if kill else []))
+                   + (["kill"] if kill else []) + (["tel"] if tel else []))
     base = os.path.join(OUT, tag)
     remove(base)
     names = (("s0", "s1") if topology == "shards"
@@ -2240,6 +2328,9 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
         cmds[f"w{i}"] = mod + ["kafka_ps_tpu_torch.cli.worker_runner",
                                *dial, "--worker_ids", SPLIT_IDS[i], "-max",
                                str(MAX_BUFFER), *common]
+    if tel:
+        for cmd in cmds.values():
+            cmd += role_tel_flags()
 
     def start(name, suffix=""):
         d = dirs[name]
@@ -2422,7 +2513,8 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
     return {"task": task, "kind": kind, "single": sum(calls),
             "gang_calls": 0, "hidden": hidden, "fused": False,
             "rate": min(rates), "steady": steady, "f1": f1, "dir": base,
-            "shards": shards if topology == "shards" else None,
+            "dirs": dirs, "shards": shards if topology == "shards" else None,
+            "relay": relay if topology == "relay" else None,
             "topology": topology, "c": c, "flags": flags + relay_flags,
             "server_flags": server_flags, "kill": kill}
 
@@ -2433,18 +2525,21 @@ def scaleout_runs(direct: dict) -> list[dict]:
     top-k 0.01 workers at -c 2, the MLP at H=128 and H=4096 -c -1, and
     logreg -c 2 with shard 1 killed and restarted), then a relay between
     the server and two worker processes (logreg -c 0 and -c -1, --summed
-    -c 0, --compress int8 -c 2, the MLP bf16 slabs and the MLP at H=4096
-    -c -1), each beside the split run of the same flags from the split
+    -c 0, --compress int8 -c 2 and the MLP at H=4096 -c -1; the MLP bf16
+    slabs run in the role telemetry phase), each beside the split run of
+    the same flags from the split
     phase (`direct`: its worker iterations/s past the first round; the
     top-k workers beside the plain -c 2 run: the shard servers send dense
-    weights, a direct --compress topk run top-k ones)."""
+    weights, a direct --compress topk run top-k ones).  A shards run and
+    a relay run go at once (the killed-shard run alone), so the rates are
+    taken under two runs' load."""
     runs = []
     topk = ("--compress", "topk:0.01")
-    specs = [("shards", "logreg", 0, SCALE_ITERS, (), H, ()),
-             ("shards", "logreg", 2, SCALE_ITERS, (), H, ()),
+    specs = [("shards", "logreg", 0, SCALE_SHORT, (), H, ()),
+             ("shards", "logreg", 2, SCALE_SHORT, (), H, ()),
              ("shards", "logreg", 2, SCALE_SHORT, ("--slab-dtype", "int8"),
               H, ()),
-             ("shards", "logreg", 2, SCALE_ITERS, topk, H, ()),
+             ("shards", "logreg", 2, SCALE_SHORT, topk, H, ()),
              ("shards", "mlp", -1, SCALE_SHORT, (), H, ()),
              ("shards", "mlp", -1, SCALE_WIDE, (), WIDE_H, ()),
              ("relay", "logreg", 0, SCALE_SHORT, (), H, ()),
@@ -2452,17 +2547,88 @@ def scaleout_runs(direct: dict) -> list[dict]:
              ("relay", "logreg", 0, SCALE_SHORT, (), H, ("--summed",)),
              ("relay", "logreg", 2, SCALE_SHORT, ("--compress", "int8"), H,
               ()),
-             ("relay", "mlp", -1, SCALE_SHORT, ("--slab-dtype", "bf16"), H,
-              ()),
              ("relay", "mlp", -1, SCALE_WIDE, (), WIDE_H, ())]
+    # the relay with the MLP's bf16 slabs at -c -1 runs once, with the
+    # telemetry flags, in the role telemetry phase (role_relay_check)
+    calls = []
     for topology, task, c, iters, flags, hidden, rflags in specs:
         twin = direct.get((task, c, flags, hidden),
                           direct.get((task, c, (), hidden)))
-        runs.append(scaleout_run(topology, task, c, iters, flags, hidden,
-                                 rflags, direct_rate=twin))
+        calls.append(functools.partial(
+            scaleout_run, topology, task, c, iters, flags, hidden, rflags,
+            direct_rate=twin))
+    # a shards run and a relay run at a time share the card: the checks
+    # are of function, and the rates are taken under that load
+    shards, relays = calls[:6], calls[6:]
+    for k, call in enumerate(shards):
+        runs += _at_once([call] + relays[k:k + 1])
     runs.append(scaleout_run("shards", "logreg", 2, SCALE_ITERS, kill=True,
                              direct_rate=direct.get(("logreg", 2, (), H))))
     return runs
+
+
+_LOAD = threading.local()
+
+
+class _TaggedLines(io.TextIOBase):
+    """This script's stdout: a thread of _at_once, which runs beside
+    other deployments, has each whole line it prints marked with that
+    load, so that no rate, ratio or latency taken under another run's
+    load reads as one taken alone."""
+
+    def __init__(self, out):
+        self.out = out
+        self._lock = threading.Lock()
+
+    def write(self, s: str) -> int:
+        tag = getattr(_LOAD, "tag", None)
+        if tag is None:
+            with self._lock:
+                self.out.write(s)
+            return len(s)
+        *lines, _LOAD.rest = (_LOAD.rest + s).split("\n")
+        if lines:
+            with self._lock:
+                self.out.write("".join(f"{tag} {ln}\n" for ln in lines))
+        return len(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def _at_once(calls) -> list:
+    """Run the callables at once, each on a thread of this script; their
+    results in order, the first failure re-raised.  Every line a call
+    prints starts with "[shared load i/n]" (_TaggedLines): its rates and
+    latencies were taken beside the other n - 1 runs, on one card and
+    the host's cores, and are no baseline."""
+    done: dict = {}
+
+    def run(i, call):
+        _LOAD.tag, _LOAD.rest = f"[shared load {i + 1}/{len(calls)}]", ""
+        try:
+            done[i] = (True, call())
+        except BaseException as e:      # re-raised on this thread
+            done[i] = (False, e)
+        finally:
+            if _LOAD.rest:
+                print()
+            _LOAD.tag = None
+
+    threads = [threading.Thread(target=run, args=(i, call), daemon=True)
+               for i, call in enumerate(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    out = []
+    for i in range(len(calls)):
+        ok, got = done.get(i, (False, None))
+        if not ok:
+            raise RuntimeError(f"run {i} of {len(calls)} at once failed"
+                               ) from got
+        out.append(got)
+    return out
 
 
 # -- the serving phase (serving/, tests/torch_serving_runs.py) ---------------
@@ -2699,9 +2865,9 @@ def _newest_weights(root: str) -> tuple[int, bytes]:
     return min(c for _, c, _ in parts), theta.tobytes()
 
 
-def _replica(root: str, err: str):
-    """server_runner --serve-replica on `root`, on the card, its stderr to
-    `err`: (process, port)."""
+def _replica(root: str, err: str, cwd: str = OUT, flags: tuple = ()):
+    """server_runner --serve-replica on `root`, on the card, in `cwd` with
+    `flags`, its stderr to `err`: (process, port)."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=REPO)
     env.pop("KPS_PLATFORM", None)
@@ -2709,7 +2875,7 @@ def _replica(root: str, err: str):
         [sys.executable, "-m", "kafka_ps_tpu_torch.cli.server_runner",
          "--serve-replica", "--durable-log", root, "--serve_port", str(port),
          "--num_features", str(F), "--num_classes", str(C), "--task",
-         "logreg"], cwd=OUT, env=env, stdout=subprocess.DEVNULL,
+         "logreg", *flags], cwd=cwd, env=env, stdout=subprocess.DEVNULL,
         stderr=open(err, "w"))
     return proc, port
 
@@ -2757,12 +2923,11 @@ def serving_runs(threaded_rate: float) -> list[dict]:
     theta (the exit checkpoint) and the rows bitwise; threaded -c 2 (its
     iterations/s against the main path's run without serving,
     `threaded_rate`); --fused --task mlp --hidden_dim 4096 (40 rounds);
-    server_runner --listen --serve --serve-shm with two worker processes,
-    socket and shm clients; a read replica following a cli.run
-    --durable-log run while it trains, and one following a --shards 2
-    deployment's per-shard logs while it trains.  Every run's kernel
-    calls are checked as the main path's are (main_path_run, split_run,
-    scaleout_run)."""
+    a read replica following a cli.run --durable-log run while it trains
+    (the split server's socket and shm clients and a replica of a
+    --shards 2 deployment run in the role telemetry phase).  Every run's
+    kernel calls are checked as the main path's are (main_path_run,
+    split_run, scaleout_run)."""
     runs = []
     with open(os.path.join(OUT, "train.csv")) as f:
         head = [next(f) for _ in range(SERVE_TRAIN_ROWS + 1)]
@@ -2831,36 +2996,9 @@ def serving_runs(threaded_rate: float) -> list[dict]:
         raise RuntimeError("serving fused: an answer's clock is past the "
                            "server's stable clock")
     runs.append(run)
-    # the split server, by socket and by shm
-    loads: list = []
-
-    def split_load(port, err):
-        ready = _file_has(err, "serving predictions on port")
-        loads.extend([ServeLoad(port, 2, ready=ready),
-                      ServeLoad(port, 2, shm=True, ready=ready)])
-        return lambda: loads.extend([ld.finish() for ld in loads[:2]])
-
-    run = split_run("logreg", 2, SPLIT_SHORT, ("--serve", "--serve-shm"),
-                    during=split_load)
-    server = run["server"]
-    st = server["serving"]
-    for name, got, shm in (("split --listen --serve (socket)", loads[2],
-                            False),
-                           ("split --listen --serve (shm)", loads[3], True)):
-        serve_report(name, got, st, st["stable_clock"])
-        check_answers(name, got)
-        if any(a != shm for a in got["shm_active"]):
-            raise RuntimeError(f"serving {name}: shm active "
-                               f"{got['shm_active']}")
-    print(f"serving split: the server answered {st['requests']} requests, "
-          f"{server['shm_predictions']} over shared memory; errors "
-          f"{st['errors']}")
-    if (not server["shm_predictions"] or st["errors"]
-            or not server["device"].startswith("cuda")):
-        raise RuntimeError(f"serving split: shm predictions "
-                           f"{server['shm_predictions']}, errors "
-                           f"{st['errors']}, server on {server['device']}")
-    runs.append(run)
+    # the split server by socket and by shm, and a replica of a --shards 2
+    # deployment's logs, run in the role telemetry phase with the
+    # telemetry flags (role_serve_check, role_tier_replica_check)
     # a replica following a trainer's log while it trains
     root = os.path.join(OUT, "wal-serve")
     remove(root)
@@ -2886,21 +3024,6 @@ def serving_runs(threaded_rate: float) -> list[dict]:
     _end_replica("replica of cli.run --durable-log", proc, err, load, root)
     runs.append(run)
     remove(root)
-    # a replica following a --shards 2 deployment's logs while it trains,
-    # started with the shard processes, before their log directories exist
-
-    def shard_replica(wal):
-        proc, port = _replica(wal, err)
-        load = ServeLoad(port, 2, ready=_file_has(err, "replica serving"))
-
-        def finish():
-            _end_replica("replica of --shards 2", proc, err, load, wal)
-            remove(wal)
-
-        return finish
-
-    runs.append(scaleout_run("shards", "logreg", 0, SCALE_ITERS,
-                             durable=True, during=shard_replica))
     return runs
 
 
@@ -3105,7 +3228,7 @@ def tier_crash_check(base: str) -> None:
             "--num_workers", str(WORKERS), "--num_features", str(F),
             "--num_classes", str(C), "--mode", "serial", "-c", "0",
             "-p", "2", "--eval_every", "10", "--max_iterations",
-            str(ITERS), "--checkpoint_every", "50", "-v",
+            str(CRASH_ITERS), "--checkpoint_every", "50", "-v",
             *tier_flags(TIER_PAGE, TIER_HOT, TIER_WARM)]
     cli = [sys.executable, "-m", "kafka_ps_tpu_torch.cli.run"]
     kill = [sys.executable, os.path.join(REPO, "scripts", "torch_kill_at.py"),
@@ -3144,7 +3267,8 @@ def tier_crash_check(base: str) -> None:
             np.load(os.path.join(OUT, "ck-tier-crash.npz")) as b:
         same = (a["theta"].tobytes() == b["theta"].tobytes()
                 and np.array_equal(a["clocks"], b["clocks"])
-                and int(a["iterations"]) == int(b["iterations"]) == ITERS)
+                and int(a["iterations"]) == int(b["iterations"])
+                == CRASH_ITERS)
     print(f"tier crash check on the card: killed at {CLI_KILL_AT} after "
           f"{killed_s:.1f} s, restart "
           f"{again_s:.1f} s: {restored} (the killed run's last checkpoint "
@@ -3152,7 +3276,8 @@ def tier_crash_check(base: str) -> None:
           f" s, replay {stats['durable']['replay_s']:.4f} s "
           f"({stats['durable']['replayed']}); restarted store: "
           f"{tier_line(stats['tier'])}; final checkpoint equal to the "
-          f"uninterrupted capped run's (theta, clocks, {ITERS} iterations): "
+          f"uninterrupted capped run's (theta, clocks, {CRASH_ITERS} "
+          f"iterations): "
           f"{same}")
     if not same or len(restored) != 1:
         raise RuntimeError("tier crash check: the resumed run differs from "
@@ -3182,7 +3307,8 @@ def tier_runs(dev, twins: dict) -> list[dict]:
     (the tiered sparse apply), each shard's cold partition under its
     shard<I>of2 directory.  `twins` holds the uncapped runs of the split
     and scale-out phases with the same flags ("split": logreg -c 2,
-    "shards": the MLP at H=128 -c -1); the top-k twin runs here."""
+    "shards": the MLP at H=128 -c -1); the top-k twin runs here.  These
+    four deployments go two at a time (_at_once)."""
     runs = []
     with open(os.path.join(OUT, "train.csv")) as f:
         head = [next(f) for _ in range(SERVE_TRAIN_ROWS + 1)]
@@ -3194,7 +3320,7 @@ def tier_runs(dev, twins: dict) -> list[dict]:
                           hidden=WIDE_H, name="wide")
     small = tier_flags(TIER_PAGE, TIER_HOT, TIER_WARM)
     for c in (0, 2, -1):
-        runs += tier_cli_pair("logreg", "serial", c, ITERS, small,
+        runs += tier_cli_pair("logreg", "serial", c, CRASH_ITERS, small,
                               name=f"logreg-c{c}")
     tier_crash_check("ck-tier-logreg-c0-capped.npz")
     wal, ck = "wal-tier-threaded", "ck-tier-threaded.npz"
@@ -3219,15 +3345,24 @@ def tier_runs(dev, twins: dict) -> list[dict]:
     # test set by 1/len(test) +- 3e-8, so the bound has 1e-6 of room
     tol = 1.0 / TEST_ROWS + 1e-6
     split_tier = tier_flags(TIER_PAGE, TIER_HOT, 0)
-    capped = split_run("logreg", 2, SPLIT_ITERS, server_flags=split_tier)
-    pairs = [("split", capped, twins["split"])]
-    print(f"  tier split server: {tier_line(capped['server']['tier'])}")
     shard_tier = tier_flags(TIER_SHARD_PAGE, TIER_SHARD_HOT, TIER_SHARD_WARM)
-    for flags in ((), ("--compress", "topk:0.01")):
-        capped = scaleout_run("shards", "mlp", -1, SCALE_SHORT, flags,
-                              durable=True, server_flags=shard_tier)
-        plain = (twins["shards"] if not flags else
-                 scaleout_run("shards", "mlp", -1, SCALE_SHORT, flags))
+    topk = ("--compress", "topk:0.01")
+    # two deployments at a time (_at_once): their rates are taken under
+    # that load
+    split_capped, dense = _at_once([
+        functools.partial(split_run, "logreg", 2, SPLIT_ITERS,
+                          server_flags=split_tier),
+        functools.partial(scaleout_run, "shards", "mlp", -1, SCALE_SHORT,
+                          durable=True, server_flags=shard_tier)])
+    sparse, sparse_plain = _at_once([
+        functools.partial(scaleout_run, "shards", "mlp", -1, SCALE_SHORT,
+                          topk, durable=True, server_flags=shard_tier),
+        functools.partial(scaleout_run, "shards", "mlp", -1, SCALE_SHORT,
+                          topk)])
+    pairs = [("split", split_capped, twins["split"])]
+    print(f"  tier split server: {tier_line(split_capped['server']['tier'])}")
+    for flags, capped, plain in (((), dense, twins["shards"]),
+                                 (topk, sparse, sparse_plain)):
         for i, st in enumerate(capped["shards"]):
             cold = os.path.join(capped["dir"], "wal", f"shard{i}of2",
                                 "param-cold")
@@ -3254,7 +3389,8 @@ def tier_runs(dev, twins: dict) -> list[dict]:
     for name, capped, plain in pairs:
         print(f"tier {name}: final F1 {capped['f1']:.6f} capped against "
               f"{plain['f1']:.6f} uncapped (tolerance {tol}); iterations/s "
-              f"{capped['rate']:.1f} against {plain['rate']:.1f}")
+              f"{capped['rate']:.1f} against {plain['rate']:.1f} (both "
+              "under shared load)")
         if abs(capped["f1"] - plain["f1"]) > tol:
             raise RuntimeError(f"tier {name}: F1 off the uncapped twin's")
     runs.append(pairs[0][1])
@@ -3267,7 +3403,8 @@ def tel_flags(name: str) -> tuple:
     names under `name`."""
     return ("--trace", f"{name}-trace.json", "--metrics-file",
             f"{name}.prom", "--metrics-every", "0.5", "--flight-dir",
-            f"{name}-flight", "--health-port", "0", "--status_every", "0.5")
+            f"{name}-flight", "--health-port", "0", "--status_every",
+            STATUS_EVERY)
 
 
 class HealthPoller:
@@ -3361,8 +3498,6 @@ def telemetry_checks(name: str, run: dict) -> dict:
                 "server.apply", 0):
         raise RuntimeError(f"{name}: spans and dispatch.device off the "
                            f"counting rule ({calls} kernel calls)")
-    # a 400-iteration run lasts about a second: one or two lines at 0.5 s
-    # (the SIGTERM run, which runs until killed, shows them rising)
     if not status or status != sorted(status) or status[-1] <= 0:
         raise RuntimeError(f"{name}: [status] iters {status}")
     if dump["schema"] != DUMP_SCHEMA or dump["reason"] != "shutdown" or \
@@ -3566,6 +3701,538 @@ def telemetry_phase() -> list[dict]:
     return runs
 
 
+# -- the role telemetry phase (cli/socket_mode.py's telemetry flags) ---------
+
+def role_tel_flags() -> tuple:
+    """The role runners' telemetry flags (tests/torch_role_runs.py): each
+    process writes trace.json, metrics.prom and flight/ in its own
+    directory and serves /healthz on a port it announces."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_role_runs import TEL_FLAGS
+    return TEL_FLAGS
+
+
+def role_health(errs):
+    """/healthz of the processes whose stderr files are `errs`, polled
+    while they run (tests/torch_role_runs.HealthFiles)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_role_runs import HealthFiles
+    return HealthFiles(errs)
+
+
+def check_health(name: str, health) -> dict:
+    """Every process of `health` answered, always 200 and healthy:
+    {stderr file: its last answer}."""
+    for e, got in health.answers.items():
+        if not got or any(code != 200 or not j["healthy"]
+                          for code, j in got):
+            raise RuntimeError(f"{name}: /healthz of {e}: "
+                               f"{got[-3:] if got else 'no answer'}")
+    return {e: got[-1][1] for e, got in health.answers.items()}
+
+
+def _watch(base: str, names, holder: list):
+    """Poll the /healthz of the processes `names` of a run under `base`
+    (role_health, kept in `holder`); returns its finish."""
+    health = role_health([os.path.join(base, n, "err.txt") for n in names])
+    holder.append(health)
+    return health.finish
+
+
+def role_files(name: str, d: str, exit_reason: str = "shutdown") -> dict:
+    """One role process's telemetry files: its trace (wall-clock anchored,
+    events present), metrics file and flight dumps (the last with
+    `exit_reason`, holding records of the socket bridges).  A process
+    ended by a signal writes its dump from the signal's hook and no trace,
+    as in the JAX package (its "trace" is then None)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_role_runs import event_kinds, prom_values
+    from kafka_ps_tpu_torch.telemetry.flight import DUMP_SCHEMA
+    trace = None
+    if not exit_reason.startswith("signal:"):
+        trace = json.load(open(os.path.join(d, "trace.json")))
+        if "wallClockT0" not in trace or not trace["traceEvents"]:
+            raise RuntimeError(f"{name}: an empty trace")
+    prom = prom_values(os.path.join(d, "metrics.prom"))
+    dumps = [json.load(open(os.path.join(d, "flight", f)))
+             for f in sorted(os.listdir(os.path.join(d, "flight")))]
+    kinds = event_kinds(dumps)
+    if (not dumps or dumps[-1]["schema"] != DUMP_SCHEMA
+            or dumps[-1]["reason"] != exit_reason
+            or not any(k.startswith("net.") for k in kinds)):
+        raise RuntimeError(f"{name}: flight dumps "
+                           f"{[x['reason'] for x in dumps]}, kinds "
+                           f"{sorted(kinds)}")
+    return {"trace": trace, "prom": prom, "dumps": dumps, "kinds": kinds}
+
+
+def traced_bridge_check(dev) -> None:
+    """The bridge round on the card (tests/torch_split_round.py) with a
+    tracer and a registry on both sides, against the same round without:
+    trace context negotiated, every gradients and weights frame 16 bytes
+    longer, and the gradients and theta bitwise."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_split_round import bridge_round
+    from kafka_ps_tpu_torch.telemetry import Telemetry
+    from kafka_ps_tpu_torch.utils.trace import Tracer
+
+    def obs(role):
+        tracer = Tracer()
+        return tracer, Telemetry(tracer=tracer)
+
+    for task, slab in (("logreg", "f32"), ("mlp", "f32"),
+                       ("logreg", "int8"), ("mlp", "bf16")):
+        kw = dict(features=F, classes=C, hidden=H, workers=WORKERS,
+                  rows=256, slab=slab)
+        plain, traced = {}, {}
+        (_, ref_theta), (grads, theta) = bridge_round(dev, task, info=plain,
+                                                      **kw)
+        (_, ref2), (tgrads, ttheta) = bridge_round(dev, task, obs=obs,
+                                                   info=traced, **kw)
+        same = (torch.equal(theta, ttheta) and torch.equal(ref_theta, ref2)
+                and torch.equal(ref_theta, ttheta)
+                and all(torch.equal(a.values, b.values)
+                        for a, b in zip(grads, tgrads)))
+        suffix = []
+        for side, topic in (("worker_wire", "gradients"),
+                            ("server_wire", "weights")):
+            a, b = plain[side][topic], traced[side][topic]
+            suffix.append(a["frames_out"] == b["frames_out"] > 0 and
+                          b["bytes_out"] - a["bytes_out"]
+                          == 16 * b["frames_out"])
+        print(f"role telemetry: traced bridge round ({task}, {slab} slab, "
+              f"{WORKERS} workers, F={F}) bitwise the untraced: {same}; "
+              f"trace negotiated {traced['trace_negotiated']} (untraced "
+              f"{plain['trace_negotiated']}); gradients and weights frames "
+              f"16 bytes longer: {all(suffix)}")
+        if not same or not all(suffix) or not traced["trace_negotiated"] \
+                or plain["trace_negotiated"]:
+            raise RuntimeError(f"traced bridge round {task} {slab}")
+
+
+def _flows(trace: dict, ph: str) -> set:
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_role_runs import flow_ids
+    return set(flow_ids(trace, "delta.wire", ph))
+
+
+def _gradient_frames(name: str, server: dict, sprom: dict,
+                     wproms: list) -> tuple[float, float]:
+    """The server's gradients frames read are its iterations plus what it
+    dropped or left queued at the stop; the workers sent at least that."""
+    got = sprom["frames_received"]['topic="gradients"']
+    members = server["membership"]
+    applied = (server["server_iterations"] + server["gradients_pending"]
+               + members["zombie_gradients_dropped"]
+               + members["duplicate_gradients_dropped"])
+    sent = sum(p["frames_sent"]['topic="gradients"'] for p in wproms)
+    print(f"  {name}: gradients frames sent by the workers {sent:.0f}, "
+          f"read by the server {got:.0f} = {server['server_iterations']} "
+          f"applied + {server['gradients_pending']} queued at the stop + "
+          f"{members['zombie_gradients_dropped']} zombie + "
+          f"{members['duplicate_gradients_dropped']} duplicate drops")
+    if got != applied or sent < got:
+        raise RuntimeError(f"{name}: gradients frames {sent} sent, {got} "
+                           f"read, {applied} accounted for")
+    return sent, got
+
+
+def _status_lines(name: str, err: str) -> list[int]:
+    """The [status] iters of a server's stderr file: at least one line,
+    rising, the last past iteration 0."""
+    status = _status_iters(open(err).read())
+    if not status or status != sorted(status) or status[-1] <= 0:
+        raise RuntimeError(f"{name}: [status] iters {status}")
+    return status
+
+
+def role_split_check() -> list[dict]:
+    """server_runner --listen with two worker_runner processes, logreg
+    -c 2 (ROLE_PAIR_ITERS), four times back to back and alone on the
+    card: untraced, traced, traced, untraced (traced: every process with
+    the telemetry flags, the server --status_every too).  The first
+    traced run is checked: the gradients frames accounted for, every
+    worker's delta.wire flow stepped at the server but for frames in
+    flight at its stop, /healthz 200 while they run, exit dumps with
+    net.* records, rising [status] lines; F1 in (0.5, 1] and eval lag 0
+    (split_run).  Prints iterations/s traced over untraced, each pair's
+    and their median."""
+    holder: list = []
+    names = ("server", "w0", "w1")
+    first = split_run("logreg", 2, ROLE_PAIR_ITERS)
+    traced = split_run("logreg", 2, ROLE_PAIR_ITERS, tel=True,
+                       during=lambda port, err: _watch(
+                           os.path.dirname(os.path.dirname(err)), names,
+                           holder))
+    check_health("role split", holder[0])
+    d = traced["dirs"]
+    files = {n: role_files(f"role split {n}", d[n]) for n in names}
+    sent, got = _gradient_frames(
+        "role split", traced["server"], files["server"]["prom"],
+        [files["w0"]["prom"], files["w1"]["prom"]])
+    starts = _flows(files["w0"]["trace"], "s") | _flows(files["w1"]["trace"],
+                                                        "s")
+    steps = _flows(files["server"]["trace"], "t")
+    status = _status_lines("role split", os.path.join(d["server"],
+                                                      "err.txt"))
+    print(f"  role split: delta.wire flows started by the workers "
+          f"{len(starts)}, stepped at the server {len(starts & steps)}; "
+          f"[status] iters {status[0]}..{status[-1]} over {len(status)} "
+          f"lines; exit dumps' kinds {sorted(files['server']['kinds'])}")
+    if len(starts) != sent or len(starts - steps) > sent - got:
+        raise RuntimeError("role split: delta.wire flows lost")
+    again = split_run("logreg", 2, ROLE_PAIR_ITERS, tel=True)
+    last = split_run("logreg", 2, ROLE_PAIR_ITERS)
+    pairs = ((traced, first), (again, last))
+    for key, what in (("rate", "iterations/s from the first worker row"),
+                      ("steady", "worker iterations/s past the first "
+                                 "round")):
+        ratios = [on[key] / off[key] for on, off in pairs]
+        print(f"role telemetry split logreg -c 2 ({ROLE_PAIR_ITERS} "
+              f"iterations, untraced, traced, traced, untraced): {what} "
+              f"with every flag on every process "
+              f"{', '.join(f'{on[key]:.1f}' for on, _ in pairs)} against "
+              f"{', '.join(f'{off[key]:.1f}' for _, off in pairs)} "
+              f"untraced; traced over untraced "
+              f"{', '.join(f'{r:.3f}' for r in ratios)}x, median "
+              f"{statistics.median(ratios):.3f}x [{card_line()}]")
+    return [first, traced, again, last]
+
+
+def role_shard_kill_check() -> dict:
+    """--shards 2 --slab-dtype int8 -c 2 with two sharded worker
+    processes, every process with the telemetry flags: shard 1 killed by
+    SIGKILL after its first checkpoint (it writes no dump: that absence
+    is what names it dead), shard 0 stopped by SIGTERM a second later
+    (its dump says so), the workers ending when both shards are gone.  The
+    workers' exit dumps hold the shard.weights records of both shards;
+    the postmortem's rule (dead = shards known from the dumps less those
+    that dumped; last ack = the newest shard.weights record of a dead
+    shard) names shard 1 and its last acknowledged (worker, clock); every
+    family of shard 0's server node carries its shard label."""
+    import signal
+    base = os.path.join(OUT, "role-shards-kill")
+    remove(base)
+    names = ("s0", "s1", "w0", "w1")
+    dirs = {n: os.path.join(base, n) for n in names}
+    for p in dirs.values():
+        os.makedirs(p)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("KPS_PLATFORM", None)
+    common = ["-test", "../../test.csv", "--num_workers", str(WORKERS),
+              "--num_features", str(F), "--num_classes", str(C), "-l",
+              "--slab-dtype", "int8", *role_tel_flags()]
+    ports = [_free_port(), _free_port()]
+    mod = [sys.executable, "-m"]
+    cmds = {f"s{i}": mod + [
+        "kafka_ps_tpu_torch.cli.server_runner", "--listen", str(ports[i]),
+        "--shards", "2", "--shard-id", str(i), "-training",
+        "../../train.csv", "-p", "0", "-c", "2", "--max_iterations",
+        "1000000", "--checkpoint", "job.npz", "--checkpoint_every",
+        str(ROLE_CK_EVERY), *common] for i in (0, 1)}
+    for i in (0, 1):
+        cmds[f"w{i}"] = mod + [
+            "kafka_ps_tpu_torch.cli.worker_runner", "--connect",
+            ",".join(f"127.0.0.1:{p}" for p in ports), "--worker_ids",
+            SPLIT_IDS[i], "-max", str(MAX_BUFFER), *common]
+    procs = {n: subprocess.Popen(
+        cmds[n], cwd=dirs[n], env=env,
+        stdout=open(os.path.join(dirs[n], "out.txt"), "w"),
+        stderr=open(os.path.join(dirs[n], "err.txt"), "w")) for n in names}
+    holder: list = []
+    health = _watch(base, names, holder)
+    try:
+        ck = os.path.join(dirs["s1"], "job.npz.shard1of2.npz")
+        deadline = time.monotonic() + 240.0
+        while not os.path.exists(ck):
+            for n, p in procs.items():
+                if p.poll() is not None:
+                    raise RuntimeError(f"role shards: {n} exited "
+                                       f"({p.returncode}) before the kill")
+            if time.monotonic() > deadline:
+                raise RuntimeError("role shards: no shard 1 checkpoint")
+            time.sleep(0.05)
+        procs["s1"].send_signal(signal.SIGKILL)
+        procs["s1"].wait(timeout=60)
+        time.sleep(1.0)
+        procs["s0"].send_signal(signal.SIGTERM)
+        for p in procs.values():
+            p.wait(timeout=120)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        health()
+    rcs = {n: p.returncode for n, p in procs.items()}
+    if rcs != {"s0": -signal.SIGTERM, "s1": -signal.SIGKILL, "w0": 0,
+               "w1": 0}:
+        tails = {n: open(os.path.join(d, "err.txt")).read()[-2000:]
+                 for n, d in dirs.items()}
+        raise RuntimeError(f"role shards: exit codes {rcs}:\n{tails}")
+    for n in ("s0", "w0", "w1"):
+        if not holder[0].answers[os.path.join(dirs[n], "err.txt")]:
+            raise RuntimeError(f"role shards: {n} never answered /healthz")
+    s0 = role_files("role shards s0", dirs["s0"], "signal:SIGTERM")
+    workers = [role_files(f"role shards w{i}", dirs[f"w{i}"])
+               for i in (0, 1)]
+    killed = os.path.join(dirs["s1"], "flight")
+    if os.path.isdir(killed) and os.listdir(killed):
+        raise RuntimeError("role shards: the killed shard wrote a dump")
+    dumps = s0["dumps"] + workers[0]["dumps"] + workers[1]["dumps"]
+    known, present, acks = set(), set(), {}
+    for dump in dumps:
+        if dump["role"] == "server" and dump["shard"] is not None:
+            known.add(dump["shard"])
+            present.add(dump["shard"])
+        known.update(dump.get("meta", {}).get("shards", []))
+        for e in dump["events"]:
+            if e["kind"] == "shard.weights":
+                best = acks.get(e["shard"])
+                if best is None or (e["clock"], e["t"]) > (best["clock"],
+                                                           best["t"]):
+                    acks[e["shard"]] = e
+    dead = sorted(known - present)
+    last = acks.get(1)
+    print(f"  role shards: exit codes {rcs}; dumps of s0 "
+          f"({s0['dumps'][-1]['reason']}) and the workers; shards with "
+          f"shard.weights records {sorted(acks)}; dead shards {dead}; the "
+          f"last ack from shard 1: weights for worker "
+          f"{last and last['worker']} at clock {last and last['clock']}")
+    if dead != [1] or sorted(acks) != [0, 1]:
+        raise RuntimeError(f"role shards: dead {dead}, acks {sorted(acks)}")
+    node = [labels for name, samples in s0["prom"].items()
+            if name.startswith(("gate_wait_ms", "clock_lag", "worker_lag",
+                                "gradients_applied_total"))
+            for labels in samples]
+    if not node or any('shard="0"' not in labels for labels in node):
+        raise RuntimeError(f"role shards: unlabelled families {node}")
+    calls = []
+    for i in (0, 1):
+        st = _role_stats(os.path.join(dirs[f"w{i}"], "err.txt"), "worker")
+        n = st["kernels"]
+        own = len(_csv_rows(os.path.join(dirs[f"w{i}"], "logs-worker.csv")))
+        others = {k: v for k, v in n.items() if k != "stream_launches" and v}
+        if n["stream_launches"] != own or others \
+                or not st["device"].startswith("cuda"):
+            raise RuntimeError(f"role shards: worker {i} kernels {n} for "
+                               f"{own} rows on {st['device']}")
+        calls.append(own)
+    print(f"  role shards: K3 int8 calls {calls} (= the workers' CSV rows); "
+          f"shard 0's node families labelled shard=\"0\" ({len(node)} "
+          "samples)")
+    for i in (0, 1):
+        remove(os.path.join(dirs[f"s{i}"], f"job.npz.shard{i}of2.npz"))
+    return {"task": "logreg", "kind": "int8", "single": sum(calls),
+            "gang_calls": 0, "hidden": H, "fused": False,
+            "topology": "shards", "c": 2, "flags": ("--slab-dtype", "int8"),
+            "server_flags": (), "kill": True}
+
+
+def role_relay_check() -> dict:
+    """agg_runner between server_runner --listen and two --aggregate
+    worker processes, the MLP with bf16 slabs at -c -1 (the scale-out
+    phase's relay of these flags, run here once with the telemetry flags
+    on every process): agg_composites_total and the agg_fan_in
+    observations are the relay's composites, and the workers' delta.wire
+    flows step through the relay."""
+    holder: list = []
+    names = ("server", "relay", "w0", "w1")
+    run = scaleout_run("relay", "mlp", -1, ROLE_ITERS, ("--slab-dtype",
+                                                        "bf16"),
+                       tel=True,
+                       during=lambda wal: _watch(os.path.dirname(wal),
+                                                 names, holder))
+    check_health("role relay", holder[0])
+    d = run["dirs"]
+    files = {n: role_files(f"role relay {n}", d[n]) for n in names}
+    relay, prom = run["relay"], files["relay"]["prom"]
+    comp = prom["agg_composites_total"]['mode="stacked"']
+    fan_n = prom["agg_fan_in_count"][""]
+    starts = _flows(files["w0"]["trace"], "s") | _flows(files["w1"]["trace"],
+                                                        "s")
+    hop = [e for e in files["relay"]["trace"]["traceEvents"]
+           if e.get("name") == "delta.wire" and e.get("ph") == "t"
+           and "agg" in e.get("args", {})]
+    through = {e["id"] for e in hop} & starts
+    upstream = _flows(files["relay"]["trace"], "s") & _flows(
+        files["server"]["trace"], "t")
+    print(f"  role relay: agg_composites_total {comp:.0f}, agg_fan_in "
+          f"observations {fan_n:.0f} over {prom['agg_fan_in_sum']['']:.0f} "
+          f"members, the relay's stats {relay['composites']} composites of "
+          f"{relay['members']}; member flows stepped through the relay "
+          f"{len(through)} of {len(starts)}; composite flows stepped at the "
+          f"server {len(upstream)}")
+    if comp != relay["composites"] or fan_n != relay["composites"] \
+            or not through or not upstream:
+        raise RuntimeError("role relay: agg families or flows")
+    return run
+
+
+def role_serve_check() -> dict:
+    """server_runner --listen --serve --serve-shm with two worker
+    processes, the MLP at -c -1, under closed loads of two PredictClients
+    by socket and two by shared memory (the serving phase's checks:
+    every answer's status and clocks, each client on its transport, shm
+    predictions counted, no engine error), every process with the
+    telemetry flags: serving_requests_total and serving_dispatch_mode
+    {mode="shm"} agree with the engine's and the bridge's counts, the
+    serving watchdog is armed and quiet, and a delta.wire flow ends at a
+    serving read in the server's trace."""
+    holder: list = []
+    names = ("server", "w0", "w1")
+    loads: list = []
+
+    def during(port, err):
+        ready = _file_has(err, "serving predictions on port")
+        loads.extend([ServeLoad(port, 2, ready=ready),
+                      ServeLoad(port, 2, shm=True, ready=ready)])
+        done = _watch(os.path.dirname(os.path.dirname(err)), names, holder)
+
+        def finish():
+            loads.extend([ld.finish() for ld in loads[:2]])
+            done()
+        return finish
+
+    run = split_run("mlp", -1, ROLE_ITERS, server_flags=("--serve",
+                                                         "--serve-shm"),
+                    tel=True, during=during)
+    server = run["server"]
+    st = server["serving"]
+    for name, got, shm in (("split --listen --serve (socket)", loads[2],
+                            False),
+                           ("split --listen --serve (shm)", loads[3], True)):
+        serve_report(name, got, st, st["stable_clock"])
+        check_answers(name, got)
+        if any(a != shm for a in got["shm_active"]):
+            raise RuntimeError(f"serving {name}: shm active "
+                               f"{got['shm_active']}")
+    print(f"serving split: the server answered {st['requests']} requests, "
+          f"{server['shm_predictions']} over shared memory; errors "
+          f"{st['errors']}")
+    if (not server["shm_predictions"] or st["errors"]
+            or not server["device"].startswith("cuda")):
+        raise RuntimeError(f"serving split: shm predictions "
+                           f"{server['shm_predictions']}, errors "
+                           f"{st['errors']}, server on {server['device']}")
+    answers = check_health("role serve", holder[0])
+    d = run["dirs"]
+    files = {n: role_files(f"role serve {n}", d[n]) for n in names}
+    prom = files["server"]["prom"]
+    req = prom["serving_requests_total"][""]
+    shm = prom["serving_dispatch_mode"]['mode="shm"']
+    dog = answers[os.path.join(d["server"], "err.txt")]["watchdogs"].get(
+        "serving")
+    ends = _flows(files["server"]["trace"], "f")
+    print(f"  role serve: serving_requests_total {req:.0f} (engine "
+          f"{st['requests']}), serving_dispatch_mode{{mode=\"shm\"}} "
+          f"{shm:.0f} (bridge {server['shm_predictions']}); serving "
+          f"watchdog {dog}; delta.wire flows ended at a serving read "
+          f"{len(ends)}")
+    if req != st["requests"] or shm != server["shm_predictions"] \
+            or not shm or dog is None or dog["tripped"] \
+            or dog["trip_count"] or not ends:
+        raise RuntimeError("role serve: serving families, watchdog or flows")
+    return run
+
+
+def role_tier_replica_check() -> dict:
+    """--shards 2 --durable-log with per-shard hot and warm caps, logreg
+    -c 0 (the shards end at one clock, so the logs' newest weights are one
+    cut), every process with the telemetry flags, and a --serve-replica
+    following its logs from the start (with the flags too; the serving
+    phase's replica of a --shards 2 deployment, run here):
+    param_tier_pins_total and param_tier_migrations_total agree with each
+    shard's store counters and its dump holds store.* records; the
+    replica records replica.publish per publication, its replica and
+    serving watchdogs are armed and quiet, and its last snapshot is
+    bitwise the logs' newest weights (_end_replica)."""
+    holder: list = []
+    names = ("s0", "s1", "w0", "w1")
+    replica: dict = {}
+
+    def during(wal):
+        base = os.path.dirname(wal)
+        rdir = os.path.join(base, "replica")
+        os.makedirs(rdir)
+        err = os.path.join(rdir, "err.txt")
+        proc, port = _replica(wal, err, cwd=rdir, flags=role_tel_flags())
+        load = ServeLoad(port, 2, ready=_file_has(err, "replica serving"))
+        rhealth = role_health([err])
+        done = _watch(base, names, holder)
+
+        def finish():
+            _end_replica("replica of the capped --shards 2", proc, err,
+                         load, wal)
+            rhealth.finish()
+            done()
+            replica.update(dir=rdir, err=err, health=rhealth)
+        return finish
+
+    run = scaleout_run("shards", "logreg", 0, ROLE_ITERS, durable=True,
+                       server_flags=tier_flags(TIER_PAGE, TIER_HOT,
+                                               TIER_WARM),
+                       tel=True, during=during)
+    check_health("role tier", holder[0])
+    d = run["dirs"]
+    for i in (0, 1):
+        files = role_files(f"role tier s{i}", d[f"s{i}"])
+        tier = run["shards"][i]["tier"]
+        prom = files["prom"]
+        pins = sum(prom["param_tier_pins_total"].values())
+        mig = prom["param_tier_migrations_total"]
+        up = mig.get('direction="promote"', 0)
+        down = mig.get('direction="demote"', 0)
+        store = sorted(k for k in files["kinds"] if k.startswith("store."))
+        # a demand fault lost to a racing write is a promotion attempted
+        # (the family, as in the JAX store) but not made (the counter)
+        print(f"  role tier s{i}: param_tier_pins_total {pins:.0f} (store "
+              f"{sum(tier['pins'].values())}), migrations promote "
+              f"{up:.0f} / demote {down:.0f} (store {tier['promotions']} / "
+              f"{tier['demotions']}); records {store}")
+        if pins != sum(tier["pins"].values()) or down != tier["demotions"] \
+                or up < tier["promotions"] or not store:
+            raise RuntimeError(f"role tier s{i}: tier families or records")
+    rfiles = role_files("role replica", replica["dir"])
+    published = [e for dump in rfiles["dumps"] for e in dump["events"]
+                 if e["kind"] == "replica.publish"]
+    st = _role_stats(replica["err"], "replica")
+    answers = check_health("role replica",
+                           replica["health"])[replica["err"]]
+    dogs = {k: answers["watchdogs"].get(k) for k in ("replica", "serving")}
+    print(f"  role replica: {len(published)} replica.publish records for "
+          f"{st['publications']} publications (the last at clock "
+          f"{published[-1]['clock'] if published else None}); watchdogs "
+          f"{dogs}")
+    if not published or len(published) != st["publications"] or any(
+            v is None or v["tripped"] or v["trip_count"]
+            for v in dogs.values()):
+        raise RuntimeError("role replica: records or watchdogs")
+    return run
+
+
+def role_telemetry_phase(dev) -> list[dict]:
+    """The role runners with their telemetry flags on the card (the main
+    path's width; ROLE_ITERS server iterations a run, the split runs
+    ROLE_PAIR_ITERS): the traced bridge round, the split deployment traced
+    and untraced in turn (role_split_check), two shards with one killed,
+    a relay, a serving server, and capped durable shards with a replica
+    following their logs (these four at once)."""
+    t0 = time.perf_counter()
+    traced_bridge_check(dev)
+    runs = role_split_check()
+    # the relay, the serving server, the killed shard and the capped shards
+    # with their replica are checks of function: they share the card, and
+    # their rates and latencies are taken under that load
+    print("role telemetry: the relay, serving, killed-shard and capped "
+          "replica runs run at once from here")
+    runs += _at_once([role_relay_check, role_serve_check,
+                      role_shard_kill_check, role_tier_replica_check])
+    print(f"role telemetry phase: {time.perf_counter() - t0:.1f} s "
+          f"[{card_line()}]")
+    return runs
+
+
 @contextlib.contextmanager
 def observed_graphs():
     """(graphs, added): every CUDA graph made inside, its captured graph
@@ -3756,6 +4423,12 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from kafka_ps_tpu_torch.ops import _build
 
+    sys.stdout = _TaggedLines(sys.stdout)
+    # every process this script starts imports torch; where its bytecode
+    # is not installed, each compiles torch from source (about 2.5 s of
+    # its start): they share one bytecode cache in the checkout
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(REPO, ".pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     t_script = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3871,13 +4544,16 @@ def main() -> int:
         t_tier = time.perf_counter()
         runs += telemetry_phase()
         t_tel = time.perf_counter()
+        runs += role_telemetry_phase(dev)
+        t_role = time.perf_counter()
         print(f"phase times: split {t_scale - t_split:.1f} s; scale-out "
               f"{t_end - t_scale:.1f} s (in-process checks "
               f"{t_runs - t_scale:.1f} s, runs {t_end - t_runs:.1f} s); "
               f"serving {t_serve - t_end:.1f} s (in-process checks "
               f"{t_serve_runs - t_end:.1f} s, runs "
               f"{t_serve - t_serve_runs:.1f} s); tier "
-              f"{t_tier - t_serve:.1f} s; telemetry {t_tel - t_tier:.1f} s")
+              f"{t_tier - t_serve:.1f} s; telemetry {t_tel - t_tier:.1f} s; "
+              f"role telemetry {t_role - t_tel:.1f} s")
         profile_run("logreg")
         profile_run("logreg", flags=("--durable-log", "wal-profile"))
         profile_run("mlp")

@@ -25,6 +25,12 @@ compressed stacked path is bitwise the compressed direct path.
 
 Combine order, member order and merge results are functions of the
 offered messages alone (no clock, no hash order).
+
+Telemetry (`telemetry=`, `tracer=`, null by default), the JAX engine's:
+`agg_composites_total{mode}`, `agg_duplicate_offers_total`, `agg_fan_in`,
+the `agg.combine` flight record, and a `delta.wire` flow step per traced
+member through the hop.  The plain counters (`composites`, `members`,
+`duplicates`) stay beside them.
 """
 
 from __future__ import annotations
@@ -37,6 +43,11 @@ import numpy as np
 
 from kafka_ps_tpu_torch.runtime.messages import (CompositeDelta,
                                                  GradientMessage, KeyRange)
+from kafka_ps_tpu_torch.telemetry import FLIGHT, NULL_TELEMETRY
+from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
+
+# composite fan-in distribution buckets (workers per composite)
+FAN_IN_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 
 def merge_composites(a: CompositeDelta, b: CompositeDelta) -> CompositeDelta:
@@ -99,7 +110,8 @@ class LocalAggregator:
     the caller asks for the CPU)."""
 
     def __init__(self, agg_id: int, num_params: int, codec_spec=None,
-                 summed: bool = False, device=None):
+                 summed: bool = False, device=None, telemetry=None,
+                 tracer=None):
         from kafka_ps_tpu_torch.utils.config import resolve_device
         self.agg_id = agg_id
         self.num_params = num_params
@@ -117,6 +129,15 @@ class LocalAggregator:
         self.composites = 0
         self.members = 0
         self.duplicates = 0
+        self._telemetry = telemetry or NULL_TELEMETRY
+        self._tracer = tracer or NULL_TRACER
+        mode = "summed" if summed else "stacked"
+        self._m_composites = self._telemetry.counter(
+            "agg_composites_total", mode=mode)
+        self._m_dropped_dups = self._telemetry.counter(
+            "agg_duplicate_offers_total")
+        self._m_fan_in = self._telemetry.histogram(
+            "agg_fan_in", buckets=FAN_IN_BUCKETS)
 
     def _ef_for(self, worker: int):
         ef = self._ef.get(worker)
@@ -136,6 +157,7 @@ class LocalAggregator:
         with self._lock:
             if key in self._pending:
                 self.duplicates += 1
+                self._m_dropped_dups.inc()
                 return False
             self._pending[key] = msg
         return True
@@ -180,6 +202,7 @@ class LocalAggregator:
                     # already forwarded; advancing the residual again
                     # would desync every later encode
                     self.duplicates += 1
+                    self._m_dropped_dups.inc()
                     continue
                 kept_members.append(m)
                 kept.append(out)
@@ -188,8 +211,22 @@ class LocalAggregator:
             members, deltas = tuple(kept_members), kept
         self.composites += 1
         self.members += len(members)
-        return CompositeDelta(agg_id=self.agg_id, members=members,
-                              deltas=tuple(deltas), summed=summed)
+        composite = CompositeDelta(agg_id=self.agg_id, members=members,
+                                   deltas=tuple(deltas), summed=summed)
+        self._m_composites.inc()
+        self._m_fan_in.observe(len(members))
+        if FLIGHT.enabled:
+            FLIGHT.record("agg.combine", agg=self.agg_id,
+                          fan_in=len(members), summed=summed,
+                          clock=members[-1][1])
+        if self._tracer.enabled:
+            for m, d in zip(members, composite.deltas):
+                fid = getattr(d, "trace", None)
+                if fid:
+                    # the member's delta.wire flow steps through the hop
+                    self._tracer.flow_step("delta.wire", fid,
+                                           agg=self.agg_id, worker=m[0])
+        return composite
 
     def _encode(self, msg: GradientMessage) -> GradientMessage | None:
         """The relay-owned error feedback for one member: each clock
@@ -204,6 +241,9 @@ class LocalAggregator:
             return self._ef_last[w]
         decoded, enc = self._ef_for(w).step(msg.values)
         out = dataclasses.replace(msg, values=decoded, encoded=enc)
+        fid = getattr(msg, "trace", None)
+        if fid:
+            object.__setattr__(out, "trace", fid)
         self._ef_clock[w] = c
         self._ef_last[w] = out
         return out

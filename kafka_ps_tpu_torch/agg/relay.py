@@ -30,6 +30,12 @@ kill.
 At `close()` the relay's counters are in `stats()`: composites, members,
 the fan-in per composite, the bytes sent upstream and the bytes the
 direct path would have sent for the same members (`_direct_cost`).
+
+Telemetry (`tracer=`, `telemetry=`, null by default), the JAX relay's:
+both bridges and the aggregator get them (the upstream bridge offers
+trace context as a worker does, the downstream one answers its members
+as a server does), the relay counts `agg_wire_bytes_saved` and records
+`agg.forward` per expanded grouped weights frame.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
 from kafka_ps_tpu_torch.runtime import net, serde
 from kafka_ps_tpu_torch.runtime.net import (T_DATA, T_DATA_BATCH, T_WEIGHTS,
                                             T_WEIGHTS_AGG)
+from kafka_ps_tpu_torch.telemetry import FLIGHT, NULL_TELEMETRY
 
 # serde._HEADER is <4sBq>: the vector-clock word of every nested weights
 # body sits at byte offset 5, for plain tid-1 and compressed tid-4 frames
@@ -69,7 +76,8 @@ class AggregatorRelay:
                  heartbeat_interval: float | None = None,
                  heartbeat_timeout: float | None = None,
                  connect_timeout: float = 30.0,
-                 coalesce: bool = True, device=None):
+                 coalesce: bool = True, device=None, tracer=None,
+                 telemetry=None):
         from kafka_ps_tpu_torch.utils.config import resolve_device
         self.agg_id = agg_id
         self.worker_ids = list(worker_ids)
@@ -83,11 +91,13 @@ class AggregatorRelay:
             upstream_host, upstream_port, self.worker_ids,
             connect_timeout=connect_timeout,
             heartbeat_timeout=heartbeat_timeout, codec=codec_spec,
-            aggregator=True, coalesce=coalesce, device=self.device)
+            aggregator=True, coalesce=coalesce, device=self.device,
+            tracer=tracer, telemetry=telemetry)
         spec = (self.upstream.negotiated
                 if self.upstream.negotiated.codec_id != CODEC_NONE else None)
         self.agg = LocalAggregator(agg_id, num_params, codec_spec=spec,
-                                   summed=summed, device=self.device)
+                                   summed=summed, device=self.device,
+                                   telemetry=telemetry, tracer=tracer)
         self._ckpt = checkpoint_path if spec is not None else None
         self._ckpt_every = max(1, int(checkpoint_every))
         self._flushes = 0
@@ -99,7 +109,7 @@ class AggregatorRelay:
             run_id=self.upstream.server_run_id or 0,
             heartbeat_interval=heartbeat_interval,
             heartbeat_timeout=heartbeat_timeout, coalesce=coalesce,
-            device=self.device)
+            device=self.device, tracer=tracer, telemetry=telemetry)
         self.port = self.downstream.port
         self.fabric = self.downstream.wrap(fabric_mod.Fabric())
         # rows and weights for a member that has not connected yet
@@ -109,6 +119,8 @@ class AggregatorRelay:
         self.bytes_sent = 0              # composite payloads + headers
         self.direct_bytes = 0            # the direct path's for the same
         self.fan_in: dict[int, int] = {}     # fan-in -> composites
+        self._m_bytes_saved = (telemetry or NULL_TELEMETRY).counter(
+            "agg_wire_bytes_saved")
         self.downstream.on_ready = self._on_member_ready
         self.downstream.on_hello = self._on_member_hello
         self.upstream.raw_forward = self._on_upstream_frame
@@ -187,6 +199,9 @@ class AggregatorRelay:
             buf = bytearray(body)
             struct.pack_into("<q", buf, _CLOCK_OFFSET, clock)
             self._forward_weights(worker, bytes(buf))
+        if FLIGHT.enabled:
+            FLIGHT.record("agg.forward", agg=self.agg_id,
+                          fan_out=len(members), grouped=True)
 
     # -- the combine and flush loop ------------------------------------------
 
@@ -222,8 +237,12 @@ class AggregatorRelay:
             return
         payload = serde.to_bytes(comp)
         self.upstream.send_payload(0, payload)
-        self.bytes_sent += len(payload) + net._FRAME.size
-        self.direct_bytes += self._direct_cost(comp, len(payload))
+        sent = len(payload) + net._FRAME.size
+        direct = self._direct_cost(comp, len(payload))
+        self.bytes_sent += sent
+        self.direct_bytes += direct
+        if direct > sent:
+            self._m_bytes_saved.inc(direct - sent)
         self.fan_in[comp.fan_in] = self.fan_in.get(comp.fan_in, 0) + 1
         self._flushes += 1
         if self._ckpt and self._flushes % self._ckpt_every == 0:

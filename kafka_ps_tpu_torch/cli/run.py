@@ -35,8 +35,10 @@ SIGTERM/SIGABRT and on a watchdog trip), `--health-port P` serves
 /healthz, /varz, /flightz and /evalz (0 = ephemeral, printed as "health
 plane on port N"), and `--device_trace DIR` records the run with
 torch.profiler into DIR/devicetrace-<pid>.json (utils/trace.device_trace).
-The role runners refuse these seven flags (`refuse_telemetry_flags`):
-their telemetry is ROADMAP item 24b.
+The role runners take the first six (cli/socket_mode.py; `--status_every`
+acts on the unsharded split server only, as in the JAX package) and
+refuse `--device_trace` (`refuse_telemetry_flags`): the JAX roles parse
+it and record nothing.
 
 `build_parser` also serves the role runners (cli/server_runner.py,
 cli/worker_runner.py), which leave out the other role's flags and run
@@ -352,26 +354,14 @@ def main(argv=None) -> int:
     return run_with_args(build_parser().parse_args(argv))
 
 
-# the telemetry flags' parser destinations, flags and defaults
-TELEMETRY_FLAGS = (("status_every", "--status_every", 0.0),
-                   ("trace", "--trace", None),
-                   ("metrics_file", "--metrics-file", None),
-                   ("metrics_every", "--metrics-every", 0.0),
-                   ("flight_dir", "--flight-dir", None),
-                   ("health_port", "--health-port", None),
-                   ("device_trace", "--device_trace", None))
-
-
 def refuse_telemetry_flags(args) -> None:
-    """The role runners share this parser but not yet its telemetry:
-    a runner given a telemetry flag exits instead of ignoring it."""
-    given = [flag for dest, flag, default in TELEMETRY_FLAGS
-             if getattr(args, dest, default) != default]
-    if given:
+    """The role runners share this parser; of its telemetry flags they
+    take all but `--device_trace`, which the JAX roles parse and never
+    use: a runner given it exits instead of ignoring it."""
+    if getattr(args, "device_trace", None) is not None:
         raise SystemExit(
-            f"{', '.join(given)}: the role runners do not take the "
-            "telemetry flags yet (ROADMAP item 24b); "
-            "python -m kafka_ps_tpu_torch.cli.run takes them")
+            "--device_trace: the role runners take no device trace, as in "
+            "the JAX package; python -m kafka_ps_tpu_torch.cli.run takes it")
 
 
 def run_with_args(args) -> int:
@@ -512,14 +502,17 @@ def run_with_args(args) -> int:
 def start_ops(app, args):
     """The flight recorder, watchdogs and health plane
     (telemetry/health.OpsPlane), started: the gate watchdog, the fsync
-    watchdog on a durable log, the eval engine on /evalz.  Inert without
-    --flight-dir and --health-port."""
+    watchdog on a durable log, the serving watchdog under --serve, the
+    eval engine on /evalz.  Inert without --flight-dir and
+    --health-port."""
     from kafka_ps_tpu_torch.telemetry.health import OpsPlane
     ops = OpsPlane(flight_dir=args.flight_dir, health_port=args.health_port,
                    telemetry=app.telemetry, role="run")
     ops.add_gate_watchdog(app.server)
     if args.durable_log:
         ops.add_fsync_watchdog()
+    if app.serving_engine is not None:
+        ops.add_serving_watchdog(app.serving_engine)
     if app.eval_engine is not None:
         ops.add_eval_engine(app.eval_engine)
     ops.start()
@@ -591,7 +584,8 @@ def start_serving(app, args):
     from kafka_ps_tpu_torch.runtime import net
     bridge = net.ServerBridge(port=args.serve_port, run_id=app.server.run_id,
                               device=app.device, shm=args.serve_shm,
-                              engine=engine)
+                              engine=engine, tracer=app.tracer,
+                              telemetry=app.telemetry)
     print(f"serving on port {bridge.port}", file=sys.stderr, flush=True)
     return bridge
 

@@ -44,9 +44,21 @@ per shard (`--compress topk:R` is then its local sparsifier and the
 slices are sparse) and reassembles the weights slices; a dead shard is
 not fatal (it reconnects and the router resends what the shard missed).
 With `--aggregate` the same worker dials the relay, which compresses for
-it; after a relay restart it resends its whole cache.  The role runners
-refuse the telemetry flags cli.run takes (cli/run.refuse_telemetry_flags):
-the roles' telemetry is ROADMAP item 24b.
+it; after a relay restart it resends its whole cache.
+
+Telemetry, the JAX roles': every role takes `--trace PATH` (its own
+tracer, pid-stamped, dumped at exit), `--metrics-file PATH`
+(`--metrics-every S`), `--flight-dir DIR` and `--health-port P`
+(`_make_telemetry`, `_make_ops`, `_dump_telemetry`); the unsharded
+server also takes `--status_every S`.  The watchdogs are the JAX roles':
+the gate on a server or shard, the fsync on a durable shard, the serving
+one on a serving server, the replica and serving ones on a replica.
+Trace context crosses the sockets when both ends trace
+(runtime/net.py), so the JAX package's merge tool joins the processes'
+traces into one `delta.wire` chain per delta:
+
+    python -m kafka_ps_tpu.telemetry merge -o merged.json \
+        server/trace.json w0/trace.json w1/trace.json
 
 Tiered residency (store/): `--tier-hot-bytes`, `--tier-warm-bytes` and
 `--tier-page-params` give a server's (or a shard's) slice to a tiered
@@ -73,7 +85,8 @@ At exit each role prints one line of run statistics on stderr,
 `kafka_ps_tpu_torch server: {json}` or `kafka_ps_tpu_torch worker:
 {json}`: the role and device; server iterations, membership, rows sent
 and the eval engine's state, with the wall-clock ms at which the server's
-logs were flushed (`end_ms`), or a worker's rows; the bridge's frames,
+logs were flushed (`end_ms`) and the gradients it read but never applied
+(`gradients_pending`), or a worker's rows; the bridge's frames,
 bytes and serde milliseconds per frame by topic and its dropped sends;
 and for a worker its kernel calls by family and form
 (ops/fused_update.counts).
@@ -168,6 +181,47 @@ def _codec_spec(args):
 def _print_stats(role: str, stats: dict) -> None:
     print(f"kafka_ps_tpu_torch {role}: " + json.dumps(stats),
           file=sys.stderr, flush=True)
+
+
+def _make_telemetry(args):
+    """One process's tracer (None without --trace; its events carry
+    this pid, so the merge tool stitches the processes' dumps) and its
+    metrics registry (armed by --metrics-file or --health-port: /varz
+    serves it), with the periodic --metrics-every dump started."""
+    from kafka_ps_tpu_torch.telemetry import maybe_telemetry
+    tracer = None
+    if getattr(args, "trace", None):
+        from kafka_ps_tpu_torch.utils.trace import Tracer
+        tracer = Tracer()
+    telemetry = maybe_telemetry(
+        tracer, want_metrics=bool(getattr(args, "metrics_file", None))
+        or getattr(args, "health_port", None) is not None)
+    if getattr(args, "metrics_file", None) \
+            and getattr(args, "metrics_every", 0.0) > 0:
+        telemetry.start_dumper(args.metrics_file, args.metrics_every)
+    return tracer, telemetry
+
+
+def _make_ops(args, telemetry, *, role, shard=None, meta=None):
+    """The flight recorder, watchdogs and health plane of one role
+    process (telemetry/health.OpsPlane), not yet started.  Inert without
+    --flight-dir and --health-port, so every role wires it; with
+    --flight-dir the process also dumps its rings on SIGTERM/SIGABRT,
+    the JAX postmortem's material."""
+    from kafka_ps_tpu_torch.telemetry.health import OpsPlane
+    return OpsPlane(flight_dir=getattr(args, "flight_dir", None),
+                    health_port=getattr(args, "health_port", None),
+                    telemetry=telemetry, role=role, shard=shard, meta=meta)
+
+
+def _dump_telemetry(args, tracer, telemetry) -> None:
+    """The exit path of _make_telemetry: the final metrics file and the
+    trace, whose path is printed."""
+    if getattr(args, "metrics_file", None):
+        telemetry.stop_dumper()
+        telemetry.write_prometheus(args.metrics_file)
+    if getattr(args, "trace", None) and tracer is not None:
+        print(tracer.dump(args.trace), file=sys.stderr, flush=True)
 
 
 class _BatchingSink:
@@ -277,6 +331,7 @@ def run_server(args) -> int:
     run_id = ckpt.peek_run_id(checkpoint_path) if resuming else None
     if run_id is None:
         run_id = time.time_ns()
+    tracer, telemetry = _make_telemetry(args)
     # the serving plane on the workers' port: the engine is there before
     # the port listens (a read before the first snapshot is STALE), and a
     # prediction client sends no HELLO, so the bridge routes it nothing
@@ -288,17 +343,18 @@ def run_server(args) -> int:
         from kafka_ps_tpu_torch.serving.snapshot import SnapshotRegistry
         registry = SnapshotRegistry(capacity=cfg.serving.ring_capacity)
         engine = make_engine(get_task(cfg.task, cfg.model), registry,
-                             cfg.serving)
+                             cfg.serving, tracer=tracer, telemetry=telemetry)
     bridge = net.ServerBridge(
         port=args.listen,
         heartbeat_interval=min(1.0, hb_timeout / 3) if hb_timeout else 1.0,
         heartbeat_timeout=hb_timeout, run_id=run_id, codec=codec_spec,
         coalesce=getattr(args, "wire_coalesce", True), device=device,
-        shm=cfg.serving.shm, engine=engine)
+        shm=cfg.serving.shm, engine=engine, tracer=tracer,
+        telemetry=telemetry)
     print(f"listening on port {bridge.port}", file=sys.stderr, flush=True)
     fabric = bridge.wrap(fabric_mod.Fabric())
     server = ServerNode(cfg, fabric, device, test_x, test_y,
-                        DeferredSink(log))
+                        DeferredSink(log), tracer=tracer, telemetry=telemetry)
     if codec_spec.codec_id != net.CODEC_NONE:
         # weights leave this process quantize-dequantized so both sides
         # train against the SAME decoded theta; a peer that negotiated
@@ -323,7 +379,8 @@ def run_server(args) -> int:
     if cfg.eval_async:
         from kafka_ps_tpu_torch.evaluation.engine import EvalEngine
         eval_engine = server.attach_eval_engine(EvalEngine(
-            server.task, server.test_x, server.test_y, server._emit_eval))
+            server.task, server.test_x, server.test_y, server._emit_eval,
+            telemetry=telemetry, tracer=tracer))
     from kafka_ps_tpu_torch.log.durable_fabric import COLD_PARTITION_DIR
     from kafka_ps_tpu_torch.runtime.messages import KeyRange
     tier_store = _attach_tier_store(
@@ -346,6 +403,14 @@ def run_server(args) -> int:
         engine.warmup()
         print(f"serving predictions on port {bridge.port}",
               file=sys.stderr, flush=True)
+
+    ops = _make_ops(args, telemetry, role="server")
+    ops.add_gate_watchdog(server)
+    if eval_engine is not None:
+        ops.add_eval_engine(eval_engine)    # /evalz
+    if engine is not None:
+        ops.add_serving_watchdog(engine)
+    ops.start()
 
     # membership events cross threads (bridge readers -> main loop):
     # ServerNode is single-threaded by design, so evictions/readmissions
@@ -450,6 +515,34 @@ def run_server(args) -> int:
                 else:
                     seen_ready.add(w)
 
+    # the live pulse (utils/status.py), the split face of --status_every
+    from kafka_ps_tpu_torch.utils.status import StatusReporter
+
+    def status() -> dict:
+        tr = server.tracker
+        active = tr.active_workers
+        out = {
+            "iters": server.iterations,
+            "clocks": [f"{w}:{tr.tracker[w].vector_clock}"
+                       for w in range(cfg.num_workers)],
+            "active": f"{len(active)}/{cfg.num_workers}",
+            "pending": {"gradients": fabric.total_pending(
+                fabric_mod.GRADIENTS_TOPIC)},
+            "rows_sent": producer.rows_sent,
+        }
+        if engine is not None:
+            s = engine.stats()
+            out["predictions_per_s"] = s["requests"]
+            out["serving"] = {"occ": s["occupancy"],
+                              "p50_ms": s["p50_ms"], "p99_ms": s["p99_ms"],
+                              "stale": s["rejections"]}
+        if telemetry.enabled:
+            out["metrics"] = telemetry.summary()
+        return out
+
+    reporter = StatusReporter(getattr(args, "status_every", 0.0) or 0.0,
+                              status).start()
+
     server.start_training_loop()
     max_iters = args.max_iterations or sys.maxsize
     try:
@@ -466,6 +559,7 @@ def run_server(args) -> int:
         # checkpoints and flushes logs/events
         print("interrupted — shutting down", file=sys.stderr, flush=True)
     finally:
+        reporter.stop()
         producer.stop()      # join the pump before teardown
         batch_sink.flush_all()   # after the pump join: no concurrent adds
         bridge.close()       # workers see EOF and shut down; joins the
@@ -485,10 +579,16 @@ def run_server(args) -> int:
                       f"{bridge.dropped_sends}", file=sys.stderr, flush=True)
             server.log.close()           # joins drain thread + closes sink
             events_log.close()
+            end_ms = int(time.time() * 1000)     # the logs are flushed
+            ops.close()                  # the final flight dump
+            _dump_telemetry(args, tracer, telemetry)
             _print_stats("server", {
                 "role": "server", "device": str(device),
                 "server_iterations": server.iterations,
-                "end_ms": int(time.time() * 1000),
+                # read but never applied (in the fabric at the stop)
+                "gradients_pending": fabric.total_pending(
+                    fabric_mod.GRADIENTS_TOPIC),
+                "end_ms": end_ms,
                 "codec": codec_spec.spec_str(),
                 "membership": {
                     "active": server.tracker.active_workers,
@@ -562,12 +662,17 @@ def run_worker(args) -> int:
     # logical-run id, which decides whether local state is valid below,
     # and the NEGOTIATED codec — compression runs at what the server
     # agreed to, not at what this process asked for
+    tracer, telemetry = _make_telemetry(args)
     bridge = net.WorkerBridge(
         host or "127.0.0.1", int(port), ids,
         heartbeat_timeout=getattr(args, "heartbeat_timeout", None),
         codec=codec_spec, coalesce=getattr(args, "wire_coalesce", True),
-        device=device)
+        device=device, tracer=tracer, telemetry=telemetry)
     fabric = bridge.make_fabric()
+    # the death hooks armed before training: a SIGTERM'd worker leaves
+    # its flight dump even mid-iteration
+    ops = _make_ops(args, telemetry, role="worker")
+    ops.start()
 
     compressors = None
     if bridge.negotiated.codec_id != net.CODEC_NONE:
@@ -600,7 +705,8 @@ def run_worker(args) -> int:
     log = _open_worker_log(args, bridge.server_run_id, restoring,
                            CsvLogSink, WORKER_HEADER)
 
-    buffers = {w: SlidingBuffer(cfg.model.num_features, cfg.buffer)
+    buffers = {w: SlidingBuffer(cfg.model.num_features, cfg.buffer,
+                                telemetry=telemetry, worker=w)
                for w in ids}
     restored = False
     if restoring and ckpt.maybe_restore_worker(
@@ -613,7 +719,8 @@ def run_worker(args) -> int:
             file=sys.stderr, flush=True)
     worker_log = DeferredSink(log)
     nodes = {w: WorkerNode(w, cfg, fabric, buffers[w], device, test_x,
-                           test_y, worker_log)
+                           test_y, worker_log, tracer=tracer,
+                           telemetry=telemetry)
              for w in ids}
     if compressors is not None:
         for w in ids:
@@ -700,6 +807,10 @@ def run_worker(args) -> int:
     for t in (reader_thread, ready_thread):
         if t.is_alive():
             leftover.append(t.name)
+    # before any os._exit below: a wedged thread must not cost the
+    # process its flight dump, trace and metrics file
+    ops.close()
+    _dump_telemetry(args, tracer, telemetry)
     _print_stats("worker", {
         "role": "worker", "device": str(device), "worker_ids": ids,
         "rows": {str(w): nodes[w].iterations for w in ids},
@@ -764,6 +875,7 @@ def run_server_shard(args) -> int:
     run_id = ckpt.peek_run_id(checkpoint_path) if resuming else None
     if run_id is None:
         run_id = time.time_ns()
+    tracer, telemetry = _make_telemetry(args)
     inner = fabric_mod.Fabric()
     if getattr(args, "durable_log", None):
         # one log per shard, under a shard-suffixed root: N shard
@@ -772,18 +884,20 @@ def run_server_shard(args) -> int:
         inner = DurableFabric(
             os.path.join(args.durable_log, f"shard{shard_id}of{num_shards}"),
             LogConfig(fsync=getattr(args, "fsync", "interval")),
-            device=device)
+            device=device, tracer=tracer, telemetry=telemetry)
     bridge = net.ServerBridge(
         port=args.listen,
         heartbeat_interval=min(1.0, hb_timeout / 3) if hb_timeout else 1.0,
         heartbeat_timeout=hb_timeout, run_id=run_id,
-        coalesce=getattr(args, "wire_coalesce", True), device=device)
+        coalesce=getattr(args, "wire_coalesce", True), device=device,
+        tracer=tracer, telemetry=telemetry)
     print(f"shard {shard_id}/{num_shards} range [{key_range.start}, "
           f"{key_range.end}) listening on port {bridge.port}",
           file=sys.stderr, flush=True)
     fabric = bridge.wrap(inner)     # keeps DurableFabric's class
     server = ServerNode(cfg, fabric, device, key_range=key_range,
-                        shard_id=shard_id, num_shards=num_shards)
+                        shard_id=shard_id, num_shards=num_shards,
+                        tracer=tracer, telemetry=telemetry)
     server.run_id = run_id
     server.weights_group_send = bridge.send_weights_group
     if getattr(args, "bsp_order", False):
@@ -815,6 +929,16 @@ def run_server_shard(args) -> int:
         if any(replay.values()):
             print(f"shard {shard_id}: durable-log replay {replay} in "
                   f"{replay_s:.3f} s", file=sys.stderr, flush=True)
+
+    # the shard's ops plane: its dump carries the shard's identity and
+    # the roster, so the postmortem can tell which shard of the fleet
+    # wedged or died
+    ops = _make_ops(args, telemetry, role="server", shard=shard_id,
+                    meta={"shards": list(range(num_shards))})
+    ops.add_gate_watchdog(server)
+    if inner.durable:
+        ops.add_fsync_watchdog()
+    ops.start()
 
     events: queue.Queue = queue.Queue()
     bridge.on_disconnect = lambda ids: events.put(("disconnect", ids))
@@ -913,6 +1037,9 @@ def run_server_shard(args) -> int:
                 tier_store.close()   # after the save: it may read cold pages
             if inner.durable:
                 inner.close()
+            end_ms = int(time.time() * 1000)
+            ops.close()
+            _dump_telemetry(args, tracer, telemetry)
             _print_stats("server", {
                 "role": "server", "device": str(device),
                 "shard_id": shard_id, "num_shards": num_shards,
@@ -921,7 +1048,7 @@ def run_server_shard(args) -> int:
                 "final_clocks": server.tracker.clocks,
                 "first_gradient_ms": (None if t_first is None
                                       else int(t_first * 1000)),
-                "end_ms": int(time.time() * 1000),
+                "end_ms": end_ms,
                 "restored": resuming, "replay": replay,
                 "sparse_applies": server.sparse_applies,
                 "empty_slices": server.empty_slices,
@@ -966,6 +1093,9 @@ def run_aggregator(args) -> int:
     ids = [int(w) for w in args.worker_ids.split(",")]
     cfg = _make_cfg(args)
     device = resolve_device()
+    tracer, telemetry = _make_telemetry(args)
+    ops = _make_ops(args, telemetry, role="aggregator")
+    ops.start()
     spec = _codec_spec(args)
     relay = AggregatorRelay(
         int(args.agg_id), host or "127.0.0.1", int(port), ids,
@@ -977,7 +1107,8 @@ def run_aggregator(args) -> int:
         flush_interval=float(args.flush_interval or 0.002),
         heartbeat_interval=1.0,
         heartbeat_timeout=getattr(args, "heartbeat_timeout", None),
-        coalesce=getattr(args, "wire_coalesce", True), device=device)
+        coalesce=getattr(args, "wire_coalesce", True), device=device,
+        tracer=tracer, telemetry=telemetry)
     if relay.restored:
         print("restored aggregator error-feedback residuals",
               file=sys.stderr, flush=True)
@@ -991,6 +1122,8 @@ def run_aggregator(args) -> int:
         pass
     finally:
         relay.close()
+        ops.close()
+        _dump_telemetry(args, tracer, telemetry)
         _print_stats("aggregator", {"role": "aggregator",
                                     "device": str(device),
                                     "codec":
@@ -1057,13 +1190,21 @@ def _run_worker_sharded(args, addrs: list[str],
         fused_update.load(cfg.task, cfg.slab_dtype)
     num_params = get_task(cfg.task, cfg.model).num_params
     plan = ShardPlan(num_params, len(addrs))
+    tracer, telemetry = _make_telemetry(args)
+    # meta names the whole shard roster: the postmortem's dead shards are
+    # the known ones less those that dumped, and a worker's dump is what
+    # survives a killed shard
+    ops = _make_ops(args, telemetry, role="worker",
+                    meta={"shards": list(range(len(addrs)))})
+    ops.start()
 
     def connect(addr: str, timeout: float = 30.0):
         host, _, port = addr.rpartition(":")
         return net.WorkerBridge(
             host or "127.0.0.1", int(port), ids, connect_timeout=timeout,
             heartbeat_timeout=getattr(args, "heartbeat_timeout", None),
-            coalesce=getattr(args, "wire_coalesce", True), device=device)
+            coalesce=getattr(args, "wire_coalesce", True), device=device,
+            tracer=tracer, telemetry=telemetry)
 
     slots: list = [connect(a) for a in addrs]
     retired: list = []                 # bridges replaced by a reconnect
@@ -1112,7 +1253,8 @@ def _run_worker_sharded(args, addrs: list[str],
             print(f"compression: {spec.spec_str()} (local sparsifier)",
                   file=sys.stderr, flush=True)
 
-    buffers = {w: SlidingBuffer(cfg.model.num_features, cfg.buffer)
+    buffers = {w: SlidingBuffer(cfg.model.num_features, cfg.buffer,
+                                telemetry=telemetry, worker=w)
                for w in ids}
     # run continuity keys on slots[0]'s run id: the relay's (it advertises
     # the server's), or shard 0's
@@ -1140,7 +1282,8 @@ def _run_worker_sharded(args, addrs: list[str],
                            WORKER_HEADER)
     worker_log = DeferredSink(log)
     nodes = {w: WorkerNode(w, cfg, fabric, buffers[w], device, test_x,
-                           test_y, worker_log)
+                           test_y, worker_log, tracer=tracer,
+                           telemetry=telemetry)
              for w in ids}
     for w in ids:
         nodes[w].shard_router = routers[w]
@@ -1286,6 +1429,8 @@ def _run_worker_sharded(args, addrs: list[str],
     for t in [supervisor, ready_thread, *reader_threads]:
         if t.is_alive():
             leftover.append(t.name)
+    ops.close()                  # before any os._exit: the flight dump
+    _dump_telemetry(args, tracer, telemetry)
     bridges = retired + slots
     _print_stats("worker", {
         "role": "worker", "device": str(device), "worker_ids": ids,
@@ -1425,17 +1570,24 @@ def run_replica(args) -> int:
                          "training deployment's commit log to follow)")
     cfg = _make_cfg(args)
     device = resolve_device()       # CUDA, or KPS_PLATFORM's choice
+    tracer, telemetry = _make_telemetry(args)
     task = get_task(cfg.task, cfg.model)
     registry = SnapshotRegistry(capacity=cfg.serving.ring_capacity)
-    follower = ReplicaFollower(root, registry, device=device)
-    engine = make_engine(task, registry, cfg.serving)
+    follower = ReplicaFollower(root, registry, device=device, tracer=tracer)
+    engine = make_engine(task, registry, cfg.serving, tracer=tracer,
+                         telemetry=telemetry)
     follower.catch_up()              # cold start: serve what is logged
+    ops = _make_ops(args, telemetry, role="replica")
+    ops.add_replica_watchdog()
+    ops.add_serving_watchdog(engine)
+    ops.start()
     port = cfg.serving.port
     bridge = net.ServerBridge(port=0 if port is None else port,
                               run_id=time.time_ns(),
                               coalesce=getattr(args, "wire_coalesce", True),
                               device=device,
-                              shm=cfg.serving.shm, engine=engine)
+                              shm=cfg.serving.shm, engine=engine,
+                              tracer=tracer, telemetry=telemetry)
     follower.start()
     mode = (f"{follower.num_shards}-shard assembled" if follower.num_shards
             else "single-server" if follower.records_read
@@ -1467,6 +1619,8 @@ def run_replica(args) -> int:
         follower.stop()
         bridge.close()
         engine.close()
+        ops.close()
+        _dump_telemetry(args, tracer, telemetry)
         latest = registry.latest
         _print_stats("replica", {
             "role": "replica", "device": str(device), "log": root,

@@ -201,8 +201,9 @@ class StreamingPSApp:
             registry = SnapshotRegistry(
                 capacity=self.cfg.serving.ring_capacity)
             self.server.serving = registry
-            self.serving_engine = make_engine(self.server.task, registry,
-                                              self.cfg.serving)
+            self.serving_engine = make_engine(
+                self.server.task, registry, self.cfg.serving,
+                tracer=self.tracer, telemetry=self.telemetry)
         return self.serving_engine
 
     def close_serving(self) -> None:

@@ -68,11 +68,20 @@ segment) keeps the client on the socket.  `PredictClient` is the client:
 one outstanding request per connection, typed StalenessError and
 OverloadedError, the shm upgrade and reconnects.
 
-Left out until ROADMAP item 24b: trace context.  The tracer is ported
-(utils/trace.py) but the bridges carry none, so a worker offers 0 and a
-server answers 0 — no 16-byte trace suffix ever crosses a connection of
-this package, and a JAX peer with tracing on still interoperates (it
-sees the answer 0).
+Trace-context negotiation rides the same pattern: one `<u8 offer>` byte
+after the codec trailer on HELLO (a worker or relay offers 1 iff its
+tracer is on) and on CONFIG (the server answers 1 iff the offer arrived
+and its own tracer is on).  On a negotiated connection every WEIGHTS and
+GRADIENTS payload gains the 16-byte `<u64 flow_id> <u64 parent_span>`
+suffix (`_TRACE_CTX`, parent 0) after the serde bytes; the reader strips
+it before decoding and records the matching flow event: `delta.wire`
+starts at the worker's `net.send` and steps at the server's `net.recv`,
+`weights.wire` starts at the server's `net.send` and ends at the
+worker's `net.recv`.  A peer of either package that does not offer never
+sees a suffix, so an untraced connection's frames are byte for byte the
+untraced ones.  The flow ids are the sending tracer's (its pid in the
+top bits), so the JAX package's merge tool joins the processes' traces
+into one chain.
 
 Decoded tensors land on the bridge's device (`device`, resolved once by
 utils.config.resolve_device when the bridge is made), passed explicitly
@@ -92,6 +101,16 @@ bytes (frame header included) per (direction, topic), with `wire_bytes`
 per topic over both directions as in the JAX package, `serde_s` and
 `serde_frames` per topic (seconds spent in serde encode and decode, the
 device copies included), and `dropped_sends`; `stats()` reads them.
+
+Telemetry (`tracer=`, `telemetry=`, null by default) is the JAX
+bridges': the `frames_sent`, `frames_received` and
+`wire_bytes_total{topic,direction}` families (resolved once per bridge,
+fed at enqueue time: a ServerBridge counts every frame both ways, a
+WorkerBridge its received frames and its gradients sent), the writers'
+`wire_*` families, `serving_dispatch_mode{mode="shm"}`, the `net.send`
+and `net.recv` spans and the flight records `net.send`, `net.recv`,
+`net.weights_recv`, `net.hello`, `net.disconnect` and (per shm reply)
+`serving.batch`.
 """
 
 from __future__ import annotations
@@ -114,7 +133,10 @@ from kafka_ps_tpu_torch.serving.engine import Prediction
 from kafka_ps_tpu_torch.serving.policy import (OverloadedError, ReadBound,
                                                StalenessError)
 from kafka_ps_tpu_torch.serving.shm import ShmChannel, ShmError
+from kafka_ps_tpu_torch.telemetry import NULL_TELEMETRY
+from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
 from kafka_ps_tpu_torch.utils.config import resolve_device
+from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
 
 (T_WEIGHTS, T_GRADIENTS, T_DATA, T_HELLO, T_READY,
  T_PING, T_PONG, T_CONFIG, T_PREDICT, T_PREDICTION,
@@ -134,6 +156,9 @@ TOPIC_NAMES = {T_WEIGHTS: fabric_mod.WEIGHTS_TOPIC,
 _CODEC_TRAILER = struct.Struct("<Bf")
 # the optional trace-offer/answer byte AFTER the codec trailer
 _TRACE_TRAILER = struct.Struct("<B")
+# the per-message trace context suffixed to WEIGHTS/GRADIENTS payloads
+# when the pair negotiated tracing: <u64 flow_id> <u64 parent_span>
+_TRACE_CTX = struct.Struct("<QQ")
 # the optional shared-memory request byte AFTER the trace trailer on
 # HELLO, and the matching offer AFTER the trace trailer on CONFIG:
 # <u8 granted> <16s nonce> <64s NUL-padded segment name>
@@ -281,6 +306,28 @@ def _read_flag(trailer: struct.Struct, payload, offset: int) -> bool:
     return bool(flag)
 
 
+def _frame_counters(telemetry):
+    """Per-topic (frames, wire bytes) counter children, sent and
+    received, resolved once per bridge so the frame paths never take the
+    registry's family lock; null children when telemetry is off."""
+    sent = {t: (telemetry.counter("frames_sent", topic=name),
+                telemetry.counter("wire_bytes_total", topic=name,
+                                  direction="out"))
+            for t, name in TOPIC_NAMES.items()}
+    recv = {t: (telemetry.counter("frames_received", topic=name),
+                telemetry.counter("wire_bytes_total", topic=name,
+                                  direction="in"))
+            for t, name in TOPIC_NAMES.items()}
+    return sent, recv
+
+
+def _strip_trace(payload):
+    """(payload without its trace suffix, flow id)."""
+    cut = len(payload) - _TRACE_CTX.size
+    (fid, _parent) = _TRACE_CTX.unpack_from(payload, cut)
+    return payload[:cut], fid
+
+
 def _recv_exact(sock: socket.socket, n: int) -> bytearray | bytes | None:
     """Exactly n bytes, or None on a clean EOF before the first byte.
     EOF after a partial read is a torn frame — a crashed peer, never an
@@ -307,11 +354,14 @@ class _Counters:
     docstring), under one lock: the reader, the sending threads and the
     heartbeat all count."""
 
-    def __init__(self):
+    def __init__(self, tracer=None, telemetry=None):
         self._wire_lock = threading.Lock()
         self.traffic: dict[tuple[str, int], list[int]] = {}
         self.serde_s: dict[int, float] = {}
         self.serde_frames: dict[int, int] = {}
+        self._tracer = tracer or NULL_TRACER
+        self._telemetry = telemetry or NULL_TELEMETRY
+        self._m_sent, self._m_recv = _frame_counters(self._telemetry)
 
     @property
     def wire_bytes(self) -> dict[int, int]:
@@ -327,6 +377,25 @@ class _Counters:
             t = self.traffic.setdefault((direction, topic), [0, 0])
             t[0] += 1
             t[1] += _FRAME.size + payload_len
+
+    def _family(self, children, topic: int, payload_len: int) -> None:
+        """One frame on the `frames_*` and `wire_bytes_total` families."""
+        if self._telemetry.enabled:
+            frames, nbytes = children[topic]
+            frames.inc()
+            nbytes.inc(_FRAME.size + payload_len)
+
+    def _traced(self, payload, topic: str, worker: int) -> bytes:
+        """`payload` with a fresh flow's trace suffix: `weights.wire`
+        (topic "weights") or `delta.wire` (topic "gradients") started on
+        a `net.send` span."""
+        fid = self._tracer.new_flow_id()
+        with self._tracer.span("net.send", topic=topic, worker=worker):
+            if topic == "weights":
+                self._tracer.flow_start("weights.wire", fid, worker=worker)
+            else:
+                self._tracer.flow_start("delta.wire", fid)
+        return b"".join((payload, _TRACE_CTX.pack(fid, 0)))
 
     def _serde(self, topic: int, t0: float) -> None:
         dt = time.perf_counter() - t0
@@ -404,8 +473,8 @@ class ServerBridge(_Counters):
                  heartbeat_timeout: float | None = None,
                  run_id: int = 0, codec: CodecSpec | None = None,
                  coalesce: bool = True, device=None, shm: bool = False,
-                 engine=None):
-        super().__init__()
+                 engine=None, tracer=None, telemetry=None):
+        super().__init__(tracer, telemetry)
         # `device`: where decoded gradients land (the ServerNode's)
         self.device = resolve_device(device)
         # `run_id` identifies the logical RUN (fresh server start, or the
@@ -418,6 +487,9 @@ class ServerBridge(_Counters):
         # none-negotiated peer strip the encoded payload in _send
         self.codec = codec if codec is not None else CODEC_SPEC_NONE
         self._codec_of: dict[socket.socket, CodecSpec] = {}
+        # per-connection trace negotiation (module docstring): True iff
+        # the peer offered and this side's tracer is on
+        self._trace_of: dict[socket.socket, bool] = {}
         self._listener = socket.create_server((host, port))
         self.port = self._listener.getsockname()[1]
         self._conn_of: dict[int, socket.socket] = {}   # worker -> conn
@@ -446,6 +518,8 @@ class ServerBridge(_Counters):
         self._shm_of: dict[socket.socket, object] = {}
         self._shm_threads: list[threading.Thread] = []
         self.shm_predictions = 0    # predictions answered over shm
+        self._m_shm = self._telemetry.counter("serving_dispatch_mode",
+                                              mode="shm")
         self.dropped_sends = 0      # frames lost to dead connections
         # connections whose HELLO carried the aggregator-role byte
         self._agg_conns: set[socket.socket] = set()
@@ -587,6 +661,11 @@ class ServerBridge(_Counters):
         conn = self._conn_of.get(worker)
         if conn is None:
             return False
+        if topic == T_WEIGHTS and self._trace_of.get(conn):
+            # a fresh flow per member: the member's reader strips a
+            # suffix from every weights frame, and the upstream hop's
+            # suffix never crossed the relay
+            payload = self._traced(payload, "weights", worker)
         return self._send_raw(conn, topic, worker, payload)
 
     def wait_for_connected(self, workers, timeout: float = 60.0) -> None:
@@ -687,6 +766,10 @@ class ServerBridge(_Counters):
         if payload is None:
             payload = (self._encode(topic, message) if message is not None
                        else b"")
+        if topic == T_WEIGHTS and self._trace_of.get(conn):
+            # open the weights flow: an arrow from this send to the
+            # worker's net.recv (its reader strips the suffix)
+            payload = self._traced(payload, "weights", key)
         return self._send_raw(conn, topic, key, payload)
 
     def _dropped(self, count: bool) -> None:
@@ -722,6 +805,12 @@ class ServerBridge(_Counters):
                 force_close(conn)   # wake the reader -> cleanup/eviction
                 return False
         self._count("out", topic, len(payload))
+        self._family(self._m_sent, topic, len(payload))
+        if FLIGHT.enabled and topic in (T_WEIGHTS, T_GRADIENTS):
+            # the data-plane topics only: a PING every second would
+            # evict the telling events from a quiet ring
+            FLIGHT.record("net.send", topic=TOPIC_NAMES[topic], peer=key,
+                          bytes=len(payload))
         return True
 
     def _accept_loop(self) -> None:
@@ -738,7 +827,7 @@ class ServerBridge(_Counters):
             with self._cv:
                 self._send_lock[conn] = threading.Lock()
                 if self._coalesce:
-                    writer = FrameWriter(conn)
+                    writer = FrameWriter(conn, telemetry=self._telemetry)
                     self._writer_of[conn] = writer
                     self._writers.append(writer)
                 self._last_recv[conn] = time.monotonic()
@@ -779,10 +868,16 @@ class ServerBridge(_Counters):
         # (old peers send no trailer -> NONE)
         peer = _read_codec_trailer(payload, off)
         negotiated = self.codec if peer == self.codec else CODEC_SPEC_NONE
+        # trace: on iff the peer offered and our tracer is on
+        trace_on = (_read_flag(_TRACE_TRAILER, payload,
+                               off + _CODEC_TRAILER.size)
+                    and self._tracer.enabled)
         with self._cv:
-            # the result lands under the state lock BEFORE T_CONFIG goes
-            # out: once the peer sees CONFIG it may send coded frames
+            # the results land under the state lock BEFORE T_CONFIG goes
+            # out: once the peer sees CONFIG it may send coded (and
+            # traced) frames
             self._codec_of[conn] = negotiated
+            self._trace_of[conn] = trace_on
         # shm: the offer rides CONFIG only when the peer asked, so worker
         # handshakes stay byte-identical; declined without an engine
         shm_tail = b""
@@ -797,17 +892,19 @@ class ServerBridge(_Counters):
         # connection, and the worker-side handshake relies on T_CONFIG
         # being the first non-PING frame.  Payload: PING cadence (0.0 =
         # no heartbeats) + the run id + the negotiated codec + the trace
-        # answer (always 0 here, whatever the peer offered)
+        # answer
         self._send_raw(conn, T_CONFIG, 0,
                        struct.pack("<dq", self._hb_interval or 0.0,
                                    self.run_id)
                        + _CODEC_TRAILER.pack(negotiated.codec_id,
                                              negotiated.param)
-                       + _TRACE_TRAILER.pack(0) + shm_tail)
+                       + _TRACE_TRAILER.pack(int(trace_on)) + shm_tail)
         with self._cv:
             for w in ids:
                 self._conn_of[w] = conn
             self._cv.notify_all()
+        if FLIGHT.enabled:
+            FLIGHT.record("net.hello", workers=list(ids))
         if self.on_hello is not None:
             self.on_hello(list(ids))
 
@@ -824,6 +921,7 @@ class ServerBridge(_Counters):
                 self._last_recv[conn] = time.monotonic()
                 topic, key, payload = frame
                 self._count("in", topic, len(payload))
+                self._family(self._m_recv, topic, len(payload))
                 if topic == T_HELLO:
                     self._hello(conn, payload)
                 elif topic == T_READY:
@@ -835,8 +933,7 @@ class ServerBridge(_Counters):
                 elif topic == T_PONG:
                     pass            # liveness already stamped above
                 elif topic == T_GRADIENTS and self._fabric is not None:
-                    msg = self._decode(T_GRADIENTS, payload)
-                    self._fabric.send(fabric_mod.GRADIENTS_TOPIC, 0, msg)
+                    self._gradients(conn, key, payload)
                 elif topic == T_PREDICT:
                     self._handle_predict(conn, key, payload)
         except (ConnectionError, OSError):
@@ -850,6 +947,26 @@ class ServerBridge(_Counters):
                     self.reader_error = e
         finally:
             self._cleanup_conn(conn, disconnect)
+
+    def _gradients(self, conn, key: int, payload) -> None:
+        """One GRADIENTS frame into the fabric.  On a traced connection
+        the suffix is stripped BEFORE the decode (a compressed frame hands
+        its whole tail to unpack_parts) and the delta's flow steps here;
+        its id rides on the message as `trace` (a dynamic attribute of
+        the frozen dataclass, as in the JAX bridge)."""
+        fid = None
+        if self._trace_of.get(conn):
+            payload, fid = _strip_trace(payload)
+        msg = self._decode(T_GRADIENTS, payload)
+        if FLIGHT.enabled:
+            FLIGHT.record("net.recv", topic="gradients",
+                          worker=getattr(msg, "worker_id", key),
+                          clock=getattr(msg, "vector_clock", -1))
+        if fid is not None:
+            with self._tracer.span("net.recv", topic="gradients"):
+                self._tracer.flow_step("delta.wire", fid)
+            object.__setattr__(msg, "trace", fid)
+        self._fabric.send(fabric_mod.GRADIENTS_TOPIC, 0, msg)
 
     def _handle_predict(self, conn, key: int, payload) -> None:
         """One PREDICT frame: submitted to the engine, answered from its
@@ -926,6 +1043,9 @@ class ServerBridge(_Counters):
                 chan.respond(seq, _encode_result(result))
                 with self._wire_lock:
                     self.shm_predictions += 1
+                self._m_shm.inc()
+                if FLIGHT.enabled:
+                    FLIGHT.record("serving.batch", n=1, mode="shm")
 
             try:
                 engine.submit(x, bound, reply, model_id=model_id)
@@ -956,10 +1076,13 @@ class ServerBridge(_Counters):
             self._send_lock.pop(conn, None)
             self._last_recv.pop(conn, None)
             self._codec_of.pop(conn, None)
+            self._trace_of.pop(conn, None)
             chan = self._shm_of.pop(conn, None)
             self._cv.notify_all()
         if chan is not None:
             chan.close()    # ends the connection's shm serve thread
+        if FLIGHT.enabled and ids:
+            FLIGHT.record("net.disconnect", workers=ids, agg=was_agg)
         # a relay's disconnect is a relay restart, not its members'
         # failure: they resend through the next relay, which re-HELLOs
         if (notify and ids and not was_agg and not self._stop.is_set()
@@ -978,7 +1101,7 @@ class WorkerBridge(_Counters):
                  heartbeat_timeout: float | None = None,
                  codec: CodecSpec | None = None,
                  coalesce: bool = True, device=None,
-                 aggregator: bool = False):
+                 aggregator: bool = False, tracer=None, telemetry=None):
         """`heartbeat_timeout`: seconds of total server silence before
         the connection is declared dead (only sensible when the server
         PINGs; the advertised cadence floors or disables it).
@@ -988,8 +1111,11 @@ class WorkerBridge(_Counters):
         `coalesce`: queue outgoing frames behind a wire.FrameWriter;
         False is the locked-sendall-per-frame path.  `device`: where
         decoded weights land (the worker process's).  `aggregator`:
-        HELLO as a relay for `worker_ids` (module docstring)."""
-        super().__init__()
+        HELLO as a relay for `worker_ids` (module docstring).  `tracer`:
+        the offering tracer — when it is on and the server answers the
+        offer, `trace_negotiated` goes True and WEIGHTS / GRADIENTS
+        frames carry the trace suffix."""
+        super().__init__(tracer, telemetry)
         self.device = resolve_device(device)
         self.worker_ids = list(worker_ids)
         self.aggregator = bool(aggregator)
@@ -999,6 +1125,7 @@ class WorkerBridge(_Counters):
         self._heartbeat_timeout = heartbeat_timeout
         self.codec = codec if codec is not None else CODEC_SPEC_NONE
         self.negotiated = CODEC_SPEC_NONE
+        self.trace_negotiated = False
         # retry: the server process may still be importing/binding when
         # this process is already up (both launched together)
         deadline = time.monotonic() + connect_timeout
@@ -1021,13 +1148,12 @@ class WorkerBridge(_Counters):
         self.reader_error: Exception | None = None
         self.server_run_id: int | None = None
         self.fabric: fabric_mod.Fabric | None = None
-        # HELLO: ids + codec offer + trace offer 0 (trace context waits
-        # for ROADMAP item 24b)
+        # HELLO: ids + codec offer + trace offer (1 iff our tracer is on)
         payload = (struct.pack(f"<q{len(self.worker_ids)}q",
                                len(self.worker_ids), *self.worker_ids)
                    + _CODEC_TRAILER.pack(self.codec.codec_id,
                                          self.codec.param)
-                   + _TRACE_TRAILER.pack(0))
+                   + _TRACE_TRAILER.pack(int(self._tracer.enabled)))
         if self.aggregator:
             # trailers are positional: a not-requesting-shm byte, then
             # the aggregator-role byte
@@ -1057,6 +1183,10 @@ class WorkerBridge(_Counters):
                     # a 16-byte CONFIG is an old server: no negotiation,
                     # stay uncompressed
                     self.negotiated = _read_codec_trailer(pl, 16)
+                    # the trace answer after the codec trailer; an older
+                    # server never sends it: no suffix either way
+                    self.trace_negotiated = _read_flag(
+                        _TRACE_TRAILER, pl, 16 + _CODEC_TRAILER.size)
                     break
                 raise ConnectionError(
                     f"expected T_CONFIG during handshake, got topic {topic}")
@@ -1071,7 +1201,8 @@ class WorkerBridge(_Counters):
         # the coalescing writer starts AFTER the synchronous handshake:
         # HELLO went out on the locked path above and nothing else can
         # have been queued yet, so frame order is preserved
-        self._writer = FrameWriter(self._sock) if coalesce else None
+        self._writer = (FrameWriter(self._sock, telemetry=self._telemetry)
+                        if coalesce else None)
 
     def _enqueue(self, topic: int, key: int, payload: bytes = b"",
                  advisory: bool = False) -> None:
@@ -1090,14 +1221,31 @@ class WorkerBridge(_Counters):
         self._count("out", topic, len(payload))
 
     def send_gradients(self, key: int, message) -> None:
-        """Serialize one gradient message and send it on this bridge's
-        socket (make_fabric's GRADIENTS route)."""
-        self._enqueue(T_GRADIENTS, key, self._encode(T_GRADIENTS, message))
+        """Serialize one gradient message (full-range, or a shard's
+        slice) and send it on this bridge's socket (make_fabric's
+        GRADIENTS route, or a ShardRouter's per-shard send).  On a traced
+        connection each message opens its own `delta.wire` flow."""
+        self._send_gradients(key, self._encode(T_GRADIENTS, message),
+                             getattr(message, "worker_id", key),
+                             clock=getattr(message, "vector_clock", -1))
 
     def send_payload(self, key: int, payload: bytes) -> None:
         """One pre-serialized GRADIENTS frame (a relay's composite,
         serialized once)."""
+        self._send_gradients(key, payload, key)
+
+    def _send_gradients(self, key: int, payload, worker: int,
+                        **record) -> None:
+        """A GRADIENTS frame with its trace suffix on a traced connection
+        (the server strips 16 bytes from every gradients frame there),
+        counted and recorded."""
+        if self.trace_negotiated:
+            payload = self._traced(payload, "gradients", worker)
         self._enqueue(T_GRADIENTS, key, payload)
+        self._family(self._m_sent, T_GRADIENTS, len(payload))
+        if FLIGHT.enabled:
+            FLIGHT.record("net.send", topic="gradients", worker=worker,
+                          **record, bytes=len(payload))
 
     def set_weights_sink(self, sink) -> None:
         """Deliver received WEIGHTS into `sink.send(topic, key, msg)`
@@ -1163,6 +1311,10 @@ class WorkerBridge(_Counters):
                     break
                 topic, key, payload = frame
                 self._count("in", topic, len(payload))
+                self._family(self._m_recv, topic, len(payload))
+                fid = None
+                if topic == T_WEIGHTS and self.trace_negotiated:
+                    payload, fid = _strip_trace(payload)
                 if topic == T_PING:
                     # a PONG is liveness, regenerated on the next PING:
                     # advisory — never blocks the reader on backpressure
@@ -1180,7 +1332,11 @@ class WorkerBridge(_Counters):
                         and topic in (T_DATA, T_DATA_BATCH, T_WEIGHTS,
                                       T_WEIGHTS_AGG)
                         and self.raw_forward(topic, key, bytes(payload))):
-                    pass            # a relay passed the bytes on
+                    # a relay passed the bytes on; the suffix stripped
+                    # above was this hop's (forward_frame opens a fresh
+                    # flow per member downstream)
+                    if fid is not None:
+                        self._weights_flow_end(fid, key)
                 elif topic == T_DATA_BATCH:
                     buffers[key].add_many(self._decode_rows(payload))
                 elif topic == T_DATA:
@@ -1188,6 +1344,13 @@ class WorkerBridge(_Counters):
                     buffers[key].add(msg.features, msg.label)
                 elif topic == T_WEIGHTS:
                     msg = self._decode(T_WEIGHTS, payload)
+                    if FLIGHT.enabled:
+                        FLIGHT.record(
+                            "net.weights_recv", worker=key,
+                            clock=getattr(msg, "vector_clock", -1))
+                    if fid is not None:
+                        self._weights_flow_end(fid, key)
+                        object.__setattr__(msg, "trace", fid)
                     self.fabric.send(fabric_mod.WEIGHTS_TOPIC, key, msg)
                 else:
                     raise ValueError(
@@ -1200,6 +1363,11 @@ class WorkerBridge(_Counters):
             self.reader_error = e
         finally:
             self.disconnected.set()
+
+    def _weights_flow_end(self, fid: int, worker: int) -> None:
+        """Close a weights flow on the receiving `net.recv` span."""
+        with self._tracer.span("net.recv", topic="weights", worker=worker):
+            self._tracer.flow_end("weights.wire", fid)
 
     def _decode_rows(self, payload) -> list:
         """A T_DATA_BATCH body: columnar (serde.encode_labeled_rows), or

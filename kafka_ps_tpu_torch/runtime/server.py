@@ -166,6 +166,11 @@ class ServerNode:
         # (perf_counter stamp, clock) of each worker's last unanswered
         # gradient: gate wait = release time - arrival time
         self._grad_arrived: dict[int, tuple[float, int]] = {}
+        # trace context of the gradient being applied (the id the socket
+        # bridge set on a traced message): the snapshot its release
+        # publishes carries it, extending the delta.wire flow into the
+        # serving plane
+        self._pending_trace = None
         self._range = (key_range if key_range is not None
                        else KeyRange(0, self.task.num_params))
         theta = self.task.init_params(self.device)
@@ -523,15 +528,23 @@ class ServerNode:
     def publish_snapshot(self, theta=None, clock=None, trace=None) -> None:
         """Publish (theta, stable clock) to the attached registry; a no-op
         with serving off.  `theta` defaults to the current theta, `clock`
-        to `serving_clock()`; `trace` rides on the snapshot (None until
-        the port carries trace context, ROADMAP item 24b).  O(1) on the
-        host: the snapshot aliases the tensor."""
+        to `serving_clock()`; `trace` (by default the context of the
+        gradient being applied) rides on the snapshot, so the serving
+        plane can close the delta.wire flow at its first read.  O(1) on
+        the host: the snapshot aliases the tensor."""
         registry = self.serving
         if registry is None:
             return
+        if trace is None:
+            trace = self._pending_trace
         clock = self.serving_clock() if clock is None else int(clock)
         registry.publish(self.theta if theta is None else theta, clock,
                          trace=trace)
+        if trace is not None:
+            # the flow's publish step: the segment between the apply and
+            # the first serving read starts here
+            self.tracer.flow_step("delta.wire", trace, step="publish",
+                                  clock=clock)
         self.snapshots_published += 1
         self.last_published_clock = clock
         self.tracer.count("serving.snapshots_published")
@@ -642,10 +655,17 @@ class ServerNode:
                      and clock % self.cfg.eval_every == 0)
         fused_eval = want_eval and self.eval_engine is None
         m = deferred = None
+        fid = getattr(msg, "trace", None)
+        self._pending_trace = fid
         with self.tracer.span("server.apply", **span_args, clock=clock,
                               shard=self.shard_id, model=self._model):
             if getattr(msg, "indices", None) is not None:
                 self._apply_sparse(msg)
+                if fid is not None:
+                    # the flow per delta slice: the wire arrow lands on
+                    # the shard's net.recv, this step on its apply
+                    self.tracer.flow_step("delta.wire", fid, clock=clock,
+                                          shard=self.shard_id)
             elif self._full_dense(msg):
                 if self.param_store is not None:
                     m, deferred = self._apply_tiered(
@@ -658,6 +678,10 @@ class ServerNode:
                 else:
                     self.theta = self._apply_full(self.theta, msg.values)
                 self.tracer.count("dispatch.device")
+                if fid is not None:
+                    # the wire arrow lands on net.recv, this step on the
+                    # apply
+                    self.tracer.flow_step("delta.wire", fid, clock=clock)
             else:
                 self.theta = self._apply_splice(msg)
             self.iterations += len(live)
@@ -677,6 +701,7 @@ class ServerNode:
         for worker in live:
             release |= self.workers_to_respond_to(clock, worker)
         self.dispatch_release_set(release)
+        self._pending_trace = None
 
     def _apply_sparse(self, msg) -> None:
         """theta[idx] += lr * vals for a SparseDeltaMessage, into a new

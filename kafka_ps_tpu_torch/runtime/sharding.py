@@ -31,6 +31,13 @@ Splitting and assembly are functions of (shard id, worker id, clock)
 alone: no set or dict iteration decides an order in these paths.
 `attach_param_stores` gives each shard a tiered store over its range
 (store/).
+
+Telemetry: the group hands `tracer=` and `telemetry=` to its nodes (whose
+families carry the `shard` label at N>1) and to its frontier eval engine;
+the router records `router.resend` and the assembler `shard.weights` (one
+per offered slice: the per-shard ack trail from which a postmortem names
+the last (worker, clock) a dead shard served).  Both records carry host
+ints only, and the recorder stamps the time.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from kafka_ps_tpu_torch.runtime.messages import (GradientMessage, KeyRange,
                                                  SparseDeltaMessage,
                                                  WeightsMessage)
 from kafka_ps_tpu_torch.runtime.server import ServerNode
+from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
 
 
 class ShardPlan:
@@ -144,11 +152,16 @@ class ShardRouter:
         by every slice from `clock` on, and its duplicate filter drops
         what had got through, so resending the tail is always safe."""
         sent = False
+        count = 0
         for c in sorted(self._cache):
             if c >= clock:
                 self._send(shard_id, self._cache[c][shard_id])
                 self.resent += 1
                 sent = True
+                count += 1
+        if FLIGHT.enabled:
+            FLIGHT.record("router.resend", shard=shard_id,
+                          from_clock=clock, count=count)
         return sent
 
 
@@ -172,6 +185,9 @@ class WeightsAssembler:
               msg: WeightsMessage) -> bool:
         """Feed one shard's slice; True when it completed an assembly
         and the full message was delivered."""
+        if FLIGHT.enabled:
+            FLIGHT.record("shard.weights", shard=shard_id, worker=worker,
+                          clock=msg.vector_clock)
         last = self._delivered.get(worker, -1)
         if msg.vector_clock <= last:
             self.stale += 1
@@ -249,7 +265,8 @@ class ShardedServerGroup:
     slices there is the full vector."""
 
     def __init__(self, cfg, fabric: fabric_mod.Fabric, num_shards: int,
-                 device=None, test_x=None, test_y=None, log=None):
+                 device=None, test_x=None, test_y=None, log=None,
+                 tracer=None, telemetry=None):
         from kafka_ps_tpu_torch.models.task import get_task
         from kafka_ps_tpu_torch.utils.config import resolve_device
         self.cfg = cfg
@@ -265,13 +282,15 @@ class ShardedServerGroup:
         self.test_x = test_x
         self.test_y = test_y
         self.log = log or (lambda line: None)
+        self.tracer = tracer
+        self.telemetry = telemetry
         self.routers: dict[int, ShardRouter] = {}
         self._eval_clock = -1
         self.eval_engine = None
         self._cut_publisher = None      # attach_serving at N>1
         if num_shards == 1:
             node = ServerNode(cfg, fabric, self.device, test_x, test_y,
-                              self.log)
+                              self.log, tracer=tracer, telemetry=telemetry)
             self.shards = [node]
             self.single: ServerNode | None = node
             self.assembler = None
@@ -285,7 +304,8 @@ class ShardedServerGroup:
             ServerNode(cfg, _ShardWeightsFabric(fabric, i, self.assembler,
                                                 forward_gang=(i == 0)),
                        self.device, key_range=rng, shard_id=i,
-                       num_shards=num_shards, grad_key=i)
+                       num_shards=num_shards, grad_key=i, tracer=tracer,
+                       telemetry=telemetry)
             for i, rng in enumerate(self.plan.ranges)]
 
     # -- worker wiring -----------------------------------------------------
@@ -371,10 +391,12 @@ class ShardedServerGroup:
         if self.single is not None:
             self.eval_engine = self.single.attach_eval_engine(EvalEngine(
                 self.task, self.test_x, self.test_y,
-                self.single._emit_eval))
+                self.single._emit_eval, telemetry=self.telemetry,
+                tracer=self.tracer))
         else:
-            self.eval_engine = EvalEngine(self.task, self.test_x,
-                                          self.test_y, self._emit_eval)
+            self.eval_engine = EvalEngine(
+                self.task, self.test_x, self.test_y, self._emit_eval,
+                telemetry=self.telemetry, tracer=self.tracer)
         return self.eval_engine
 
     def close_eval(self) -> None:

@@ -32,11 +32,15 @@ coalescing process interoperates bit for bit with a
 `--no-wire-coalesce` one.
 
 The JAX module's locks are its lock-order recorder's `OrderedLock`;
-here they are plain `threading` locks.  Its telemetry (a
-frames-per-syscall histogram, a queue-depth gauge, a dropped-advisory
-counter) are plain integers on the writer: `flushes`, `frames_flushed`,
-`syscalls`, `fps_counts` (flushes per `FPS_BUCKETS` bucket of frames per
-syscall), `queued_bytes` and `advisory_dropped`.
+here they are plain `threading` locks.
+
+Telemetry (`telemetry=`, null by default), the JAX writer's:
+`wire_frames_per_syscall` (histogram, per flush), `wire_send_queue_depth`
+(gauge, bytes queued), `wire_advisory_dropped` (counter), and a
+`net.flush` flight record per flush.  Beside them the writer keeps plain
+integers, which the bridges' stats lines read: `flushes`,
+`frames_flushed`, `syscalls`, `fps_counts` (flushes per `FPS_BUCKETS`
+bucket of frames per syscall), `queued_bytes` and `advisory_dropped`.
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ import socket
 import struct
 import threading
 from collections import deque
+
+from kafka_ps_tpu_torch.telemetry import NULL_TELEMETRY
+from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
 
 # the one frame header, shared with runtime/net.py (which re-exports
 # it): <u32 length> <u8 topic> <i64 key>, length counting topic+key+payload
@@ -123,8 +130,9 @@ class FrameWriter:
     queue — a GOODBYE/CONFIG enqueued before close() reaches the wire
     before the socket goes down."""
 
-    def __init__(self, sock: socket.socket, max_bytes: int = 8 << 20,
-                 flush_budget: int = 1 << 20, send_deadline: float = 5.0):
+    def __init__(self, sock: socket.socket, telemetry=None,
+                 max_bytes: int = 8 << 20, flush_budget: int = 1 << 20,
+                 send_deadline: float = 5.0):
         self._sock = sock
         self._max_bytes = int(max_bytes)
         self._flush_budget = int(flush_budget)
@@ -140,6 +148,11 @@ class FrameWriter:
         self.frames_flushed = 0
         self.syscalls = 0
         self.fps_counts = [0] * len(FPS_BUCKETS)
+        telemetry = telemetry or NULL_TELEMETRY
+        self._m_fps = telemetry.histogram("wire_frames_per_syscall",
+                                          buckets=FPS_BUCKETS)
+        self._m_depth = telemetry.gauge("wire_send_queue_depth")
+        self._m_dropped = telemetry.counter("wire_advisory_dropped")
         self._thread = threading.Thread(target=self._drain, daemon=True,
                                         name="kps-wire-writer")
         self._thread.start()
@@ -170,6 +183,7 @@ class FrameWriter:
                     # liveness frames are regenerated next interval —
                     # dropping beats blocking the heartbeat thread
                     self.advisory_dropped += 1
+                    self._m_dropped.inc()
                     return False
                 ok = self._cond.wait_for(
                     lambda: (self._dead or self._closing
@@ -179,6 +193,7 @@ class FrameWriter:
                     return False
             self._q.append((header, payload))
             self.queued_bytes += size
+            self._m_depth.set(self.queued_bytes)
             self._cond.notify_all()
         return True
 
@@ -218,6 +233,7 @@ class FrameWriter:
                 nbytes += len(header) + len(payload)
                 nframes += 1
             self.queued_bytes -= nbytes
+            self._m_depth.set(self.queued_bytes)
             self._cond.notify_all()     # wake producers blocked on space
         return batch, nframes, nbytes
 
@@ -226,7 +242,7 @@ class FrameWriter:
             popped = self._pop_batch()
             if popped is None:
                 return
-            batch, nframes, _nbytes = popped
+            batch, nframes, nbytes = popped
             try:
                 # outside the queue lock: a slow peer stalls this
                 # thread only
@@ -248,6 +264,10 @@ class FrameWriter:
                 self.syscalls += syscalls
                 self.fps_counts[min(bisect.bisect_left(FPS_BUCKETS, fps),
                                     len(FPS_BUCKETS) - 1)] += 1
+            self._m_fps.observe(fps)
+            if FLIGHT.enabled:
+                FLIGHT.record("net.flush", frames=nframes,
+                              syscalls=syscalls, bytes=nbytes)
 
 
 class RecvBuffer:

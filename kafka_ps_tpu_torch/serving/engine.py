@@ -42,6 +42,17 @@ synchronisation, and the labels and confidences come back in ONE small
 device-to-host copy of the dispatch's own outputs, which waits only for
 the work queued on the default stream before it.  No call here
 synchronises the device.
+
+Telemetry (`tracer=`, `telemetry=`, null by default) is the JAX engine's:
+the families `serving_requests_total`, `serving_rejections_total`,
+`serving_queue_depth`, `serving_shed_total`, `serving_batch_size`,
+`serving_latency_ms`, `snapshot_age_ms` and `serving_dispatch_mode{mode}`
+(resolved at construction, observed per micro-batch, never per row), the
+tracer's `serving.*` counts and `serving.predict` span, the
+`serving.batch` flight record with a `serving` beat per serve (the
+serving watchdog's progress), and the end of a snapshot's `delta.wire`
+flow at its first read.  The plain counters and `stats()` stay beside
+them.
 """
 
 from __future__ import annotations
@@ -57,7 +68,9 @@ import torch
 from kafka_ps_tpu_torch.serving import policy
 from kafka_ps_tpu_torch.serving.costmodel import DispatchCostModel
 from kafka_ps_tpu_torch.serving.snapshot import SnapshotRegistry
-from kafka_ps_tpu_torch.utils.trace import LatencyRecorder
+from kafka_ps_tpu_torch.telemetry import NULL_TELEMETRY
+from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
+from kafka_ps_tpu_torch.utils.trace import NULL_TRACER, LatencyRecorder
 
 
 class Prediction(NamedTuple):
@@ -80,7 +93,7 @@ class _Tenant:
     dispatch cost model and admission bookkeeping."""
 
     __slots__ = ("model_id", "task", "registry", "predict", "depth",
-                 "cost", "compiled")
+                 "last_traced_seq", "cost", "compiled")
 
     def __init__(self, model_id: int, task, registry: SnapshotRegistry,
                  max_batch: int):
@@ -88,6 +101,9 @@ class _Tenant:
         self.task = task
         self.registry = registry
         self.predict = None        # the forward, built on first dispatch
+        # seq of the last snapshot whose delta.wire flow ended here: a
+        # flow ends once, at the snapshot's FIRST serving read
+        self.last_traced_seq = -1
         self.depth = 0             # admitted-but-unserved requests
         # dispatch economics (serving/costmodel.py): fed by warmup and
         # every live dispatch, read by submit's bypass decision
@@ -134,14 +150,15 @@ def make_forward(task):
     return forward
 
 
-def make_engine(task, registry: SnapshotRegistry, scfg) -> "PredictionEngine":
+def make_engine(task, registry: SnapshotRegistry, scfg, tracer=None,
+                telemetry=None) -> "PredictionEngine":
     """The engine a utils.config.ServingConfig sizes (the --serve flags)."""
     return PredictionEngine(
         task, registry, max_batch=scfg.max_batch,
         deadline_s=scfg.deadline_ms / 1000.0, queue_limit=scfg.queue_limit,
         shed_deadline_s=(scfg.shed_deadline_ms / 1000.0
                          if scfg.shed_deadline_ms else None),
-        auto=scfg.auto)
+        auto=scfg.auto, tracer=tracer, telemetry=telemetry)
 
 
 class PredictionEngine:
@@ -151,7 +168,8 @@ class PredictionEngine:
     def __init__(self, task, registry: SnapshotRegistry, *,
                  max_batch: int = 16, deadline_s: float = 0.002,
                  queue_limit: int = 0, shed_deadline_s: float | None = None,
-                 adaptive: bool = True, auto: bool = True, now=time.time):
+                 adaptive: bool = True, auto: bool = True,
+                 tracer=None, telemetry=None, now=time.time):
         self.max_batch = max(1, int(max_batch))
         self.deadline_s = max(0.0, float(deadline_s))
         # 0 = unbounded; > 0 bounds EACH tenant's outstanding requests
@@ -163,6 +181,26 @@ class PredictionEngine:
         # the batch-latency curve); cold engines batch
         self.auto = bool(auto)
         self._now = now
+        self.tracer = tracer or NULL_TRACER
+        self.telemetry = telemetry or NULL_TELEMETRY
+        # resolved once (null when telemetry is off): observed per
+        # micro-batch, never per row, never on device data
+        self._m_snapshot_age = self.telemetry.histogram("snapshot_age_ms")
+        self._m_requests = self.telemetry.counter("serving_requests_total")
+        self._m_rejections = self.telemetry.counter(
+            "serving_rejections_total")
+        self._m_queue_depth = self.telemetry.gauge("serving_queue_depth")
+        self._m_sheds = self.telemetry.counter("serving_shed_total")
+        self._m_batch_size = self.telemetry.histogram("serving_batch_size")
+        self._m_latency = self.telemetry.histogram("serving_latency_ms")
+        # the dispatch-mode family (the shm transport counts its own
+        # child in runtime/net.py)
+        self._m_mode = {
+            "batch": self.telemetry.counter("serving_dispatch_mode",
+                                            mode="batch"),
+            "bypass": self.telemetry.counter("serving_dispatch_mode",
+                                             mode="bypass"),
+        }
         self._q: queue.SimpleQueue = queue.SimpleQueue()
         # admission bookkeeping: the depth counters gate sheds, so they
         # move under one leaf lock, never nested
@@ -264,6 +302,8 @@ class PredictionEngine:
                       and tenant.cost.bypass())
             if bypass:
                 self._bypassing += 1
+            if self.telemetry.enabled:
+                self._m_queue_depth.set(self._depth)
         row = np.asarray(x, dtype=np.float32).reshape(-1)
         req = _Request(row, bound, callback, time.monotonic(), model_id)
         if bypass:
@@ -278,6 +318,9 @@ class PredictionEngine:
     def _shed(self, tenant: _Tenant, why: str):
         """Count and raise the typed rejection (admission lock held)."""
         self.sheds += 1
+        self.tracer.count("serving.sheds")
+        if self.telemetry.enabled:
+            self._m_sheds.inc()
         raise policy.OverloadedError(
             f"request shed: {why}", queue_depth=tenant.depth,
             queue_limit=self.queue_limit or None, model_id=tenant.model_id)
@@ -366,6 +409,7 @@ class PredictionEngine:
         return self.deadline_s
 
     def _serve(self, batch: list[_Request], mode: str = "batch") -> None:
+        cost = self._tenants[batch[0].model_id].cost
         with self._admission:
             self.requests += len(batch)
             if mode == "bypass":
@@ -373,7 +417,18 @@ class PredictionEngine:
             for req in batch:
                 self._tenants[req.model_id].depth -= 1
             self._depth -= len(batch)
+            if self.telemetry.enabled:
+                self._m_queue_depth.set(self._depth)
         TRACE_COUNTS[mode] += 1
+        if FLIGHT.enabled:
+            FLIGHT.record("serving.batch", n=len(batch),
+                          depth=self._depth, mode=mode,
+                          occupancy=round(cost.occupancy, 2),
+                          break_even=round(cost.break_even, 2))
+            FLIGHT.beat("serving")
+        if self.telemetry.enabled:
+            self._m_requests.inc(len(batch))
+            self._m_mode[mode].inc()
         # the backlog a full drain could have collected now: the demand
         # sample (None for bypass serves, which never see the queue)
         avail = None
@@ -401,6 +456,11 @@ class PredictionEngine:
         # from the same hot-swapped (theta, clock) pair
         snap = tenant.registry.latest
         now = self._now()
+        if self.telemetry.enabled and snap is not None:
+            # read-side staleness: the answering snapshot's age at serve
+            # time (one sample per micro-batch)
+            self._m_snapshot_age.observe(
+                max(0.0, (now - snap.wall_time) * 1e3))
         live: list[_Request] = []
         for req in batch:
             try:
@@ -408,6 +468,9 @@ class PredictionEngine:
             except policy.StalenessError as err:
                 with self._admission:
                     self.rejections += 1
+                self.tracer.count("serving.staleness_rejections")
+                if self.telemetry.enabled:
+                    self._m_rejections.inc()
                 self._finish(req, err)
                 continue
             live.append(req)
@@ -425,6 +488,9 @@ class PredictionEngine:
             # bypass serves run on caller threads beside the batcher
             self.batches += 1
             self.batched_rows += len(live)
+        self.tracer.count("serving.batch_dispatches")
+        if self.telemetry.enabled:
+            self._m_batch_size.observe(len(live))
         for i, req in enumerate(live):
             self._finish(req, Prediction(int(out[0, i]), float(out[1, i]),
                                          snap.vector_clock, snap.wall_time))
@@ -443,7 +509,14 @@ class PredictionEngine:
         for i, req in enumerate(live):
             xs[i, :req.x.size] = req.x[:xs.shape[1]]
         self._use_device(snap.theta)
-        out = fn(snap.theta, xs)
+        with self.tracer.span("serving.predict", rows=len(live)):
+            if snap.trace is not None and snap.seq > tenant.last_traced_seq:
+                # the delta.wire flow ends at this snapshot's FIRST read:
+                # solve -> wire -> apply -> publish -> here
+                tenant.last_traced_seq = snap.seq
+                self.tracer.flow_end("delta.wire", snap.trace,
+                                     clock=snap.vector_clock)
+            out = fn(snap.theta, xs)
         # the same sample calibrates the cost model: assembly, forward
         # and the read-back, one bucket
         tenant.cost.observe_dispatch(len(live), rows,
@@ -508,11 +581,15 @@ class PredictionEngine:
             b <<= 1
 
     def _finish(self, req: _Request, result) -> None:
-        self.latency.record(time.monotonic() - req.t0)
+        elapsed = time.monotonic() - req.t0
+        self.latency.record(elapsed)
+        if self.telemetry.enabled:
+            self._m_latency.observe(elapsed * 1e3)
         try:
             req.callback(result)
         except Exception:  # noqa: BLE001 — a callback must not stall serving
             self.callback_errors += 1
+            self.tracer.count("serving.callback_errors")
 
     # -- ops surface ---------------------------------------------------------
 

@@ -33,6 +33,11 @@ Snapshots published here keep the staleness rules of serving/policy.py:
 `min_clock` bounds at or below the frontier are satisfiable, `max_age_s`
 runs off the replica's publication time, and `at_clock` reads hit the
 replica's own ring.
+
+Telemetry, the JAX follower's: the tracer's `replica.publications` count
+(`tracer=`), a `replica.publish` flight record per publication, and a
+`replica` beat on every poll of the tail thread, data or not (the replica
+watchdog asks whether the loop turns, not whether the trainer produces).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from kafka_ps_tpu_torch.log.tail import TopicTailer
 from kafka_ps_tpu_torch.runtime import serde
 from kafka_ps_tpu_torch.serving.snapshot import (FrontierCutPublisher,
                                                  SnapshotRegistry)
+from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
 from kafka_ps_tpu_torch.utils.config import (canonical_device,
                                              resolve_device)
 
@@ -79,8 +85,10 @@ class ReplicaFollower:
     did)."""
 
     def __init__(self, root: str, registry: SnapshotRegistry | None = None,
-                 *, poll_interval_s: float = 0.05, device=None):
+                 *, poll_interval_s: float = 0.05, device=None,
+                 tracer=None):
         self.root = root
+        self.tracer = tracer
         self.registry = registry if registry is not None \
             else SnapshotRegistry()
         self.poll_interval_s = poll_interval_s
@@ -163,6 +171,11 @@ class ReplicaFollower:
                 published = 1
         if published:
             self.publications += 1
+            if self.tracer is not None:
+                self.tracer.count("replica.publications")
+            if FLIGHT.enabled:
+                FLIGHT.record("replica.publish",
+                              clock=self.registry.latest.vector_clock)
             if self.on_publish is not None:
                 self.on_publish(self.registry.latest.vector_clock)
         return published
@@ -189,6 +202,7 @@ class ReplicaFollower:
                 torch.cuda.set_device(self.device)
             while not self._stop.is_set():
                 self.catch_up()
+                FLIGHT.beat("replica")
                 self._stop.wait(self.poll_interval_s)
         except Exception as e:  # noqa: BLE001 — kept for the caller
             self.error = e

@@ -35,9 +35,8 @@ class Snapshot(NamedTuple):
     vector_clock: int      # stable clock: min active-worker clock at publish
     wall_time: float       # publication time (the registry's clock)
     seq: int               # publication number, increasing
-    # trace context of the release that published it (always None here:
-    # the port carries no trace context until ROADMAP item 24b; kept so
-    # the tuple has the JAX fields)
+    # trace context (a delta.wire flow id) of the gradient whose gate
+    # release published this snapshot; None when tracing is off
     trace: object = None
 
 

@@ -46,21 +46,28 @@ Port specifics:
     whole-slice replacement) count in `host_fetch_bytes`;
   * a migration pass keeps the hot pages' bytes under the hot cap at
     every moment (`_migrate`);
-  * the JAX package's telemetry (`param_range_heat`, the `param_tier_*`
-    families) and its flight records (`store.fault`, `store.promote`,
-    `store.demote`) are kept here as plain counters: `pins`, `faults`,
-    `promotions`, `demotions`, `rebalances`, `heat_vectors()` and
-    `stats()`.
+  * telemetry (`telemetry=`, null by default) is the JAX store's: the
+    families `param_tier_pins_total{tier}`,
+    `param_tier_migrations_total{direction}`,
+    `param_tier_migration_ms{direction}`, `param_range_heat{kind,range}`
+    and `param_tier_pages{tier}` (the last two set at each policy pass),
+    and the flight records `store.fault`, `store.promote` and
+    `store.demote`.  The plain counters the stats line reads stay beside
+    them: `pins`, `faults`, `promotions`, `demotions`, `rebalances`,
+    `heat_vectors()` and `stats()`.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
 
 from kafka_ps_tpu_torch.runtime.messages import KeyRange
+from kafka_ps_tpu_torch.telemetry import NULL_TELEMETRY
+from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
 from kafka_ps_tpu_torch.utils.config import resolve_device
 
 TIER_HOT, TIER_WARM, TIER_COLD = 0, 1, 2
@@ -80,7 +87,8 @@ def attach_tiered_store(server, tier, key_range: KeyRange,
     store = TieredParamStore(
         server.theta, key_range, hot_bytes=tier.hot_bytes,
         warm_bytes=tier.warm_bytes, page_params=tier.page_params, cold=cold,
-        device=server.device, rebalance_interval_s=tier.rebalance_interval_s)
+        device=server.device, rebalance_interval_s=tier.rebalance_interval_s,
+        telemetry=server.telemetry)
     server.attach_param_store(store)
     store.start_policy_thread()
     return store
@@ -122,7 +130,7 @@ class TieredParamStore:
     def __init__(self, values, key_range: KeyRange, *,
                  hot_bytes: int = 0, warm_bytes: int = 0,
                  page_params: int = 1024, cold=None, device=None,
-                 rebalance_interval_s: float = 0.05):
+                 rebalance_interval_s: float = 0.05, telemetry=None):
         from kafka_ps_tpu_torch.compress.slab import ParamPageSlab
         if page_params <= 0:
             raise ValueError("page_params must be positive")
@@ -154,6 +162,18 @@ class TieredParamStore:
         self.settled = {"hot": 0, "warm": 0, "cold": 0}
         self.host_upload_bytes = 0
         self.host_fetch_bytes = 0
+        telemetry = telemetry or NULL_TELEMETRY
+        self.telemetry = telemetry
+        self._m_pins = {t: telemetry.counter("param_tier_pins_total",
+                                             tier=t)
+                        for t in TIER_NAMES}
+        self._m_migrations = {
+            d: telemetry.counter("param_tier_migrations_total",
+                                 direction=d)
+            for d in ("promote", "demote")}
+        self._m_migration_ms = {
+            d: telemetry.histogram("param_tier_migration_ms", direction=d)
+            for d in ("promote", "demote")}
 
         vals = self._host(values)
         if vals.shape != (key_range.end - key_range.start,):
@@ -227,7 +247,10 @@ class TieredParamStore:
                 p = self._pages[i]
                 if count_heat:
                     p.reads += 1
-                    self.pins[TIER_NAMES[p.tier]] += 1
+                    tier = TIER_NAMES[p.tier]
+                    self.pins[tier] += 1
+                    if self.telemetry.enabled:
+                        self._m_pins[tier].inc()
                 if p.tier == TIER_COLD:
                     faults.append((p, p.cold_offset, p.version))
                     out.append([i, KeyRange(p.start, p.end), None])
@@ -235,9 +258,11 @@ class TieredParamStore:
                     out.append([i, KeyRange(p.start, p.end), p.value])
         if faults:
             # the log's point reads run outside the residency lock
+            t0 = time.perf_counter()
             fetched = [(p, ver,
                         self.cold.get(off, p.index, p.start, p.end))
                        for p, off, ver in faults]
+            dt_ms = (time.perf_counter() - t0) * 1e3
             by_index = {}
             with self._lock:
                 for p, ver, vals in fetched:
@@ -251,6 +276,14 @@ class TieredParamStore:
                         self.promotions += 1
                     # else a racing write landed a newer value: use it
                     by_index[p.index] = p.value
+            if self.telemetry.enabled:
+                self._m_migrations["promote"].inc(len(fetched))
+                self._m_migration_ms["promote"].observe(dt_ms)
+            if FLIGHT.enabled:
+                # a demand fault is the tail-latency event a postmortem
+                # wants on the timeline: how many pages, how long
+                FLIGHT.record("store.fault", pages=len(fetched),
+                              ms=round(dt_ms, 3))
             for entry in out:
                 if entry[2] is None:
                     entry[2] = by_index[entry[0]]
@@ -378,7 +411,8 @@ class TieredParamStore:
 
     def rebalance(self) -> dict:
         """One policy pass: plan, migrate the difference (I/O outside the
-        lock, version-checked commits), halve the heat counters."""
+        lock, version-checked commits), halve the heat counters, set the
+        heat and page-count gauges."""
         with self._lock:
             targets = self._plan_locked()
             moves = [(p, targets[p.index], p.value, p.cold_offset,
@@ -395,6 +429,16 @@ class TieredParamStore:
                 p.writes //= 2
                 counts[p.tier] += 1
             self.settled = dict(zip(TIER_NAMES, counts))
+            if self.telemetry.enabled:
+                for p in self._pages:
+                    rng = f"{p.start}:{p.end}"
+                    self.telemetry.gauge("param_range_heat", kind="read",
+                                         range=rng).set(p.reads)
+                    self.telemetry.gauge("param_range_heat", kind="write",
+                                         range=rng).set(p.writes)
+                for t, n in zip(TIER_NAMES, counts):
+                    self.telemetry.gauge("param_tier_pages",
+                                         tier=t).set(n)
         return {"moved": applied, "targets": len(moves)}
 
     def _migrate(self, moves) -> int:
@@ -413,6 +457,7 @@ class TieredParamStore:
         moves = sorted(moves, key=lambda m: m[1] == TIER_HOT)
         for p, target, value, cold_offset, version in moves:
             promote = target < p.tier
+            t0 = time.perf_counter()
             # unlocked I/O: the value in the target tier's form
             if target == TIER_COLD:
                 new_offset = self.cold.put(p.index, p.start, p.end,
@@ -453,6 +498,14 @@ class TieredParamStore:
                     self.promotions += 1
                 else:
                     self.demotions += 1
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            d = "promote" if promote else "demote"
+            if self.telemetry.enabled:
+                self._m_migrations[d].inc()
+                self._m_migration_ms[d].observe(dt_ms)
+            if FLIGHT.enabled:
+                FLIGHT.record(f"store.{d}", page=p.index,
+                              tier=TIER_NAMES[target], ms=round(dt_ms, 3))
         return applied
 
     # -- the policy thread --------------------------------------------------

@@ -4,8 +4,9 @@ the process they describe.
 
 Metrics and traces explain runs that finish; this module explains runs
 that wedge or die.  Instrumented subsystems (the consistency gate, the
-durable log, the eval engine) append small structured events into a
-per-thread ring buffer:
+socket bridges, the durable log, the shard router and assembler, the
+relay, the serving engine, the replica tailer, the tiered store, the eval
+engine) append small structured events into a per-thread ring buffer:
 
   * **lock-free append**: each ring has exactly one writer (its thread),
     so the hot path is two list stores and an index bump — no lock, no
@@ -89,7 +90,7 @@ class FlightRecorder:
     watchdogs (telemetry/health.py) read:
 
       * `beat(name)` — "subsystem `name` made progress now" (a gate
-        release, an fsync completing);
+        release, a replica poll, an fsync completing);
       * `enter(name)` / `exit(name)` — bracket an operation that can
         wedge (the fsync syscall), so a watchdog can see "in flight
         for 40 s" without the operation ever completing.

@@ -10,8 +10,8 @@ positive here kills a healthy pod:
         now - max(last_beat, demand_since) > threshold_s
 
   * `demand` is "is there work this subsystem owes progress on?" —
-    workers waiting at the gate, an fsync in flight.  No demand, no
-    trip: an idle gate is healthy forever.
+    workers waiting at the gate, requests queued for serving, an fsync
+    in flight.  No demand, no trip: an idle gate is healthy forever.
   * a beat (FLIGHT.beat from the subsystem's hot path) restarts the
     window: a slow-but-alive BSP round keeps beating on every gradient
     arrival, so sleepy workers never trip it.
@@ -32,9 +32,10 @@ The HTTP plane is stdlib-only (http.server on a named daemon thread):
 
 The two 404 answers are the JAX plane's when those planes are not armed.
 
-`OpsPlane` bundles recorder + panel + server lifecycle for the trainer
-(cli/run.py): construct, add watchdogs, start(), close() in the teardown
-path — close writes the final flight dump before the process exits.
+`OpsPlane` bundles recorder + panel + server lifecycle for the CLI
+roles (cli/run.py, cli/socket_mode.py): construct, add watchdogs,
+start(), close() in the teardown path — close writes the final flight
+dump before the process exits.
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
 # healthy process is worse than diagnosing a wedged one 30 s late.
 GATE_STALL_S = 30.0
 FSYNC_STALL_S = 15.0
+SERVING_STALL_S = 15.0
+REPLICA_STALL_S = 30.0
 
 
 class Liveness:
@@ -278,13 +281,13 @@ class HealthServer:
 
 class OpsPlane:
     """Recorder + watchdogs + health server as one lifecycle object for
-    the trainer.  Inert (a cheap no-op) when neither --flight-dir nor
+    the CLI roles.  Inert (a cheap no-op) when neither --flight-dir nor
     --health-port was given, so wiring is unconditional."""
 
     def __init__(self, *, flight_dir: str | None = None,
                  health_port: int | None = None, telemetry=None,
                  role: str = "run", shard: int | None = None,
-                 flight=None):
+                 meta: dict | None = None, flight=None):
         self.flight = flight if flight is not None else FLIGHT
         self.enabled = flight_dir is not None or health_port is not None
         self.health: HealthServer | None = None
@@ -295,7 +298,7 @@ class OpsPlane:
         if not self.enabled:
             return
         self.flight.enable(role=role, shard=shard, flight_dir=flight_dir,
-                           telemetry=telemetry)
+                           telemetry=telemetry, meta=meta)
         if flight_dir is not None:
             self.flight.install_death_hooks()
         self.panel = WatchdogPanel(flight=self.flight)
@@ -323,6 +326,18 @@ class OpsPlane:
             "log.fsync", threshold_s, beat_name="log.fsync",
             demand=lambda: self.flight.inflight_age("log.fsync")
             is not None)
+
+    def add_serving_watchdog(self, engine,
+                             threshold_s: float = SERVING_STALL_S) -> None:
+        """Requests queued but the batcher stopped draining."""
+        self.add_watchdog("serving", threshold_s, beat_name="serving",
+                          demand=lambda: engine.queue_depth() > 0)
+
+    def add_replica_watchdog(self,
+                             threshold_s: float = REPLICA_STALL_S) -> None:
+        """The log tail poll loop stopped turning (beats every poll,
+        even an empty one, so demand is unconditional)."""
+        self.add_watchdog("replica", threshold_s, beat_name="replica")
 
     def add_eval_engine(self, engine) -> None:
         """Surface the async eval engine on /evalz (queue depth, clock

@@ -979,3 +979,37 @@ def test_telemetry_device_trace_names_the_hand_kernels(card, task, symbol,
     with pytest.raises(RuntimeError, match="no CUDA kernel"):
         with trace.device_trace(str(tmp_path / "idle"), card):
             pass                           # nothing ran on the card
+
+
+@pytest.mark.parametrize("task,slab", [("logreg", "f32"), ("mlp", "f32"),
+                                       ("logreg", "int8")])
+def test_traced_bridge_round_on_the_card_is_bitwise_the_untraced(card, task,
+                                                                 slab):
+    """The bridge round with a tracer and a registry on both sides
+    (tests/torch_split_round.py): trace context negotiated, every
+    gradients and weights frame 16 bytes longer (the flow id suffix), and
+    the gradients and theta bitwise the untraced round's."""
+    from torch_split_round import bridge_round
+    from kafka_ps_tpu_torch.telemetry import Telemetry
+    from kafka_ps_tpu_torch.utils.trace import Tracer
+
+    def obs(role):
+        tracer = Tracer()
+        return tracer, Telemetry(tracer=tracer)
+
+    kw = dict(features=1024, classes=5, hidden=128, workers=4, rows=256,
+              slab=slab)
+    plain, traced = {}, {}
+    _, (grads, theta) = bridge_round(card, task, info=plain, **kw)
+    _, (tgrads, ttheta) = bridge_round(card, task, obs=obs, info=traced,
+                                       **kw)
+    assert torch.equal(theta, ttheta)
+    assert all(torch.equal(a.values, b.values)
+               for a, b in zip(grads, tgrads))
+    assert (plain["trace_negotiated"], traced["trace_negotiated"]) == \
+        (False, True)
+    for side, topic in (("worker_wire", "gradients"),
+                        ("server_wire", "weights")):
+        a, b = plain[side][topic], traced[side][topic]
+        assert a["frames_out"] == b["frames_out"] > 0
+        assert b["bytes_out"] - a["bytes_out"] == 16 * b["frames_out"]

@@ -11,7 +11,7 @@ utils/trace.py, utils/status.py).
     observation counts.
   * `cli.run` with all seven telemetry flags against the JAX CLI with the
     same flags (one subprocess each, run side by side), and the role
-    runners' refusal of those flags.
+    runners' refusal of `--device_trace`.
 """
 
 from __future__ import annotations
@@ -343,18 +343,19 @@ def test_cli_runs_with_every_telemetry_flag_as_the_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("runner,argv", [
-    ("server_runner", ["--trace", "t.json"]),
-    ("server_runner", ["--listen", "0", "--health-port", "0"]),
-    ("worker_runner", ["--connect", "127.0.0.1:1", "--flight-dir", "f"]),
-    ("worker_runner", ["--status_every", "1"]),
+    ("server_runner", ["--listen", "0", "--device_trace", "d"]),
+    ("worker_runner", ["--connect", "127.0.0.1:1", "--device_trace", "d"]),
     ("agg_runner", ["--connect", "127.0.0.1:1", "--metrics-file", "m",
                     "--device_trace", "d"])])
-def test_role_runners_refuse_the_telemetry_flags(runner, argv):
+def test_role_runners_refuse_the_device_trace(runner, argv):
+    """The JAX roles parse --device_trace and record nothing: the port's
+    runners refuse it by name (the other telemetry flags they take,
+    tests/test_torch_role_telemetry_runs.py)."""
     import importlib
     mod = importlib.import_module(f"kafka_ps_tpu_torch.cli.{runner}")
     with pytest.raises(SystemExit) as e:
         mod.main(argv)
     msg = str(e.value.code)
-    assert "ROADMAP item 24b" in msg
-    assert all(flag in msg for flag in argv if flag.startswith("--")
-               and flag not in ("--listen", "--connect"))
+    assert msg.startswith("--device_trace: the role runners take no "
+                          "device trace, as in the JAX package")
+    assert "ROADMAP" not in msg and "--metrics-file" not in msg

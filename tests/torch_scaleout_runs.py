@@ -74,22 +74,25 @@ def _fill(buffers, cfg, x, y):
 
 
 def group_run(device, n, cfg, iters, x, y, test=None, theta0=None,
-              topk=None):
+              topk=None, tracer=None, telemetry=None):
     """(group, server rows) after `iters` serial iterations of an N-shard
-    group over `cfg.num_workers` workers holding the rows of x, y."""
+    group over `cfg.num_workers` workers holding the rows of x, y; the
+    group and the workers get `tracer` and `telemetry`."""
     from kafka_ps_tpu_torch.runtime.sharding import ShardedServerGroup
     fab = fabric_mod.Fabric()
     sink = ListSink()
     tx, ty = test if test is not None else (None, None)
     group = ShardedServerGroup(cfg, fab, n, device=device, test_x=tx,
-                               test_y=ty, log=sink)
+                               test_y=ty, log=sink, tracer=tracer,
+                               telemetry=telemetry)
     if theta0 is not None:
         for s, r in zip(group.shards, group.plan.ranges):
             s.theta = theta0[r.start:r.end].clone().to(device)
     buffers = {w: SlidingBuffer(cfg.model.num_features, cfg.buffer)
                for w in range(cfg.num_workers)}
     nodes = [WorkerNode(w, cfg, fab, buffers[w], device, tx, ty,
-                        ListSink()) for w in range(cfg.num_workers)]
+                        ListSink(), tracer=tracer, telemetry=telemetry)
+             for w in range(cfg.num_workers)]
     if topk is not None:
         from kafka_ps_tpu_torch import compress
         codec = compress.get_codec(compress.parse_codec(topk),
@@ -116,11 +119,11 @@ def unsharded_run(device, cfg, iters, x, y, test, theta0=None):
     return app, sink.rows
 
 
-def _app(device, cfg, x, y, test):
+def _app(device, cfg, x, y, test, **kw):
     from kafka_ps_tpu_torch.runtime.app import StreamingPSApp
     rows = ListSink()
     app = StreamingPSApp(cfg, test_x=test[0], test_y=test[1],
-                         server_log=rows, device=device)
+                         server_log=rows, device=device, **kw)
     _fill({w: app.buffers[w] for w in range(cfg.num_workers)}, cfg, x, y)
     app.rows = rows.rows
     return app
@@ -163,17 +166,19 @@ def direct_run(device, cfg, iters, x, y, test):
 
 
 def aggregated_run(device, cfg, iters, x, y, test, codec=None,
-                   summed=False, restart_at=None):
+                   summed=False, restart_at=None, tracer=None,
+                   telemetry=None):
     """The same app with one LocalAggregator in front of all workers:
     raw deltas in, one composite per flush into the gate; `codec` (e.g.
     "int8") compresses at the aggregator, with the server's weights
     compressor; `restart_at`: the aggregator's state is reset and
     restored from ef_state() after that many flushes, and the workers'
-    last deltas are offered again."""
+    last deltas are offered again.  The app and the aggregator get
+    `tracer` and `telemetry`."""
     from kafka_ps_tpu_torch.agg import LocalAggregator
     from kafka_ps_tpu_torch.compress import wire as cwire
     app = _app(device, dataclasses.replace(cfg, compress="none"), x, y,
-               test)
+               test, tracer=tracer, telemetry=telemetry)
     spec = None
     if codec is not None:
         from kafka_ps_tpu_torch import compress
@@ -181,7 +186,8 @@ def aggregated_run(device, cfg, iters, x, y, test, codec=None,
         app.server.compressor = compress.WeightsCompressor(
             compress.get_codec(spec, app.server.task.num_params))
     agg = LocalAggregator(0, app.server.task.num_params, codec_spec=spec,
-                          summed=summed, device=device)
+                          summed=summed, device=device, telemetry=telemetry,
+                          tracer=tracer)
     app.server.start_training_loop()
     delivered, last_sent, stalled, rounds = {}, {}, 0, 0
     while app.server.iterations < iters:

@@ -119,9 +119,10 @@ def read_load_run(cfg, device, serve: bool, iters: int = 40,
             "app": app}
 
 
-def snapshot_sequence(cfg, device, iters: int = 40) -> list:
-    """[(clock, theta bytes)] of every snapshot a serial run publishes."""
-    app, _, _ = build_app(cfg, device)
+def snapshot_sequence(cfg, device, iters: int = 40, **kw) -> list:
+    """[(clock, theta bytes)] of every snapshot a serial run publishes
+    (`kw`: the app's, e.g. tracer and telemetry)."""
+    app, _, _ = build_app(cfg, device, **kw)
     registry = SnapshotRegistry(capacity=100000)
     app.server.serving = registry
     app.run_serial(iters)

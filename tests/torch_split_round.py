@@ -3,8 +3,11 @@ deployment's bitwise check: in process (workers and server on one
 in-memory fabric), and through a localhost ServerBridge/WorkerBridge
 pair (kafka_ps_tpu_torch/runtime/net.py) with the buffer rows delivered
 as DATA_BATCH frames.  Same theta, same rows, gang dispatch off, as in a
-split worker process.  Imports no JAX: tests/test_torch_socket_mode.py
-runs it on the CPU, tests/test_torch_cuda.py on the card.
+split worker process.  The bridged round may run with telemetry on either
+side (`obs`), trace context then crossing the sockets.  Imports no JAX:
+tests/test_torch_socket_mode.py and tests/test_torch_role_telemetry.py
+run it on the CPU, tests/test_torch_cuda.py and chip_smoke.py on the
+card.
 """
 
 from __future__ import annotations
@@ -42,9 +45,14 @@ def _round(server, workers, wfab, sfab):
 
 def bridge_round(device, task: str, features: int = 16, classes: int = 3,
                  hidden: int = 8, workers: int = 2, rows: int = 20,
-                 slab: str = "f32", seed: int = 5):
+                 slab: str = "f32", seed: int = 5, obs=None, info=None):
     """((gradients, theta) in process, (gradients, theta) through the
-    bridges) of one round."""
+    bridges) of one round.  `obs(role)` gives the (tracer, telemetry) of
+    the bridged round's "server" and "worker" sides (bridges and nodes);
+    `info`, a dict, receives whether the worker bridge negotiated trace
+    context and each bridge's wire_stats()."""
+    ts, ms = obs("server") if obs is not None else (None, None)
+    tw, mw = obs("worker") if obs is not None else (None, None)
     device = torch.device(device)
     cfg = PSConfig(num_workers=workers, consistency_model=0, use_gang=False,
                    eval_async=False, task=task, slab_dtype=slab,
@@ -56,8 +64,9 @@ def bridge_round(device, task: str, features: int = 16, classes: int = 3,
              int(y[i])) for i in range(len(x))]
     per_worker = {w: data[w::workers] for w in range(workers)}
 
-    def nodes(fab, bufs):
-        return {w: WorkerNode(w, cfg, fab, bufs[w], device)
+    def nodes(fab, bufs, tracer=None, telemetry=None):
+        return {w: WorkerNode(w, cfg, fab, bufs[w], device, tracer=tracer,
+                              telemetry=telemetry)
                 for w in range(workers)}
 
     fab = fabric_mod.Fabric()
@@ -71,12 +80,12 @@ def bridge_round(device, task: str, features: int = 16, classes: int = 3,
         bufs[w].add_many(per_worker[w])
     ref = _round(server, nodes(fab, bufs), fab, fab)
 
-    sb = net.ServerBridge(device=device)
+    sb = net.ServerBridge(device=device, tracer=ts, telemetry=ms)
     sfab = sb.wrap(fabric_mod.Fabric())
-    server2 = ServerNode(cfg, sfab, device)
+    server2 = ServerNode(cfg, sfab, device, tracer=ts, telemetry=ms)
     server2.theta = theta0
     wb = net.WorkerBridge("127.0.0.1", sb.port, list(range(workers)),
-                          device=device)
+                          device=device, tracer=tw, telemetry=mw)
     wfab = wb.make_fabric()
     bufs2 = {w: SlidingBuffer(features, cfg.buffer) for w in range(workers)}
     t = threading.Thread(target=wb.run_reader, args=(bufs2,), daemon=True)
@@ -89,11 +98,14 @@ def bridge_round(device, task: str, features: int = 16, classes: int = 3,
         while (any(bufs2[w].count < rows for w in range(workers))
                and time.monotonic() < deadline):
             time.sleep(0.01)
-        got = _round(server2, nodes(wfab, bufs2), wfab, sfab)
+        got = _round(server2, nodes(wfab, bufs2, tw, mw), wfab, sfab)
     finally:
         wb.close()
         sb.close()
         t.join(timeout=10.0)
+    if info is not None:
+        info.update(trace_negotiated=wb.trace_negotiated,
+                    server_wire=sb.wire_stats(), worker_wire=wb.wire_stats())
     wb.raise_reader_error()
     sb.raise_reader_error()
     return ref, got
