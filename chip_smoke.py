@@ -181,21 +181,36 @@
    and resident.
 9. Telemetry phase (telemetry/, utils/trace.py, utils/status.py):
    cli.run with --trace, --metrics-file (--metrics-every 0.5),
-   --flight-dir, --health-port 0 and --status_every 0.1: logreg serial
-   -c 0 (400 iterations on the 512-row CSV) beside the same run without
-   them, theta (SHA-256 of the exit checkpoint), the rows and the kernel
-   counters bitwise, /healthz answering 200 mid-run (polled from a thread
-   of this script); threaded -c 2 beside its untraced twin (eval lag 0,
-   one clock_lag observation per gradient, the gate watchdog quiet);
-   --fused --eval_every 10 with --trace bitwise its twin, one bsp.step
-   span and count per dispatch.  Each traced run: gradients_applied_total
-   equal to the server iterations, one worker.local_update span per kernel
-   call and one dispatch.device per kernel call and server apply, rising
-   [status] iters, an exit flight dump with gate events.  Then
-   --device_trace runs (logreg and the MLP, serial -c 0, 100 iterations)
-   whose trace must hold the hand kernels' CUDA events, and a threaded run
-   with --flight-dir killed by SIGTERM (its dump read back).  Prints
-   iterations/s with every flag over without, beside the card line.
+   --flight-dir, --health-port 0, --status_every 0.1 and the analysis
+   planes' --profile, --model-health, --slo-serving-p99-ms 50 and
+   --slo-freshness-ms 1000: logreg serial -c 0 (400 iterations on the
+   512-row CSV) beside the same run without them, theta (SHA-256 of the
+   exit checkpoint), the rows and the kernel counters bitwise;
+   threaded -c 2 beside its untraced twin (eval lag 0, one clock_lag
+   observation per gradient, the gate watchdog quiet); in both,
+   /healthz answering 200 mid-run, /profilez 200 with samples and a
+   stack of a port training loop, /modelz 200 with resolved updates
+   (polled from a thread of this script); --fused --eval_every 10 with
+   --trace bitwise its twin, one bsp.step span and count per dispatch.
+   Each traced run: gradients_applied_total equal to the server
+   iterations, one worker.local_update span per kernel call and one
+   dispatch.device per kernel call and server apply, rising [status]
+   iters with critpath and modelhealth blocks, an exit flight dump with
+   gate events and the profile's stacks, modelhealth_deferred_total
+   equal to the server iterations (every in-process delta observed by
+   reference) and update_norm observed, one slo_burn_rate child per
+   objective and window.  The drift pair: cli.run logreg serial -c 0
+   --eval_every 1 --model-health -l -max 256 -p 1 (960 iterations) on a
+   CSV whose rows past the first 1000 are label-flipped and mean-shifted
+   (injected: DRIFT latched, drift_trip_total >= 1, a trip row in
+   logs-drift.csv, a drift.trip flight record, the detection delay in
+   eval rows printed) and on clean rows (control: STABLE, no trip).  The
+   model-health sampler's largest poll at H=4096 (64 deferred deltas) on
+   the host clock.  Then --device_trace runs (logreg and the MLP, serial
+   -c 0, 100 iterations) whose trace must hold the hand kernels' CUDA
+   events, and a threaded run with --flight-dir killed by SIGTERM (its
+   dump read back).  Prints iterations/s with every flag over without,
+   beside the card line.
 10. Role telemetry phase (cli/socket_mode.py's telemetry flags, 100
    server iterations a run, 300 for the split runs, every process with
    --trace, --metrics-file,
@@ -210,8 +225,10 @@
    server read are its iterations plus its drops and its queue at the
    stop, every worker's delta.wire flow steps at the server but for
    frames in flight at its stop, rising [status] lines, exit dumps with
-   net.* records; iterations/s traced over untraced, each pair's and
-   their median); --shards 2
+   net.* records; the port's `python -m kafka_ps_tpu_torch.telemetry`
+   merge of its traces, critpath of the merged trace naming the wire
+   segment and postmortem of its dumps, each exiting 0; iterations/s
+   traced over untraced, each pair's and their median); --shards 2
    --slab-dtype int8 -c 2 with shard 1 killed by SIGKILL after its first
    checkpoint and shard 0 stopped by SIGTERM (the workers' dumps hold
    both shards' shard.weights records; the postmortem's rule names shard
@@ -220,10 +237,15 @@
    --aggregate workers, the MLP bf16 -c -1 (agg_composites_total and the
    agg_fan_in observations equal the relay's composites, the members'
    delta.wire flows step through the relay); server_runner --listen
-   --serve --serve-shm, the MLP -c -1, under a socket and a shm client
-   (serving_requests_total and serving_dispatch_mode{mode="shm"} equal
-   the engine's and the bridge's counts, the serving watchdog quiet, a
-   delta.wire flow ending at a serving read); --shards 2 --durable-log
+   --serve --serve-shm, the MLP -c -1, under a socket and a shm client,
+   the server with the analysis planes' flags and the workers with
+   --model-health (serving_requests_total and
+   serving_dispatch_mode{mode="shm"} equal the engine's and the bridge's
+   counts, the serving watchdog quiet, a delta.wire flow ending at a
+   serving read; modelhealth_updates_total equal to the gradients
+   applied and modelhealth_deferred_total 0, every delta off the socket
+   computed inline; slo_burn_rate{slo="serving_latency"} present;
+   [status] lines with critpath); --shards 2 --durable-log
    with per-shard hot and warm caps, logreg -c 0, followed by a
    --serve-replica from the start (the tier families equal each store's
    counters, store.* records; replica.publish records, the replica and
@@ -331,6 +353,10 @@ TEL_ITERS, TEL_TRACE_ITERS = 400, 100
 ROLE_ITERS, ROLE_CK_EVERY = 100, 10
 # the role telemetry phase's traced and untraced split runs, alternated
 ROLE_PAIR_ITERS = 300
+# the drift pair: the clean rows before the injection, the rows after it,
+# the server iterations of each run, and its buffer cap (the JAX drift
+# block's, so that the injected rows replace the clean ones)
+DRIFT_CLEAN, DRIFT_INJECTED, DRIFT_ITERS, DRIFT_BUFFER = 1000, 1000, 960, 256
 # the [status] cadence of the telemetry phases' runs: a run of a few
 # hundred iterations can end within half a second, and a reporter prints
 # no line at its stop
@@ -1479,6 +1505,10 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
     tag = "-".join([task, mode, f"c{c}", *(f.lstrip("-") for f in flags)]
                    + ([f"H{hidden}"] if hidden != H else [])
                    + ([str(iters)] if checkpoint else []))
+    if len(tag) > 120:
+        # a file name holds the tag: keep its head, hash the whole
+        import hashlib
+        tag = f"{tag[:96]}-{hashlib.sha1(tag.encode()).hexdigest()[:12]}"
     kind = flags[flags.index("--slab-dtype") + 1] \
         if "--slab-dtype" in flags else "f32"
     fused = "--fused" in flags
@@ -3166,11 +3196,9 @@ def tier_cli_pair(task: str, mode: str, c: int, iters: int, tier: tuple,
     checkpoint, under the tier caps and without them: the final theta's
     SHA-256 and the rows (less their stamps) equal (the capped run's
     checkpoint stays, as `ck-tier-<name>-capped.npz`); the capped store's
-    last rebalance left pages in every tier, and pages were faulted in
-    from the log and migrated.  (A dense apply writes every page, a cold
-    one landing warm, and a read of theta faults the cold pages in, so
-    the residency at exit, which the checkpoint records, may hold no cold
-    page until the policy's next pass.)"""
+    last rebalance, the one its close runs after the final save, left
+    pages in every tier; and pages were faulted in from the log and
+    migrated."""
     runs = []
     for arm, flags in (("capped", tier), ("plain", ())):
         wal, ck = f"wal-tier-{name}-{arm}", f"ck-tier-{name}-{arm}.npz"
@@ -3192,7 +3220,8 @@ def tier_cli_pair(task: str, mode: str, c: int, iters: int, tier: tuple,
     print(f"tier {name}: {task} {mode} -c {c} H={hidden} {' '.join(tier)}: "
           f"theta SHA-256 {a[:16]}.. against {b[:16]}.. equal {a == b}, "
           f"rows (less stamps) equal {rows}; (hot, warm, cold) pages after "
-          f"the last rebalance {settled}, at exit {counts}; iterations/s "
+          f"the last rebalance {settled}, in the checkpoint {counts}; "
+          f"iterations/s "
           f"{capped['rate']:.1f} "
           f"capped against {plain['rate']:.1f} resident "
           f"({capped['rate'] / plain['rate']:.3f}x) [{card_line()}]")
@@ -3398,41 +3427,76 @@ def tier_runs(dev, twins: dict) -> list[dict]:
     return runs
 
 
+# the analysis planes' flags (--profile, the SLO objectives,
+# --model-health), on the telemetry phase's runs and the role serve run
+PLANE_FLAGS = ("--profile", "--model-health", "--slo-serving-p99-ms", "50",
+               "--slo-freshness-ms", "1000")
+# the SLO objectives PLANE_FLAGS arm (availability rides along with any)
+SLO_NAMES = ("serving_availability", "serving_latency",
+             "snapshot_freshness", "model_health")
+# frames of the port's training loops in a /profilez stack
+LOOP_FRAMES = ("app.run_serial", "app.run_threaded", "app.worker_loop")
+
+
 def tel_flags(name: str) -> tuple:
     """Every telemetry flag of cli.run but --device_trace, with file
     names under `name`."""
     return ("--trace", f"{name}-trace.json", "--metrics-file",
             f"{name}.prom", "--metrics-every", "0.5", "--flight-dir",
             f"{name}-flight", "--health-port", "0", "--status_every",
-            STATUS_EVERY)
+            STATUS_EVERY, *PLANE_FLAGS)
 
 
 class HealthPoller:
-    """Polls a run's /healthz from a thread of this script: it reads the
-    port from the run's "health plane on port N" line and keeps the first
-    answer (status, JSON) and the iterations the run had made then."""
+    """Polls a run's health plane from a thread of this script: it reads
+    the port from the run's "health plane on port N" line and keeps the
+    first /healthz answer (status, JSON) and the flight events recorded
+    then; the first /profilez answer whose stacks name a training loop
+    of the port (status, the text) and the first /modelz answer with
+    resolved updates (status, JSON)."""
 
     def __init__(self):
-        self.answer = None
+        self.answer = self.profilez = self.modelz = None
         self._stop = threading.Event()
 
+    def _done(self) -> bool:
+        return None not in (self.answer, self.profilez, self.modelz)
+
     def __call__(self, err):
+        import urllib.error
         import urllib.request
         from kafka_ps_tpu_torch.telemetry import FLIGHT
 
+        def get(port, path):
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{path}", timeout=5) as r:
+                    return r.status, r.read().decode()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read().decode()
+
         def poll():
-            while not self._stop.is_set() and self.answer is None:
+            while not self._stop.is_set() and not self._done():
                 m = re.search(r"health plane on port (\d+)", err.getvalue())
                 if m:
                     try:
-                        with urllib.request.urlopen(
-                                f"http://127.0.0.1:{m.group(1)}/healthz",
-                                timeout=5) as r:
-                            self.answer = (r.status, json.loads(r.read()),
+                        if self.answer is None:
+                            code, body = get(m.group(1), "/healthz")
+                            self.answer = (code, json.loads(body),
                                            FLIGHT.total_events())
+                        code, body = get(m.group(1), "/profilez")
+                        if self.profilez is None and (code != 200 or any(
+                                f in body for f in LOOP_FRAMES)):
+                            self.profilez = (code, body)
+                        code, body = get(m.group(1), "/modelz")
+                        if self.modelz is None and (
+                                code != 200 or json.loads(body)["updates"]):
+                            self.modelz = (code, json.loads(body))
                     except OSError:
                         pass
-                time.sleep(0.01)
+                # fast until /healthz answers, then backed off: the
+                # poller shares the run's process and its GIL
+                time.sleep(0.01 if self.answer is None else 0.1)
 
         t = threading.Thread(target=poll, daemon=True)
         t.start()
@@ -3504,8 +3568,66 @@ def telemetry_checks(name: str, run: dict) -> dict:
             not {"gate.arrive", "gate.release"} <= kinds:
         raise RuntimeError(f"{name}: flight dump {dump['schema']} "
                            f"{dump['reason']} {sorted(kinds)}")
+    plane_checks(name, run, prom, dump)
     return {"prom": prom, "dump": dump, "spans": spans,
             "counters": counters}
+
+
+def plane_checks(name: str, run: dict, prom: dict, dump: dict) -> None:
+    """The analysis planes of one in-process run with PLANE_FLAGS: every
+    delta of the in-process fabric observed by reference and resolved by
+    the sampler (modelhealth_deferred_total the server iterations, the
+    update_norm histogram observed), one slo_burn_rate child per armed
+    objective and window, the exit dump's profile, and [status] lines
+    with their critpath and modelhealth blocks."""
+    iters = run["stats"]["server_iterations"]
+    deferred = prom["modelhealth_deferred_total"][""]
+    updates = prom["modelhealth_updates_total"][""]
+    norms = sum(prom["update_norm_count"].values())
+    burn = sorted(prom["slo_burn_rate"])
+    want = sorted(f'slo="{s}",window="{w}"' for s in SLO_NAMES
+                  for w in ("fast", "slow"))
+    status = [ln for ln in run["stderr"].splitlines()
+              if ln.startswith("[status] ")]
+    blocks = all(" critpath " in ln and " modelhealth " in ln
+                 for ln in status)
+    print(f"  planes {name}: modelhealth_deferred_total {deferred:.0f} for "
+          f"{iters} server iterations, resolved {updates:.0f} (the "
+          f"sampler's queue keeps the last 64), update_norm observations "
+          f"{norms:.0f}; drift_state {prom['drift_state']['']:.0f}; "
+          f"slo_burn_rate children {len(burn)}; exit dump profile "
+          f"{len(dump['profile'])} stacks, the hottest "
+          f"{dump['profile'][0] if dump['profile'] else None!r}; "
+          f"[status] lines with critpath and modelhealth {blocks} "
+          f"({status[-1].split(' critpath ', 1)[-1] if status else ''})")
+    if deferred != iters or norms < 1 or updates < 1 or burn != want \
+            or not dump["profile"] or not status or not blocks:
+        raise RuntimeError(f"{name}: the analysis planes' checks")
+
+
+def poller_checks(name: str, poller: HealthPoller) -> None:
+    """The health plane mid-run: /healthz 200 and healthy, /profilez 200
+    with samples and a stack of a port training loop, /modelz 200 with
+    resolved updates."""
+    prof, mz = poller.profilez, poller.modelz
+    samples = (re.search(r"^# samples: (\d+)$", prof[1], re.M)
+               if prof else None)
+    loop = ([ln for ln in prof[1].splitlines()
+             if any(f in ln for f in LOOP_FRAMES)][:1] if prof else [])
+    print(f"  telemetry {name}: /healthz mid-run {poller.answer}; "
+          f"/profilez {prof[0] if prof else None}, samples "
+          f"{samples.group(1) if samples else None}, a training loop's "
+          f"stack {loop}; /modelz {mz[0] if mz else None}, updates "
+          f"{mz[1].get('updates') if mz else None}, drift "
+          f"{mz[1].get('drift', {}).get('state') if mz else None}")
+    if poller.answer is None or poller.answer[0] != 200 or \
+            not poller.answer[1]["healthy"]:
+        raise RuntimeError(f"/healthz did not answer 200: {poller.answer}")
+    if not prof or prof[0] != 200 or not samples or \
+            int(samples.group(1)) < 1 or not loop:
+        raise RuntimeError(f"{name}: /profilez {prof and prof[0]}")
+    if not mz or mz[0] != 200 or not mz[1]["updates"]:
+        raise RuntimeError(f"{name}: /modelz {mz}")
 
 
 def _theta_sha(path: str) -> str:
@@ -3585,6 +3707,173 @@ def sigterm_check() -> None:
     shutil.rmtree(d, ignore_errors=True)
 
 
+def _drift_run(arm: str, csv: str) -> dict:
+    """One run of the drift pair: cli.run logreg serial -c 0 --eval_every
+    1 --model-health -l, with --metrics-file and --flight-dir, in this
+    process, its kernel counters zeroed just before it."""
+    from kafka_ps_tpu_torch.cli import run as cli_run
+    from kafka_ps_tpu_torch.ops import fused_update
+    d = os.path.join(OUT, f"drift-{arm}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    here = os.getcwd()
+    os.chdir(d)
+    err = io.StringIO()
+    try:
+        fused_update.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err), \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_run.main([
+                "-training", csv, "-test", os.path.join(OUT, "test.csv"),
+                "--num_workers", str(WORKERS), "--num_features", str(F),
+                "--num_classes", str(C), "-max", str(DRIFT_BUFFER), "-p",
+                "1", "-l", "--mode", "serial", "-c", "0", "--eval_every",
+                "1", "--max_iterations", str(DRIFT_ITERS),
+                "--model-health", "--metrics-file", "drift.prom",
+                "--flight-dir", "flight"])
+        wall = time.perf_counter() - t0
+        n = fused_update.counts()
+        server = _csv_rows("logs-server.csv")
+        worker = _csv_rows("logs-worker.csv")
+        drift = open("logs-drift.csv").read().splitlines()
+        prom = _prom("drift.prom")
+        (dump,) = [json.load(open(os.path.join("flight", f)))
+                   for f in os.listdir("flight")]
+    finally:
+        os.chdir(here)
+    if rc != 0 or n["launches"] + n["batched_members"] != len(worker) or \
+            any(v for k, v in n.items() if k not in (
+                "launches", "batched_launches", "batched_members")):
+        raise RuntimeError(f"drift {arm}: rc {rc}, {len(worker)} worker "
+                           f"rows against kernel counters {n}")
+    trips = [e for e in dump["events"] if e["kind"] == "drift.trip"]
+    return {"task": "logreg", "kind": "f32", "hidden": H,
+            "single": n["launches"], "gang_calls": n["batched_launches"],
+            "server": server, "worker": worker, "drift": drift,
+            "prom": prom, "trips": trips, "dump": dump, "wall": wall,
+            "stderr": err.getvalue()}
+
+
+def drift_pair_check() -> list[dict]:
+    """The drift pair (the JAX package's drift-detection block through
+    the CLI, on the card): two runs of _drift_run on CSVs of
+    DRIFT_CLEAN + DRIFT_INJECTED rows streamed at -p 1 (the 512-row
+    prefill and the rest of the first 1000 rows at once, then 1000 rows a
+    second).  Injected: the rows past the clean ones are label-flipped
+    (data/synth's label_noise=0.95, another seed) and mean-shifted by
+    +1.0; control: the main CSV's clean rows.  The injected run must
+    latch DRIFT (drift_trip_total >= 1, a trip row in logs-drift.csv, a
+    drift.trip flight record), the control run end STABLE with no trip:
+    the card's proof that the plane resolves its deferred deltas and eval
+    scalars.  Prints the detection delay in eval rows: from the first
+    server eval row at a clock whose worker-0 row saw injected rows to
+    the eval row of the trip."""
+    from kafka_ps_tpu_torch.data.synth import generate, write_csv
+    with open(os.path.join(OUT, "train.csv")) as f:
+        head = [next(f) for _ in range(DRIFT_CLEAN + DRIFT_INJECTED + 1)]
+    control = os.path.join(OUT, "drift-control.csv")
+    with open(control, "w") as f:
+        f.writelines(head)
+    dx, dy = generate(DRIFT_INJECTED, F, C, seed=37, label_noise=0.95)
+    injected = os.path.join(OUT, "drift-injected.csv")
+    write_csv(injected, dx + 1.0, dy)
+    with open(injected) as f:
+        poisoned = f.readlines()[1:]
+    with open(injected, "w") as f:
+        f.writelines(head[:DRIFT_CLEAN + 1] + poisoned)
+    runs = {arm: _drift_run(arm, path) for arm, path in
+            (("injected", injected), ("control", control))}
+    card = card_line()
+    for arm, r in runs.items():
+        state = {0: "STABLE", 1: "WARNING", 2: "DRIFT"}[
+            int(r["prom"]["drift_state"][""])]
+        trip_total = r["prom"]["drift_trip_total"][""]
+        rows = [ln for ln in r["drift"][1:] if ln.split(";")[1] == "trip"]
+        # worker 0's rows carry numTuplesSeen: the first clock at which
+        # its buffer held an injected row, and the server's eval rows
+        seen = [(int(w[2]), int(w[6])) for w in r["worker"] if w[1] == "0"]
+        first = min((c for c, n in seen if n > DRIFT_CLEAN // WORKERS),
+                    default=None)
+        clocks = [int(s[2]) for s in r["server"]]
+        start = (next((i for i, c in enumerate(clocks) if c >= first),
+                      None) if first is not None else None)
+        delay = (r["trips"][0]["eval_row"] - 1 - start
+                 if r["trips"] and start is not None else None)
+        dog = r["dump"]["watchdogs"].get("drift")
+        print(f"drift pair {arm}: final state {state}, drift_trip_total "
+              f"{trip_total:.0f}, drift_warn_total "
+              f"{r['prom']['drift_warn_total']['']:.0f}; logs-drift.csv "
+              f"rows {r['drift'][1:]}; drift.trip records {r['trips']}; "
+              f"the drift watchdog {dog}; {len(clocks)} eval rows, the "
+              f"first at a clock whose worker-0 buffer held a row past "
+              f"the first {DRIFT_CLEAN}: {start}; detection delay {delay} "
+              f"eval rows; "
+              f"modelhealth_deferred_total "
+              f"{r['prom']['modelhealth_deferred_total']['']:.0f}, resolved "
+              f"{r['prom']['modelhealth_updates_total']['']:.0f}, evals "
+              f"{r['prom']['modelhealth_evals_total']['']:.0f}; "
+              f"{DRIFT_ITERS} iterations in {r['wall']:.1f} s [{card}]")
+        if arm == "injected" and (state != "DRIFT" or trip_total < 1
+                                  or not rows or not r["trips"]):
+            raise RuntimeError("drift pair: the injected run did not trip")
+        if arm == "control" and (state != "STABLE" or trip_total
+                                 or rows or r["trips"]):
+            raise RuntimeError("drift pair: the control run tripped")
+        if not r["prom"]["modelhealth_updates_total"][""] or \
+                r["prom"]["modelhealth_evals_total"][""] != len(clocks):
+            raise RuntimeError(f"drift pair {arm}: deltas or evals "
+                               "unresolved")
+    for path in (injected, control):
+        remove(path)
+    return list(runs.values())
+
+
+def modelhealth_poll_cost(dev) -> None:
+    """The model-health sampler's largest poll at the fused MLP's width:
+    its queue's cap of deferred deltas (64) at H=4096 (4,222,982 floats
+    each, 1.08 GB on the card) observed, then resolved by one poll() —
+    64 copies to the host and the numpy diagnostics of each — on the host
+    clock; the 64 copies alone beside it."""
+    from argparse import Namespace
+    from kafka_ps_tpu_torch.models import mlp
+    from kafka_ps_tpu_torch.telemetry import Telemetry
+    from kafka_ps_tpu_torch.telemetry.modelhealth import (_PENDING_DELTAS,
+                                                          plane_from_args)
+    from kafka_ps_tpu_torch.utils.config import ModelConfig
+    n = mlp.num_params(ModelConfig(num_features=F, num_classes=C,
+                                   hidden_dim=WIDE_H))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    deltas = [torch.randn(n, device=dev, generator=gen) * 0.01
+              for _ in range(_PENDING_DELTAS)]
+    plane = plane_from_args(Namespace(model_health=True,
+                                      drift_detector="ph",
+                                      drift_threshold=None), Telemetry())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, d in enumerate(deltas):
+        plane.observe_update(i % WORKERS, d)
+    observe_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    polled = plane.poll()
+    poll_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    hosts = [d.to("cpu") for d in deltas]
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = 4 * n * len(deltas)
+    print(f"model health at H={WIDE_H}: {len(deltas)} deferred deltas of "
+          f"{n} floats ({nbytes / 1e9:.3f} GB on the card) observed in "
+          f"{observe_ms:.3f} ms; one poll resolved {polled['resolved_deltas']}"
+          f" in {poll_ms:.1f} ms; the {len(deltas)} device-to-host copies "
+          f"alone {copy_ms:.1f} ms ({nbytes / copy_ms / 1e6:.2f} GB/s) "
+          f"[{card_line()}]")
+    if polled["resolved_deltas"] != len(deltas) or \
+            plane.updates != len(deltas):
+        raise RuntimeError("model health: the deferred deltas unresolved")
+    del deltas, hosts
+    torch.cuda.empty_cache()
+
+
 def device_trace_check(task: str, symbols: tuple) -> dict:
     """cli.run --device_trace DIR (serial -c 0, TEL_TRACE_ITERS): the
     trace holds CUDA kernel events of the hand kernels' symbols (presence
@@ -3635,16 +3924,15 @@ def telemetry_phase() -> list[dict]:
     runs += [off, on]
     _bitwise_pair("tel-serial", on, off)
     telemetry_checks("tel-serial", on)
-    print(f"  telemetry tel-serial: /healthz mid-run {poller.answer}")
-    if poller.answer is None or poller.answer[0] != 200 or \
-            not poller.answer[1]["healthy"]:
-        raise RuntimeError(f"/healthz did not answer 200: {poller.answer}")
+    poller_checks("tel-serial", poller)
     # 2. threaded -c 2, beside its untraced twin
     t_off = main_path_run("logreg", "threaded", 2, TEL_ITERS)
+    poller = HealthPoller()
     t_on = main_path_run("logreg", "threaded", 2, TEL_ITERS,
-                         tel_flags("tel-threaded"))
+                         tel_flags("tel-threaded"), watch=poller)
     runs += [t_off, t_on]
     got = telemetry_checks("tel-threaded", t_on)
+    poller_checks("tel-threaded", poller)
     lag_n = got["prom"]["clock_lag_count"]['model="bounded"']
     gate = got["dump"]["watchdogs"]["gate"]
     print(f"  telemetry tel-threaded: final eval lag "
@@ -3654,6 +3942,9 @@ def telemetry_phase() -> list[dict]:
     if lag_n != t_on["stats"]["server_iterations"] or gate["trip_count"]:
         raise RuntimeError("tel-threaded: clock_lag observations or the "
                            "gate watchdog")
+    # 2b. the drift pair, and the model-health sampler's largest poll
+    runs += drift_pair_check()
+    modelhealth_poll_cost(torch.device("cuda"))
     # 3. --fused --eval_every 10 with --trace, beside its untraced twin
     fused = ("--fused", "--eval_every", "10")
     f_off = main_path_run("logreg", "serial", 0, TEL_ITERS,
@@ -3881,6 +4172,7 @@ def role_split_check() -> list[dict]:
           f"lines; exit dumps' kinds {sorted(files['server']['kinds'])}")
     if len(starts) != sent or len(starts - steps) > sent - got:
         raise RuntimeError("role split: delta.wire flows lost")
+    telemetry_tools_check("role split", d)
     again = split_run("logreg", 2, ROLE_PAIR_ITERS, tel=True)
     last = split_run("logreg", 2, ROLE_PAIR_ITERS)
     pairs = ((traced, first), (again, last))
@@ -3897,6 +4189,48 @@ def role_split_check() -> list[dict]:
               f"{', '.join(f'{r:.3f}' for r in ratios)}x, median "
               f"{statistics.median(ratios):.3f}x [{card_line()}]")
     return [first, traced, again, last]
+
+
+def telemetry_tools_check(name: str, dirs: dict) -> None:
+    """`python -m kafka_ps_tpu_torch.telemetry` on a traced deployment's
+    files (`dirs`: process name -> its directory): merge of the
+    processes' traces (exit 0, cross-process flows), critpath of the
+    merged trace (exit 0, the wire segment named), and postmortem of
+    their flight dumps gathered in one directory (exit 0, what the JAX
+    tool gives on a directory of readable dumps, every process named and
+    no dead shard)."""
+    base = os.path.dirname(next(iter(dirs.values())))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("KPS_PLATFORM", None)
+
+    def tool(*args):
+        p = subprocess.run([sys.executable, "-m",
+                            "kafka_ps_tpu_torch.telemetry", *args],
+                           cwd=base, env=env, capture_output=True,
+                           text=True, timeout=300)
+        return p.returncode, p.stdout.strip()
+    merged = os.path.join(base, "merged.json")
+    traces = [os.path.join(d, "trace.json") for d in dirs.values()]
+    m_rc, m_out = tool("merge", "-o", merged, *traces)
+    c_rc, c_out = tool("critpath", merged)
+    dumps = os.path.join(base, "dumps")
+    os.makedirs(dumps, exist_ok=True)
+    for n, d in dirs.items():
+        for f in os.listdir(os.path.join(d, "flight")):
+            shutil.copy(os.path.join(d, "flight", f),
+                        os.path.join(dumps, f))
+    p_rc, p_out = tool("postmortem", dumps)
+    models = [ln for ln in c_out.splitlines() if ln.startswith("model=")]
+    wire = [ln.strip() for ln in c_out.splitlines()
+            if "segment=wire" in ln]
+    print(f"  {name}: telemetry merge rc {m_rc}: {m_out}; critpath rc "
+          f"{c_rc}: {models} {wire}; postmortem rc {p_rc}: "
+          f"{p_out.splitlines()[:2]}")
+    flows = re.search(r"(\d+) cross-process flows", m_out)
+    if m_rc or not flows or not int(flows.group(1)) or c_rc or not wire \
+            or p_rc or f"{len(dirs)} dump(s)" not in p_out \
+            or re.search(r"^dead shard", p_out, re.M):
+        raise RuntimeError(f"{name}: the port's telemetry tools")
 
 
 def role_shard_kill_check() -> dict:
@@ -4094,8 +4428,10 @@ def role_serve_check() -> dict:
             done()
         return finish
 
-    run = split_run("mlp", -1, ROLE_ITERS, server_flags=("--serve",
-                                                         "--serve-shm"),
+    run = split_run("mlp", -1, ROLE_ITERS, flags=("--model-health",),
+                    server_flags=("--serve", "--serve-shm", "--profile",
+                                  "--slo-serving-p99-ms", "50",
+                                  "--slo-freshness-ms", "1000"),
                     tel=True, during=during)
     server = run["server"]
     st = server["serving"]
@@ -4133,6 +4469,30 @@ def role_serve_check() -> dict:
             or not shm or dog is None or dog["tripped"] \
             or dog["trip_count"] or not ends:
         raise RuntimeError("role serve: serving families, watchdog or flows")
+    # the analysis planes on the server: every delta off the socket
+    # computed inline on the host array its frame was decoded from
+    updates = prom["modelhealth_updates_total"][""]
+    deferred = prom["modelhealth_deferred_total"][""]
+    iters = server["server_iterations"]
+    burn = sorted(k for k in prom["slo_burn_rate"]
+                  if 'slo="serving_latency"' in k)
+    status = [ln for ln in open(os.path.join(d["server"], "err.txt"))
+              if ln.startswith("[status] ")]
+    crit = [ln.split(" critpath ", 1)[1].split(" modelhealth ")[0]
+            for ln in status if " critpath " in ln]
+    wevals = [files[w]["prom"]["modelhealth_evals_total"][""]
+              for w in ("w0", "w1")]
+    print(f"  role serve: modelhealth_updates_total {updates:.0f} for "
+          f"{iters} gradients applied, modelhealth_deferred_total "
+          f"{deferred:.0f}; slo_burn_rate {burn}; [status] lines with "
+          f"critpath {len(crit)} of {len(status)} (the last: "
+          f"{crit[-1] if crit else None}); the workers' "
+          f"modelhealth_evals_total {wevals}; the server's exit dump "
+          f"profile {len(files['server']['dumps'][-1]['profile'])} stacks")
+    if updates != iters or deferred or not burn or not status \
+            or len(crit) != len(status) or not all(wevals) \
+            or not files["server"]["dumps"][-1]["profile"]:
+        raise RuntimeError("role serve: the analysis planes' counts")
     return run
 
 

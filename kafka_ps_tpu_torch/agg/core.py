@@ -82,7 +82,7 @@ def split_composite(plan, composite: CompositeDelta) -> list[CompositeDelta]:
             hi = r.end - d.key_range.start
             deltas.append(dataclasses.replace(
                 d, key_range=KeyRange(r.start, r.end),
-                values=d.values[lo:hi], encoded=None))
+                values=d.values[lo:hi], encoded=None, host_values=None))
         out.append(CompositeDelta(agg_id=composite.agg_id,
                                   members=composite.members,
                                   deltas=tuple(deltas),
@@ -240,7 +240,8 @@ class LocalAggregator:
         if c == last:
             return self._ef_last[w]
         decoded, enc = self._ef_for(w).step(msg.values)
-        out = dataclasses.replace(msg, values=decoded, encoded=enc)
+        out = dataclasses.replace(msg, values=decoded, encoded=enc,
+                                  host_values=None)
         fid = getattr(msg, "trace", None)
         if fid:
             object.__setattr__(out, "trace", fid)

@@ -260,7 +260,54 @@ def build_parser(include_server_flags: bool = True,
                         "/healthz watchdog-derived liveness/readiness, "
                         "/varz Prometheus metrics snapshot, /flightz "
                         "recent flight-ring tail, /evalz the async eval "
-                        "engine")
+                        "engine, /profilez collapsed stacks when --profile "
+                        "is armed, /modelz the model-health plane when "
+                        "--model-health is")
+    p.add_argument("--profile", action="store_true",
+                   help="arm the continuous sampling profiler "
+                        "(telemetry/profiler.py, ~100 Hz stdlib stack "
+                        "sampler): collapsed-stack text on /profilez "
+                        "(--health-port) and the hottest stacks in every "
+                        "flight dump, so a watchdog trip ships its own "
+                        "profile")
+    p.add_argument("--slo-serving-p99-ms", dest="slo_serving_p99_ms",
+                   type=float, default=None, metavar="MS",
+                   help="arm the SLO plane (telemetry/slo.py) with a "
+                        "serving-latency objective: 99%% of requests "
+                        "answered within MS.  Burn rates over 5min/1h "
+                        "windows export as slo_burn_rate gauges, ride "
+                        "/healthz, and a sustained fast-window burn "
+                        "trips a flight dump (serving availability is "
+                        "always tracked once any --slo-* flag is set)")
+    p.add_argument("--slo-freshness-ms", dest="slo_freshness_ms",
+                   type=float, default=None, metavar="MS",
+                   help="arm the SLO plane with a snapshot-freshness "
+                        "objective: 99%% of served reads see a snapshot "
+                        "younger than MS (snapshot_age_ms histogram; "
+                        "same burn-rate windows and watchdog as "
+                        "--slo-serving-p99-ms)")
+    p.add_argument("--model-health", dest="model_health",
+                   action="store_true",
+                   help="arm the model-health plane (telemetry/"
+                        "modelhealth.py): per-update delta norms + "
+                        "aggregate-direction cosine + per-worker "
+                        "contribution accounting, plus online drift "
+                        "detection over the streaming eval metrics and "
+                        "sampled arrivals (telemetry/drift.py).  Surfaces "
+                        "on /modelz, the [status] heartbeat, and a "
+                        "latched DRIFT ships one flight dump; with -l the "
+                        "verdicts go to ./logs-drift.csv")
+    p.add_argument("--drift-detector", dest="drift_detector",
+                   choices=["ph", "adwin"], default="ph",
+                   help="drift detector for --model-health: ph (Page-"
+                        "Hinkley, directional mean-shift, the default) "
+                        "or adwin (windowed adaptive cut, shift-"
+                        "direction agnostic)")
+    p.add_argument("--drift-threshold", dest="drift_threshold",
+                   type=float, default=None, metavar="T",
+                   help="detector trip threshold override (default: "
+                        "the detector's own calibration; ph "
+                        "statistic > T trips, adwin gap/bound > T)")
     p.add_argument("--device_trace", default=None, metavar="LOGDIR",
                    help="capture a torch.profiler device trace (Chrome "
                         "trace JSON, LOGDIR/devicetrace-<pid>.json) for "
@@ -332,11 +379,7 @@ def make_app_from_args(args, device=None, resuming: bool = False):
         from kafka_ps_tpu_torch.utils.trace import Tracer
         tracer = Tracer()
     from kafka_ps_tpu_torch.telemetry import maybe_telemetry
-    # /varz serves this same registry, so a health plane arms metrics even
-    # without a --metrics-file dump target
-    telemetry = maybe_telemetry(
-        tracer, want_metrics=bool(args.metrics_file)
-        or args.health_port is not None)
+    telemetry = maybe_telemetry(tracer, want_metrics=wants_metrics(args))
     fabric = None
     if args.durable_log:
         from kafka_ps_tpu_torch.log import DurableFabric, LogConfig
@@ -438,7 +481,8 @@ def run_with_args(args) -> int:
             print(f"    durable-log replay: {counts}")
     producer = app.make_producer(args.training_data_file_path)
     serve_bridge = start_serving(app, args) if args.serve else None
-    ops = start_ops(app, args)
+    modelhealth, drift_sink = start_model_health(app, args)
+    ops = start_ops(app, args, modelhealth)
     if args.metrics_file and args.metrics_every > 0:
         # the periodic dump (atomic replace); the exit path writes the
         # final state either way
@@ -486,6 +530,10 @@ def run_with_args(args) -> int:
         app.close_logs()
         for log in logs:
             log.close()
+        if drift_sink is not None:
+            # after ops.close(): the plane's final drain may still emit
+            # a verdict row
+            drift_sink.close()
         if args.metrics_file:
             app.telemetry.stop_dumper()
             app.telemetry.write_prometheus(args.metrics_file)
@@ -499,15 +547,68 @@ def run_with_args(args) -> int:
     return 0
 
 
-def start_ops(app, args):
+def wants_metrics(args) -> bool:
+    """Whether a process's flags arm the metrics registry: a
+    --metrics-file dump target; --health-port, whose /varz serves the
+    registry; the --slo-* objectives, whose plane judges its families;
+    --model-health, whose diagnostics are families first.  A role
+    runner's parser may lack some of these flags."""
+    return (bool(getattr(args, "metrics_file", None))
+            or getattr(args, "health_port", None) is not None
+            or getattr(args, "slo_serving_p99_ms", None) is not None
+            or getattr(args, "slo_freshness_ms", None) is not None
+            or bool(getattr(args, "model_health", False)))
+
+
+def make_model_health(args, telemetry, cfg, *, shard=None, log_name=None):
+    """(the model-health plane, its drift CSV sink) of one process under
+    --model-health, else (None, None).  The sink (`log_name`, with -l)
+    stamps the wall clock here: telemetry/drift.py reads none.  The ops
+    plane owns the plane's sampler; the caller closes the sink after
+    ops.close()."""
+    if not getattr(args, "model_health", False):
+        return None, None
+    import time
+    from kafka_ps_tpu_torch.telemetry.modelhealth import plane_from_args
+    from kafka_ps_tpu_torch.telemetry.registry import model_name
+    sink = log = None
+    if getattr(args, "logging", False) and log_name:
+        from kafka_ps_tpu_torch.utils.csvlog import DRIFT_HEADER, CsvLogSink
+        sink = CsvLogSink(log_name, DRIFT_HEADER)
+        log = (lambda rest: sink(f"{int(time.time() * 1000)};{rest}"))
+    plane = plane_from_args(args, telemetry, shard=shard,
+                            num_features=cfg.model.num_features,
+                            model=model_name(cfg.consistency_model),
+                            log=log)
+    return plane, sink
+
+
+def start_model_health(app, args):
+    """make_model_health for the in-process trainer, ./logs-drift.csv its
+    sink: the server's apply path and every buffer feed the plane."""
+    plane, sink = make_model_health(args, app.telemetry, app.cfg,
+                                    log_name="./logs-drift.csv")
+    if plane is not None:
+        app.server.attach_model_health(plane)
+        for b in app.buffers:
+            b.attach_drift(plane.drift)
+    return plane, sink
+
+
+def start_ops(app, args, modelhealth=None):
     """The flight recorder, watchdogs and health plane
     (telemetry/health.OpsPlane), started: the gate watchdog, the fsync
     watchdog on a durable log, the serving watchdog under --serve, the
-    eval engine on /evalz.  Inert without --flight-dir and
-    --health-port."""
+    eval engine on /evalz; the sampling profiler (--profile), the SLO
+    plane (--slo-*, --model-health) and the model-health plane with
+    their watchdogs.  Inert without any of those flags."""
     from kafka_ps_tpu_torch.telemetry.health import OpsPlane
+    from kafka_ps_tpu_torch.telemetry.slo import plane_from_args
     ops = OpsPlane(flight_dir=args.flight_dir, health_port=args.health_port,
-                   telemetry=app.telemetry, role="run")
+                   telemetry=app.telemetry, role="run",
+                   profile=args.profile,
+                   slo_plane=plane_from_args(args, app.telemetry),
+                   modelhealth=modelhealth)
     ops.add_gate_watchdog(app.server)
     if args.durable_log:
         ops.add_fsync_watchdog()

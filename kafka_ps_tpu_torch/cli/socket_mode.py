@@ -48,17 +48,25 @@ it; after a relay restart it resends its whole cache.
 
 Telemetry, the JAX roles': every role takes `--trace PATH` (its own
 tracer, pid-stamped, dumped at exit), `--metrics-file PATH`
-(`--metrics-every S`), `--flight-dir DIR` and `--health-port P`
+(`--metrics-every S`), `--flight-dir DIR`, `--health-port P`,
+`--profile` and `--slo-serving-p99-ms` / `--slo-freshness-ms`
 (`_make_telemetry`, `_make_ops`, `_dump_telemetry`); the unsharded
-server also takes `--status_every S`.  The watchdogs are the JAX roles':
-the gate on a server or shard, the fsync on a durable shard, the serving
-one on a serving server, the replica and serving ones on a replica.
-Trace context crosses the sockets when both ends trace
-(runtime/net.py), so the JAX package's merge tool joins the processes'
-traces into one `delta.wire` chain per delta:
+server also takes `--status_every S` (its `[status]` line with the
+rolling critical path).  `--model-health` (`--drift-detector`,
+`--drift-threshold`) arms a model-health plane on the split server and
+each shard (their applies, and the split server's stream rows) and on
+each worker process (its rows' evals and buffer arrivals), with a drift
+CSV per process under -l (`cli/run.make_model_health`).  The watchdogs
+are the JAX roles': the gate on a server or shard, the fsync on a
+durable shard, the serving one on a serving server, the replica and
+serving ones on a replica, and the slo and drift ones with their
+planes.  Trace context crosses the sockets when both ends trace
+(runtime/net.py), so the merge tool joins the processes' traces into one
+`delta.wire` chain per delta:
 
-    python -m kafka_ps_tpu.telemetry merge -o merged.json \
+    python -m kafka_ps_tpu_torch.telemetry merge -o merged.json \
         server/trace.json w0/trace.json w1/trace.json
+    python -m kafka_ps_tpu_torch.telemetry critpath merged.json
 
 Tiered residency (store/): `--tier-hot-bytes`, `--tier-warm-bytes` and
 `--tier-page-params` give a server's (or a shard's) slice to a tiered
@@ -186,32 +194,37 @@ def _print_stats(role: str, stats: dict) -> None:
 def _make_telemetry(args):
     """One process's tracer (None without --trace; its events carry
     this pid, so the merge tool stitches the processes' dumps) and its
-    metrics registry (armed by --metrics-file or --health-port: /varz
-    serves it), with the periodic --metrics-every dump started."""
+    metrics registry (armed as cli/run.wants_metrics says), with the
+    periodic --metrics-every dump started."""
     from kafka_ps_tpu_torch.telemetry import maybe_telemetry
     tracer = None
     if getattr(args, "trace", None):
         from kafka_ps_tpu_torch.utils.trace import Tracer
         tracer = Tracer()
-    telemetry = maybe_telemetry(
-        tracer, want_metrics=bool(getattr(args, "metrics_file", None))
-        or getattr(args, "health_port", None) is not None)
+    telemetry = maybe_telemetry(tracer,
+                                want_metrics=run_mod.wants_metrics(args))
     if getattr(args, "metrics_file", None) \
             and getattr(args, "metrics_every", 0.0) > 0:
         telemetry.start_dumper(args.metrics_file, args.metrics_every)
     return tracer, telemetry
 
 
-def _make_ops(args, telemetry, *, role, shard=None, meta=None):
+def _make_ops(args, telemetry, *, role, shard=None, meta=None,
+              modelhealth=None):
     """The flight recorder, watchdogs and health plane of one role
-    process (telemetry/health.OpsPlane), not yet started.  Inert without
-    --flight-dir and --health-port, so every role wires it; with
-    --flight-dir the process also dumps its rings on SIGTERM/SIGABRT,
-    the JAX postmortem's material."""
+    process (telemetry/health.OpsPlane), not yet started, with the
+    sampling profiler (--profile), the SLO plane (--slo-*,
+    --model-health) and `modelhealth`.  Inert without any of those, so
+    every role wires it; with --flight-dir the process also dumps its
+    rings on SIGTERM/SIGABRT, the postmortem's material."""
     from kafka_ps_tpu_torch.telemetry.health import OpsPlane
+    from kafka_ps_tpu_torch.telemetry.slo import plane_from_args
     return OpsPlane(flight_dir=getattr(args, "flight_dir", None),
                     health_port=getattr(args, "health_port", None),
-                    telemetry=telemetry, role=role, shard=shard, meta=meta)
+                    telemetry=telemetry, role=role, shard=shard, meta=meta,
+                    profile=getattr(args, "profile", False),
+                    slo_plane=plane_from_args(args, telemetry),
+                    modelhealth=modelhealth)
 
 
 def _dump_telemetry(args, tracer, telemetry) -> None:
@@ -332,6 +345,14 @@ def run_server(args) -> int:
     if run_id is None:
         run_id = time.time_ns()
     tracer, telemetry = _make_telemetry(args)
+    # the ops plane (its flight recorder armed) before the port listens: a
+    # worker's HELLO can arrive at once.  The model-health plane: the
+    # apply path feeds it, and the producer's row sink its feature sketch
+    # below (the buffers live in the worker processes, but every stream
+    # row passes through here)
+    modelhealth, drift_sink = run_mod.make_model_health(
+        args, telemetry, cfg, log_name="./logs-drift.csv")
+    ops = _make_ops(args, telemetry, role="server", modelhealth=modelhealth)
     # the serving plane on the workers' port: the engine is there before
     # the port listens (a read before the first snapshot is STALE), and a
     # prediction client sends no HELLO, so the bridge routes it nothing
@@ -404,7 +425,8 @@ def run_server(args) -> int:
         print(f"serving predictions on port {bridge.port}",
               file=sys.stderr, flush=True)
 
-    ops = _make_ops(args, telemetry, role="server")
+    if modelhealth is not None:
+        server.attach_model_health(modelhealth)
     ops.add_gate_watchdog(server)
     if eval_engine is not None:
         ops.add_eval_engine(eval_engine)    # /evalz
@@ -450,8 +472,15 @@ def run_server(args) -> int:
         bridge, sink,
         deliverable=lambda w: (failure_policy == "rebalance"
                                or server.tracker.tracker[w].active))
+    row_sink = batch_sink
+    if modelhealth is not None:
+        def row_sink(worker: int, features, label: int) -> None:
+            # the sampled feature sketch on the producer thread, before
+            # the row fans out to whichever worker holds the connection
+            modelhealth.drift.observe_row(features)
+            batch_sink(worker, features, label)
     producer = CsvStreamProducer(
-        args.training_data_file_path, cfg.num_workers, batch_sink,
+        args.training_data_file_path, cfg.num_workers, row_sink,
         time_per_event_ms=cfg.stream.time_per_event_ms,
         prefill_per_worker=cfg.stream.prefill_per_worker,
         num_features=cfg.model.num_features)
@@ -518,6 +547,11 @@ def run_server(args) -> int:
     # the live pulse (utils/status.py), the split face of --status_every
     from kafka_ps_tpu_torch.utils.status import StatusReporter
 
+    rolling_critpath = None
+    if telemetry.enabled:
+        from kafka_ps_tpu_torch.telemetry.critpath import RollingCritpath
+        rolling_critpath = RollingCritpath(telemetry)
+
     def status() -> dict:
         tr = server.tracker
         active = tr.active_workers
@@ -538,6 +572,13 @@ def run_server(args) -> int:
                               "stale": s["rejections"]}
         if telemetry.enabled:
             out["metrics"] = telemetry.summary()
+        if rolling_critpath is not None:
+            # the segment dominating this window, from the histograms'
+            # deltas since the last line (telemetry/critpath.py)
+            out["critpath"] = rolling_critpath.sample()
+        if modelhealth is not None:
+            # update norms, direction cosine, drift verdict
+            out["modelhealth"] = modelhealth.summary()
         return out
 
     reporter = StatusReporter(getattr(args, "status_every", 0.0) or 0.0,
@@ -570,6 +611,8 @@ def run_server(args) -> int:
             if eval_engine is not None:
                 eval_engine.close()   # drains pending evals into server.log
             if checkpoint_path:
+                if tier_store is not None:
+                    tier_store.rebalance()   # no apply races it now
                 server.save_checkpoint_now()
         finally:
             if tier_store is not None:
@@ -581,6 +624,10 @@ def run_server(args) -> int:
             events_log.close()
             end_ms = int(time.time() * 1000)     # the logs are flushed
             ops.close()                  # the final flight dump
+            if drift_sink is not None:
+                # after ops.close(): the plane's final drain may still
+                # emit a verdict row
+                drift_sink.close()
             _dump_telemetry(args, tracer, telemetry)
             _print_stats("server", {
                 "role": "server", "device": str(device),
@@ -669,9 +716,13 @@ def run_worker(args) -> int:
         codec=codec_spec, coalesce=getattr(args, "wire_coalesce", True),
         device=device, tracer=tracer, telemetry=telemetry)
     fabric = bridge.make_fabric()
+    # this process's model-health plane over its own training stream:
+    # the rows' eval fields and the sampled buffer arrivals
+    modelhealth, drift_sink = run_mod.make_model_health(
+        args, telemetry, cfg, log_name="./logs-drift-worker.csv")
     # the death hooks armed before training: a SIGTERM'd worker leaves
     # its flight dump even mid-iteration
-    ops = _make_ops(args, telemetry, role="worker")
+    ops = _make_ops(args, telemetry, role="worker", modelhealth=modelhealth)
     ops.start()
 
     compressors = None
@@ -725,6 +776,12 @@ def run_worker(args) -> int:
     if compressors is not None:
         for w in ids:
             nodes[w].compressor = compressors[w]
+    if modelhealth is not None:
+        # the process's logical workers share its one plane; the reader
+        # thread's buffer inserts feed the feature sketch
+        for w in ids:
+            nodes[w].modelhealth = modelhealth
+            buffers[w].attach_drift(modelhealth.drift)
 
     saver = (None if state_path is None else _StateSaver(
         state_path, buffers, nodes, bridge.server_run_id, compressors,
@@ -810,6 +867,8 @@ def run_worker(args) -> int:
     # before any os._exit below: a wedged thread must not cost the
     # process its flight dump, trace and metrics file
     ops.close()
+    if drift_sink is not None:
+        drift_sink.close()
     _dump_telemetry(args, tracer, telemetry)
     _print_stats("worker", {
         "role": "worker", "device": str(device), "worker_ids": ids,
@@ -885,6 +944,18 @@ def run_server_shard(args) -> int:
             os.path.join(args.durable_log, f"shard{shard_id}of{num_shards}"),
             LogConfig(fsync=getattr(args, "fsync", "interval")),
             device=device, tracer=tracer, telemetry=telemetry)
+    # the shard's model-health plane: its families carry shard=<I>, so a
+    # fleet's dashboards tell which slice went sour.  The ops plane (its
+    # flight recorder armed) before the port listens: a worker's HELLO
+    # can arrive at once; its dump carries the shard's identity and the
+    # roster, so the postmortem can tell which shard of the fleet wedged
+    # or died
+    modelhealth, drift_sink = run_mod.make_model_health(
+        args, telemetry, cfg, shard=shard_id,
+        log_name=f"./logs-drift-shard{shard_id}.csv")
+    ops = _make_ops(args, telemetry, role="server", shard=shard_id,
+                    meta={"shards": list(range(num_shards))},
+                    modelhealth=modelhealth)
     bridge = net.ServerBridge(
         port=args.listen,
         heartbeat_interval=min(1.0, hb_timeout / 3) if hb_timeout else 1.0,
@@ -930,11 +1001,8 @@ def run_server_shard(args) -> int:
             print(f"shard {shard_id}: durable-log replay {replay} in "
                   f"{replay_s:.3f} s", file=sys.stderr, flush=True)
 
-    # the shard's ops plane: its dump carries the shard's identity and
-    # the roster, so the postmortem can tell which shard of the fleet
-    # wedged or died
-    ops = _make_ops(args, telemetry, role="server", shard=shard_id,
-                    meta={"shards": list(range(num_shards))})
+    if modelhealth is not None:
+        server.attach_model_health(modelhealth)
     ops.add_gate_watchdog(server)
     if inner.durable:
         ops.add_fsync_watchdog()
@@ -1029,6 +1097,8 @@ def run_server_shard(args) -> int:
         bridge.close()
         try:
             if checkpoint_path:
+                if tier_store is not None:
+                    tier_store.rebalance()   # no apply races it now
                 # a commit point: the checkpoint and the committed log
                 # offsets describe one instant
                 server.save_checkpoint_now()
@@ -1039,6 +1109,8 @@ def run_server_shard(args) -> int:
                 inner.close()
             end_ms = int(time.time() * 1000)
             ops.close()
+            if drift_sink is not None:
+                drift_sink.close()
             _dump_telemetry(args, tracer, telemetry)
             _print_stats("server", {
                 "role": "server", "device": str(device),
@@ -1191,11 +1263,16 @@ def _run_worker_sharded(args, addrs: list[str],
     num_params = get_task(cfg.task, cfg.model).num_params
     plan = ShardPlan(num_params, len(addrs))
     tracer, telemetry = _make_telemetry(args)
+    # the process's model-health plane over its training stream, as in
+    # run_worker
+    modelhealth, drift_sink = run_mod.make_model_health(
+        args, telemetry, cfg, log_name="./logs-drift-worker.csv")
     # meta names the whole shard roster: the postmortem's dead shards are
     # the known ones less those that dumped, and a worker's dump is what
     # survives a killed shard
     ops = _make_ops(args, telemetry, role="worker",
-                    meta={"shards": list(range(len(addrs)))})
+                    meta={"shards": list(range(len(addrs)))},
+                    modelhealth=modelhealth)
     ops.start()
 
     def connect(addr: str, timeout: float = 30.0):
@@ -1289,6 +1366,9 @@ def _run_worker_sharded(args, addrs: list[str],
         nodes[w].shard_router = routers[w]
         if compressors is not None:
             nodes[w].compressor = compressors[w]
+        if modelhealth is not None:
+            nodes[w].modelhealth = modelhealth
+            buffers[w].attach_drift(modelhealth.drift)
 
     saver = (None if state_path is None else _StateSaver(
         state_path, buffers, nodes, run_id, compressors, state_every))
@@ -1430,6 +1510,8 @@ def _run_worker_sharded(args, addrs: list[str],
         if t.is_alive():
             leftover.append(t.name)
     ops.close()                  # before any os._exit: the flight dump
+    if drift_sink is not None:
+        drift_sink.close()
     _dump_telemetry(args, tracer, telemetry)
     bridges = retired + slots
     _print_stats("worker", {

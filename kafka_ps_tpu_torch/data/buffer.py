@@ -13,7 +13,9 @@ Each worker owns fixed-capacity dense numpy arrays plus a validity mask:
   * insertion IDs: new ID = max ID in the buffer + 1 (1 when empty).
 
 With telemetry on, `buffer_rows_ingested_total{worker}` counts the rows
-inserted.
+inserted; with a drift monitor attached (`attach_drift`,
+--model-health) every arrival also goes to its feature sketch, which
+samples every Nth.
 """
 
 from __future__ import annotations
@@ -62,6 +64,14 @@ class SlidingBuffer:
         self._version = 0
         # the producer thread adds while the training loop snapshots
         self._lock = threading.Lock()
+        # optional drift monitor (telemetry/drift.py): sampled arrivals
+        # feed its per-feature Welford sketch; None leaves ingest as it is
+        self._drift = None
+
+    def attach_drift(self, monitor) -> None:
+        """Feed sampled arrivals to a DriftMonitor's feature sketch
+        (population-stability scoring, --model-health)."""
+        self._drift = monitor
 
     # -- rate tracking ------------------------------------------------------
 
@@ -91,18 +101,30 @@ class SlidingBuffer:
             self._add_locked(features, label)
         if self._telemetry.enabled:
             self._m_rows.inc()
+        if self._drift is not None:
+            # outside the buffer lock (never hold two); observe_row
+            # itself samples every Nth arrival
+            self._drift.observe_row(features)
 
     def add_many(self, rows) -> None:
         """Insert (features, label) samples under ONE lock acquisition,
         policy-identical to one add() per row: arrival recording and the
         dynamic-target eviction run per row."""
         n = 0
+        # rows may be a one-shot iterable: keep the features while
+        # inserting, sketch them after the lock is released
+        sampled = [] if self._drift is not None else None
         with self._lock:
             for features, label in rows:
                 self._add_locked(features, label)
                 n += 1
+                if sampled is not None:
+                    sampled.append(features)
         if n and self._telemetry.enabled:
             self._m_rows.inc(n)
+        if sampled:
+            for features in sampled:
+                self._drift.observe_row(features)
 
     def _add_locked(self, features, label: int) -> None:
         self._record_arrival()

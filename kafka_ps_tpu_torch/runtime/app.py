@@ -136,6 +136,9 @@ class StreamingPSApp:
         self.fused_stats = {"rounds": 0, "chunk_rounds": 0, "chunks": 0}
         # the serving plane's engine (enable_serving); None: a trainer only
         self.serving_engine = None
+        # the rolling critical path (telemetry/critpath.py), built at the
+        # first status() with telemetry on
+        self._critpath = None
         # compressed delta transport: one weights compressor on the
         # server, one error-feedback residual per worker ({} when off);
         # the residuals ride the server's checkpoint beside the buffers
@@ -227,6 +230,14 @@ class StreamingPSApp:
         return attach_tiered_store(
             self.server, self.cfg.tier,
             KeyRange(0, self.server.task.num_params), cold_dir)
+
+    def settle_tiering(self) -> None:
+        """One policy pass once a drive loop's applies have ended, so the
+        residency a final checkpoint records holds the tier caps: a dense
+        apply lands every cold page warm, and a pass that an apply races
+        abandons its demotions."""
+        if self.server.param_store is not None:
+            self.server.param_store.rebalance()
 
     def close_tiering(self) -> None:
         """Join the policy thread and close the cold log; after the final
@@ -382,8 +393,7 @@ class StreamingPSApp:
     def status(self) -> dict:
         """One sample of the runtime's pulse, printed by StatusReporter
         as the periodic `[status]` line (`status_every`): the JAX app's
-        keys, less `critpath` and `modelhealth` (their planes are not
-        ported yet).  Host state only."""
+        keys.  Host state only."""
         tr = self.server.tracker
         active = tr.active_workers
         out = {
@@ -410,6 +420,16 @@ class StreamingPSApp:
                 "p99_ms": s["p99_ms"], "stale": s["rejections"]}
         if self.telemetry.enabled:
             out["metrics"] = self.telemetry.summary()
+            # the segment dominating this window, from the histograms'
+            # deltas since the last line
+            if self._critpath is None:
+                from kafka_ps_tpu_torch.telemetry.critpath import \
+                    RollingCritpath
+                self._critpath = RollingCritpath(self.telemetry)
+            out["critpath"] = self._critpath.sample()
+        if self.server.modelhealth.enabled:
+            # update norms, aggregate-direction cosine, drift verdict
+            out["modelhealth"] = self.server.modelhealth.summary()
         return out
 
     def _start_status(self, status_every: float | None):
@@ -520,6 +540,7 @@ class StreamingPSApp:
         finally:
             reporter.stop()
             self.flush_logs()
+        self.settle_tiering()
 
     def run_threaded(self, max_server_iterations: int,
                      poll_timeout: float = 0.1,
@@ -651,6 +672,7 @@ class StreamingPSApp:
             self.flush_logs()
         if worker_errors:
             raise RuntimeError("worker thread failed") from worker_errors[0]
+        self.settle_tiering()
 
     # -- fused BSP ------------------------------------------------------------
 
@@ -690,6 +712,7 @@ class StreamingPSApp:
         finally:
             reporter.stop()
             self.flush_logs()
+        self.settle_tiering()
 
     def _upload_fused_slab(self, active):
         """The active workers' buffers stacked into [N, cap, F] (y, mask

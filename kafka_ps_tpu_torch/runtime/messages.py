@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -70,9 +71,15 @@ class WeightsMessage(BaseMessage):
 
 @dataclasses.dataclass(frozen=True)
 class GradientMessage(BaseMessage):
-    """worker → server; carries the sending worker's id."""
+    """worker → server; carries the sending worker's id.  `host_values`
+    is the host array a decoded frame's values came from
+    (runtime/serde.py), None otherwise: the model-health plane computes
+    on it inline (telemetry/modelhealth.py).  A copy that changes the
+    values must drop it."""
 
     worker_id: int = 0
+    host_values: np.ndarray | None = dataclasses.field(
+        default=None, compare=False, repr=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +108,9 @@ class SparseDeltaMessage:
     values: torch.Tensor         # float32, same length as indices
     worker_id: int = 0
     encoded: EncodedValues | None = None   # API parity with BaseMessage
+    # as GradientMessage's
+    host_values: np.ndarray | None = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if len(self.indices) != len(self.values):

@@ -80,8 +80,8 @@ starts at the worker's `net.send` and steps at the server's `net.recv`,
 worker's `net.recv`.  A peer of either package that does not offer never
 sees a suffix, so an untraced connection's frames are byte for byte the
 untraced ones.  The flow ids are the sending tracer's (its pid in the
-top bits), so the JAX package's merge tool joins the processes' traces
-into one chain.
+top bits), so the merge tool (telemetry/merge.py, or the JAX
+package's) joins the processes' traces into one chain.
 
 Decoded tensors land on the bridge's device (`device`, resolved once by
 utils.config.resolve_device when the bridge is made), passed explicitly

@@ -16,8 +16,10 @@ structs and layouts, so a log or a frame written by either package
 decodes in the other.  `to_bytes` copies a CUDA `values` tensor to the
 host once (the copy waits for the kernel that produced it); `from_bytes`
 returns tensors on utils.config.resolve_device(device), the card unless
-the caller asks for the CPU.  Compressed frames decode through
-compress.codecs.decode_message_parts, imported when one is met.
+the caller asks for the CPU; a decoded plain or sparse gradient also
+keeps the host array it was decoded from as `host_values`.  Compressed
+frames decode through compress.codecs.decode_message_parts, imported
+when one is met.
 """
 
 from __future__ import annotations
@@ -60,12 +62,14 @@ def _host(v, dtype: str) -> np.ndarray:
     return np.ascontiguousarray(v, dtype=dtype)
 
 
-def _tensor(payload, dtype: str, offset: int, count: int,
-            device) -> torch.Tensor:
-    """`count` values of `dtype` at `offset` of the payload as a tensor on
-    resolve_device(device)."""
-    a = np.frombuffer(payload, dtype=dtype, offset=offset,
-                      count=count).copy()
+def _array(payload, dtype: str, offset: int, count: int) -> np.ndarray:
+    """`count` values of `dtype` at `offset` of the payload, copied."""
+    return np.frombuffer(payload, dtype=dtype, offset=offset,
+                         count=count).copy()
+
+
+def _on_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on resolve_device(device)."""
     return torch.from_numpy(a).to(resolve_device(device))
 
 
@@ -258,14 +262,16 @@ def from_bytes(payload, device=None):
     if name in ("WeightsMessage", "GradientMessage"):
         start, end, worker = _RANGE.unpack_from(payload, off)
         off += _RANGE.size
-        values = _tensor(payload, "<f4", off, end - start, device)
+        host = _array(payload, "<f4", off, end - start)
+        values = _on_device(host, device)
         if name == "WeightsMessage":
             return WeightsMessage(vector_clock=clock_or_label,
                                   key_range=KeyRange(start, end),
                                   values=values)
         return GradientMessage(vector_clock=clock_or_label,
                                key_range=KeyRange(start, end),
-                               values=values, worker_id=worker)
+                               values=values, worker_id=worker,
+                               host_values=host)
     if name in ("CompressedWeights", "CompressedGradient"):
         start, end, worker = _RANGE.unpack_from(payload, off)
         off += _RANGE.size
@@ -290,12 +296,13 @@ def from_bytes(payload, device=None):
         off += _RANGE.size
         (n,) = struct.unpack_from("<q", payload, off)
         off += 8
-        idx = _tensor(payload, "<i4", off, n, device)
-        vals = _tensor(payload, "<f4", off + 4 * n, n, device)
+        idx = _on_device(_array(payload, "<i4", off, n), device)
+        host = _array(payload, "<f4", off + 4 * n, n)
         return SparseDeltaMessage(vector_clock=clock_or_label,
                                   key_range=KeyRange(start, end),
-                                  indices=idx, values=vals,
-                                  worker_id=worker)
+                                  indices=idx,
+                                  values=_on_device(host, device),
+                                  worker_id=worker, host_values=host)
     if name == "CompositeDelta":
         flags, k = _COMPOSITE_HEAD.unpack_from(payload, off)
         off += _COMPOSITE_HEAD.size

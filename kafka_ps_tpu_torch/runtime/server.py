@@ -110,6 +110,7 @@ from kafka_ps_tpu_torch.runtime.messages import (CompositeDelta, GangNotice,
                                                  GradientMessage, KeyRange,
                                                  WeightsMessage)
 from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
+from kafka_ps_tpu_torch.telemetry.modelhealth import NULL_MODEL_HEALTH
 from kafka_ps_tpu_torch.telemetry.registry import (CLOCK_BUCKETS,
                                                    NULL_TELEMETRY,
                                                    model_name)
@@ -231,6 +232,11 @@ class ServerNode:
         self.serving = None
         self.snapshots_published = 0
         self.last_published_clock: int | None = None
+        # model-health plane (telemetry/modelhealth.py, --model-health):
+        # per-update diagnostics and drift detection; the null plane
+        # costs one attribute load, and the armed one only reads values
+        # the update produced, so theta is bitwise the same either way
+        self.modelhealth = NULL_MODEL_HEALTH
 
     # -- tiered residency (store/) --------------------------------------------
 
@@ -269,6 +275,20 @@ class ServerNode:
         self._theta = None           # the store owns the values now
         store.rebalance()
 
+    def attach_model_health(self, plane) -> None:
+        """Arm the model-health plane (telemetry/modelhealth.py): the
+        apply path feeds it every accepted gradient and eval row.  Detach
+        by attaching NULL_MODEL_HEALTH."""
+        self.modelhealth = plane
+
+    def _observe_update(self, msg) -> None:
+        """Hand one accepted gradient to the armed model-health plane:
+        the host array a socket or log frame was decoded from (computed
+        inline), else the tensor (deferred to the plane's sampler)."""
+        host = msg.host_values
+        self.modelhealth.observe_update(
+            msg.worker_id, msg.values if host is None else host)
+
     def attach_eval_engine(self, engine):
         """Arm the async eval plane: eval-cadence applies stop fusing the
         eval and submit (theta, clock) to the engine, which calls
@@ -289,11 +309,15 @@ class ServerNode:
         """The one eval emission point, for the fused paths and the
         engine's thread alike.  Schema: timestamp;partition;vectorClock;
         loss;fMeasure;accuracy with partition=-1 and the real test loss
-        (the reference logs -1 there)."""
+        (the reference logs -1 there).  The metrics may be tensors still
+        being computed: the log and the model-health plane resolve them
+        off this thread."""
         asynclog.submit_or_write(
             self.log,
             f"{int(time.time() * 1000)};-1;{clock};"
             "{};{};{}", m.loss, m.f1, m.accuracy)
+        if self.modelhealth.enabled:
+            self.modelhealth.observe_eval(m.loss, m.f1)
 
     # -- bootstrap ------------------------------------------------------------
 
@@ -640,6 +664,8 @@ class ServerNode:
             return
         self.tracker.received_message(msg.worker_id, msg.vector_clock)
         self._arrived(msg.worker_id, msg.vector_clock)
+        if self.modelhealth.enabled:
+            self._observe_update(msg)
         self._apply_and_release(msg, msg.vector_clock, [msg.worker_id],
                                 worker=msg.worker_id)
         self.maybe_checkpoint()
@@ -951,6 +977,8 @@ class ServerNode:
         for i, m in enumerate(msgs):
             self.tracker.received_message(m.worker_id, m.vector_clock)
             self._arrived(m.worker_id, m.vector_clock)
+            if self.modelhealth.enabled:
+                self._observe_update(m)
             if self._wants_eval(m):
                 eval_at[i] = m.vector_clock
             release = sorted(self.workers_to_respond_to(m.vector_clock,

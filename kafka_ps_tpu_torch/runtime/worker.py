@@ -26,6 +26,9 @@ Telemetry (tracer=, telemetry=; null by default): the
 iteration and `worker_update_ms{worker}`, the host time of the call.
 The span and the histogram time the kernel's LAUNCH: nothing waits on
 the device to take them (its time is what `--device_trace` records).
+With a model-health plane set (`modelhealth`, split mode's
+--model-health) every row's loss and F1 go to it as they are, tensors
+included: its sampler thread resolves them.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from kafka_ps_tpu_torch.ops import fused_update
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
 from kafka_ps_tpu_torch.runtime.messages import (GradientMessage, KeyRange,
                                                  WeightsMessage)
+from kafka_ps_tpu_torch.telemetry.modelhealth import NULL_MODEL_HEALTH
 from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
 from kafka_ps_tpu_torch.utils import asynclog
 from kafka_ps_tpu_torch.utils.config import ModelConfig, PSConfig
@@ -100,6 +104,9 @@ class WorkerNode:
             "worker_updates_total", worker=str(worker_id))
         self._m_update_ms = self.telemetry.histogram(
             "worker_update_ms", worker=str(worker_id))
+        # model-health plane (telemetry/modelhealth.py): a split-mode
+        # worker process's one plane over its rows, set by the CLI
+        self.modelhealth = NULL_MODEL_HEALTH
         self.worker_id = worker_id
         self.cfg = cfg
         self.fabric = fabric
@@ -193,6 +200,8 @@ class WorkerNode:
             f"{msg.vector_clock};{{}};{{}};{{}};{seen}",
             loss, f1, acc)
         self.iterations += 1
+        if self.modelhealth.enabled:
+            self.modelhealth.observe_eval(loss, f1)
         encoded = None
         if self.compressor is not None:
             # the server applies the DECODED delta; the quantization

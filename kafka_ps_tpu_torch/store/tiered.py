@@ -149,6 +149,9 @@ class TieredParamStore:
         self._slab = ParamPageSlab(resolve_device(device))
         self.device = self._slab.device
         self._lock = threading.Lock()
+        # one policy pass at a time: the policy thread's, a drive loop's
+        # settling pass and the final one at close
+        self._pass_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         # host counters for the stats line (no device sync near them)
@@ -412,7 +415,11 @@ class TieredParamStore:
     def rebalance(self) -> dict:
         """One policy pass: plan, migrate the difference (I/O outside the
         lock, version-checked commits), halve the heat counters, set the
-        heat and page-count gauges."""
+        heat and page-count gauges.  Passes run one at a time."""
+        with self._pass_lock:
+            return self._rebalance()
+
+    def _rebalance(self) -> dict:
         with self._lock:
             targets = self._plan_locked()
             moves = [(p, targets[p.index], p.value, p.cold_offset,
@@ -524,11 +531,16 @@ class TieredParamStore:
         self._thread.start()
 
     def close(self) -> None:
-        """Join the policy thread and close an owned cold log."""
+        """Join the policy thread, run one last pass that nothing races
+        (a pass a write races abandons its demotions, and a read of a cold
+        page installs it warm, so the residency the last pass of the
+        thread left may hold the warm tier over its cap), and close an
+        owned cold log."""
         self._stop.set()
         t = self._thread
         if t is not None and t is not threading.current_thread():
             t.join(timeout=10.0)
+            self.rebalance()
         self._thread = None
         if self.cold is not None:
             self.cold.close()

@@ -20,17 +20,18 @@ engine) append small structured events into a per-thread ring buffer:
 
 Timestamps are `time.monotonic()` at record time; the wall/mono anchor
 pair captured at `enable()` converts them to wall-clock at dump time —
-the `wallClockT0` convention utils/trace.Tracer exports, which lets the
-JAX package's postmortem merge dumps from different processes onto one
-timeline.
+the `wallClockT0` convention utils/trace.Tracer exports, which lets
+`telemetry postmortem` (this package's or the JAX package's) merge dumps
+from different processes onto one timeline.
 
 `dump()` writes an atomic `flightdump-<pid>.json` (tmp + os.replace)
 containing the ring contents, every thread's stack, a metrics snapshot
 and the watchdog panel's verdicts, in the JAX recorder's schema
 (`kps-flightdump-v1`, the same keys).  Its `lockEdges` are `[]` (what
 the JAX recorder writes with no lock graph installed: the port has no
-lock-order recorder) and its `profile` is `[]` (no sampling profiler
-yet).  `install_death_hooks()` arranges for that dump on SIGTERM/SIGABRT
+lock-order recorder); its `profile` holds the armed sampling profiler's
+20 hottest stacks (`--profile`, telemetry/profiler.py), `[]` without
+one.  `install_death_hooks()` arranges for that dump on SIGTERM/SIGABRT
 plus `faulthandler` coverage for the hard faults — a SIGKILLed process
 writes nothing, which is why its peers' dumps carry the evidence.
 
@@ -107,6 +108,9 @@ class FlightRecorder:
         self.flight_dir: str | None = None
         self.telemetry = None
         self.panel = None               # WatchdogPanel (health.py), if any
+        self.profiler = None            # SamplingProfiler, if armed — a
+                                        # watchdog trip ships its own
+                                        # profile (telemetry/profiler.py)
         self._wall0 = 0.0
         self._mono0 = 0.0
         self._beats: dict[str, float] = {}
@@ -143,6 +147,7 @@ class FlightRecorder:
         handlers install_death_hooks replaced."""
         self.enabled = False
         self.panel = None
+        self.profiler = None
         self.telemetry = None
         for signum, prev in self._prev_handlers.items():
             try:
@@ -268,6 +273,12 @@ class FlightRecorder:
             except Exception:           # noqa: BLE001 — never lose the box
                 metrics = {"error": "metrics snapshot failed"}
         watchdogs = self.panel.states() if self.panel is not None else {}
+        profile: list[str] = []
+        if self.profiler is not None:
+            try:
+                profile = self.profiler.top_stacks(20)
+            except Exception:           # noqa: BLE001 — never lose the box
+                profile = ["error: profile snapshot failed"]
         return {
             "schema": DUMP_SCHEMA,
             "pid": os.getpid(),
@@ -285,7 +296,7 @@ class FlightRecorder:
             "lockEdges": [],
             "metrics": metrics,
             "watchdogs": watchdogs,
-            "profile": [],
+            "profile": profile,
         }
 
     # -- dump-on-death ------------------------------------------------------

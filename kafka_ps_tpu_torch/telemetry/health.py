@@ -21,16 +21,20 @@ positive here kills a healthy pod:
 
 The HTTP plane is stdlib-only (http.server on a named daemon thread):
 
-    /healthz   200/503 JSON — watchdog-derived liveness/readiness
+    /healthz   200/503 JSON — watchdog-derived liveness/readiness,
+               plus the SLO plane's burn-rate detail when armed
     /varz      Prometheus text exposition (telemetry registry)
     /flightz   recent flight-ring tail as JSON (?n=200)
+    /profilez  collapsed-stack text from the sampling profiler
+               (--profile; 404 when not armed)
+    /modelz    model-health detail — per-worker contribution/divergence
+               plus the drift verdict (--model-health; 404 when not
+               armed)
     /evalz     async eval-engine detail — queue depth, clock lag,
                dispatch/coalesce counters (404 when the engine is not
                attached, e.g. --no-eval-async)
-    /profilez  404: the sampling profiler is not ported yet
-    /modelz    404: the model-health plane is not ported yet
 
-The two 404 answers are the JAX plane's when those planes are not armed.
+The 404 bodies are the JAX plane's, byte for byte.
 
 `OpsPlane` bundles recorder + panel + server lifecycle for the CLI
 roles (cli/run.py, cli/socket_mode.py): construct, add watchdogs,
@@ -55,6 +59,15 @@ GATE_STALL_S = 30.0
 FSYNC_STALL_S = 15.0
 SERVING_STALL_S = 15.0
 REPLICA_STALL_S = 30.0
+# A fast-window burn over 1.0 must persist this long before the SLO
+# watchdog trips a flight dump — one transiently slow batch is not an
+# incident.
+SLO_BURN_STALL_S = 60.0
+# A latched DRIFT verdict (telemetry/drift.py) is continuous demand
+# with no beat, so the armed watchdog trips — and ships the flight
+# dump — this long after the trip.  Short on purpose: the drift
+# monitor already debounced (warn level, calm decay) before latching.
+DRIFT_DUMP_S = 1.0
 
 
 class Liveness:
@@ -180,11 +193,13 @@ class HealthServer:
     scripts can scrape it, like the serving plane does)."""
 
     def __init__(self, port: int, *, panel: WatchdogPanel | None = None,
-                 flight=None, telemetry=None, eval_engine=None,
-                 host: str = "0.0.0.0"):
+                 flight=None, telemetry=None, slo=None, modelhealth=None,
+                 eval_engine=None, host: str = "0.0.0.0"):
         self.panel = panel
         self.flight = flight if flight is not None else FLIGHT
         self.telemetry = telemetry
+        self.slo = slo                  # SLOPlane (telemetry/slo.py)
+        self.modelhealth = modelhealth  # ModelHealth (modelhealth.py)
         self.eval_engine = eval_engine  # EvalEngine (evaluation/engine.py)
         plane = self
 
@@ -215,6 +230,8 @@ class HealthServer:
                     "watchdogs": (self.panel.states()
                                   if self.panel else {}),
                 }
+                if self.slo is not None:
+                    detail["slo"] = self.slo.detail()
                 body = json.dumps(detail).encode()
                 self._send(req, 200 if healthy else 503, body,
                            "application/json")
@@ -234,15 +251,32 @@ class HealthServer:
                 }).encode()
                 self._send(req, 200, body, "application/json")
             elif url.path == "/profilez":
-                self._send(req, 404,
-                           b'{"error": "profiler not armed '
-                           b'(--profile)"}',
-                           "application/json")
+                prof = getattr(self.flight, "profiler", None)
+                if prof is None:
+                    self._send(req, 404,
+                               b'{"error": "profiler not armed '
+                               b'(--profile)"}',
+                               "application/json")
+                else:
+                    stats = prof.stats()
+                    header = "".join(f"# {k}: {v}\n"
+                                     for k, v in sorted(stats.items()))
+                    text = header + prof.collapsed() + "\n"
+                    self._send(req, 200, text.encode(), "text/plain")
             elif url.path == "/modelz":
-                self._send(req, 404,
-                           b'{"error": "model health not armed '
-                           b'(--model-health)"}',
-                           "application/json")
+                plane_mh = self.modelhealth
+                if plane_mh is None or not plane_mh.enabled:
+                    self._send(req, 404,
+                               b'{"error": "model health not armed '
+                               b'(--model-health)"}',
+                               "application/json")
+                else:
+                    body = json.dumps({
+                        "role": self.flight.role,
+                        "shard": self.flight.shard,
+                        **plane_mh.detail(),
+                    }).encode()
+                    self._send(req, 200, body, "application/json")
             elif url.path == "/evalz":
                 eng = self.eval_engine
                 if eng is None:
@@ -280,18 +314,27 @@ class HealthServer:
 
 
 class OpsPlane:
-    """Recorder + watchdogs + health server as one lifecycle object for
-    the CLI roles.  Inert (a cheap no-op) when neither --flight-dir nor
-    --health-port was given, so wiring is unconditional."""
+    """Recorder + watchdogs + health server + the analysis planes'
+    samplers as one lifecycle object for the CLI roles.  Inert (a cheap
+    no-op) when none of --flight-dir, --health-port, --profile, an SLO
+    plane or a model-health plane was given, so wiring is
+    unconditional."""
 
     def __init__(self, *, flight_dir: str | None = None,
                  health_port: int | None = None, telemetry=None,
                  role: str = "run", shard: int | None = None,
-                 meta: dict | None = None, flight=None):
+                 meta: dict | None = None, flight=None,
+                 profile: bool = False, profile_hz: float = 100.0,
+                 slo_plane=None, modelhealth=None):
         self.flight = flight if flight is not None else FLIGHT
-        self.enabled = flight_dir is not None or health_port is not None
+        self.enabled = (flight_dir is not None or health_port is not None
+                        or profile or slo_plane is not None
+                        or modelhealth is not None)
         self.health: HealthServer | None = None
         self.panel: WatchdogPanel | None = None
+        self.profiler = None
+        self.slo = None                 # SLOPlane via add_slo_plane
+        self.modelhealth = None         # ModelHealth via add_modelhealth
         self.eval_engine = None         # EvalEngine via add_eval_engine
         self._health_port = health_port
         self._telemetry = telemetry
@@ -303,6 +346,16 @@ class OpsPlane:
             self.flight.install_death_hooks()
         self.panel = WatchdogPanel(flight=self.flight)
         self.flight.panel = self.panel
+        if profile:
+            # deferred import: the plane must construct without the
+            # profiler module when --profile was not asked for
+            from kafka_ps_tpu_torch.telemetry.profiler import SamplingProfiler
+            self.profiler = SamplingProfiler(hz=profile_hz)
+            self.flight.profiler = self.profiler
+        if slo_plane is not None:
+            self.add_slo_plane(slo_plane)
+        if modelhealth is not None:
+            self.add_modelhealth(modelhealth)
 
     def add_watchdog(self, name: str, threshold_s: float, *,
                      beat_name: str | None = None,
@@ -339,6 +392,29 @@ class OpsPlane:
         even an empty one, so demand is unconditional)."""
         self.add_watchdog("replica", threshold_s, beat_name="replica")
 
+    def add_slo_plane(self, slo,
+                      threshold_s: float = SLO_BURN_STALL_S) -> None:
+        """Adopt an SLOPlane (telemetry/slo.py): surface it on
+        /healthz, run its sampler from start(), and arm the burn-rate
+        watchdog — the plane beats `slo` while no fast window is
+        burning, so sustained burn is exactly a demand-with-no-progress
+        stall and trips one flight dump."""
+        self.slo = slo
+        self.add_watchdog("slo", threshold_s, beat_name="slo",
+                          demand=slo.burning)
+
+    def add_modelhealth(self, plane,
+                        threshold_s: float = DRIFT_DUMP_S) -> None:
+        """Adopt a ModelHealth plane (telemetry/modelhealth.py):
+        surface it on /modelz, run its sampler from start(), and arm
+        the drift watchdog — a latched DRIFT is continuous demand that
+        nothing beats, so the dog trips once past `threshold_s` and
+        the panel ships the flight dump with the `drift.trip` event
+        still in the ring."""
+        self.modelhealth = plane
+        self.add_watchdog("drift", threshold_s, beat_name="drift",
+                          demand=plane.in_drift)
+
     def add_eval_engine(self, engine) -> None:
         """Surface the async eval engine on /evalz (queue depth, clock
         lag, coalesce counters).  No watchdog: a lagging engine is a
@@ -349,12 +425,20 @@ class OpsPlane:
     def start(self) -> None:
         if not self.enabled:
             return
+        if self.profiler is not None:
+            self.profiler.start()
+        if self.slo is not None:
+            self.slo.start()
+        if self.modelhealth is not None:
+            self.modelhealth.start()
         if self.panel is not None:
             self.panel.start()
         if self._health_port is not None:
             self.health = HealthServer(self._health_port, panel=self.panel,
                                        flight=self.flight,
                                        telemetry=self._telemetry,
+                                       slo=self.slo,
+                                       modelhealth=self.modelhealth,
                                        eval_engine=self.eval_engine)
             print(f"health plane on port {self.health.port}",
                   file=sys.stderr, flush=True)
@@ -365,6 +449,14 @@ class OpsPlane:
         if self.health is not None:
             self.health.close()
             self.health = None
+        if self.slo is not None:
+            self.slo.stop()
+        if self.modelhealth is not None:
+            # stop() drains the deferred queues, so the final flight
+            # dump below sees the complete drift verdict
+            self.modelhealth.stop()
+        if self.profiler is not None:
+            self.profiler.stop()
         if self.panel is not None:
             self.panel.stop()
         if self.flight.flight_dir is not None:

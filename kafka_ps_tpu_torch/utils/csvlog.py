@@ -5,6 +5,9 @@ Schemas are the reference's, so its evaluation notebooks parse our logs:
   worker: timestamp;partition;vectorClock;loss;fMeasure;accuracy;numTuplesSeen
   events: timestamp;event;partition (evict / readmit / resume, written
           as they happen so that a crash cannot lose the record)
+  drift:  timestamp;event;detector;statistic;signal (telemetry/drift.py's
+          warn and trip edges: the monitor emits the clock-free rest, the
+          CLI's sink prepends the wall-clock stamp)
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import threading
 SERVER_HEADER = "timestamp;partition;vectorClock;loss;fMeasure;accuracy"
 WORKER_HEADER = SERVER_HEADER + ";numTuplesSeen"
 EVENTS_HEADER = "timestamp;event;partition"
+DRIFT_HEADER = "timestamp;event;detector;statistic;signal"
 
 
 class NullLogSink:

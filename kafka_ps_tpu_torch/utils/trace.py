@@ -6,7 +6,7 @@ Three layers:
     counters are sampled over time as `ph: "C"` counter events (the
     per-topic message-flow timeline); flow events (`ph: s/t/f`) connect
     a delta's lifecycle across threads.  The dump's JSON is the JAX
-    tracer's, so the JAX package's merge tool stitches a dump of either
+    tracer's, so either package's merge tool stitches a dump of either
     package with one of the other.
   * `LatencyRecorder` — the serving plane's sliding-window percentiles.
   * `device_trace(logdir, device)` — torch.profiler over a block: CPU
@@ -35,7 +35,7 @@ class Tracer:
     """Span + counter + flow recorder with Chrome trace-event export.
 
     `pid` labels every event (defaults to the real process id — the
-    JAX package's merge tool keys track groups off it);
+    merge tool keys track groups off it);
     `counter_sample_s` throttles how often a hot counter emits a
     timeline sample (0 = every increment, for deterministic tests)."""
 

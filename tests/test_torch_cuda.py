@@ -1013,3 +1013,56 @@ def test_traced_bridge_round_on_the_card_is_bitwise_the_untraced(card, task,
         a, b = plain[side][topic], traced[side][topic]
         assert a["frames_out"] == b["frames_out"] > 0
         assert b["bytes_out"] - a["bytes_out"] == 16 * b["frames_out"]
+
+
+def test_deferred_card_deltas_resolve_to_the_inline_bits_without_a_sync(
+        card):
+    """The model-health plane fed CUDA tensors, as the in-process fabric
+    feeds it: observe_update and observe_eval only keep the references
+    (nothing synchronises: they run under sync debug mode "error"), and
+    the sampler's copy to the host resolves them to bitwise the gauges,
+    histogram and drift verdict the inline numpy path gives for the same
+    values."""
+    from argparse import Namespace
+    from kafka_ps_tpu_torch.telemetry import Telemetry
+    from kafka_ps_tpu_torch.telemetry.modelhealth import plane_from_args
+    args = Namespace(model_health=True, drift_detector="ph",
+                     drift_threshold=None)
+    rng = np.random.default_rng(11)
+    deltas = [rng.normal(0.0, 0.1 + 0.01 * (i % 4), 6150).astype(np.float32)
+              for i in range(48)]
+    # float32 values: the card's scalars hold what the inline path gets
+    evals = [(float(np.float32(0.5 + 0.01 * i)),
+              float(np.float32(0.8 - 0.001 * i))) for i in range(48)]
+    out = {}
+    for mode in ("inline", "card"):
+        tel = Telemetry()
+        plane = plane_from_args(args, tel, num_features=1024)
+        if mode == "inline":
+            for i, d in enumerate(deltas):
+                plane.observe_update(i % 4, d)
+                plane.observe_eval(*evals[i])
+        else:
+            ones = torch.ones(6150, device=card)
+            host = [torch.from_numpy(d).to(card) for d in deltas]
+            scalars = [tuple(torch.tensor(v, device=card) for v in e)
+                       for e in evals]
+            torch.cuda.synchronize()
+            # kernel outputs still being computed when they are observed
+            values = [h * ones for h in host]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for i, v in enumerate(values):
+                    plane.observe_update(i % 4, v)
+                    plane.observe_eval(*scalars[i])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        polled = plane.poll()
+        text = [ln for ln in tel.prometheus_text().splitlines()
+                if not ln.startswith("modelhealth_deferred_total ")]
+        out[mode] = (polled["updates"], plane.summary(), plane.detail(),
+                     text, tel.snapshot()["modelhealth_deferred_total"])
+    assert out["card"][:4] == out["inline"][:4]
+    assert out["card"][4] == {"_total": 48} and out["inline"][4] == \
+        {"_total": 0}
+    assert out["card"][0] == 48 and out["card"][2]["drift"]["evals"] == 48

@@ -614,3 +614,36 @@ def test_serving_and_replica_watchdogs(tmp_path):
     (dump,) = [p for p in tmp_path.glob("flightdump-*.json")]
     kinds = {e["kind"] for e in json.loads(dump.read_text())["events"]}
     assert "watchdog.trip" in kinds
+
+
+@pytest.mark.parametrize("argv", [[], ["--shards", "2", "--shard-id", "1"]],
+                         ids=["split", "shard"])
+def test_a_server_arms_its_flight_recorder_before_its_port_listens(
+        argv, tmp_path, monkeypatch):
+    """A worker's HELLO can arrive as soon as a server's port listens, so
+    the split server and a shard arm their flight recorder (the ops
+    plane) before they open it: the HELLO's `net.hello` record is never
+    lost to a race with the process's start-up."""
+    from kafka_ps_tpu_torch.cli import server_runner
+    from kafka_ps_tpu_torch.data.synth import generate, write_csv
+    x, y = generate(40, 16, 3, seed=0)
+    write_csv(str(tmp_path / "train.csv"), x[:30], y[:30])
+    write_csv(str(tmp_path / "test.csv"), x[30:], y[30:])
+    armed = []
+
+    class Listening(Exception):
+        pass
+
+    def bridge(*args, **kwargs):
+        armed.append(FLIGHT.enabled)
+        raise Listening
+
+    monkeypatch.setenv("KPS_PLATFORM", "cpu")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(net, "ServerBridge", bridge)
+    with pytest.raises(Listening):
+        server_runner.main(["--listen", "0", "-training", "train.csv",
+                            "-test", "test.csv", "--num_features", "16",
+                            "--num_classes", "3", "--flight-dir", "flight",
+                            *argv])
+    assert armed == [True]

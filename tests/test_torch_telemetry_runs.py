@@ -9,9 +9,10 @@ utils/trace.py, utils/status.py).
     theta0: the same metric families and label sets; the counters of
     host decisions equal exactly; the timing histograms equal in their
     observation counts.
-  * `cli.run` with all seven telemetry flags against the JAX CLI with the
-    same flags (one subprocess each, run side by side), and the role
-    runners' refusal of `--device_trace`.
+  * `cli.run` with every telemetry flag of the JAX CLI (the base's seven,
+    the profiler's, the SLO plane's and the model-health plane's)
+    against the JAX CLI with the same flags (one subprocess each, run
+    side by side), and the role runners' refusal of `--device_trace`.
 """
 
 from __future__ import annotations
@@ -238,23 +239,32 @@ def test_counters_equal_the_jax_run(task, c, gang, durable, tmp_path):
 FLAGS = ("--status_every", "0.1", "--trace", "trace.json",
          "--metrics-file", "metrics.prom", "--metrics-every", "0.2",
          "--flight-dir", "flight", "--health-port", "0",
-         "--device_trace", "dtrace")
+         "--device_trace", "dtrace", "--profile", "--model-health",
+         "--slo-serving-p99-ms", "50", "--slo-freshness-ms", "1000")
+
+
+def _keys(block: str) -> set:
+    return {tok.split("=", 1)[0] for tok in block.split(" ")
+            if tok and not tok.startswith("(+")}
 
 
 def _status_keys(lines):
-    """(keys before the metrics block, keys of the metrics block) over the
-    [status] lines; the JAX line's critpath block is cut (its plane is not
-    ported yet).  Which histograms have a `_p50`/`_n` pair in a line
-    depends on what was observed by then, so the metrics keys are held to
-    family names, not compared line by line."""
-    head, metrics = set(), set()
+    """(keys before the metrics block, keys of the metrics block, of the
+    critpath block, of the modelhealth block) over the [status] lines.
+    Which histograms have a `_p50`/`_n` pair in a line depends on what
+    was observed by then (in the critpath block: in that window), so
+    those keys are held to family and segment names, not compared line
+    by line."""
+    head, metrics, crit, health = set(), set(), set(), set()
     for line in lines:
-        body = line[len("[status] "):].split(" critpath ")[0]
+        body, _, mh = line[len("[status] "):].partition(" modelhealth ")
+        body, _, cp = body.partition(" critpath ")
         before, _, block = body.partition(" metrics ")
-        head |= {tok.split("=", 1)[0] for tok in before.split(" ")
-                 if not tok.startswith("(+")}
-        metrics |= {tok.split("=", 1)[0] for tok in block.split(" ") if tok}
-    return head, metrics
+        head |= _keys(before)
+        metrics |= _keys(block)
+        crit |= _keys(cp)
+        health |= _keys(mh)
+    return head, metrics, crit, health
 
 
 def test_cli_runs_with_every_telemetry_flag_as_the_jax_cli(tmp_path):
@@ -280,7 +290,7 @@ def test_cli_runs_with_every_telemetry_flag_as_the_jax_cli(tmp_path):
         cwd=tmp_path / "port", env=env, stdout=subprocess.DEVNULL,
         stderr=subprocess.PIPE, text=True)
     try:
-        err, healthz = [], None
+        err, healthz, planes = [], None, {}
         for line in proc.stderr:
             err.append(line)
             m = re.match(r"health plane on port (\d+)", line)
@@ -290,6 +300,11 @@ def test_cli_runs_with_every_telemetry_flag_as_the_jax_cli(tmp_path):
                         f"http://127.0.0.1:{m.group(1)}/healthz",
                         timeout=10) as r:
                     healthz = (r.status, json.loads(r.read()))
+                for path in ("/profilez", "/modelz"):
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{m.group(1)}{path}",
+                            timeout=10) as r:
+                        planes[path] = (r.status, r.read().decode())
         assert proc.wait(timeout=300) == 0, "".join(err)
         jerr = jproc.communicate(timeout=300)[1]
         assert jproc.returncode == 0, jerr
@@ -297,15 +312,30 @@ def test_cli_runs_with_every_telemetry_flag_as_the_jax_cli(tmp_path):
         proc.kill()
         jproc.kill()
     assert healthz[0] == 200 and healthz[1]["healthy"] is True
-    assert healthz[1]["role"] == "run" and "gate" in healthz[1]["watchdogs"]
+    assert healthz[1]["role"] == "run" and {"gate", "slo", "drift"} <= \
+        set(healthz[1]["watchdogs"])
+    assert set(healthz[1]["slo"]) == {"serving_availability",
+                                      "serving_latency",
+                                      "snapshot_freshness", "model_health"}
+    assert planes["/profilez"][0] == planes["/modelz"][0] == 200
+    assert "# samples: " in planes["/profilez"][1]
+    assert json.loads(planes["/modelz"][1])["drift"]["detector"] == "ph"
     port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
-    # [status] lines: rising iters, the JAX keys less critpath/modelhealth
+    # [status] lines: rising iters, the JAX keys
     status = [ln.rstrip("\n") for ln in err if ln.startswith("[status] ")]
     jstatus = [ln for ln in jerr.splitlines() if ln.startswith("[status] ")]
     iters = [int(ln.split()[1].split("=")[1]) for ln in status]
     assert len(iters) >= 2 and iters == sorted(iters) and iters[-1] > 0
-    (head, metrics), (jhead, _) = _status_keys(status), _status_keys(jstatus)
+    (head, metrics, crit, health), (jhead, _, jcrit, jhealth) = \
+        _status_keys(status), _status_keys(jstatus)
     assert head == jhead and {"iters", "clocks", "pending", "eval_lag"} <= head
+    assert all(" critpath " in ln and " modelhealth " in ln
+               for ln in status)
+    assert health == jhealth and {"updates", "norm", "cos", "drift"} <= \
+        health
+    assert "dominant" in crit and "dominant" in jcrit
+    assert {re.sub(r"_(p50|n)$", "", k) for k in crit | jcrit} <= {
+        "dominant", "gate_wait", "local_train", "staleness", "serving"}
     # the metrics file: the JAX CLI's families
     types = [dict(re.findall(r"^# TYPE (\S+) (\S+)", (d / "metrics.prom")
                              .read_text(), re.M))
@@ -334,6 +364,11 @@ def test_cli_runs_with_every_telemetry_flag_as_the_jax_cli(tmp_path):
     assert {"gate.arrive", "gate.release"} <= {e["kind"]
                                                for e in d["events"]}
     assert d["watchdogs"]["gate"]["trip_count"] == 0
+    assert d["profile"] and all(line.rpartition(" ")[2].isdigit()
+                                for line in d["profile"])
+    # the drift log's header (no verdict on this clean stream)
+    assert (port_dir / "logs-drift.csv").read_text() == \
+        (jax_dir / "logs-drift.csv").read_text()
     # the device trace (CPU activity only here)
     (dt,) = (port_dir / "dtrace").glob("devicetrace-*.json")
     assert any(e.get("cat") == "cpu_op"

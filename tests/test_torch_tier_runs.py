@@ -340,6 +340,37 @@ def test_port_tiered_checkpoint_restores_into_jax(tmp_path):
     japp.close_eval()
 
 
+@pytest.mark.parametrize("loop", ["serial", "threaded"])
+def test_a_drive_loop_ends_with_the_tier_caps_held(tmp_path, loop):
+    """A dense apply lands every cold page warm, and the policy thread
+    may not pass again before a final checkpoint records the residency
+    (here it never does: its interval is an hour).  The drive loop ends
+    with a pass that no apply races, so the checkpoint holds the caps;
+    the store's close runs one more after the save's read of theta has
+    faulted the cold pages warm."""
+    x, y = _dataset()
+    p = PAGE["logreg"]
+    tier = config.TierConfig(hot_bytes=2 * p * 4, warm_bytes=3 * p * 4,
+                             page_params=p, rebalance_interval_s=3600.0)
+    app = StreamingPSApp(_cfg(config, 2, "logreg", tier), test_x=x,
+                         test_y=y, device="cpu")
+    store = app.enable_tiering(str(tmp_path / "cold"))
+    _feed(app, x, y)
+    getattr(app, f"run_{loop}")(11)
+    caps = [2, 3, store.num_pages - 5]
+    assert np.bincount(store.residency_vector(), minlength=3).tolist() \
+        == caps
+    path = str(tmp_path / "port.npz")
+    ckpt.save(path, app.server, buffers=app.buffers)
+    assert np.bincount(_tier_keys(path)["tier_residency"],
+                       minlength=3).tolist() == caps
+    assert store.tier_counts()["cold"] < caps[2]
+    app.close_tiering()
+    assert list(store.stats()["settled_tiers"].values()) == caps
+    assert store.tier_counts() == dict(zip(("hot", "warm", "cold"), caps))
+    app.close_logs()
+
+
 def test_restore_refuses_another_page_size(tmp_path):
     tapp = _ckpt_app(config, StreamingPSApp, tmp_path, "a", device="cpu")
     path = str(tmp_path / "p.npz")
