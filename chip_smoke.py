@@ -254,7 +254,36 @@
    at once (their rates and latencies are under that shared load, and
    every line they print says so).  Every
    run's kernel calls checked as the main path's.
-11. Profile: one more default serial -c 0 run per family, one of logreg
+11. Multi-device phase (parallel/{mesh,multihost,range_sharded}.py, the
+   fused path's mesh branch, cli.run -r and --param_shards; every job's
+   ranks are processes of tests/torch_multidevice_runs.py or cli.run):
+   in one child process, the bsp step and an 8-round chunk at the main
+   path's shapes (4 workers x 1024 rows, F=1024, C=5) and
+   run_fused_bsp (100 iterations, eval every 10, on 1024 rows a worker
+   fed before the loop) without a job and then in a 1-rank NCCL job,
+   theta, losses and rows (stamps aside) bitwise; the same run_fused_bsp
+   over 2 ranks sharing the card (gloo: NCCL refuses two ranks on one
+   card), the bsp branch and --param_shards 2's range-sharded server (a
+   1 x 2 mesh, the pad clean at every round) within rtol 1e-4, atol 1e-5
+   of each other and every rank's theta bitwise the others', and a gloo
+   all_reduce of the H=4096 MLP's round (4,222,983 float32) timed;
+   cli.run's refusals of --param_shards 2 outside a job and of -r
+   without --fused and with --durable-log in a 1-rank job, with the JAX
+   texts; evaluation/ground_truth.train_offline, 100 full-batch steps on
+   the card against the CPU (rtol 1e-4, atol 1e-5; F1 and accuracy
+   within 1/len(test)); then `cli.run -r --fused -l --checkpoint` jobs of
+   2 ranks on the card, the three at once: logreg and logreg
+   --param_shards 2 (100 iterations), the MLP at --hidden_dim 4096 (10
+   rounds), each with rank 0 alone writing the server, events and worker
+   logs and the checkpoint (no buffers in it), rank 1
+   logs-worker.p1.csv, workers {0,1} and
+   {2,3}, the clocks in lockstep, the loss falling, the port's
+   `python -m kafka_ps_tpu_torch.evaluation validate -c 0` clean on the
+   ranks' rows (in a process of its own: this script imports no pandas,
+   matplotlib or sklearn), and each rank one gang call a round, counted
+   in the `kernels` line.  Prints iterations/s of each job and of the
+   1-rank job beside no job.
+12. Profile: one more default serial -c 0 run per family, one of logreg
    with int8 slabs, one of logreg --compress int8 and one of logreg
    --fused --eval_every 10 (200
    iterations each), under torch.profiler (CUDA activity only) and
@@ -263,9 +292,10 @@
    Python function, with the rank of the CSV parse's functions in it.
    In the fused run, whose chunks replay CUDA graphs, the K2 kernels the
    profiler traced must equal the launch counter.
-12. The `kernels` JSON line (the split, scale-out, serving, tier,
-   telemetry and role telemetry runs' worker calls counted in the
-   launches), the phase times, the card line, and last the result line.
+13. The `kernels` JSON line (the split, scale-out, serving, tier,
+   telemetry, role telemetry and multi-device runs' worker and rank calls
+   counted in the launches), the phase times, the card line, and last
+   the result line.
 
 Any failed phase raises: the script exits non-zero and prints no result.
 It also exits non-zero without a card, and when the package is absent.
@@ -357,6 +387,9 @@ ROLE_PAIR_ITERS = 300
 # the server iterations of each run, and its buffer cap (the JAX drift
 # block's, so that the injected rows replace the clean ones)
 DRIFT_CLEAN, DRIFT_INJECTED, DRIFT_ITERS, DRIFT_BUFFER = 1000, 1000, 960, 256
+# the multi-device phase: server iterations of its logreg runs, rounds of
+# its H=4096 job, and the ground-truth fit's full-batch steps
+MD_ITERS, MD_WIDE_ROUNDS, GT_STEPS = 100, 10, 100
 # the [status] cadence of the telemetry phases' runs: a run of a few
 # hundred iterations can end within half a second, and a reporter prints
 # no line at its stop
@@ -4593,6 +4626,329 @@ def role_telemetry_phase(dev) -> list[dict]:
     return runs
 
 
+# the multi-device phase (parallel/{mesh,multihost,range_sharded}.py, the
+# fused path's mesh branch, cli.run -r and --param_shards) and the
+# ground-truth fit on the card
+
+
+def _md_csv(path: str, tag: str) -> list[list[str]]:
+    """A log's rows (header dropped), or [] when `path` is absent."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [r.split(";") for r in f.read().splitlines()[1:]]
+
+
+def md_protocol_check(name: str, d: str, server, worker, rounds: int,
+                      eval_every: int) -> None:
+    """The sequential contract of a fused job's logs in `d`: each
+    worker's clocks 1..rounds, the server's on the eval cadence, the loss
+    falling, and the port's validate_run(..., 0) on the ranks' rows."""
+    for w in range(WORKERS):
+        clocks = [int(r[2]) for r in worker if int(r[1]) == w]
+        if clocks != list(range(1, rounds + 1)):
+            raise RuntimeError(f"{name}: worker {w} clocks {clocks[:5]}...")
+    want = [c for c in range(1, rounds + 1) if c % eval_every == 0]
+    if [int(r[2]) for r in server] != want:
+        raise RuntimeError(f"{name}: server clocks "
+                           f"{[int(r[2]) for r in server]}")
+    if not float(server[-1][3]) < float(server[0][3]):
+        raise RuntimeError(f"{name}: the loss did not fall")
+    # the ranks' worker rows in one file, in stamp order, the lower clock
+    # first at one millisecond (it enabled the higher; the auditor orders
+    # ties by row order), audited by the port's evaluation CLI in a
+    # process of its own: this one imports no pandas
+    merged = os.path.join(d, "logs-worker-job.csv")
+    with open(merged, "w") as f:
+        f.write("timestamp;partition;vectorClock;loss;fMeasure;accuracy;"
+                "numTuplesSeen\n")
+        f.writelines(";".join(r) + "\n" for r in sorted(
+            worker, key=lambda r: (int(r[0]), int(r[2]))))
+    out = subprocess.run(
+        [sys.executable, "-m", "kafka_ps_tpu_torch.evaluation", "validate",
+         "--worker", merged, "--server", os.path.join(d, "logs-server.csv"),
+         "-c", "0"], cwd=REPO, capture_output=True, text=True, timeout=120)
+    if out.returncode != 0 or out.stdout.strip() != "0 violation(s)":
+        raise RuntimeError(f"{name}: validate_run: {out.stdout[-2000:]}"
+                           f"{out.stderr[-2000:]}")
+
+
+def md_cli_job(name: str, world: int, flags: tuple, iters: int,
+               eval_every: int, task: str = "logreg",
+               hidden: int = H) -> list[dict]:
+    """A `cli.run -r --fused -l --checkpoint` job of `world` ranks sharing
+    this card (gloo: NCCL refuses two ranks on one card), on the main
+    path's CSV: rank 0 alone writes the server, events and worker logs
+    and the checkpoint, rank r the worker log .p<r>; each rank feeds and
+    trains its block of workers, one gang call per round; the logs keep
+    the sequential contract.  Returns each rank's kernel calls as runs of
+    the `kernels` line."""
+    from torch_multidevice_runs import cli_job
+    d = os.path.join(OUT, f"md-{name}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    rounds = iters // WORKERS
+    t0 = time.perf_counter()
+    done = cli_job(d, world, [
+        "-training", os.path.join(OUT, "train.csv"), "-test",
+        os.path.join(OUT, "test.csv"), "--num_workers", str(WORKERS),
+        "--num_features", str(F), "--num_classes", str(C), "--task", task,
+        "--hidden_dim", str(hidden), "-max", str(MAX_BUFFER), "-p", "0",
+        "-l", "-r", "--fused", "--eval_every", str(eval_every),
+        "--max_iterations", str(iters), "--checkpoint", "ck.npz",
+        "--checkpoint_every", str(iters // 2), *flags], timeout=300)
+    wall = time.perf_counter() - t0
+    for r, (rc, _, err) in enumerate(done):
+        if rc != 0:
+            raise RuntimeError(f"{name}: rank {r} exited {rc}\n"
+                               f"{err[-3000:]}")
+    stats = [json.loads([ln for ln in err.splitlines() if ln.startswith(
+        "kafka_ps_tpu_torch run: ")][-1].split(": ", 1)[1])
+        for _, _, err in done]
+    server = _md_csv(os.path.join(d, "logs-server.csv"), name)
+    logs = [_md_csv(os.path.join(d, "logs-worker.csv" if r == 0 else
+                                 f"logs-worker.p{r}.csv"), name)
+            for r in range(world)]
+    names = sorted(f for f in os.listdir(d)
+                   if f.startswith(("logs-", "ck")))
+    want = sorted(["logs-server.csv", "logs-events.csv", "logs-worker.csv",
+                   "ck.npz"] + [f"logs-worker.p{r}.csv"
+                                for r in range(1, world)])
+    if names != want:
+        raise RuntimeError(f"{name}: files {names}, want {want}")
+    per = WORKERS // world
+    blocks = [sorted({int(row[1]) for row in rows}) for rows in logs]
+    if blocks != [list(range(r * per, (r + 1) * per))
+                  for r in range(world)]:
+        raise RuntimeError(f"{name}: the ranks' workers {blocks}")
+    worker = [row for rows in logs for row in rows]
+    md_protocol_check(name, d, server, worker, rounds, eval_every)
+    with np.load(os.path.join(d, "ck.npz")) as z:
+        if z["iterations"] != iters or any(k.startswith("buf")
+                                           for k in z.files):
+            raise RuntimeError(f"{name}: checkpoint at {z['iterations']} "
+                               f"with {z.files}")
+    remove(os.path.join(d, "ck.npz"))     # 17 MB at H=4096
+    prefix = "" if task == "logreg" else "mlp_"
+    out = []
+    for r, st in enumerate(stats):
+        k, job = st["kernels"], st["job"]
+        gang, members = k[f"{prefix}batched_launches"], \
+            k[f"{prefix}batched_members"]
+        if (job["rank"], job["world"]) != (r, world) or gang != rounds \
+                or members != per * rounds or k[f"{prefix}launches"]:
+            raise RuntimeError(f"{name} rank {r}: {job}, kernel calls {k}")
+        out.append({"task": task, "kind": "f32", "hidden": hidden,
+                    "single": 0, "gang_calls": gang})
+    stamps = [int(row[0]) for row in worker]
+    rate = iters / ((max(stamps) - min(stamps)) / 1e3 or 1e-3)
+    print(f"multidevice {name}: {world} ranks on one card, backend "
+          f"{stats[0]['job']['backend']}; {rounds} rounds, each rank one "
+          f"gang call a round over {per} workers ({gang} calls, {members} "
+          f"members); server rows {len(server)}, final loss "
+          f"{float(server[-1][3]):.4f}, F1 {float(server[-1][4]):.4f}; "
+          f"{rate:.1f} server iterations/s over the worker rows' stamps; "
+          f"job wall {wall:.1f} s (the ranks' start and kernel loads "
+          f"included) [{card_line()}]")
+    return out
+
+
+def md_close(name: str, out: np.ndarray, ref: np.ndarray) -> float:
+    """`out` within rtol 1e-4, atol 1e-5 of `ref` (float32 sums in other
+    orders): the largest absolute difference."""
+    torch.testing.assert_close(torch.from_numpy(out), torch.from_numpy(ref),
+                               rtol=RTOL, atol=MLP_ATOL, msg=name)
+    return float(np.abs(out - ref).max())
+
+
+def md_app_spec(**kw) -> dict:
+    """A run_fused_bsp(mesh=) run of tests/torch_multidevice_runs.py at
+    the main path's shapes, on 1024 rows a worker fed before the loop."""
+    return dict({"task": "logreg", "F": F, "C": C, "H": H, "lr": 0.5,
+                 "workers": WORKERS, "buffer": MAX_BUFFER,
+                 "n_train": WORKERS * MAX_BUFFER, "n_test": TEST_ROWS,
+                 "seed": 0, "iters": MD_ITERS, "eval_every": 10,
+                 "param_shards": 1}, **kw)
+
+
+def md_refusals() -> None:
+    """cli.run's refusals on the card, with the JAX CLI's texts: the
+    --param_shards 2 of a run outside a job (device count 1), and in a
+    1-rank NCCL job -r without --fused and --durable-log."""
+    from kafka_ps_tpu_torch.cli import run as cli_run
+    from torch_multidevice_runs import free_port
+    base = ["-training", os.path.join(OUT, "train.csv"), "-test",
+            os.path.join(OUT, "test.csv"), "--num_features", str(F),
+            "--num_classes", str(C), "--max_iterations", "8"]
+    cases = [
+        ((), ("--fused", "--param_shards", "2"),
+         "--param_shards 2 must divide the device count 1"),
+        (("-r",), (), "-r joined a multi-host job but only --fused runs "
+         "over the global mesh; add --fused (or run the async consistency "
+         "modes single-host)"),
+        (("-r",), ("--fused", "--durable-log", "md-wal"),
+         "--durable-log is single-process; a multi-host job must run "
+         "without it (use --checkpoint for resume)")]
+    for job, flags, text in cases:
+        env = {"KPS_COORDINATOR": f"127.0.0.1:{free_port()}",
+               "KPS_NUM_PROCESSES": "1", "KPS_PROCESS_ID": "0"} if job \
+            else {}
+        os.environ.update(env)
+        try:
+            cli_run.main([*base, *job, *flags])
+        except SystemExit as e:
+            got = str(e)
+        else:
+            got = None
+        finally:
+            for var in env:
+                os.environ.pop(var)
+        if got != text or torch.distributed.is_initialized():
+            raise RuntimeError(f"refusal {job + flags}: {got!r}")
+        print(f"multidevice refusal {' '.join(job + flags)}: {got}")
+
+
+def md_ground_truth(dev) -> None:
+    """evaluation/ground_truth.train_offline on the card against the CPU,
+    100 full-batch steps on the main path's data shapes (6000 rows of
+    F=1024, C=5): theta within rtol 1e-4, atol 1e-5 (float32 products
+    summed in other orders; TF32 off), F1 and accuracy within
+    1/len(test)."""
+    from kafka_ps_tpu_torch.data.synth import generate
+    from kafka_ps_tpu_torch.evaluation import ground_truth
+    from kafka_ps_tpu_torch.models import metrics
+    from kafka_ps_tpu_torch.utils.config import ModelConfig
+    cfg = ModelConfig(num_features=F, num_classes=C)
+    x, y = generate(TRAIN_ROWS + TEST_ROWS, F, C, seed=0)
+    tx, ty, vx, vy = x[:TRAIN_ROWS], y[:TRAIN_ROWS], x[TRAIN_ROWS:], \
+        y[TRAIN_ROWS:]
+    got = {}
+    for where in (dev.type, "cpu"):
+        t0 = time.perf_counter()
+        theta = ground_truth.train_offline(tx, ty, cfg, steps=GT_STEPS,
+                                           device=where)
+        seconds = time.perf_counter() - t0
+        m = metrics.evaluate(torch.from_numpy(theta), torch.from_numpy(vx),
+                             torch.from_numpy(vy), cfg=cfg)
+        got[where] = (theta, float(m.f1), float(m.accuracy), seconds)
+    (tc, fc, ac, sc), (tp, fp, ap, sp) = got[dev.type], got["cpu"]
+    err = md_close("ground truth theta (card vs CPU)", tc, tp)
+    if abs(fc - fp) > 1 / TEST_ROWS or abs(ac - ap) > 1 / TEST_ROWS:
+        raise RuntimeError(f"ground truth: F1 {fc} / {fp}, accuracy {ac} "
+                           f"/ {ap}")
+    print(f"multidevice ground truth: {GT_STEPS} steps on the card "
+          f"{sc:.2f} s, on the CPU {sp:.2f} s (host clock, transfers "
+          f"included); theta max |diff| {err:.3g}; F1 {fc:.4f} / {fp:.4f}, "
+          f"accuracy {ac:.4f} / {ap:.4f} [{card_line()}]")
+
+
+def multidevice_phase(dev) -> list[dict]:
+    """Phase 11: the multi-device fused path on one card (see the module
+    docstring).  Returns the runs whose kernel calls the `kernels` line
+    counts: the app runs of the 1-rank job and its no-job twin, the
+    2-rank app runs and every rank of the CLI jobs."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from kafka_ps_tpu_torch.data.synth import generate
+    from kafka_ps_tpu_torch.models.task import get_task
+    from kafka_ps_tpu_torch.utils.config import ModelConfig
+    from torch_multidevice_runs import run_job
+    t0 = time.perf_counter()
+    d = os.path.join(OUT, "md-jobs")
+    shutil.rmtree(d, ignore_errors=True)
+    runs = []
+
+    def app_runs(name: str, results: list) -> None:
+        for res in results:
+            n = res["counts"]
+            runs.append({"task": "logreg", "kind": "f32", "hidden": H,
+                         "single": n["launches"],
+                         "gang_calls": n["batched_launches"]})
+            if n["launches"] or n["batched_launches"] != MD_ITERS // WORKERS:
+                raise RuntimeError(f"{name}: kernel calls {n}")
+
+    # 1. a 1-rank NCCL job against no job, in one child process
+    x, y = generate(WORKERS * MAX_BUFFER, F, C, noise=1.0, seed=7)
+    rng = np.random.default_rng(7)
+    steps = {"task": "logreg", "F": F, "C": C, "H": H, "lr": 0.5,
+             "theta": rng.normal(scale=0.01, size=ModelConfig(
+                 num_features=F, num_classes=C).num_params)
+             .astype(np.float32),
+             "x": x.reshape(WORKERS, MAX_BUFFER, F),
+             "y": y.reshape(WORKERS, MAX_BUFFER),
+             "mask": (rng.random((WORKERS, MAX_BUFFER)) < 0.9)
+             .astype(np.float32),
+             "server_lr": 1.0 / WORKERS, "rounds": 8}
+    one = run_job("one_rank_bitwise", 1,
+                  {"steps": steps, "app": md_app_spec()},
+                  os.path.join(d, "one"), timeout=300)[0]
+    none, job = one["none"], one["job"]
+    for key in ("bsp", "bsp_multi"):
+        for a, b in zip(none["steps"][key], job["steps"][key]):
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"1-rank job: {key} not bitwise no job")
+    strip = (lambda rows: [r.split(";", 1)[1] for r in rows])
+    if not (np.array_equal(none["app"]["theta"], job["app"]["theta"])
+            and strip(none["app"]["server"]) == strip(job["app"]["server"])
+            and strip(none["app"]["worker"]) == strip(job["app"]["worker"])):
+        raise RuntimeError("1-rank job: run_fused_bsp not bitwise no job")
+    app_runs("1-rank app", [none["app"], job["app"]])
+    rate = {k: MD_ITERS / v["app"]["seconds"] for k, v in one.items()}
+    print(f"multidevice 1-rank NCCL job: the bsp step, the 8-round chunk "
+          f"(eager in the job, a CUDA graph without) and run_fused_bsp "
+          f"({MD_ITERS} iterations, eval every 10, after one untimed run "
+          f"without a job) bitwise no job; "
+          f"run_fused_bsp {rate['job']:.1f} server iterations/s in the job, "
+          f"{rate['none']:.1f} without (chunks "
+          f"{none['app']['fused']['chunks']} / {job['app']['fused']['chunks']}"
+          f") [{card_line()}]")
+    # 2. the app over 2 ranks sharing the card (gloo): the bsp branch and
+    # --param_shards 2's range-sharded server (a 1 x 2 mesh) on the same
+    # fed rows, then the all_reduce of the H=4096 MLP's round
+    wide = get_task("mlp", ModelConfig(num_features=F, num_classes=C,
+                                       hidden_dim=WIDE_H)).num_params
+    # (a first, untimed bsp run: loads and first calls)
+    jobs = run_job("job", 2, {"runs": [md_app_spec(), md_app_spec(),
+                                       md_app_spec(param_shards=2)],
+                              "allreduce_numel": wide + 1},
+                   os.path.join(d, "two"), timeout=300)
+    for r, res in enumerate(jobs):
+        app_runs(f"2-rank app rank {r}", res["app"])
+    two = [res["app"][1:] for res in jobs]
+    bsp_theta, range_theta = two[0][0]["theta"], two[0][1]["theta"]
+    if not all(np.array_equal(res[0]["theta"], bsp_theta)
+               and np.array_equal(res[1]["theta"], range_theta)
+               for res in two):
+        raise RuntimeError("2-rank app: the ranks' thetas differ")
+    err = md_close("2-rank --param_shards 2 theta vs the bsp branch",
+                   range_theta, bsp_theta)
+    ar = [ms for res in jobs for ms in res["allreduce_ms"]]
+    print(f"multidevice 2-rank app (gloo on one card): run_fused_bsp "
+          f"{MD_ITERS / two[0][0]['seconds']:.1f} server iterations/s "
+          f"(bsp), {MD_ITERS / two[0][1]['seconds']:.1f} (range 1 x 2, "
+          f"the pad clean at every round); range theta max |diff| {err:.3g} "
+          f"from the bsp run's; gloo all_reduce of {wide + 1} float32 (the "
+          f"H={WIDE_H} MLP's delta and loss sums) median "
+          f"{statistics.median(ar):.2f} ms, min {min(ar):.2f}, max "
+          f"{max(ar):.2f} over {len(ar)} [{card_line()}]")
+    # 3. refusals and the ground-truth fit, in this process
+    md_refusals()
+    md_ground_truth(dev)
+    # 4. the CLI jobs, 2 ranks on the card
+    print("multidevice: the three CLI jobs run at once from here")
+    for got in _at_once([
+            lambda: md_cli_job("logreg", 2, (), MD_ITERS, 1),
+            lambda: md_cli_job("logreg-param-shards", 2,
+                               ("--param_shards", "2"), MD_ITERS, 1),
+            lambda: md_cli_job(f"mlp-h{WIDE_H}", 2, (),
+                               MD_WIDE_ROUNDS * WORKERS, 1, task="mlp",
+                               hidden=WIDE_H)]):
+        runs += got
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"multidevice phase: {time.perf_counter() - t0:.1f} s "
+          f"[{card_line()}]")
+    return runs
+
+
 @contextlib.contextmanager
 def observed_graphs():
     """(graphs, added): every CUDA graph made inside, its captured graph
@@ -4906,6 +5262,8 @@ def main() -> int:
         t_tel = time.perf_counter()
         runs += role_telemetry_phase(dev)
         t_role = time.perf_counter()
+        runs += multidevice_phase(dev)
+        t_md = time.perf_counter()
         print(f"phase times: split {t_scale - t_split:.1f} s; scale-out "
               f"{t_end - t_scale:.1f} s (in-process checks "
               f"{t_runs - t_scale:.1f} s, runs {t_end - t_runs:.1f} s); "
@@ -4913,7 +5271,8 @@ def main() -> int:
               f"{t_serve_runs - t_end:.1f} s, runs "
               f"{t_serve - t_serve_runs:.1f} s); tier "
               f"{t_tier - t_serve:.1f} s; telemetry {t_tel - t_tier:.1f} s; "
-              f"role telemetry {t_role - t_tel:.1f} s")
+              f"role telemetry {t_role - t_tel:.1f} s; multi-device "
+              f"{t_md - t_role:.1f} s")
         profile_run("logreg")
         profile_run("logreg", flags=("--durable-log", "wal-profile"))
         profile_run("mlp")

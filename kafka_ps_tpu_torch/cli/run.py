@@ -25,6 +25,19 @@ vector on the card and in host memory, the rest as records under
 KPS_PLATFORM=cpu runs it on the CPU.  At exit it prints one line of run
 statistics on stderr: `kafka_ps_tpu_torch run: {json}`.
 
+Jobs (parallel/multihost.py): `-r` joins the torch.distributed job of
+the KPS_COORDINATOR / KPS_NUM_PROCESSES / KPS_PROCESS_ID env vars, one
+rank per device (rank r on `cuda:(r % cards)`; NCCL, or gloo where ranks
+share a card or run on the CPU), and runs `--fused` over the job's mesh:
+each rank feeds and trains its own block of workers, rank 0 alone writes
+./logs-server.csv, ./logs-events.csv and the checkpoint (a job's holds no
+buffers), rank r > 0 writes ./logs-worker.p<r>.csv.  `--param_shards N`
+range-shards theta over a (devices/N) × N mesh (parallel/range_sharded.py);
+the device count is the job's world size, 1 without a job, so it runs in
+a job only (the JAX package runs it in one process over local devices).
+A job refuses --durable-log, non-fused runs, --tier-* and --serve with
+the JAX texts.
+
 Telemetry (telemetry/, utils/trace.py, utils/status.py), the JAX
 trainer's flags: `--status_every S` prints a `[status]` line every S
 seconds, `--trace PATH` writes the tracer's Chrome trace JSON at exit
@@ -86,6 +99,14 @@ def build_parser(include_server_flags: bool = True,
     p.add_argument("-v", "--verbose", action="store_true",
                    help="print the parameters used and the checkpoint "
                         "restore")
+    p.add_argument("-r", "--remote", action="store_true",
+                   help="distributed mode: join the job of the KPS_* env "
+                        "vars (KPS_COORDINATOR host:port of rank 0, "
+                        "KPS_NUM_PROCESSES, KPS_PROCESS_ID; "
+                        "parallel/multihost.py), one rank per device, and "
+                        "run the fused BSP step over the job's mesh — the "
+                        "reference's remote-Kafka-broker role.  Without "
+                        "the env vars, a local run")
     p.add_argument("--mode", choices=["threaded", "serial"],
                    default="threaded")
     p.add_argument("--failure_policy", choices=["halt", "rebalance"],
@@ -129,6 +150,14 @@ def build_parser(include_server_flags: bool = True,
                    help="sequential model as fused BSP rounds: one gang "
                         "kernel call per round, chunks of rounds as one "
                         "CUDA graph (parallel/bsp.py)")
+    p.add_argument("--param_shards", type=int, default=1,
+                   help="with --fused: shard the parameter vector over "
+                        "this many devices (2-D workers x params mesh, "
+                        "parallel/range_sharded.py).  Unlike kafka_ps_tpu, "
+                        "which runs it in one process over its local "
+                        "devices and refuses it in a job, the port runs "
+                        "it only in a -r job, one rank per device: "
+                        "without one the device count is 1")
     p.add_argument("--eval_every", type=int, default=1,
                    help="evaluate test metrics every Nth vector clock")
     p.add_argument("--pallas", action="store_true",
@@ -337,13 +366,18 @@ def load_test_csv(path: str, num_features: int):
     return x, y
 
 
-def make_app_from_args(args, device=None, resuming: bool = False):
+def make_app_from_args(args, device=None, resuming: bool = False,
+                       process_index: int = 0):
+    """`process_index` > 0 (a rank above 0 of a job) writes no server log
+    and a rank-suffixed worker log, logs-worker.p<rank>.csv: one writer
+    per file."""
     from kafka_ps_tpu_torch.runtime.app import StreamingPSApp
     from kafka_ps_tpu_torch.utils.config import (BufferConfig, ModelConfig,
                                                  PSConfig, StreamConfig,
                                                  TierConfig)
     from kafka_ps_tpu_torch.utils.csvlog import (SERVER_HEADER,
-                                                 WORKER_HEADER, CsvLogSink)
+                                                 WORKER_HEADER, CsvLogSink,
+                                                 NullLogSink)
     cfg = PSConfig(
         num_workers=args.num_workers,
         consistency_model=args.consistency_model,
@@ -369,11 +403,15 @@ def make_app_from_args(args, device=None, resuming: bool = False):
                         page_params=args.tier_page_params))
     test_x, test_y = load_test_csv(args.test_data_file_path,
                                    args.num_features)
-    # a resumed run continues its logs
-    server_log = CsvLogSink("./logs-server.csv" if args.logging else None,
-                            SERVER_HEADER, append=resuming)
-    worker_log = CsvLogSink("./logs-worker.csv" if args.logging else None,
-                            WORKER_HEADER, append=resuming)
+    # a resumed run continues its logs; a CsvLogSink(None) writes to
+    # stdout, so a rank above 0 gets a NullLogSink for the server's
+    suffix = f".p{process_index}" if process_index else ""
+    server_log = (CsvLogSink("./logs-server.csv" if args.logging else None,
+                             SERVER_HEADER, append=resuming)
+                  if process_index == 0 else NullLogSink())
+    worker_log = CsvLogSink(
+        f"./logs-worker{suffix}.csv" if args.logging else None,
+        WORKER_HEADER, append=resuming)
     tracer = None
     if args.trace:
         from kafka_ps_tpu_torch.utils.trace import Tracer
@@ -417,6 +455,9 @@ def run_with_args(args) -> int:
             "--pallas applies to the per-node worker path only; the "
             "--fused BSP path runs its own fused program "
             "(parallel/bsp.py) — drop one of the two flags")
+    if args.param_shards > 1 and not args.fused:
+        raise SystemExit("--param_shards requires --fused (the "
+                         "range-sharded server is a fused-mesh mode)")
     if args.slab_dtype != "f32" and args.fused:
         # the fused BSP path keeps its own whole-slab device cache outside
         # the worker SlabStore: ignoring the dtype would misreport what ran
@@ -440,6 +481,32 @@ def run_with_args(args) -> int:
                 "--compress applies to the message transport; the --fused "
                 "rounds never cross a serde boundary — drop one of the "
                 "two flags")
+    from kafka_ps_tpu_torch.parallel import multihost
+    # join the job BEFORE building the app: the rank decides the log sinks
+    # and the checkpoint writer below, and its card
+    distributed = args.remote and multihost.initialize()
+    try:
+        return _run(args, distributed)
+    finally:
+        if distributed:
+            multihost.shutdown()
+
+
+def _run(args, distributed: bool) -> int:
+    """run_with_args past the flag checks, inside the job when
+    `distributed` (left by the caller)."""
+    from kafka_ps_tpu_torch.parallel import multihost
+    if distributed and args.durable_log:
+        # the commit log is single-writer per partition
+        raise SystemExit(
+            "--durable-log is single-process; a multi-host job "
+            "must run without it (use --checkpoint for resume)")
+    if distributed and not args.fused:
+        # only the fused BSP step runs over the job's mesh
+        raise SystemExit(
+            "-r joined a multi-host job but only --fused runs over "
+            "the global mesh; add --fused (or run the async "
+            "consistency modes single-host)")
     if args.verbose:
         print("\nUsed parameter:")
         for k, v in sorted(vars(args).items()):
@@ -447,38 +514,57 @@ def run_with_args(args) -> int:
     from kafka_ps_tpu_torch.utils.config import resolve_device
     from kafka_ps_tpu_torch.utils.csvlog import (EVENTS_HEADER, CsvLogSink,
                                                  NullLogSink)
-    device = resolve_device()       # CUDA, or KPS_PLATFORM's choice
+    # CUDA (in a job, this rank's card), or KPS_PLATFORM's choice
+    device = resolve_device()
+    process_index = multihost.process_index()
     resuming = bool(args.checkpoint and os.path.exists(args.checkpoint))
-    app, logs = make_app_from_args(args, device, resuming=resuming)
-    # membership and resume events are written as they happen
+    app, logs = make_app_from_args(args, device, resuming=resuming,
+                                   process_index=process_index)
+    # membership and resume events are written as they happen, by rank 0
     events_log = (CsvLogSink("./logs-events.csv", EVENTS_HEADER,
                              append=resuming)
-                  if args.logging else NullLogSink())
+                  if args.logging and process_index == 0 else NullLogSink())
     app.server.membership_log = events_log
     logs = [*logs, events_log]
     if app.cfg.tier.enabled:
         # before the checkpoint restore, which applies the recorded
         # residency (utils/checkpoint.py)
+        if distributed:
+            raise SystemExit(
+                "--tier-*-bytes is single-process (residency is a "
+                "per-process resource; multi-host runs are --fused)")
         from kafka_ps_tpu_torch.log.durable_fabric import COLD_PARTITION_DIR
         app.enable_tiering(os.path.join(args.durable_log, COLD_PARTITION_DIR)
                            if args.durable_log else None)
     if args.checkpoint:
-        restored = app.restore_checkpoint(args.checkpoint)
+        # in a job the buffers are fed rank-locally, so rank 0's copies of
+        # the other ranks' buffers would be empty lies: a job's checkpoint
+        # carries none
+        restored = app.restore_checkpoint(args.checkpoint,
+                                          buffers=not distributed)
         if restored and args.verbose:
             print(f"    restored checkpoint at iteration "
                   f"{app.server.iterations}")
             if app.server.param_store is not None:
                 print(f"    restored tier residency "
                       f"{app.server.param_store.tier_counts()}")
-        app.server.checkpoint_path = args.checkpoint
-        app.server.checkpoint_every = args.checkpoint_every
-        app.server.checkpoint_buffers = app.buffers
+        if process_index == 0:      # one checkpoint writer per job
+            app.server.checkpoint_path = args.checkpoint
+            app.server.checkpoint_every = args.checkpoint_every
+            app.server.checkpoint_buffers = (None if distributed
+                                             else app.buffers)
     if args.durable_log:
         # replay the unconsumed tail past the restored checkpoint's
         # offsets (or the committed ones) BEFORE the producer starts
         counts = app.recover_durable()
         if args.verbose:
             print(f"    durable-log replay: {counts}")
+    if args.serve and distributed:
+        raise SystemExit(
+            "--serve is single-process: the serving plane reads the "
+            "server's snapshot registry in-process (run a dedicated "
+            "serving host against the checkpoint instead)")
+    mesh = job_mesh(app, args, distributed)
     producer = app.make_producer(args.training_data_file_path)
     serve_bridge = start_serving(app, args) if args.serve else None
     modelhealth, drift_sink = start_model_health(app, args)
@@ -496,6 +582,7 @@ def run_with_args(args) -> int:
         with device_trace(args.device_trace, app.device):
             if args.fused:
                 app.run_fused_bsp(max_server_iterations=max_iters,
+                                  mesh=mesh,
                                   status_every=args.status_every)
             elif args.mode == "serial":
                 app.run_serial(max_server_iterations=max_iters,
@@ -520,7 +607,7 @@ def run_with_args(args) -> int:
         # the ops plane after serving, before the logs: the final flight
         # dump still sees live telemetry and a coherent ring
         ops.close()
-        if args.checkpoint:
+        if args.checkpoint and process_index == 0:
             # on a durable fabric the final save is a commit point too
             app.server.save_checkpoint_now()
         # after the save, which may still read cold pages
@@ -545,6 +632,47 @@ def run_with_args(args) -> int:
     print("kafka_ps_tpu_torch run: "
           + json.dumps(run_stats(app, producer)), file=sys.stderr)
     return 0
+
+
+def job_mesh(app, args, distributed: bool):
+    """The fused path's mesh, after the checkpoint restore (a restored
+    checkpoint may carry evictions, and the divisibility checks and the
+    data filter must see the real membership): with --param_shards N a
+    (devices/N) × N workers × params mesh, with -r --fused the job's 1-D
+    worker mesh, else None.  In a job it sets the app's data filter to
+    this rank's workers, before the producer starts.
+
+    The device count is the job's world size, one device per rank, and 1
+    without a job: --param_shards N > 1 runs only in a -r job (the JAX
+    package runs it in one process over its local devices)."""
+    from kafka_ps_tpu_torch.parallel import mesh as mesh_mod
+    from kafka_ps_tpu_torch.parallel import multihost
+    active = app.server.tracker.active_workers
+    mesh = None
+    if args.param_shards > 1:
+        n_dev = mesh_mod.device_count()
+        if n_dev % args.param_shards != 0:
+            raise SystemExit(
+                f"--param_shards {args.param_shards} must divide the device "
+                f"count {n_dev}")
+        mesh = mesh_mod.worker_param_mesh(n_dev // args.param_shards,
+                                          args.param_shards)
+        if len(active) % mesh.size() != 0:
+            raise SystemExit(
+                f"{len(active)} active workers must be a multiple of "
+                f"the {mesh.size()}-device mesh (workers shard "
+                "over both mesh axes)")
+    elif args.fused and args.remote:
+        mesh = multihost.global_worker_mesh()
+        if len(active) % mesh.size() != 0:
+            raise SystemExit(
+                f"{len(active)} active workers must be a "
+                f"multiple of the {mesh.size()}-device "
+                f"mesh in --remote mode")
+    if distributed and mesh is not None:
+        app.local_workers = {
+            active[i] for i in multihost.local_worker_ids(len(active), mesh)}
+    return mesh
 
 
 def wants_metrics(args) -> bool:
@@ -698,11 +826,12 @@ def run_stats(app, producer) -> dict:
     and final lag, the workers' device slabs (storage form, bytes on
     the device, host bytes uploaded), the fused rounds (all, in chunks,
     chunk dispatches, CUDA graphs captured), the producer's parser,
-    rows and the seconds of its native one-pass parse, and on a durable
-    log its counters (log/durable_fabric.DurableFabric.stats) with the
-    replay's counts and seconds and the re-ingested rows skipped, with
-    --serve the engine's stats and the snapshots published, and with a
-    tiered store its stats (store/tiered.TieredParamStore.stats)."""
+    rows and the seconds of its native one-pass parse, the process's
+    kernel calls, in a job its rank, world size and backend, and on a
+    durable log its counters (log/durable_fabric.DurableFabric.stats)
+    with the replay's counts and seconds and the re-ingested rows skipped,
+    with --serve the engine's stats and the snapshots published, and with
+    a tiered store its stats (store/tiered.TieredParamStore.stats)."""
     stores = [w._slab_store for w in app.workers]
     server = app.server
     out = {"server_iterations": server.iterations,
@@ -724,6 +853,16 @@ def run_stats(app, producer) -> dict:
     out["producer"] = {"parser": producer.parser,
                        "rows": producer.rows_sent,
                        "parse_s": producer.parse_s}
+    # this process's kernel calls (ops/fused_update.counts, as the role
+    # runners' stats lines carry them), and its rank in a job
+    import torch.distributed as dist
+
+    from kafka_ps_tpu_torch.ops import fused_update
+    out["kernels"] = fused_update.counts()
+    if dist.is_initialized():
+        out["job"] = {"rank": dist.get_rank(),
+                      "world": dist.get_world_size(),
+                      "backend": dist.get_backend()}
     if app.gang is not None:
         out["gang"] = {"dispatches": app.gang.dispatches,
                        "members": app.gang.members}

@@ -47,7 +47,8 @@ import torch
 
 from kafka_ps_tpu_torch.data.buffer import SlidingBuffer
 from kafka_ps_tpu_torch.data.stream import CsvStreamProducer
-from kafka_ps_tpu_torch.parallel import bsp
+from kafka_ps_tpu_torch.parallel import bsp, multihost, range_sharded
+from kafka_ps_tpu_torch.parallel.mesh import PARAM_AXIS, in_job
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
 from kafka_ps_tpu_torch.runtime.messages import LabeledData
 from kafka_ps_tpu_torch.runtime.server import LogSink, ServerNode
@@ -168,6 +169,10 @@ class StreamingPSApp:
         self.skipped_rows = 0
         self.replay_counts: dict[str, int] | None = None
         self.replay_s = 0.0
+        # in a job (parallel/multihost.py): the logical workers this rank
+        # hosts (None = all).  Every rank streams the same CSV with the
+        # same global round-robin and keeps only its own workers' rows.
+        self.local_workers: set[int] | None = None
         if cfg.eval_async and test_x is not None:
             self.enable_async_eval()
 
@@ -267,6 +272,12 @@ class StreamingPSApp:
             worker = active[self.rerouted_rows % len(active)]
             self.rerouted_rows += 1
             self.tracer.count("data.rerouted_rows")
+        # after the reroute: every rank sees the same stream and
+        # membership, so the counter picks the same survivor everywhere
+        # and exactly one rank keeps the row
+        if self.local_workers is not None \
+                and worker not in self.local_workers:
+            return                  # another rank's partition
         if not self.fabric.durable:
             self.buffers[worker].add(features, label)
             return
@@ -295,7 +306,8 @@ class StreamingPSApp:
         """Wait until every active worker's buffer holds `min_per_worker`
         rows (an evicted worker's rows are rerouted)."""
         deadline = time.monotonic() + timeout
-        waiting = self.server.tracker.active_workers
+        waiting = [w for w in self.server.tracker.active_workers
+                   if self.local_workers is None or w in self.local_workers]
         while any(self.buffers[w].count < min_per_worker for w in waiting):
             if time.monotonic() > deadline:
                 raise TimeoutError("buffers not prefilled in time")
@@ -362,9 +374,10 @@ class StreamingPSApp:
         w.last_progress = time.monotonic()
         return clock
 
-    def restore_checkpoint(self, path: str) -> bool:
+    def restore_checkpoint(self, path: str, buffers: bool = True) -> bool:
         """Restore a checkpoint, if `path` exists, into the server, the
-        buffers and the residuals.  Only before any drive loop ran: the
+        buffers (unless `buffers` is False: a job's checkpoint holds
+        none) and the residuals.  Only before any drive loop ran: the
         fused slab cache and the in-flight messages of a started loop
         predate the restored state."""
         if self.server._loop_started or self.fused_stats["rounds"]:
@@ -372,7 +385,8 @@ class StreamingPSApp:
                                "loop, not after it")
         from kafka_ps_tpu_torch.utils import checkpoint as ckpt
         t0 = time.perf_counter()
-        if not ckpt.maybe_restore(path, self.server, buffers=self.buffers,
+        if not ckpt.maybe_restore(path, self.server,
+                                  buffers=self.buffers if buffers else None,
                                   residuals=self.compressors or None):
             return False
         self.restored_at = self.server.iterations
@@ -680,35 +694,71 @@ class StreamingPSApp:
     # of a dispatch, few enough that stream arrivals are picked up soon
     FUSED_CHUNK_ROUNDS = 8
 
-    def run_fused_bsp(self, max_server_iterations: int,
+    def run_fused_bsp(self, max_server_iterations: int, mesh=None,
                       log_metrics: bool = True,
                       status_every: float | None = None) -> None:
         """Sequential consistency as fused BSP rounds: each round is one
         full iteration of every active worker (all advance one clock),
         one gang kernel call on their slabs plus the server's apply
         (parallel/bsp.py).  Resumes from the minimum active clock.
-        `status_every` > 0 prints a `[status]` line that often."""
+        `status_every` > 0 prints a `[status]` line that often.
+
+        `mesh` (parallel/mesh.py) spans the ranks of a job: this rank
+        feeds and trains only its own block of workers and the rounds
+        all-reduce their sums.  A 2-D mesh (workers × params) selects the
+        range-sharded server (parallel/range_sharded.py): theta's key
+        ranges split over the params axis, all_gather pull and
+        all_reduce-slice push.  Every rank evaluates; only rank 0 writes
+        the server row."""
         if self.cfg.consistency_model != SEQUENTIAL:
             raise ValueError("fused path implements the sequential model only")
+        range_mode = mesh is not None and PARAM_AXIS in mesh.mesh_dim_names
         # only active workers take part
         active = self.server.tracker.active_workers
         task = self.server.task
-        progs = self._fused_programs.get(len(active))
+        key = ("range" if range_mode else "bsp", len(active), mesh)
+        progs = self._fused_programs.get(key)
         if progs is None:
-            progs = self._fused_programs[len(active)] = (
-                bsp.make_bsp_step(self.cfg.model, len(active),
-                                  self.cfg.server_lr, task=task),
-                bsp.make_bsp_multi_step(self.cfg.model, len(active),
-                                        self.cfg.server_lr,
-                                        self.FUSED_CHUNK_ROUNDS, task=task))
+            args = (self.cfg.model, len(active), self.cfg.server_lr)
+            if range_mode:
+                progs = (range_sharded.make_range_sharded_step(
+                             *args, mesh, task=task),
+                         range_sharded.make_range_sharded_step(
+                             *args, mesh, rounds=self.FUSED_CHUNK_ROUNDS,
+                             task=task))
+            else:
+                progs = (bsp.make_bsp_step(*args, mesh=mesh, task=task),
+                         bsp.make_bsp_multi_step(
+                             *args, self.FUSED_CHUNK_ROUNDS, mesh=mesh,
+                             task=task))
+            self._fused_programs[key] = progs
+        theta = self.server.theta
+        if range_mode:
+            theta = range_sharded.shard_theta(mesh, theta, task)
         # under BSP all active clocks are equal; resume from the restored
         # one
         clock = min(self.server.tracker.tracker[w].vector_clock
                     for w in active)
+        # in a job this rank feeds and trains only the workers of its
+        # mesh position; the data filter set before the producer started
+        # must be that set (a stale filter from before a restore would
+        # starve buffers this rank owns)
+        feed = active
+        if in_job(mesh):
+            feed = [active[i] for i in
+                    multihost.local_worker_ids(len(active), mesh)]
+            if (self.local_workers is not None
+                    and set(feed) != set(self.local_workers)):
+                raise RuntimeError(
+                    f"local_workers {sorted(self.local_workers)} diverges "
+                    f"from the mesh-derived feed set {sorted(feed)} — "
+                    "membership changed after the data filter was set")
         reporter = self._start_status(status_every)
         try:
             self._run_fused_loop(max_server_iterations, log_metrics, progs,
-                                 self.server.theta, clock, active)
+                                 theta, clock, active, feed,
+                                 mesh if range_mode else None,
+                                 in_job(mesh))
         finally:
             reporter.stop()
             self.flush_logs()
@@ -748,8 +798,17 @@ class StreamingPSApp:
         return dev
 
     def _run_fused_loop(self, max_server_iterations, log_metrics, progs,
-                        theta, clock, active) -> None:
+                        theta, clock, active, feed, range_mesh,
+                        job) -> None:
+        """The fused rounds.  `feed`: the workers whose slabs this process
+        stacks (all active ones outside a job); `range_mesh`: the mesh of
+        a range-sharded run (theta is this rank's shard), else None;
+        `job`: the rounds hold collectives.  Chunk lengths and eval
+        clocks follow server.iterations and max_server_iterations only,
+        which every rank of a job shares, so that every rank issues the
+        same collectives in the same order."""
         step, multi_step = progs
+        rank = multihost.process_index() if job else 0
         # A stretch with no eval clock in it runs CHUNK rounds as one
         # dispatch (parallel/bsp.make_bsp_multi_step: one CUDA graph
         # replay on the card); a chunk never crosses an eval clock, and
@@ -764,9 +823,9 @@ class StreamingPSApp:
             # the slab cache is keyed by num_tuples_seen, which grows with
             # every insert: between arrivals the rounds re-train on the
             # same device slabs
-            versions = [self.buffers[w].num_tuples_seen for w in active]
+            versions = [self.buffers[w].num_tuples_seen for w in feed]
             if versions != slab_versions:
-                x, y, mask = self._upload_fused_slab(active)
+                x, y, mask = self._upload_fused_slab(feed)
                 slab_versions = versions
             # rounds until the run cap / the next eval clock
             rounds_left = -((self.server.iterations - max_server_iterations)
@@ -786,11 +845,15 @@ class StreamingPSApp:
                 else:
                     theta, mean_loss = step(theta, x, y, mask)
                     last_loss = mean_loss
-                if self.tracer.enabled:
+                if self.tracer.enabled or (job and evaluate):
                     # the span waits for the round's loss, so that it
                     # measures the step and not its launch (a graph
                     # replay, outside any capture); the rows keep the
-                    # device tensor
+                    # device tensor.  In a job with logging too: the
+                    # all-reduce ends every rank's round together on the
+                    # device, and waiting on it keeps the ranks' row
+                    # stamps aligned per clock (the auditor sorts the
+                    # ranks' rows by stamp)
                     float(last_loss)
             self.tracer.count("bsp.steps")
             if use_chunk:
@@ -799,8 +862,12 @@ class StreamingPSApp:
             self.fused_stats["rounds"] += r
             clock += r
             self.server.iterations += r * n
-            # theta is replaced, never mutated (runtime/server.py)
-            self.server.theta = theta
+            # theta is replaced, never mutated (runtime/server.py); a
+            # range-sharded run stores the reassembled flat vector
+            self.server.theta = theta if range_mesh is None else \
+                range_sharded.unshard_theta(
+                    range_sharded.gather_theta(range_mesh, theta),
+                    self.server.task)
             for w in active:
                 self.workers[w].iterations += r
                 self.server.tracker.tracker[w].vector_clock = clock
@@ -815,16 +882,21 @@ class StreamingPSApp:
             now = int(time.time() * 1000)
             m = None
             if is_eval:
-                m = self.server.task.evaluate(theta, self.server.test_x,
+                m = self.server.task.evaluate(self.server.theta,
+                                              self.server.test_x,
                                               self.server.test_y)
-                asynclog.submit_or_write(
-                    self.server.log, f"{now};-1;{clock};{{}};{{}};{{}}",
-                    m.loss, m.f1, m.accuracy)
+                # in a job the server row is rank 0's alone (every rank
+                # holds the same theta; one writer per file)
+                if rank == 0:
+                    asynclog.submit_or_write(
+                        self.server.log, f"{now};-1;{clock};{{}};{{}};{{}}",
+                        m.loss, m.f1, m.accuracy)
             # Worker rows keep the per-node schema and cadence: one row per
             # worker per CLOCK, clock-major, the reference's -1
             # placeholders off cadence and the shared test metrics on it
             # (the weights are replicated under BSP).  A chunk logs each
-            # of its rounds with that round's mean local loss.
+            # of its rounds with that round's mean local loss; in a job a
+            # rank logs the workers it hosts.
             # numTuplesSeen is chunk-granular: every row of a chunk stamps
             # the buffer version read after its dispatch (its rounds ran
             # on one slab).
@@ -834,7 +906,7 @@ class StreamingPSApp:
                 on_eval = is_eval and ci == clock
                 f1 = m.f1 if on_eval else -1.0
                 acc = m.accuracy if on_eval else -1.0
-                for w in active:
+                for w in feed:
                     asynclog.submit_or_write(
                         self.workers[w].log,
                         f"{now};{w};{ci};{{}};{{}};{{}};"

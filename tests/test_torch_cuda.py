@@ -1066,3 +1066,65 @@ def test_deferred_card_deltas_resolve_to_the_inline_bits_without_a_sync(
     assert out["card"][4] == {"_total": 48} and out["inline"][4] == \
         {"_total": 0}
     assert out["card"][0] == 48 and out["card"][2]["drift"]["evals"] == 48
+
+
+# -- the multi-device fused path (parallel/{mesh,multihost,range_sharded}) --
+
+
+def _md_jobs():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_multidevice_runs
+    return torch_multidevice_runs
+
+
+MD_APP = {"task": "logreg", "F": 64, "C": 5, "H": 16, "lr": 0.5,
+          "workers": 4, "buffer": 64, "n_train": 256, "n_test": 100,
+          "seed": 0, "iters": 40, "eval_every": 5, "param_shards": 1}
+
+
+def test_one_rank_nccl_job_is_bitwise_no_job_on_the_card(card, tmp_path):
+    jobs = _md_jobs()
+    cfg, (theta, x, y, mask) = _case("cpu", 4 * 32, 64)
+    steps = {"task": "logreg", "F": 64, "C": 5, "lr": 0.5,
+             "theta": theta.numpy(), "x": x.numpy().reshape(4, 32, 64),
+             "y": y.numpy().reshape(4, 32),
+             "mask": mask.numpy().reshape(4, 32), "server_lr": 0.25,
+             "rounds": 8}
+    out = jobs.run_job("one_rank_bitwise", 1,
+                       {"steps": steps, "app": MD_APP}, str(tmp_path))[0]
+    none, job = out["none"], out["job"]
+    for key in ("bsp", "bsp_multi"):
+        for a, b in zip(none["steps"][key], job["steps"][key]):
+            assert np.array_equal(a, b)
+    assert np.array_equal(none["app"]["theta"], job["app"]["theta"])
+    strip = (lambda rows: [r.split(";", 1)[1] for r in rows])
+    assert strip(none["app"]["worker"]) == strip(job["app"]["worker"])
+    assert none["app"]["counts"]["batched_launches"] == 10
+
+
+def test_two_ranks_share_the_card_over_gloo(card, tmp_path):
+    """run_fused_bsp over 2 ranks on one card: every rank's theta the same
+    bits, the bsp branch within the K2 tolerance of --param_shards 2's
+    range-sharded server, each rank one K2 call a round over 2 workers."""
+    jobs = _md_jobs()
+    res = [r["app"] for r in jobs.run_job("job", 2, {"runs": [
+        MD_APP, dict(MD_APP, param_shards=2)]}, str(tmp_path))]
+    for r in res:
+        assert np.array_equal(r[0]["theta"], res[0][0]["theta"])
+        assert np.array_equal(r[1]["theta"], res[0][1]["theta"])
+        for run in r:
+            assert (run["counts"]["batched_launches"],
+                    run["counts"]["batched_members"]) == (10, 20)
+    np.testing.assert_allclose(res[0][1]["theta"], res[0][0]["theta"],
+                               rtol=RTOL, atol=MLP_ATOL)
+
+
+def test_ground_truth_fit_on_the_card_matches_the_cpu(card):
+    from kafka_ps_tpu_torch.evaluation import ground_truth
+    x, y = generate(600, 64, 5, seed=3)
+    cfg = ModelConfig(num_features=64, num_classes=5)
+    on_card = ground_truth.train_offline(x, y, cfg, steps=100, device=card)
+    on_cpu = ground_truth.train_offline(x, y, cfg, steps=100, device="cpu")
+    np.testing.assert_allclose(on_card, on_cpu, rtol=RTOL, atol=MLP_ATOL)

@@ -29,6 +29,7 @@ from kafka_ps_tpu.runtime.app import StreamingPSApp as JApp
 from kafka_ps_tpu.utils import config as jconfig
 from kafka_ps_tpu_torch.cli import run as cli_run
 from kafka_ps_tpu_torch.data.synth import write_csv
+from kafka_ps_tpu_torch.evaluation import validate as port_validate
 from kafka_ps_tpu_torch.models.task import get_task
 from kafka_ps_tpu_torch.ops import fused_update
 from kafka_ps_tpu_torch.parallel import bsp
@@ -351,6 +352,7 @@ def test_fused_cli_keeps_per_clock_cadence(tmp_path, monkeypatch, capsys):
     assert (off["loss"] != -1).any()
     assert s["vectorClock"].tolist() == [10, 20, 30, 40]
     assert validate.validate_run(w, s, consistency_model=0) == []
+    assert port_validate.validate_run(w, s, consistency_model=0) == []
     stats = json.loads(capsys.readouterr().err.split(
         "kafka_ps_tpu_torch run: ")[-1])
     assert stats["fused"] == {"rounds": 40, "chunk_rounds": 32,

@@ -37,6 +37,7 @@ import pytest
 import torch
 
 from kafka_ps_tpu.evaluation import validate
+from kafka_ps_tpu_torch.evaluation import validate as port_validate
 from test_torch_socket_mode import (COMMON, _finish, _free_port, _module,
                                     _start, _stats, _write_csvs)
 
@@ -103,6 +104,7 @@ def _check_sharded(tmp_path, results, c, iters, port_shards=True,
     wdf = _worker_logs(tmp_path)
     assert set(wdf["partition"]) == {0, 1, 2, 3}
     assert validate.validate_run(wdf, None, consistency_model=c) == []
+    assert port_validate.validate_run(wdf, None, consistency_model=c) == []
     assert _assembled_f1(tmp_path) > 0.5
     shards = []
     if port_shards:
@@ -193,6 +195,7 @@ def _check_relayed(tmp_path, results, c, iters, port_server=True,
     sdf = pd.read_csv(tmp_path / "server" / "logs-server.csv", sep=";")
     wdf = _worker_logs(tmp_path)
     assert validate.validate_run(wdf, sdf, consistency_model=c) == []
+    assert port_validate.validate_run(wdf, sdf, consistency_model=c) == []
     assert sdf["fMeasure"].max() > 0.5
     relay = None
     if port_server:

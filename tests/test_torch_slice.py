@@ -27,6 +27,7 @@ from kafka_ps_tpu.runtime.app import StreamingPSApp as JApp
 from kafka_ps_tpu.utils import config as jconfig
 from kafka_ps_tpu_torch.cli import run as cli_run
 from kafka_ps_tpu_torch.data.synth import write_csv
+from kafka_ps_tpu_torch.evaluation import validate as port_validate
 from kafka_ps_tpu_torch.runtime.app import StreamingPSApp
 from kafka_ps_tpu_torch.utils import config
 from kafka_ps_tpu_torch.utils.csvlog import (SERVER_HEADER, WORKER_HEADER,
@@ -175,6 +176,7 @@ def test_threaded_run_keeps_the_clock_protocol(c, tmp_path):
     assert sdf["vectorClock"].is_monotonic_increasing
     assert np.isfinite(wdf[["loss", "fMeasure", "accuracy"]].values).all()
     assert validate_run(wdf, sdf, c) == []
+    assert port_validate.validate_run(wdf, sdf, c) == []
 
 
 @pytest.mark.parametrize("mode,c", [("serial", 0), ("threaded", -1)])
@@ -284,7 +286,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "serving.shm", "serving.replica", "serving.loadgen",
               "utils.trace", "store", "store.cold", "store.tiered",
               "utils.status", "telemetry", "telemetry.registry",
-              "telemetry.flight", "telemetry.health"):
+              "telemetry.flight", "telemetry.health", "evaluation",
+              "evaluation.logs", "evaluation.validate", "evaluation.plots",
+              "evaluation.ground_truth", "evaluation.__main__",
+              "parallel.mesh", "parallel.multihost",
+              "parallel.range_sharded"):
         assert f"kafka_ps_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -369,6 +375,7 @@ def test_threaded_stress_more_workers_than_cores(tmp_path, monkeypatch):
         assert app.server.iterations == iters
         wdf = load_worker_log(str(w_path))
         assert validate_run(wdf, None, 1) == []
+        assert port_validate.validate_run(wdf, None, 1) == []
         assert sorted(wdf.groupby("partition").size().index) == list(
             range(workers))
 

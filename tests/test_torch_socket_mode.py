@@ -44,6 +44,7 @@ import torch
 from kafka_ps_tpu.evaluation import validate
 from kafka_ps_tpu_torch.cli import server_runner, worker_runner
 from kafka_ps_tpu_torch.data.synth import generate, write_csv
+from kafka_ps_tpu_torch.evaluation import validate as port_validate
 from kafka_ps_tpu_torch.utils import checkpoint as ckpt
 from torch_split_round import bridge_round
 
@@ -142,6 +143,7 @@ def _check_run(tmp_path, results, c, iters, n_workers):
     sdf, wdf = _logs(tmp_path, n_workers)
     assert set(wdf["partition"]) == {0, 1, 2, 3}
     assert validate.validate_run(wdf, sdf, consistency_model=c) == []
+    assert port_validate.validate_run(wdf, sdf, consistency_model=c) == []
     assert sdf["fMeasure"].max() > 0.5
     server = _stats(results["server"][2], "server")
     assert server["device"] == "cpu"
@@ -208,6 +210,7 @@ def test_split_across_packages(tmp_path, server_pkg, worker_pkg):
         assert rc == 0, f"{name} failed (rc={rc}):\n{err[-3000:]}"
     sdf, wdf = _logs(tmp_path, 1)
     assert validate.validate_run(wdf, sdf, consistency_model=10) == []
+    assert port_validate.validate_run(wdf, sdf, consistency_model=10) == []
     assert sdf["fMeasure"].max() > 0.5
     assert "compression: int8 (negotiated)" in results["w0"][2]
 
