@@ -58,7 +58,13 @@
    finish, rows rerouted, then readmitted at the slowest clock and
    contributing), a threaded -c 0 rebalance run with gang dispatch in
    which one member fails on its leader's thread (evicted alone, the run
-   finishes), and the same crash under halt raising.
+   finishes), and the same crash under halt raising.  The durable log's
+   threaded order check (threaded -c 2, 4 workers, the log on the card)
+   runs under the port's lock-order recorder (analysis/lockgraph.py,
+   `isolated()`): it must see no cycle and at least one edge; its edges
+   go to lockgraph-edges.json, and `python -m kafka_ps_tpu_torch.analysis
+   kafka_ps_tpu_torch/ --lock-coverage` (the static checks, exit 0)
+   counts the static edges the card run covered.
 4. Main path, through the real entry point kafka_ps_tpu_torch.cli.run:
    4 workers, buffer max 1024, a synthetic 1024-feature CSV, 100 server
    iterations a run unless noted (400 until the telemetry phase came, 200
@@ -1182,12 +1188,17 @@ def durable_reference_check(dev) -> None:
 def threaded_order_check(dev) -> None:
     """Threaded -c 2 on the durable log on the card, 200 iterations: every
     partition's offsets on disk are 0..n-1, none repeated, and the server
-    applied the gradients in the log's offset order."""
+    applied the gradients in the log's offset order.  The run's locks are
+    recorded (lockgraph.isolated): no cycle, some edges, and the static
+    checks pass with those edges as their coverage input."""
     import tempfile
 
+    from kafka_ps_tpu_torch.analysis import lockgraph
     from kafka_ps_tpu_torch.log import DurableFabric, LogConfig
     from kafka_ps_tpu_torch.runtime import serde
-    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp, \
+            lockgraph.isolated() as graph:
         wal = os.path.join(tmp, "wal")
         app = small_app(dev, 2, workers=4,
                         fabric=DurableFabric(wal, LogConfig(fsync="none")))
@@ -1220,6 +1231,48 @@ def threaded_order_check(dev) -> None:
     if not (contiguous and in_order and len(applied) >= DURABLE_ITERS):
         raise RuntimeError("threaded durable run: offsets repeat or skip, "
                            "or the server's order is not the log's")
+    lock_order_check(graph, t_phase)
+
+
+def lock_order_check(graph, t_phase: float) -> None:
+    """The recorded lock order of the threaded durable run: no cycle and
+    at least one edge; then the port's static checks over the checkout
+    with those edges as --lock-coverage, which must exit 0."""
+    cycles = graph.cycles()
+    print(f"lockgraph: {graph.acquisitions} acquisitions, "
+          f"{len(graph.edges)} edges, {len(cycles)} cycles "
+          f"({graph.summary()})")
+    for cyc in cycles:
+        print("  cycle: " + " -> ".join([e.src for e in cyc] + [cyc[0].src]))
+    if cycles or not graph.edges:
+        raise RuntimeError("lockgraph: the threaded durable run's locks "
+                           "form a cycle, or it recorded no edge")
+    edges = graph.export_edges()
+    path = os.path.join(OUT, "lockgraph-edges.json")
+    with open(path, "w") as f:
+        json.dump({"edges": edges}, f, indent=1)
+    cmd = [sys.executable, "-m", "kafka_ps_tpu_torch.analysis",
+           "kafka_ps_tpu_torch/", "--lock-coverage", path, "--json"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    t_static = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"static checks exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    rep = json.loads(proc.stdout)
+    cov = rep["lock_coverage"]
+    print(f"static checks with the card run's edges: exit 0 in "
+          f"{t_static:.1f} s, "
+          f"{rep['files']} files, {rep['counts']['unsuppressed']} "
+          f"unsuppressed of {rep['counts']['total']} findings; the card "
+          f"run covered {cov['common']} of {cov['static_edges']} static "
+          f"edges between recorder-named locks, "
+          f"{len(cov['runtime_only'])} edges only the run saw: "
+          + ", ".join(f"{e['src']} -> {e['dst']}"
+                      for e in cov["runtime_only"]))
+    print(f"lock-order phase: {time.perf_counter() - t_phase:.1f} s "
+          "(the threaded durable run included)")
 
 
 def cli_crash_check() -> None:

@@ -36,11 +36,11 @@ member through the hop.  The plain counters (`composites`, `members`,
 from __future__ import annotations
 
 import dataclasses
-import threading
 from collections import OrderedDict
 
 import numpy as np
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.runtime.messages import (CompositeDelta,
                                                  GradientMessage, KeyRange)
 from kafka_ps_tpu_torch.telemetry import FLIGHT, NULL_TELEMETRY
@@ -123,7 +123,7 @@ class LocalAggregator:
         self._ef_last = {}               # worker id -> last encoded message
         self._pending: OrderedDict[tuple[int, int], GradientMessage] = \
             OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("agg.pending")
         # plain-integer counters: composites made, members in them, and
         # offers or resends dropped as duplicates
         self.composites = 0

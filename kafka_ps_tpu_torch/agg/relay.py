@@ -47,6 +47,7 @@ import threading
 
 import numpy as np
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.agg.core import LocalAggregator
 from kafka_ps_tpu_torch.compress.wire import CODEC_NONE
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
@@ -113,7 +114,7 @@ class AggregatorRelay:
         self.port = self.downstream.port
         self.fabric = self.downstream.wrap(fabric_mod.Fabric())
         # rows and weights for a member that has not connected yet
-        self._stash_lock = threading.Lock()
+        self._stash_lock = OrderedLock("agg.stash")
         self._stash_rows: dict[int, list] = {}
         self._stash_weights: dict[int, bytes] = {}
         self.bytes_sent = 0              # composite payloads + headers
@@ -288,6 +289,7 @@ class AggregatorRelay:
         for w, (residual, clock, blob) in state.items():
             arrays[f"residual_{w}"] = residual
             arrays[f"clock_{w}"] = np.asarray([clock], dtype=np.int64)
+            # pscheck: disable=PS204 (checkpoint stash of opaque message blobs via savez, not a wire-frame decode)
             arrays[f"msg_{w}"] = np.frombuffer(blob, dtype=np.uint8)
         tmp = self._ckpt + ".tmp"
         with open(tmp, "wb") as f:

@@ -110,6 +110,7 @@ import sys
 import threading
 import time
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.cli import run as run_mod
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
 from kafka_ps_tpu_torch.runtime import net
@@ -259,7 +260,7 @@ class _BatchingSink:
         self._max_age = max_age
         self._rows: dict[int, list] = {}
         self._oldest: dict[int, float] = {}   # worker -> first-row time
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("BatchingIngest.rows")
 
     def __call__(self, worker: int, features, label: int) -> None:
         with self._lock:
@@ -1286,7 +1287,7 @@ def _run_worker_sharded(args, addrs: list[str],
     slots: list = [connect(a) for a in addrs]
     retired: list = []                 # bridges replaced by a reconnect
     fabric = fabric_mod.Fabric()       # local: assembled WEIGHTS only
-    assemble_lock = threading.Lock()
+    assemble_lock = OrderedLock("ShardedWorker.assemble")
     routers: dict[int, ShardRouter] = {}
 
     def resend_cb(shard_id: int, worker: int, clock: int) -> bool:

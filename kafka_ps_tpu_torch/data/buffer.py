@@ -20,13 +20,13 @@ samples every Nth.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Callable
 
 import numpy as np
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.models.logreg import sparse_to_dense
 from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
 from kafka_ps_tpu_torch.utils.config import BufferConfig
@@ -63,7 +63,7 @@ class SlidingBuffer:
         # monotonic mutation counter: the worker's device-slab cache key
         self._version = 0
         # the producer thread adds while the training loop snapshots
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("SlidingBuffer.state")
         # optional drift monitor (telemetry/drift.py): sampled arrivals
         # feed its per-feature Welford sketch; None leaves ingest as it is
         self._drift = None

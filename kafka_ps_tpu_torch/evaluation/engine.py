@@ -37,6 +37,7 @@ from collections import deque
 
 import torch
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedCondition
 from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
 from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
 from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
@@ -100,12 +101,15 @@ class EvalEngine:
         self._max_width = coalesce_width_cap(task.num_params,
                                              test_x.shape[0])
         self._pending: deque = deque()
-        self._cv = threading.Condition()
+        self._cv = OrderedCondition("EvalEngine.pending")
         self._inflight = 0           # popped but not yet emitted
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        # host-side counters for /evalz (telemetry/health.py)
+        # guarded-by: _cv (submit writes hold the cv; reads are int snapshots)
         self._submitted_clock = -1
+        # pscheck: disable=PS201 (dispatch-side monotonic clock; lag/stats reads tolerate a one-batch-stale snapshot)
         self._evaluated_clock = -1
         self._dispatches = 0
         self._evals = 0
@@ -116,7 +120,7 @@ class EvalEngine:
     def submit(self, theta: torch.Tensor, clock: int) -> None:
         """O(1) hand-off of an immutable theta at an eval-cadence clock.
         A backlog past MAX_PENDING drains before returning."""
-        clock = int(clock)
+        clock = int(clock)  # pscheck: disable=PS102 (the gate's clock is a host int; the coercion only normalizes a numpy int)
         with self._cv:
             self._pending.append((theta, clock))
             self._submitted_clock = clock

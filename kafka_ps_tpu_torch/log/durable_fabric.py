@@ -43,9 +43,9 @@ message, and the partitions' CommitLogs get both (log/log.py).
 from __future__ import annotations
 
 import os
-import threading
 import time
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.log.log import LogConfig
 from kafka_ps_tpu_torch.log.manager import LogManager, partition_key
 from kafka_ps_tpu_torch.runtime import serde
@@ -95,10 +95,10 @@ class DurableFabric(Fabric):
         # snapshots offsets and state, and by the app's ingestion around
         # persist + buffer insert + mark_consumed: a checkpoint's buffers
         # and its ingest offsets then describe the same rows
-        self.commit_lock = threading.Lock()
+        self.commit_lock = OrderedLock("DurableFabric.commit")
         # (msg, payload) of the newest weights frame
         self._last_weights = None
-        self._stats_lock = threading.Lock()
+        self._stats_lock = OrderedLock("DurableFabric.stats")
         # per topic: frames encoded and host seconds in serde.to_bytes
         self.frames: dict[str, int] = {}
         self.serde_s: dict[str, float] = {}

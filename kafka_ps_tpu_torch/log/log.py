@@ -39,9 +39,9 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import os
-import threading
 import time
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.log.segment import LogSegment, segment_basename
 from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
 from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
@@ -77,7 +77,7 @@ class CommitLog:
         self._m_appends = self.telemetry.counter("log_appends_total")
         self._m_fsync_ms = self.telemetry.histogram("log_fsync_ms")
         self.name = name or directory
-        self.lock = threading.RLock()
+        self.lock = OrderedLock("CommitLog.lock", reentrant=True)
         os.makedirs(directory, exist_ok=True)
         self.segments: list[LogSegment] = []
         self.truncated_bytes = 0

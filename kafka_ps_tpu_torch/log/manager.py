@@ -24,8 +24,8 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.log.log import CommitLog, LogConfig
 from kafka_ps_tpu_torch.telemetry.registry import NULL_TELEMETRY
 from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
@@ -49,7 +49,7 @@ class LogManager:
         self.tracer = tracer or NULL_TRACER
         self.telemetry = telemetry or NULL_TELEMETRY
         self._logs: dict[tuple[str, int], CommitLog] = {}
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("LogManager.partitions")
         self.commits = 0
         self._offsets_dir = os.path.join(root, "offsets")
         os.makedirs(self._offsets_dir, exist_ok=True)

@@ -365,6 +365,7 @@ def logreg_plan(batch: int, features: int, rows: int, members: int,
     is re-staged at each step (0), and the columns and chunks a staged row
     is cut into.  Needs the card."""
     out = (ctypes.c_int * len(_PLAN))()
+    # pscheck: disable=PS101 (a diagnostic of the launch geometry, not on a message path; _build.load returns the library it loaded once)
     err = _build.load(SOURCE).kps_logreg_plan(
         batch, features, rows, members, ("f32", "bf16", "int8").index(kind),
         out)
@@ -393,6 +394,7 @@ def _launch_logreg(thetas, xs, ys, masks, cfg: ModelConfig, kind: str):
     return deltas, losses
 
 
+@functools.lru_cache(maxsize=64)
 def _mlp_scratch(batch: int, features: int, hidden: int, rows: int,
                  members: int) -> tuple[int, ...]:
     """The float counts of the MLP kernel's five scratch buffers (w, hid,

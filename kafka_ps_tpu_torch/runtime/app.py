@@ -400,6 +400,7 @@ class StreamingPSApp:
         hang."""
         if self.device.type == "cuda":
             from kafka_ps_tpu_torch.ops import _build
+            # pscheck: disable=PS101 (once per app, before the first iteration; build skips a source whose library is built)
             _build.build(_build.sources())
 
     # -- live observability (utils/status.py) --------------------------------

@@ -14,10 +14,10 @@ durable.  A tracer (null by default) counts the sends per topic,
 
 from __future__ import annotations
 
-import threading
 from collections import deque
 from typing import Any
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedCondition
 from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
 
 WEIGHTS_TOPIC = "weights"
@@ -33,7 +33,7 @@ class Fabric:
 
     def __init__(self, tracer=None):
         self._queues: dict[tuple[str, int], deque] = {}
-        self._cond = threading.Condition()
+        self._cond = OrderedCondition(f"{type(self).__name__}.cond")
         self._tracer = tracer or NULL_TRACER
 
     def _q(self, topic: str, key: int) -> deque:

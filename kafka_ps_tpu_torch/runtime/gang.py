@@ -44,8 +44,8 @@ span around each kernel call (`gang=k` on a batched one) with a
 from __future__ import annotations
 
 import functools
-import threading
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.models.task import get_task
 from kafka_ps_tpu_torch.ops import fused_update
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
@@ -124,10 +124,10 @@ class GangDispatcher:
         self.telemetry = telemetry or NULL_TELEMETRY
         self._m_dispatches = self.telemetry.counter("gang_dispatches_total")
         self._m_members = self.telemetry.counter("gang_members_total")
-        self._offer_lock = threading.Lock()
+        self._offer_lock = OrderedLock("GangDispatcher.offer")
         # (worker_id, clock) -> the member tuple of its notice
         self._notices: dict[tuple[int, int], tuple] = {}
-        self._count_lock = threading.Lock()
+        self._count_lock = OrderedLock("GangDispatcher.count")
         self.dispatches = 0
         self.members = 0
         # compressed runs group members by clock, one call per release

@@ -122,6 +122,7 @@ import sys
 import threading
 import time
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.compress.wire import CODEC_NONE, CodecSpec
 from kafka_ps_tpu_torch.compress.wire import NONE as CODEC_SPEC_NONE
 from kafka_ps_tpu_torch.runtime import fabric as fabric_mod
@@ -267,6 +268,7 @@ def locked_send(sock: socket.socket, lock, topic: int, key: int,
     lock: interleaved frame bodies from concurrent senders would corrupt
     the stream, so the lock's whole critical section IS the write."""
     with lock:
+        # pscheck: disable=PS105 (dedicated write lock: this send IS the critical section)
         send_frame(sock, topic, key, payload)
 
 
@@ -351,11 +353,12 @@ def _recv_exact(sock: socket.socket, n: int) -> bytearray | bytes | None:
 
 class _Counters:
     """The plain-integer wire counters one bridge keeps (module
-    docstring), under one lock: the reader, the sending threads and the
-    heartbeat all count."""
+    docstring), under one lock, `_wire_lock`: the reader, the sending
+    threads and the heartbeat all count.  The bridge names that lock
+    (`ServerBridge.wire`, `WorkerBridge.wire`) before it calls this
+    __init__."""
 
     def __init__(self, tracer=None, telemetry=None):
-        self._wire_lock = threading.Lock()
         self.traffic: dict[tuple[str, int], list[int]] = {}
         self.serde_s: dict[int, float] = {}
         self.serde_frames: dict[int, int] = {}
@@ -474,6 +477,7 @@ class ServerBridge(_Counters):
                  run_id: int = 0, codec: CodecSpec | None = None,
                  coalesce: bool = True, device=None, shm: bool = False,
                  engine=None, tracer=None, telemetry=None):
+        self._wire_lock = OrderedLock("ServerBridge.wire")
         super().__init__(tracer, telemetry)
         # `device`: where decoded gradients land (the ServerNode's)
         self.device = resolve_device(device)
@@ -486,48 +490,60 @@ class ServerBridge(_Counters):
         # negotiation lands in `_codec_of`, and sends to a
         # none-negotiated peer strip the encoded payload in _send
         self.codec = codec if codec is not None else CODEC_SPEC_NONE
+        # guarded-by: _lock (HELLO writes hold the state lock; send-path reads are GIL-atomic dict gets)
         self._codec_of: dict[socket.socket, CodecSpec] = {}
         # per-connection trace negotiation (module docstring): True iff
         # the peer offered and this side's tracer is on
+        # guarded-by: _lock (HELLO writes hold the state lock; send-path reads are GIL-atomic)
         self._trace_of: dict[socket.socket, bool] = {}
         self._listener = socket.create_server((host, port))
         self.port = self._listener.getsockname()[1]
+        # guarded-by: _lock (registration holds the cv; routing reads are GIL-atomic dict gets)
         self._conn_of: dict[int, socket.socket] = {}   # worker -> conn
         self._ready: set[int] = set()
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("ServerBridge.state", reentrant=True)
         self._cv = threading.Condition(self._lock)
+        # pscheck: disable=PS201 (wrap publishes the fabric before any traffic can reference it - attach-before-serve)
         self._fabric: fabric_mod.Fabric | None = None
         self._stop = threading.Event()
-        self._send_lock: dict[socket.socket, threading.Lock] = {}
+        self._send_lock: dict[socket.socket, OrderedLock] = {}
         # `--wire-coalesce`: queue frames per connection and ship them in
         # scatter-gather batches from a dedicated writer thread; off =
         # one sendall per frame under the connection lock
         self._coalesce = bool(coalesce)
+        # guarded-by: _lock (accept-loop writes hold the state lock; send-path reads are GIL-atomic)
         self._writer_of: dict[socket.socket, FrameWriter] = {}
         self._writers: list[FrameWriter] = []     # every one made (stats)
+        # guarded-by: _lock (registered under the lock; the reader's per-frame store is GIL-atomic and the heartbeat tolerates an interval of staleness)
         self._last_recv: dict[socket.socket, float] = {}
         self.on_disconnect = None   # Callable[[list[int]], None]
         self.on_hello = None        # Callable[[list[int]], None]
         self.on_ready = None        # Callable[[int], None]
         # the PredictionEngine answering PREDICT, set before the listener
         # accepts (no client can find the port without one)
+        # pscheck: disable=PS201 (attach_serving publishes the engine before predict frames can arrive)
         self._serving = engine
         # offer the shared-memory channel (module docstring); one channel
         # and one serve thread per connection that took it
         self._shm_enabled = bool(shm)
+        # guarded-by: _lock (offer/teardown hold the state lock; reads are GIL-atomic)
         self._shm_of: dict[socket.socket, object] = {}
         self._shm_threads: list[threading.Thread] = []
+        # guarded-by: _wire_lock (the shm serve threads count under the wire lock; stats reads are int snapshots)
         self.shm_predictions = 0    # predictions answered over shm
         self._m_shm = self._telemetry.counter("serving_dispatch_mode",
                                               mode="shm")
+        # pscheck: disable=PS201 (failure-path counter; a racing increment can only undercount telemetry)
         self.dropped_sends = 0      # frames lost to dead connections
         # connections whose HELLO carried the aggregator-role byte
         self._agg_conns: set[socket.socket] = set()
+        # guarded-by: _lock (HELLO writes hold the state lock; stats reads are int snapshots)
         self.aggregators = 0        # relay HELLOs registered
         # the first non-connection exception of a reader
         self.reader_error: Exception | None = None
         self._hb_interval = heartbeat_interval
         self._hb_timeout = heartbeat_timeout
+        # guarded-by: _lock (accept loop swaps the list under the state lock; close() joins after the listener is down)
         self._reader_threads: list[threading.Thread] = []
         self._accept_thread = threading.Thread(
             target=self._accept_loop, daemon=True, name="kps-net-accept")
@@ -825,7 +841,7 @@ class ServerBridge(_Counters):
                 return
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             with self._cv:
-                self._send_lock[conn] = threading.Lock()
+                self._send_lock[conn] = OrderedLock("ServerBridge.send")
                 if self._coalesce:
                     writer = FrameWriter(conn, telemetry=self._telemetry)
                     self._writer_of[conn] = writer
@@ -885,8 +901,10 @@ class ServerBridge(_Counters):
                       + _TRACE_TRAILER.size):
             chan = self._offer_shm(conn)
             shm_tail = (_SHM_OFFER.pack(0, b"", b"") if chan is None else
-                        _SHM_OFFER.pack(1, chan.nonce,
-                                        chan.name.encode("ascii")))
+                        _SHM_OFFER.pack(
+                            1, chan.nonce,
+                            # pscheck: disable=PS103 (segment name is a fresh control string, not message parts)
+                            chan.name.encode("ascii")))
         # T_CONFIG goes out BEFORE the ids are registered: once
         # registered, the producer thread may race data rows onto this
         # connection, and the worker-side handshake relies on T_CONFIG
@@ -1115,6 +1133,7 @@ class WorkerBridge(_Counters):
         the offering tracer — when it is on and the server answers the
         offer, `trace_negotiated` goes True and WEIGHTS / GRADIENTS
         frames carry the trace suffix."""
+        self._wire_lock = OrderedLock("WorkerBridge.wire")
         super().__init__(tracer, telemetry)
         self.device = resolve_device(device)
         self.worker_ids = list(worker_ids)
@@ -1139,14 +1158,17 @@ class WorkerBridge(_Counters):
                     raise
                 time.sleep(0.2)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-        self._send_lock = threading.Lock()
+        self._send_lock = OrderedLock("WorkerBridge.send")
         self._stop = threading.Event()
         self.disconnected = threading.Event()
         # set by a mid-stream GOODBYE config: the run ended cleanly
+        # pscheck: disable=PS201 (monotonic bool set by the reader thread; pollers tolerate one stale read)
         self.run_over = False
         # the first non-connection exception of run_reader
+        # pscheck: disable=PS201 (set once by the reader thread just before it sets `disconnected`; read after that event)
         self.reader_error: Exception | None = None
         self.server_run_id: int | None = None
+        # pscheck: disable=PS201 (make_fabric publishes before run_reader starts - the handshake orders it)
         self.fabric: fabric_mod.Fabric | None = None
         # HELLO: ids + codec offer + trace offer (1 iff our tracer is on)
         payload = (struct.pack(f"<q{len(self.worker_ids)}q",
@@ -1381,6 +1403,7 @@ class WorkerBridge(_Counters):
             off = 8
             rows = []
             for _ in range(nrows):
+                # pscheck: disable=PS204 (legacy framing: old servers length-prefixed each row with an i32; the current encoder is columnar and never packs this)
                 (blen,) = struct.unpack_from("<i", payload, off)
                 off += 4
                 row = serde.from_bytes(payload[off:off + blen],
@@ -1427,7 +1450,7 @@ class PredictClient:
         self._reconnect = reconnect
         self._reconnect_timeout = reconnect_timeout
         self._model_id = int(model_id)
-        self._send_lock = threading.Lock()
+        self._send_lock = OrderedLock("PredictClient.send")
         self._req = 0
         self._closed = False
         self.reconnects = 0          # successful re-dials

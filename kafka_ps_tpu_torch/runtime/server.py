@@ -561,6 +561,7 @@ class ServerNode:
             return
         if trace is None:
             trace = self._pending_trace
+        # pscheck: disable=PS102 (the gate's clock is a host int; the coercion only normalizes a numpy int)
         clock = self.serving_clock() if clock is None else int(clock)
         registry.publish(self.theta if theta is None else theta, clock,
                          trace=trace)

@@ -409,6 +409,7 @@ class ShardedServerGroup:
         from kafka_ps_tpu_torch.utils import asynclog
         asynclog.submit_or_write(
             self.log,
+            # pscheck: disable=PS104 (CSV wall-clock column, not replay state)
             f"{int(time.time() * 1000)};-1;{clock};"
             "{};{};{}", m.loss, m.f1, m.accuracy)
 

@@ -31,8 +31,9 @@ The byte content of the stream is identical to the sequential
 coalescing process interoperates bit for bit with a
 `--no-wire-coalesce` one.
 
-The JAX module's locks are its lock-order recorder's `OrderedLock`;
-here they are plain `threading` locks.
+The queue lock is the port's lock-order recorder's `OrderedLock`
+(`FrameWriter.queue`, analysis/lockgraph.py), under the JAX module's
+name.
 
 Telemetry (`telemetry=`, null by default), the JAX writer's:
 `wire_frames_per_syscall` (histogram, per flush), `wire_send_queue_depth`
@@ -51,6 +52,7 @@ import struct
 import threading
 from collections import deque
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.telemetry import NULL_TELEMETRY
 from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
 
@@ -139,9 +141,10 @@ class FrameWriter:
         self._deadline = float(send_deadline)
         self._q: deque = deque()          # (header, payload) pairs
         self.queued_bytes = 0
+        # guarded-by: _lock (writers hold the queue lock; the dead property is a lock-free monotonic-bool peek)
         self._dead = False
         self._closing = False
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("FrameWriter.queue")
         self._cond = threading.Condition(self._lock)
         self.advisory_dropped = 0
         self.flushes = 0

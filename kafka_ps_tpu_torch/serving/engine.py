@@ -65,6 +65,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.serving import policy
 from kafka_ps_tpu_torch.serving.costmodel import DispatchCostModel
 from kafka_ps_tpu_torch.serving.snapshot import SnapshotRegistry
@@ -204,23 +205,32 @@ class PredictionEngine:
         self._q: queue.SimpleQueue = queue.SimpleQueue()
         # admission bookkeeping: the depth counters gate sheds, so they
         # move under one leaf lock, never nested
-        self._admission = threading.Lock()
+        self._admission = OrderedLock("PredictionEngine.admission")
+        # guarded-by: _admission (queue_depth/stats reads are lock-free gauge snapshots)
         self._depth = 0            # total admitted-but-unserved requests
         # inline bypass serves running on caller threads: while one is in
         # flight new arrivals take the queue, which is how sustained
         # concurrency reaches the demand estimate
         self._bypassing = 0
         self._ewma_batch_s: float | None = None
+        # guarded-by: _admission (add_model writes hold it; steady-state reads are GIL-atomic dict gets)
         self._tenants: dict[int, _Tenant] = {
             0: _Tenant(0, task, registry, self.max_batch)}
         self.latency = LatencyRecorder()
+        # guarded-by: _admission (stats reads are lock-free snapshots)
         self.requests = 0
+        # guarded-by: _admission (stats reads are lock-free snapshots)
         self.batches = 0          # forward dispatches
+        # guarded-by: _admission (stats reads are lock-free snapshots)
         self.batched_rows = 0     # rows that made it into a dispatch
+        # guarded-by: _admission (stats reads are lock-free snapshots)
         self.rejections = 0       # staleness rejections
         self.sheds = 0            # admission-control sheds (typed)
+        # guarded-by: _admission (stats reads are lock-free snapshots)
         self.bypasses = 0         # requests served on the fast path
+        # guarded-by: _admission (stats reads are lock-free snapshots)
         self.errors = 0
+        # guarded-by: _admission (stats reads are lock-free snapshots)
         self.callback_errors = 0  # callbacks that raised (rows answered)
         self._closed = False
         # threads that have made their device current (a CUDA theta)
@@ -304,6 +314,7 @@ class PredictionEngine:
                 self._bypassing += 1
             if self.telemetry.enabled:
                 self._m_queue_depth.set(self._depth)
+        # pscheck: disable=PS102 (client boundary: coerces caller-supplied x)
         row = np.asarray(x, dtype=np.float32).reshape(-1)
         req = _Request(row, bound, callback, time.monotonic(), model_id)
         if bypass:
@@ -588,7 +599,9 @@ class PredictionEngine:
         try:
             req.callback(result)
         except Exception:  # noqa: BLE001 — a callback must not stall serving
-            self.callback_errors += 1
+            # the batcher and bypass callers finish rows at once
+            with self._admission:
+                self.callback_errors += 1
             self.tracer.count("serving.callback_errors")
 
     # -- ops surface ---------------------------------------------------------

@@ -33,6 +33,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.serving import policy
 from kafka_ps_tpu_torch.utils.trace import LatencyRecorder
 
@@ -120,7 +121,7 @@ class SocketTarget:
         self.timeout = timeout
         self.shm = shm          # per-client shared-memory negotiation
         self._clients: list = []
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("loadgen.SocketTarget.clients")
 
     def make_issue(self):
         from kafka_ps_tpu_torch.runtime import net
@@ -158,7 +159,7 @@ class RoundRobinTarget:
             raise ValueError("need at least one target")
         self.targets = list(targets)
         self._next = 0
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("loadgen.RoundRobinTarget.next")
 
     def make_issue(self):
         with self._lock:
@@ -211,7 +212,7 @@ class _Ledger:
     """Shared counters for one run; one leaf lock, no nesting."""
 
     def __init__(self):
-        self.lock = threading.Lock()
+        self.lock = OrderedLock("loadgen.ledger")
         self.ok = 0
         self.stale = 0
         self.shed = 0
@@ -313,7 +314,7 @@ def run_open_loop(target, features, *, rate_qps: float,
     def _drive(tid: int) -> None:
         issue = target.make_issue()
         for i in range(tid, len(sched), concurrency):
-            at = start + float(sched[i])
+            at = start + float(sched[i])  # pscheck: disable=PS102 (host-side schedule arithmetic; keeps np.float64 out of the recorder)
             delay = at - time.monotonic()
             if delay > 0:
                 time.sleep(delay)

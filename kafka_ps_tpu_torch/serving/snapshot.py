@@ -23,10 +23,10 @@ audit reads (`at_clock`); older ones fall off.
 from __future__ import annotations
 
 import collections
-import threading
 import time
 from typing import NamedTuple
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.serving import policy
 
 
@@ -49,7 +49,7 @@ class SnapshotRegistry:
         self._latest: Snapshot | None = None
         self._seq = 0
         self._now = now
-        self._publish_lock = threading.Lock()
+        self._publish_lock = OrderedLock("SnapshotRegistry.publish")
 
     def publish(self, theta, vector_clock: int,
                 wall_time: float | None = None, trace=None) -> Snapshot:
@@ -116,7 +116,7 @@ class MultiModelRegistry:
 
     def __init__(self):
         self._registries: dict[int, SnapshotRegistry] = {}
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("MultiModelRegistry.register")
 
     def register(self, model_id: int,
                  registry: SnapshotRegistry | None = None,

@@ -26,8 +26,9 @@ Residency never changes values:
   * the plan is a pure function of the heat counters (pages ordered by
     (-heat, index)); only its timing depends on the scheduler.
 
-Locking: one lock guards the residency table (a plain threading.Lock;
-the JAX package uses its lock-order recorder's `OrderedLock`).  Blocking
+Locking (analysis/lockgraph, PS105): one leaf `store.residency`
+OrderedLock guards the residency table; the pass lock `store.pass` (the
+port's: passes run one at a time) is taken before it.  Blocking
 work (log appends and point reads, uploads, fetches) runs outside it: a
 migration snapshots (value, version) under the lock, does its I/O
 unlocked, then commits only if the page's version is unchanged, so a
@@ -65,6 +66,7 @@ import time
 import numpy as np
 import torch
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.runtime.messages import KeyRange
 from kafka_ps_tpu_torch.telemetry import NULL_TELEMETRY
 from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
@@ -148,22 +150,27 @@ class TieredParamStore:
         self.rebalance_interval_s = rebalance_interval_s
         self._slab = ParamPageSlab(resolve_device(device))
         self.device = self._slab.device
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("store.residency")
         # one policy pass at a time: the policy thread's, a drive loop's
         # settling pass and the final one at close
-        self._pass_lock = threading.Lock()
+        self._pass_lock = OrderedLock("store.pass")
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         # host counters for the stats line (no device sync near them)
         self.pins = {"hot": 0, "warm": 0, "cold": 0}
+        # guarded-by: _lock (rebalance writes hold the residency lock; stats reads are snapshots)
         self.promotions = 0
+        # guarded-by: _lock (rebalance writes hold the residency lock; stats reads are snapshots)
         self.demotions = 0
         self.faults = 0          # cold pages materialized on demand
+        # guarded-by: _lock (rebalance writes hold the residency lock; stats reads are snapshots)
         self.rebalances = 0
         # the tier counts a rebalance left (reads and writes move pages
         # up until the next one)
+        # guarded-by: _lock (rebalance writes hold the residency lock; stats reads are snapshots)
         self.settled = {"hot": 0, "warm": 0, "cold": 0}
         self.host_upload_bytes = 0
+        # guarded-by: _lock (the policy thread and the apply path both fetch; stats reads are snapshots)
         self.host_fetch_bytes = 0
         telemetry = telemetry or NULL_TELEMETRY
         self.telemetry = telemetry
@@ -201,7 +208,10 @@ class TieredParamStore:
             return np.ascontiguousarray(value, dtype=np.float32)
         t = value.detach()
         if t.device.type != "cpu":
-            self.host_fetch_bytes += t.nbytes
+            # the policy thread and an apply both fetch (never under the
+            # residency lock: the copy runs outside it)
+            with self._lock:
+                self.host_fetch_bytes += t.nbytes
             return t.to("cpu", torch.float32).numpy()
         return t.to(torch.float32).numpy().copy()
 

@@ -35,11 +35,11 @@ floats, never tensors: telemetry/modelhealth.py resolves them first).
 
 from __future__ import annotations
 
-import threading
 from collections import deque
 
 import numpy as np
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.telemetry.flight import FLIGHT
 
 # state-machine levels (the drift_state gauge values)
@@ -251,7 +251,7 @@ class DriftMonitor:
         self._clear_after = int(clear_after)
         self.log = log
         self.flight = flight if flight is not None else FLIGHT
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("telemetry.drift")
         labels = {"shard": str(shard)} if shard is not None else {}
         self._g_state = telemetry.gauge(
             "drift_state",

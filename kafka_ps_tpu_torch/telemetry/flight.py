@@ -27,9 +27,10 @@ from different processes onto one timeline.
 `dump()` writes an atomic `flightdump-<pid>.json` (tmp + os.replace)
 containing the ring contents, every thread's stack, a metrics snapshot
 and the watchdog panel's verdicts, in the JAX recorder's schema
-(`kps-flightdump-v1`, the same keys).  Its `lockEdges` are `[]` (what
-the JAX recorder writes with no lock graph installed: the port has no
-lock-order recorder); its `profile` holds the armed sampling profiler's
+(`kps-flightdump-v1`, the same keys).  Its `lockEdges` are the
+lock-order edges the port's recorder has observed
+(analysis/lockgraph.py `export_edges()`) when one is installed, `[]`
+otherwise; its `profile` holds the armed sampling profiler's
 20 hottest stacks (`--profile`, telemetry/profiler.py), `[]` without
 one.  `install_death_hooks()` arranges for that dump on SIGTERM/SIGABRT
 plus `faulthandler` coverage for the hard faults — a SIGKILLed process
@@ -49,6 +50,8 @@ import sys
 import threading
 import time
 import traceback
+
+from kafka_ps_tpu_torch.analysis import lockgraph
 
 
 DUMP_SCHEMA = "kps-flightdump-v1"
@@ -117,8 +120,8 @@ class FlightRecorder:
         self._inflight: dict[str, float] = {}
         self._tls = threading.local()
         self._rings: list[_Ring] = []
-        self._rings_lock = threading.Lock()
-        self._dump_lock = threading.Lock()
+        self._rings_lock = lockgraph.OrderedLock("flight.rings")
+        self._dump_lock = lockgraph.OrderedLock("flight.dump")
         self._prev_handlers: dict[int, object] = {}
         self._hooks_installed = False
 
@@ -266,6 +269,8 @@ class FlightRecorder:
         for ident, frame in frames.items():
             threads[names.get(ident, str(ident))] = \
                 traceback.format_stack(frame)
+        graph = lockgraph.current()
+        lock_edges = graph.export_edges() if graph is not None else []
         metrics = {}
         if self.telemetry is not None:
             try:
@@ -293,7 +298,7 @@ class FlightRecorder:
             "inflight": {k: now_mono - v
                          for k, v in self._inflight.items()},
             "threads": threads,
-            "lockEdges": [],
+            "lockEdges": lock_edges,
             "metrics": metrics,
             "watchdogs": watchdogs,
             "profile": profile,

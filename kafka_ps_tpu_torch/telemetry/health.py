@@ -130,6 +130,7 @@ class WatchdogPanel:
         self.flight = flight if flight is not None else FLIGHT
         self.poll_s = poll_s
         self.watchdogs: list[Liveness] = []
+        # pscheck: disable=PS201 (watchdog-tick state; a racing manual check_now at worst duplicates one dump)
         self._dumped_trips: dict[str, int] = {}
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None

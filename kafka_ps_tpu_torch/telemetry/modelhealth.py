@@ -54,6 +54,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.telemetry.drift import DriftMonitor
 
 # log-spaced like the latency buckets: delta norms span regimes from
@@ -142,16 +143,15 @@ class ModelHealth:
             "modelhealth_deferred_total",
             help_text="device deltas observed by reference (resolved "
                       "sampled, off the hot path)", **self._labels)
-        # gauge-child cache filled outside the lock: racers store the
-        # registry's deduplicated children
+        # pscheck: disable=PS201 (gauge-child cache filled outside the lock by PS106 design; racers store registry-deduped children, GIL-atomic)
         self._per_worker: dict[int, tuple] = {}   # id -> (share, div)
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("telemetry.modelhealth")
         # EWMA aggregate direction (unit host vector) + per-worker state
         self._dir: np.ndarray | None = None
         self._w_norm_ewma: dict[int, float] = {}
         self._w_divergence: dict[int, float] = {}
         self._w_updates: dict[int, int] = {}
-        # written under _lock; poll's lock-free read is a monotonic count
+        # guarded-by: _lock (ingest holds it; poll's lock-free read is a monotonic count)
         self.updates = 0
         self.last_norm = 0.0
         self.last_cosine = 1.0

@@ -43,6 +43,8 @@ import sys
 import threading
 import time
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
+
 _MAX_DEPTH = 64          # frames kept per stack (root dropped beyond)
 _OTHER = "(other)"
 _MAX_TOKENS = 4096       # cached per-code-object tokens
@@ -89,19 +91,19 @@ class SamplingProfiler:
     def __init__(self, hz: float = 100.0, max_stacks: int = 512):
         self.hz = float(hz)
         self.max_stacks = int(max_stacks)
-        # written under _lock; stats() reads snapshots
+        # guarded-by: _lock (sampler writes hold it; stats reads are snapshots)
         self.samples = 0
-        # written under _lock; stats() reads snapshots
+        # guarded-by: _lock (sampler writes hold it; stats reads are snapshots)
         self.dropped = 0                 # samples folded into (other)
         self._counts: dict[tuple[str, tuple[str, ...]], int] = {}
         self._tokens: dict[object, str] = {}     # code object -> token
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("telemetry.profiler")
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._mono0: float | None = None
         # wall-clock anchor: display-only, so /profilez can say when
         # the window started; never feeds a measurement
-        self.started_wall = time.time()
+        self.started_wall = time.time()  # pscheck: disable=PS104 (display-only wall anchor for /profilez)
 
     # -- sampling -----------------------------------------------------------
 

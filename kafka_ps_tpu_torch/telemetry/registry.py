@@ -22,9 +22,10 @@ takes `telemetry or NULL_TELEMETRY`.  Instrumented modules resolve the
 children they mutate at construction, so the hot path never takes the
 registry's family lock.
 
-Locking: metric mutation takes the metric's own leaf lock (a plain
-`threading.Lock`) and never does I/O or acquires anything else under
-it; the registry lock only guards family/child creation.  The periodic
+Locking: metric mutation takes the metric's own leaf lock (named
+`telemetry.metric`, an analysis/lockgraph.OrderedLock) and never does
+I/O or acquires anything else under it (PS105); the registry lock
+(`telemetry.registry`) only guards family/child creation.  The periodic
 Prometheus dumper is a named daemon thread (`kps-metrics`) that the
 owner stops (`stop_dumper`) before interpreter exit.
 """
@@ -36,6 +37,7 @@ import math
 import os
 import threading
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 from kafka_ps_tpu_torch.utils.trace import NULL_TRACER
 
 # Default latency buckets (milliseconds): sub-ms dispatch waits through
@@ -95,7 +97,7 @@ class Counter:
     __slots__ = ("_lock", "value")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("telemetry.metric")
         self.value = 0
 
     def inc(self, n=1) -> None:
@@ -109,7 +111,7 @@ class Gauge:
     __slots__ = ("_lock", "value")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("telemetry.metric")
         self.value = 0.0
 
     def set(self, v: float) -> None:
@@ -129,7 +131,7 @@ class Histogram:
     __slots__ = ("_lock", "bounds", "bucket_counts", "sum", "count")
 
     def __init__(self, bounds=LATENCY_BUCKETS_MS):
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("telemetry.metric")
         self.bounds = tuple(float(b) for b in bounds)
         if list(self.bounds) != sorted(set(self.bounds)):
             raise ValueError(f"bucket bounds must be strictly increasing, "
@@ -194,7 +196,7 @@ class _Family:
         self.help = help_text
         self.buckets = buckets
         self._children: dict[tuple, object] = {}
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("telemetry.registry")
 
     def labels(self, **labels):
         if set(labels) != set(self.label_names):
@@ -227,7 +229,7 @@ class MetricsRegistry:
 
     def __init__(self):
         self._families: dict[str, _Family] = {}
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("telemetry.registry")
 
     def _family(self, kind: str, name: str, label_names, help_text,
                 buckets=None) -> _Family:

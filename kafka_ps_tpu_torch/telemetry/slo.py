@@ -48,6 +48,8 @@ import threading
 import time
 from collections import deque
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
+
 # (label, seconds) burn windows — SRE-workbook fast/slow pairing.
 WINDOWS = (("fast", 300.0), ("slow", 3600.0))
 DEFAULT_SAMPLE_EVERY_S = 5.0
@@ -103,14 +105,13 @@ class SLOPlane:
         self.flight = flight if flight is not None else FLIGHT
         self.sample_every_s = sample_every_s
         self.slos: list[SLO] = []
-        # under _lock; `add` fills it before the sampler starts
+        # guarded-by: _lock (add populates before start - the add-before-start contract)
         self._history: dict[str, deque] = {}
-        # registered by `add` before the sampler starts; it only reads
+        # pscheck: disable=PS201 (registered by add before the sampler starts; the sampler only reads)
         self._gauges: dict[tuple[str, str], object] = {}
-        # the sampler is the sole writer; `burning` reads tolerate one
-        # interval of staleness
+        # pscheck: disable=PS201 (sampler is the sole writer; burning reads tolerate one interval of staleness)
         self._burning: dict[str, bool] = {}
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("telemetry.slo")
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 

@@ -27,6 +27,8 @@ from collections import deque
 
 import torch
 
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedCondition, OrderedLock
+
 # a backlog longer than this is flushed by the submitter in one batch
 MAX_PENDING = 4096
 # seconds between the drain thread's polls of the completion events
@@ -74,8 +76,9 @@ class DeferredSink:
     def __init__(self, sink):
         self._sink = sink
         self._pending: deque = deque()    # (template, values, event)
-        self._lock = threading.Lock()     # guards _pending, tickets, _thread
-        self._turn_cv = threading.Condition()
+        # guards _pending, tickets, _thread
+        self._lock = OrderedLock("DeferredSink.pending")
+        self._turn_cv = OrderedCondition("DeferredSink.turn")
         self._next_ticket = 0
         self._turn = 0
         self._wake = threading.Event()

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import os
 import sys
-import threading
+
+from kafka_ps_tpu_torch.analysis.lockgraph import OrderedLock
 
 SERVER_HEADER = "timestamp;partition;vectorClock;loss;fMeasure;accuracy"
 WORKER_HEADER = SERVER_HEADER + ";numTuplesSeen"
@@ -40,7 +41,7 @@ class CsvLogSink:
     is new or empty."""
 
     def __init__(self, path: str | None, header: str, append: bool = False):
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("CsvLogSink.write")
         write_header = True
         if path is None:
             self._fh = sys.stdout

@@ -290,7 +290,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "evaluation.logs", "evaluation.validate", "evaluation.plots",
               "evaluation.ground_truth", "evaluation.__main__",
               "parallel.mesh", "parallel.multihost",
-              "parallel.range_sharded"):
+              "parallel.range_sharded", "analysis", "analysis.__main__",
+              "analysis.lockgraph", "analysis.pytest_plugin",
+              "analysis.pscheck", "analysis.program", "analysis.threadck",
+              "analysis.lockflow", "analysis.wireck", "analysis.psverify"):
         assert f"kafka_ps_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
