@@ -25,14 +25,17 @@
    f32 rate printed beside it), with x counted at its stored width; the
    device time of a K5 gang of 4 per storage form; and one cuBLAS f32
    x @ W1.T beside K4's hidden_pass, as a yardstick for one product.
-   Then the MLP at the fused path's width, H=4096: K4 and K6 (4 members
-   sharing one theta) against their plain versions at the MLP's
-   tolerance, with the median |delta| printed beside it, K6 bitwise 4 K4
-   calls and two launches bitwise equal, K6's times and bound, the cuBLAS
-   yardstick at H=4096, K4's time, and K4 on four members whose float32
-   update is well conditioned (three) or not (one), against the plain
-   version at the MLP's tolerance, on the last on all but a bounded few
-   elements (OUTLIER_SHARE, OUTLIER_ABS).
+   Then the MLP at the fused path's width, H=4096, where K4 and K6 take
+   the wide passes (wgmma fed by TMA): K4 and K6 (4 members sharing one
+   theta) against their plain versions at the MLP's tolerance, with the
+   median |delta| printed beside it, K6 bitwise 4 K4 calls and two
+   launches bitwise equal, the wide-launch counter against the wrapper
+   calls, K6's times and bound, the device ms of each pass of K4 and K6,
+   the cuBLAS yardsticks at H=4096 (x @ W1.T beside each wide hidden
+   pass, dh.T @ x beside each wide update pass), K4's time, and K4 on
+   four members whose float32 update is well conditioned (three) or not
+   (one), against the plain version at the MLP's tolerance, on the last
+   on all but a bounded few elements (OUTLIER_SHARE, OUTLIER_ABS).
 3. Reference check: small serial runs of the trainer on the card against
    the same runs on the CPU (row keys exact, theta within tolerance), for
    logreg at -c 0/2/-1 and the MLP at -c 0, with f32, bf16 and int8
@@ -409,6 +412,7 @@ K5_REPLACES = {"bf16": "kafka_ps_tpu/ops/fused_update.py:719",
                "int8": "kafka_ps_tpu/ops/fused_update.py:725"}
 NO_LIBRARY = ("no single PyTorch call computes the k-step update; the "
               "plain version is a chain of eager ops")
+NO_TRACE = "(no device trace: CUDA events)"
 
 
 def card_line() -> str:
@@ -421,15 +425,36 @@ def card_line() -> str:
 
 def ptxas_summary(log: str) -> str:
     """The ptxas -v lines of the kernels the main path runs (R=6 template
-    instances and the passes not templated on R)."""
+    instances and the passes not templated on R, the wide MLP passes
+    among them)."""
     keep, out = False, []
     for line in log.splitlines():
         if "Compiling entry function" in line:
             keep = any(k in line for k in ("Li6E", "hidden_pass",
-                                           "update_pass", "loss_reduce"))
+                                           "update_pass", "loss_reduce",
+                                           "split_pass", "transpose_pass",
+                                           "tail_pass"))
         if keep:
             out.append(line.strip())
     return "\n".join(out)
+
+
+WIDE = "mlp_wide_launches"
+
+
+def other_kernels(n: dict, mine: tuple, task: str, kind: str, hidden: int,
+                  calls: int, tag: str) -> dict:
+    """The counters of `n` outside `mine` that are not 0.  The wide MLP
+    passes' counter is no other kernel: it must equal `calls` (the run's
+    MLP kernel calls) where an MLP call of this shape and form takes the
+    wide passes, and be 0 elsewhere."""
+    from kafka_ps_tpu_torch.ops import fused_update as fu
+    wide = task == "mlp" and fu.mlp_wide_path(B, F, hidden, kind)
+    if n.get(WIDE, 0) != (calls if wide else 0):
+        raise RuntimeError(f"{tag}: {n.get(WIDE, 0)} wide MLP kernel calls "
+                           f"of {calls} (the wide passes "
+                           f"{'should' if wide else 'should not'} run)")
+    return {k: v for k, v in n.items() if k not in mine and k != WIDE and v}
 
 
 def time_ms(fn, warmup=10, reps=100) -> float:
@@ -449,26 +474,45 @@ def time_ms(fn, warmup=10, reps=100) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps=20) -> tuple[float, dict, float]:
-    """Device time per call of the kernels `fn` launches, from a
-    torch.profiler trace: (total ms, {kernel name: ms}, CUDA launches per
-    call)."""
+def device_trace(fn, reps=20, tries=3) -> list:
+    """(kernel name, device us over `reps` calls, launches) of each kernel
+    `fn` launches, from a torch.profiler trace.  A trace that holds no
+    device time is taken again, up to `tries` traces in all: on the card
+    a trace of a few short launches has come back empty."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per, launches = {}, 0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            per[e.key] = us / reps / 1e3
-            launches += e.count
-    return sum(per.values()), per, launches / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                rows.append((e.key, us, e.count))
+        if rows:
+            return rows
+    return []
+
+
+def device_ms(fn, reps=20) -> tuple[float, dict, float]:
+    """Device time per call of the kernels `fn` launches, from a
+    torch.profiler trace: (total ms, {kernel name: ms}, CUDA launches per
+    call).  Where every trace came back empty, the median CUDA-event time
+    of a call stands in for the total, under the one name NO_TRACE, and
+    the launches are nan."""
+    rows = device_trace(fn, reps)
+    if not rows:
+        ms = time_ms(fn)
+        print(f"torch.profiler traced no device time in 3 traces; CUDA "
+              f"events instead: {ms:.4f} ms per call")
+        return ms, {NO_TRACE: ms}, float("nan")
+    per = {key: us / reps / 1e3 for key, us, _ in rows}
+    return sum(per.values()), per, sum(n for _, _, n in rows) / reps
 
 
 def bound(nbytes: int, flops: int) -> tuple[float, str, str]:
@@ -743,18 +787,52 @@ def kernel_phase(dev) -> dict:
 
 def cublas_yardstick(args, cfg) -> None:
     """One x @ W1.T at the call's shape through cuBLAS in f32 (TF32
-    off), beside the device time of one hidden_pass launch of K4 (k+1 of
-    them per call), which computes the same product (plus bias and relu):
-    a yardstick for a single product, not a library time of the kernel."""
+    off), beside the device time of one hidden pass launch of K4 (k+1 of
+    them per call; `wide_hidden_pass` on the wide passes), which computes
+    the same product (plus bias and relu), and one dh.T @ x beside one
+    update pass launch (k per call), which computes dW1 and applies it:
+    yardsticks for a single product, not library times of the kernel."""
     from kafka_ps_tpu_torch.models import mlp
     from kafka_ps_tpu_torch.ops import fused_update as fu
     x, w1 = args[1], mlp.unflatten(args[0], cfg).w1
-    cublas_ms, _, _ = device_ms(lambda: torch.matmul(x, w1.t()))
+    dh = torch.randn(B, cfg.hidden_dim, device=x.device,
+                     generator=torch.Generator(x.device).manual_seed(3))
+    pre_ms, _, _ = device_ms(lambda: torch.matmul(x, w1.t()))
+    dw1_ms, _, _ = device_ms(lambda: torch.matmul(dh.t(), x))
     _, per, _ = device_ms(lambda: fu.mlp_local_update(*args, cfg=cfg))
-    hidden = sum(v for key, v in per.items() if "hidden_pass" in key)
+    wide = fu.mlp_wide_path(B, F, cfg.hidden_dim, "f32")
+    names = (("wide_hidden_pass", "wide_update_pass") if wide
+             else ("hidden_pass", "update_pass"))
+    hidden = sum(v for key, v in per.items() if names[0] in key) / (K + 1)
+    update = sum(v for key, v in per.items() if names[1] in key) / K
     print(f"yardstick x @ W1.T [{B},{F}]x[{F},{cfg.hidden_dim}]: cuBLAS f32 "
-          f"(TF32 off) {cublas_ms:.4f} ms device; K4 hidden_pass "
-          f"{hidden / (K + 1):.4f} ms device per launch")
+          f"(TF32 off) {pre_ms:.4f} ms device; K4 {names[0]} "
+          f"{hidden:.4f} ms device per launch ({times(hidden, pre_ms)} "
+          f"cuBLAS)")
+    print(f"yardstick dh.T @ x [{cfg.hidden_dim},{B}]x[{B},{F}]: cuBLAS f32 "
+          f"(TF32 off) {dw1_ms:.4f} ms device; K4 {names[1]} "
+          f"{update:.4f} ms device per launch ({times(update, dw1_ms)} "
+          f"cuBLAS)")
+
+
+def times(ms: float, base: float) -> str:
+    """`ms` as a multiple of `base`, or "n/a x" where either is 0 (no
+    device time traced)."""
+    return f"{ms / base:.3f}x" if ms > 0 and base > 0 else "n/a x"
+
+
+def pass_breakdown(label, fn, reps=20) -> None:
+    """The device ms per call of each pass `fn` launches, from a
+    torch.profiler trace, by kernel name and template arguments."""
+    rows = []
+    for key, us, count in device_trace(fn, reps):
+        m = re.search(r"(\w+)(<[^()]*>)?\(", key)
+        rows.append((m.group(1) + (m.group(2) or "") if m else key[:60],
+                     us / reps / 1e3, count / reps))
+    print(f"{label} device ms per call by pass (torch.profiler): "
+          + ("; ".join(f"{name} {ms:.4f} ({n:g} launches)"
+                       for name, ms, n in rows) or "no device time traced")
+          + f"; total {sum(ms for _, ms, _ in rows):.4f}")
 
 
 def wide_mlp_phase(dev) -> dict:
@@ -797,6 +875,20 @@ def wide_mlp_phase(dev) -> dict:
                            "K4 calls, or two launches differ")
     print(f"K6 (H={WIDE_H}, {GANG} members, one theta) bitwise equal to "
           f"{GANG} K4 calls and across two launches: True")
+    fu.reset_counts()
+    fu.mlp_local_update(*args, cfg=cfg)
+    fu.mlp_local_update_batched(*members, cfg=cfg)
+    n = fu.counts()
+    calls = n["mlp_launches"] + n["mlp_batched_launches"]
+    print(f"K4 and K6 (H={WIDE_H}): {n[WIDE]} of {calls} wrapper calls took "
+          "the wide passes (mlp_wide_launches)")
+    if calls != 2 or n[WIDE] != calls:
+        raise RuntimeError(f"H={WIDE_H}: {n[WIDE]} wide launches of {calls} "
+                           "K4 and K6 calls")
+    pass_breakdown(f"K4 (H={WIDE_H})",
+                   lambda: fu.mlp_local_update(*args, cfg=cfg))
+    pass_breakdown(f"K6 (H={WIDE_H}, {GANG} members)",
+                   lambda: fu.mlp_local_update_batched(*members, cfg=cfg))
     # x, y, mask of each member, theta once; deltas and losses out
     nbytes = 4 * (GANG * (B * F + 2 * B + MP + 1) + MP)
     flops = GANG * ((4 * K + 2) * B * F * WIDE_H
@@ -808,10 +900,12 @@ def wide_mlp_phase(dev) -> dict:
         lambda: fu.mlp_local_update_batched_plain(*members, cfg=cfg),
         nbytes, flops, k6_err)
     cublas_yardstick(args, cfg)
-    # K4 alone at this width: the split phase's wide run calls it
+    # K4 alone at this width: the split phase's wide run calls it.  On the
+    # TPU a single call at this width is the streamed kernel's
+    # (mlp_fits_in_vmem is false), and the gang falls back to XLA
     k4_entry = kernel_entry(
         f"mlp_local_update_h{WIDE_H}", "mlp_update.cu",
-        "kafka_ps_tpu/ops/fused_update.py:248",
+        "kafka_ps_tpu/ops/fused_update.py:784",
         lambda: fu.mlp_local_update(*args, cfg=cfg),
         lambda: fu.mlp_local_update_plain(*args, cfg=cfg),
         4 * (B * F + 2 * B + 2 * MP + 1),
@@ -1656,7 +1750,8 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
     mine = [f"{prefix}{k}" for k in ("launches", "batched_launches",
                                      "batched_members")]
     single, gang_calls, members = (n[k] for k in mine)
-    others = {k: v for k, v in n.items() if k not in mine and v}
+    others = other_kernels(n, tuple(mine), task, kind, hidden,
+                           single + gang_calls, tag)
     values = np.array([[float(v) for v in r[3:6]] for r in server + worker])
     # this run's rows and server iterations (a resumed run continues the
     # logs and the iteration count of the run it restores)
@@ -1688,7 +1783,8 @@ def main_path_run(task: str, mode: str, c: int, iters: int,
     print(f"  slab {slab['dtype']}: device_bytes={slab['device_bytes']} "
           f"(4 workers, the spare row left out) "
           f"bytes_uploaded={slab['bytes_uploaded']}; iters_per_s="
-          f"{rate:.1f}; other kernel counters: {others or 'all 0'}")
+          f"{rate:.1f}; other kernel counters: {others or 'all 0'}; "
+          f"wide MLP calls {n.get(WIDE, 0)}")
     print(f"  gang dispatches={g['dispatches']} members per dispatch="
           f"{per:.2f}; server batched applies="
           f"{stats['server_batched_applies']}; eval engine: "
@@ -2109,7 +2205,7 @@ def split_run(task: str, c: int, iters: int, flags: tuple = (),
     for i, (st, rows) in enumerate(zip(workers, worker_rows)):
         own = len(rows) - (pre_rows if kill and i == 1 else 0)
         n = st["kernels"]
-        others = {k: v for k, v in n.items() if k != mine and v}
+        others = other_kernels(n, (mine,), task, kind, hidden, n[mine], tag)
         calls.append(n[mine])
         print(f"  worker process {i} ({SPLIT_IDS[i]}): device "
               f"{st['device']}, {own} worker CSV rows in this process, "
@@ -2512,7 +2608,7 @@ def scaleout_run(topology: str, task: str, c: int, iters: int,
     calls = []
     for i, (st, rows) in enumerate(zip(workers, worker_rows)):
         n = st["kernels"]
-        others = {k: v for k, v in n.items() if k != mine and v}
+        others = other_kernels(n, (mine,), task, kind, hidden, n[mine], tag)
         calls.append(n[mine])
         print(f"  worker process {i} ({SPLIT_IDS[i]}): device "
               f"{st['device']}, {len(rows)} worker CSV rows, kernel calls "
@@ -5217,12 +5313,13 @@ def main() -> int:
             f.write(log)
         print(f"nvcc {name}, ptxas report for the C=5 instances:")
         print(ptxas_summary(log))
-    smem = (ctypes.c_int * 6)()
+    smem = (ctypes.c_int * 7)()
     _build.load("mlp_update.cu").kps_mlp_smem(smem)
     print("mlp_update.cu dynamic shared memory per CTA, hidden_pass / "
           "update_pass (bytes): " + "; ".join(
               f"{form} {smem[2 * i]} / {smem[2 * i + 1]}"
-              for i, form in enumerate(("f32", "bf16", "int8"))))
+              for i, form in enumerate(("f32", "bf16", "int8")))
+          + f"; wide_hidden_pass and wide_update_pass {smem[6]}")
 
     from kafka_ps_tpu_torch.native import binding
     t0 = time.perf_counter()

@@ -7,6 +7,11 @@
 // mlp_local_update_batched (:939); and _mlp_stream_kernel (:719, bf16) and
 // _mlp_stream_kernel_q (:725, int8), both bodies of _mlp_stream_core
 // (:637), the TPU's batch-tiled version for oversize and bf16 / int8 slabs.
+// At a hidden layer too wide for VMEM (mlp_fits_in_vmem, :235, false at
+// H=4096) a single TPU call streams batch tiles past a VMEM-resident weight
+// set (_mlp_stream_update :732 -> _mlp_stream_kernel :719, pallas_call
+// :784) and the gang falls back to XLA's vmapped update; here both take
+// the wide passes below.
 // The function:
 //
 //   for s in 0..k-1:
@@ -44,6 +49,36 @@
 // More work per CTA (larger tiles with split-K partials, or clusters
 // sharing tiles) is the next step; PERF.md holds the times.
 //
+// The wide path (f32 x, H >= kWideMinH, F a multiple of 4).  At B=F=1024,
+// H=4096, k=2 the work is 43.3 GFLOP per member, 42.9 of it in the five
+// B*F*H products: 87 us at the TF32 peak against 38 MB of inputs and
+// outputs (11 us), so operations bound it, and the three-term split puts
+// the floor at ~0.26 ms.  A product there is 1024 x 4096 x 1024, the shape
+// wgmma is built for, while W1 alone (16.8 MB) is far beyond shared memory
+// and fits in L2.  So the five products run as wide_hidden_pass (pre) and
+// wide_update_pass (dW1): a persistent grid (one CTA per SM, each walking
+// its tiles of every member in order) of 128 x 128 output tiles, a
+// producer warp issuing TMA loads of 32-deep chunks (128-byte swizzle)
+// into a ring of three stages with mbarriers, two consumer warpgroups
+// each issuing wgmma m64n128k8 TF32 on 64 rows.  TF32 wgmma reads its
+// operands K-major only and truncates an f32 operand to TF32, and no
+// thread touches a tile on its way in, so the split operands live in
+// scratch, each a hi and a lo plane, rounded where they are written: x
+// (split_pass) and x.T (transpose_pass) once per call, theta's W1 before
+// step 0 (split_pass) and each step's W1 by wide_update_pass's epilogue,
+// dh.T by grad_cols.  Each 32-deep chunk's hi*hi sum starts from zero and
+// reaches the running sum through a round-to-nearest add; the small terms
+// accumulate over all of K in a register set of their own, added at the
+// end (the order of the narrow passes with chunks of 32 for 8; putting
+// the small terms into the chunk's sum moved a relu gate off the plain
+// version on the card).  The small passes: grad_rows (4 warps a row:
+// logits, g; or the NLL), grad_cols (32 columns of [B, H] per CTA over all
+// rows: dh, dh.T, db1, dW2, db2 summed in a fixed order and applied in
+// place, no per-CTA partials) and loss_reduce.  The tensor maps are
+// encoded on the host at every call from the call's scratch and passed by
+// value (__grid_constant__), so a CUDA graph that captures a call replays
+// it on its own buffers.
+//
 // The products: mma.sync m16n8k8 TF32 at f32 accuracy.  TF32 keeps 11
 // significant bits, so an f32 operand a is split into hi = tf32(a)
 // (rounded as cvt.rna) and lo = tf32(a - hi) (a - hi is exact):
@@ -66,7 +101,8 @@
 // atol 1e-5); one TF32 term alone is not (tests/test_torch_mlp_split.py
 // models both).
 //
-// The passes, 3k+3 launches, no atomics, every sum in a fixed order:
+// The narrow passes, 3k+3 launches, no atomics, every sum in a fixed
+// order (the wide path's are above):
 //
 //   per step s:  hidden_pass (pre, hid = relu(pre) for a 32 x 32 tile of
 //                             [B, H] per CTA: 128 CTAs at B=1024, H=128)
@@ -109,6 +145,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through the plain C entry points below (ctypes).
 
+#include <cuda.h>  // CUtensorMap; the encoder is looked up at run time
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -146,9 +183,11 @@ static_assert(kSteps >= 1 && kDepth % (8 * kGroups) == 0, "k split");
 
 // Shapes of one call: T = H + R*H + R is the length of the b1|W2|b2 tail,
 // P = H*F + T the length of the flat parameter vector, Hp the row stride
-// of the hid and dh scratch, nblk the row_pass CTAs per member.
+// of the hid and dh scratch, nblk the row_pass CTAs per member, Bp the row
+// stride of the wide path's transposed scratch (B rounded up to 4, so that
+// a row starts on 16 bytes, as TMA needs).
 struct Dims {
-  int B, F, H, Hp, T, P, nblk;
+  int B, F, H, Hp, T, P, nblk, Bp;
 };
 
 // -- the tensor-core arithmetic ---------------------------------------------
@@ -770,6 +809,554 @@ loss_reduce(Mem mem, Dims d, const float* __restrict__ loss_partials,
   }
 }
 
+// -- the wide path: K4 and K6 at H >= kWideMinH, wgmma fed by TMA ----------
+
+// The path of a call is a function of (F, H) and the storage form alone,
+// never of the member count, so that a K6 member and a K4 call always
+// take the same passes.  fused_update.py mirrors it (mlp_wide_path).
+constexpr int kWideMinH = 1024;
+
+bool wide_path(int F, int H) { return H >= kWideMinH && F % 4 == 0; }
+
+// A wide pass's CTA: one producer warpgroup (its first thread issues the
+// TMA loads) and two consumer warpgroups, each computing 64 rows of the
+// CTA's kGM x kGN output tile with wgmma m64n128k8.  A chunk is kGK = 32
+// f32 deep, one 128-byte row of the 128-byte swizzle per tile row; a stage
+// holds the chunk's four operand tiles (A hi, A lo, B hi, B lo).
+constexpr int kGM = 128, kGN = 128, kGK = 32;
+constexpr int kGStages = 3;
+constexpr int kGThreads = 384;
+constexpr int kGOp = kGM * kGK * 4;                // one term's tile, 16 KiB
+constexpr int kGStage = 4 * kGOp;
+constexpr int kGSmem = kGStages * kGStage + 1024;  // + alignment slack
+constexpr long long kWaitCycles = 20000000000LL;   // ~10 s: a lost barrier
+static_assert(kGM == kGN, "the A and B tiles share one TMA box");
+
+__device__ __forceinline__ uint32_t sh_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(sh_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          sh_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(sh_addr(bar))
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.  A barrier that never
+// completes (a lost TMA transfer) traps after ~10 s instead of hanging the
+// card: the launch then fails and the wrapper raises.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = sh_addr(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > kWaitCycles) __trap();
+  }
+}
+
+// One box (kGK x kGM, f32) of a 4-d tensor map [members][2][rows][cols] at
+// (column c0, row r0, plane, member) into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int r0, int plane, int m,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(sh_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(plane),
+      "r"(m), "r"(sh_addr(bar))
+      : "memory");
+}
+
+// The wgmma descriptor of a K-major operand tile in the 128-byte swizzle
+// (rows of 128 bytes, groups of 8 rows 1024 bytes apart); p is a 1024-byte
+// aligned tile or a k8 step (32 bytes) into it.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p) {
+  return (uint64_t)((sh_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (+)= a * b, m64n128k8 TF32 with f32 accumulation; acc = 0 starts d
+// from zero.
+__device__ __forceinline__ void gmma(float (&d)[64], uint64_t a, uint64_t b,
+                                     int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// Keeps the compiler from moving reads or writes of d across a wgmma
+// fence, commit or wait (the tensor cores write d asynchronously).
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A wide pass over the output tiles of every member.  kPre: pre = x @ W1.T
+// for [B, H] (A = x split, B = W1 split, K = F), epilogue hid = relu(pre +
+// b1).  kDw1: dW1 = dh.T @ x for [H, F] (A = dh.T split, B = x.T split,
+// K = B), epilogue W1 -= lr * dW1 and W1's split for the next kPre (and
+// delta on the last step).
+enum { kPre = 0, kDw1 = 1 };
+
+struct Wide {
+  Dims d;
+  int tm, tn, total;  // tiles along M and N per member; of all members
+  int nk;             // chunks along K
+  int first, last;    // step 0 (W from theta); the last step (delta)
+  float lr;
+  float* w;           // the members' W scratch [members, P]
+  float* out;         // kPre: hid [members, B, Hp]; kDw1: W1 split
+  float* delta;
+};
+
+template <int OP>
+__device__ __forceinline__ void wide_body(const CUtensorMap* ta,
+                                          const CUtensorMap* tb,
+                                          const Members& mem, const Wide& a) {
+  __shared__ __align__(8) uint64_t full[kGStages], empty[kGStages];
+  extern __shared__ __align__(16) unsigned char wsm[];
+  unsigned char* sm = wsm + ((1024 - (sh_addr(wsm) & 1023)) & 1023);
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int per = a.tm * a.tn;
+  if (wg == 0) {
+    // the producer: every chunk of every tile of this CTA, in order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x != 0) return;
+    int stage = 0, phase = 0;
+    for (int t = blockIdx.x; t < a.total; t += gridDim.x) {
+      const int m = t / per, r = t % per;
+      const int r0 = (r % a.tm) * kGM, c0 = (r / a.tm) * kGN;
+      for (int kc = 0; kc < a.nk; ++kc) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = sm + stage * kGStage;
+        mbar_expect(&full[stage], kGStage);
+        const int k0 = kc * kGK;
+        tma_load(st, ta, k0, r0, 0, m, &full[stage]);
+        tma_load(st + kGOp, ta, k0, r0, 1, m, &full[stage]);
+        tma_load(st + 2 * kGOp, tb, k0, c0, 0, m, &full[stage]);
+        tma_load(st + 3 * kGOp, tb, k0, c0, 1, m, &full[stage]);
+        if (++stage == kGStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int cw = wg - 1;  // rows cw*64.. of the tile
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const Dims& d = a.d;
+  int stage = 0, phase = 0;
+  float cb[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) cb[i] = 0.f;
+  for (int t = blockIdx.x; t < a.total; t += gridDim.x) {
+    const int m = t / per, r = t % per;
+    const int r0 = (r % a.tm) * kGM, c0 = (r / a.tm) * kGN;
+    // big: the hi*hi sums; small: the lo*hi + hi*lo terms (2^-11 of the
+    // big ones), accumulated over all of K in the tensor cores
+    float big[64], small[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) big[i] = small[i] = 0.f;
+    for (int kc = 0; kc < a.nk; ++kc) {
+      mbar_wait(&full[stage], phase);
+      const unsigned char* st = sm + stage * kGStage;
+      const unsigned char* ahi = st + cw * 64 * kGK * 4;
+      const unsigned char* alo = ahi + kGOp;
+      const unsigned char* bhi = st + 2 * kGOp;
+      const unsigned char* blo = st + 3 * kGOp;
+      pin(cb);
+      pin(small);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      // the chunk's hi*hi sum starts from zero (cb)
+#pragma unroll
+      for (int s = 0; s < kGK / 8; ++s) {
+        gmma(small, gmma_desc(alo + 32 * s), gmma_desc(bhi + 32 * s), 1);
+        gmma(small, gmma_desc(ahi + 32 * s), gmma_desc(blo + 32 * s), 1);
+        gmma(cb, gmma_desc(ahi + 32 * s), gmma_desc(bhi + 32 * s), s > 0);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      pin(cb);
+      pin(small);
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      // and reaches the running sum through round-to-nearest adds
+#pragma unroll
+      for (int i = 0; i < 64; ++i) big[i] = __fadd_rn(big[i], cb[i]);
+      if (++stage == kGStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) big[i] = __fadd_rn(big[i], small[i]);
+    // the accumulator layout of m64nN: register 4j + 2h + c holds row
+    // 16 warp + lane/4 + 8h, column 8j + 2 (lane%4) + c
+    const int row = r0 + cw * 64 + warp * 16 + lane / 4;
+    const int col = c0 + 2 * (lane % 4);
+    if (OP == kPre) {
+      const float* b1 =
+          member_w(mem, a.w, a.first, m, d.P) + (size_t)d.H * d.F;
+      float* hid = a.out + (size_t)m * d.B * d.Hp;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int h = col + 8 * j + c;
+          if (h >= d.H) continue;
+          const float bias = b1[h];
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int b = row + 8 * h2;
+            if (b < d.B)
+              hid[(size_t)b * d.Hp + h] =
+                  fmaxf(__fadd_rn(big[4 * j + 2 * h2 + c], bias), 0.f);
+          }
+        }
+    } else {
+      const float* theta = mem.theta[m];
+      const float* w_in = member_w(mem, a.w, a.first, m, d.P);
+      float* w_out = a.w + (size_t)m * d.P;
+      float* hi = a.out + (size_t)m * 2 * d.H * d.F;
+      float* lo = hi + (size_t)d.H * d.F;
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int h = row + 8 * h2;
+        if (h >= d.H) continue;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int f = col + 8 * j + c;
+            if (f >= d.F) continue;
+            const size_t p = (size_t)h * d.F + f;
+            // the same two roundings as w - lr * g
+            const float wn =
+                __fsub_rn(w_in[p], __fmul_rn(a.lr, big[4 * j + 2 * h2 + c]));
+            w_out[p] = wn;
+            uint32_t wh, wl;
+            split(wn, wh, wl);
+            hi[p] = __uint_as_float(wh);
+            lo[p] = __uint_as_float(wl);
+            if (a.last)
+              a.delta[(size_t)m * d.P + p] = __fsub_rn(wn, theta[p]);
+          }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kGThreads, 1)
+wide_hidden_pass(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb, const Members mem,
+                 const Wide a) {
+  wide_body<kPre>(&ta, &tb, mem, a);
+}
+
+__global__ void __launch_bounds__(kGThreads, 1)
+wide_update_pass(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb, const Members mem,
+                 const Wide a) {
+  wide_body<kDw1>(&ta, &tb, mem, a);
+}
+
+// The operands' split, once per call: x into xs [2][B][F] and theta's W1
+// into w1s [2][H][F] per member (blockIdx.z 0 and 1), element by element.
+__global__ void __launch_bounds__(kThreads)
+split_pass(Members mem, Dims d, float* __restrict__ xs,
+           float* __restrict__ w1s) {
+  const int m = blockIdx.y;
+  const bool is_x = blockIdx.z == 0;
+  const float* src = is_x ? mem.x[m] : mem.theta[m];
+  const size_t n = (size_t)(is_x ? d.B : d.H) * d.F;
+  float* hi = (is_x ? xs : w1s) + 2 * n * m;
+  const size_t first = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  const size_t stride = (size_t)gridDim.x * kThreads;
+  // n is a multiple of 4 (F is), the planes 16-byte aligned: 16-byte
+  // accesses where the source is aligned too
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    uint4* h4 = reinterpret_cast<uint4*>(hi);
+    uint4* l4 = reinterpret_cast<uint4*>(hi + n);
+    for (size_t i = first; i < n / 4; i += stride) {
+      const float4 v = s4[i];
+      uint4 h, l;
+      split(v.x, h.x, l.x);
+      split(v.y, h.y, l.y);
+      split(v.z, h.z, l.z);
+      split(v.w, h.w, l.w);
+      h4[i] = h;
+      l4[i] = l;
+    }
+    return;
+  }
+  for (size_t i = first; i < n; i += stride) {
+    uint32_t h, l;
+    split(src[i], h, l);
+    hi[i] = __uint_as_float(h);
+    hi[n + i] = __uint_as_float(l);
+  }
+}
+
+// x.T split, once per call: xt [2][F][Bp] per member, through 32 x 32
+// tiles in shared memory.
+__global__ void __launch_bounds__(kThreads)
+transpose_pass(Members mem, Dims d, float* __restrict__ xt) {
+  __shared__ float tile[32][33];
+  const int m = blockIdx.z;
+  const float* x = mem.x[m];
+  const int f0 = blockIdx.x * 32, b0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += kThreads / 32) {
+    const int b = b0 + i, f = f0 + tx;
+    tile[i][tx] = (b < d.B && f < d.F) ? x[(size_t)b * d.F + f] : 0.f;
+  }
+  __syncthreads();
+  const size_t plane = (size_t)d.F * d.Bp;
+  float* hi = xt + 2 * plane * m;
+  for (int i = ty; i < 32; i += kThreads / 32) {
+    const int f = f0 + i, b = b0 + tx;
+    if (f >= d.F || b >= d.B) continue;
+    uint32_t h, l;
+    split(tile[tx][i], h, l);
+    hi[(size_t)f * d.Bp + b] = __uint_as_float(h);
+    hi[plane + (size_t)f * d.Bp + b] = __uint_as_float(l);
+  }
+}
+
+// The wide step's small passes, in place of row_pass and update_pass's
+// tail: grad_rows takes each row's logits to g (4 warps a row), grad_cols
+// takes 32 columns of [B, H] per CTA over all B rows to dh, dh.T split
+// (the operand of wide_update_pass), and b1 | W2 | b2 -= lr * their sums
+// over the rows, each in a fixed order: no per-CTA partials.
+constexpr int kGradRows = 2;                  // rows per grad_rows CTA
+constexpr int kGradSplit = kWarps / kGradRows;  // warps per row
+constexpr int kColW = 32;                     // columns per grad_cols CTA
+constexpr int kColThreads = 512;
+constexpr int kColGroups = kColThreads / 32;  // row groups of grad_cols
+constexpr int kColTile = 32;                  // rows per staged tile
+static_assert(kColTile % kColGroups == 0 && kColGroups >= kMaxRows,
+              "grad_cols tiling");
+
+// A row's logits as 4 warps' partial sums over interleaved columns, added
+// in warp order.  LOSS = false: g = (softmax(logit) - onehot(y)) * mask *
+// row_valid / denom into out [B, R] per member.  LOSS = true: the CTA's
+// sum of masked NLL, rows in order, into out [gridDim.x] per member.
+template <int R, bool LOSS>
+__global__ void __launch_bounds__(kThreads)
+grad_rows(Members mem, const float* w_scratch, int from_theta, Dims d,
+          const float* __restrict__ hid_all, float* __restrict__ out) {
+  __shared__ float red[kThreads];
+  __shared__ float part[kGradRows][kGradSplit][R];
+  __shared__ float nll_s[kGradRows];
+  const int m = blockIdx.y;
+  const int H = d.H;
+  const float* w2 =
+      member_w(mem, w_scratch, from_theta, m, d.P) + (size_t)H * d.F + H;
+  const float* b2 = w2 + R * H;
+  const float denom = LOSS ? 1.f : block_denom(mem.mask[m], d.B, red);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i = w / kGradSplit, q = w % kGradSplit;
+  const int row = blockIdx.x * kGradRows + i;
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  if (row < d.B) {
+    const float* hr = hid_all + ((size_t)m * d.B + row) * d.Hp;
+    for (int h = q * 32 + lane; h < H; h += 32 * kGradSplit) {
+      const float hv = hr[h];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(hv, w2[r * H + h], acc[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = warp_sum(acc[r]);
+  if (lane == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r) part[i][q][r] = acc[r];
+  __syncthreads();
+  float nll = 0.f;
+  if (q == 0 && lane == 0 && row < d.B) {
+    float l[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float s = part[i][0][r];
+      for (int k = 1; k < kGradSplit; ++k) s += part[i][k][r];
+      l[r] = s + b2[r];
+    }
+    log_softmax<R>(l);
+    const int yv = mem.y[m][row];
+    if (LOSS) {
+      float dot = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) dot += l[r] * ((yv == r) ? 1.f : 0.f);
+      nll = -dot * mem.mask[m][row];
+    } else {
+      const float valid = (yv >= 0 && yv < R) ? 1.f : 0.f;
+      const float scale = mem.mask[m][row] * valid / denom;
+      float* g = out + ((size_t)m * d.B + row) * R;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        g[r] = (expf(l[r]) - ((yv == r) ? 1.f : 0.f)) * scale;
+    }
+  }
+  if (!LOSS) return;
+  if (q == 0 && lane == 0) nll_s[i] = nll;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int r = 0; r < kGradRows; ++r) s += nll_s[r];
+    out[(size_t)m * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+// dh = (g @ W2) * (pre > 0) for columns h0..h0+31 and every row, in
+// tiles of 32 rows staged in shared memory so that dh.T's rows are
+// written whole; each thread sums db1 and dW2 = g.T @ hid over its rows
+// (b = its group, + kColGroups, ...), the groups' sums are added in group
+// order, and the CTA applies b1 | W2 (and CTA 0 b2, a warp a class, lanes
+// over rows, then the warp's fixed tree) in place: each element read and
+// written by one thread.
+template <int R>
+__global__ void __launch_bounds__(kColThreads)
+grad_cols(Members mem, float* w_scratch, int first, int last, Dims d,
+          const float* __restrict__ hid_all, const float* __restrict__ g_all,
+          float* __restrict__ dht_all, float lr, float* __restrict__ delta) {
+  __shared__ float tile[kColTile][kColW + 1];
+  __shared__ float sums[kColGroups][R + 1][kColW];
+  const int m = blockIdx.y;
+  const int H = d.H;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int h0 = blockIdx.x * kColW, h = h0 + tx;
+  const float* theta = mem.theta[m];
+  const float* w_in = member_w(mem, w_scratch, first, m, d.P);
+  float* w_out = w_scratch + (size_t)m * d.P;
+  const size_t tail = (size_t)H * d.F;     // b1 | W2 | b2 start here
+  const float* w2 = w_in + tail + H;
+  float w2h[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) w2h[r] = h < H ? w2[r * H + h] : 0.f;
+  const float* hid = hid_all + (size_t)m * d.B * d.Hp;
+  const float* g = g_all + (size_t)m * d.B * R;
+  const size_t plane = (size_t)H * d.Bp;
+  float* dht = dht_all + 2 * plane * m;
+  float sdb1 = 0.f, sdw2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) sdw2[r] = 0.f;
+  for (int b0 = 0; b0 < d.B; b0 += kColTile) {
+#pragma unroll
+    for (int k = 0; k < kColTile / kColGroups; ++k) {
+      const int rr = ty + k * kColGroups, b = b0 + rr;
+      float dh = 0.f;
+      if (b < d.B && h < H) {
+        const float hv = hid[(size_t)b * d.Hp + h];
+        const float* gb = g + (size_t)b * R;
+        float s = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) s = fmaf(gb[r], w2h[r], s);
+        dh = hv > 0.f ? s : 0.f;
+        sdb1 += dh;
+#pragma unroll
+        for (int r = 0; r < R; ++r) sdw2[r] = fmaf(gb[r], hv, sdw2[r]);
+      }
+      tile[rr][tx] = dh;
+    }
+    __syncthreads();
+    for (int j = ty; j < kColW; j += kColGroups) {
+      const int hh = h0 + j, b = b0 + tx;
+      if (hh < H && b < d.B) {
+        uint32_t hi, lo;
+        split(tile[tx][j], hi, lo);
+        dht[(size_t)hh * d.Bp + b] = __uint_as_float(hi);
+        dht[plane + (size_t)hh * d.Bp + b] = __uint_as_float(lo);
+      }
+    }
+    __syncthreads();
+  }
+  sums[ty][0][tx] = sdb1;
+#pragma unroll
+  for (int r = 0; r < R; ++r) sums[ty][1 + r][tx] = sdw2[r];
+  __syncthreads();
+  // quantity qn: 0 is b1[h], 1 + r is W2[r][h]
+  for (int qn = ty; qn <= R && h < H; qn += kColGroups) {
+    float s = 0.f;
+    for (int k = 0; k < kColGroups; ++k) s += sums[k][qn][tx];
+    const size_t off = tail + (qn == 0 ? h : H + (size_t)(qn - 1) * H + h);
+    const float wn = __fsub_rn(w_in[off], __fmul_rn(lr, s));
+    w_out[off] = wn;
+    if (last) delta[(size_t)m * d.P + off] = __fsub_rn(wn, theta[off]);
+  }
+  if (blockIdx.x == 0 && ty < R) {
+    float s = 0.f;
+    for (int b = tx; b < d.B; b += 32) s += g[(size_t)b * R + ty];
+    s = warp_sum(s);
+    if (tx == 0) {
+      const size_t off = tail + H + (size_t)R * H + ty;
+      const float wn = __fsub_rn(w_in[off], __fmul_rn(lr, s));
+      w_out[off] = wn;
+      if (last) delta[(size_t)m * d.P + off] = __fsub_rn(wn, theta[off]);
+    }
+  }
+}
+
 Dims dims(int B, int F, int H, int R) {
   Dims d;
   d.B = B;
@@ -779,6 +1366,7 @@ Dims dims(int B, int F, int H, int R) {
   d.T = H + R * H + R;
   d.P = H * F + d.T;
   d.nblk = (B + kRows - 1) / kRows;
+  d.Bp = (B + 3) / 4 * 4;
   return d;
 }
 
@@ -819,17 +1407,162 @@ int run(const typename S::Mem& mem, int members, float* delta, float* loss,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up in libcuda once (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a split operand [members][2][rows][cols] at `ld` floats
+// per row, in boxes of kGK columns x kGM rows of one plane of one member,
+// 128-byte swizzled; a box past the edge is filled with zeros.  Encoded on
+// the host at every call from the call's scratch (under CUDA graph capture,
+// the graph's own buffers) and passed by value.
+int tensor_map(CUtensorMap* map, float* base, int cols, int rows, int ld,
+               int members) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t row = (cuuint64_t)ld * 4;
+  const cuuint64_t dim[4] = {(cuuint64_t)cols, (cuuint64_t)rows, 2,
+                             (cuuint64_t)members};
+  const cuuint64_t stride[3] = {row, row * rows, row * rows * 2};
+  const cuuint32_t box[4] = {kGK, kGM, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dim,
+                        stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// The wide path's passes, 4k + 5 launches: the operands' split, then per
+// step wide_hidden_pass, grad_rows, grad_cols and wide_update_pass, then
+// wide_hidden_pass at W_k, grad_rows for the NLL and loss_reduce.  ws: the
+// split scratch xs, xt, w1s, dht; g [members, B, R] is the scratch that
+// holds the narrow passes' partials.
+template <int R>
+int run_wide(const Members& mem, int members, float* delta, float* loss,
+             float* w, float* hid, float* g, float* loss_partials,
+             float* const* ws, int B, int F, int H, int k, float lr,
+             cudaStream_t st) {
+  const Dims d = dims(B, F, H, R);
+  float *xs = ws[0], *xt = ws[1], *w1s = ws[2], *dht = ws[3];
+  if (!xs || !xt || !w1s || !dht) return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mw, mdh, mxt;
+  int err = tensor_map(&mx, xs, F, B, F, members);
+  if (err == 0) err = tensor_map(&mw, w1s, F, H, F, members);
+  if (err == 0) err = tensor_map(&mdh, dht, B, H, d.Bp, members);
+  if (err == 0) err = tensor_map(&mxt, xt, B, F, d.Bp, members);
+  if (err == 0)
+    err = (int)cudaFuncSetAttribute(
+        wide_hidden_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kGSmem);
+  if (err == 0)
+    err = (int)cudaFuncSetAttribute(
+        wide_update_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kGSmem);
+  int dev = 0, sms = 0;
+  if (err == 0) err = (int)cudaGetDevice(&dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err != 0) return err;
+  Wide pre{}, upd{};
+  pre.d = upd.d = d;
+  pre.lr = upd.lr = lr;
+  pre.w = upd.w = w;
+  pre.delta = upd.delta = delta;
+  pre.tm = ceil_div(B, kGM);
+  pre.tn = ceil_div(H, kGN);
+  pre.nk = ceil_div(F, kGK);
+  pre.out = hid;
+  upd.tm = ceil_div(H, kGM);
+  upd.tn = ceil_div(F, kGN);
+  upd.nk = ceil_div(B, kGK);
+  upd.out = w1s;
+  pre.total = members * pre.tm * pre.tn;
+  upd.total = members * upd.tm * upd.tn;
+  // persistent: at most one CTA per SM, each walking its tiles in order
+  const int gp = pre.total < sms ? pre.total : sms;
+  const int gu = upd.total < sms ? upd.total : sms;
+  const dim3 grad(ceil_div(B, kGradRows), members);
+  const dim3 cols(ceil_div(H, kColW), members);
+  if (k == 0)
+    cudaMemsetAsync(delta, 0, sizeof(float) * (size_t)members * d.P, st);
+  split_pass<<<dim3(2 * sms, members, 2), kThreads, 0, st>>>(mem, d, xs,
+                                                            w1s);
+  transpose_pass<<<dim3(ceil_div(F, 32), ceil_div(B, 32), members), kThreads,
+                   0, st>>>(mem, d, xt);
+  for (int s = 0; s < k; ++s) {
+    pre.first = upd.first = s == 0;
+    upd.last = s == k - 1;
+    wide_hidden_pass<<<gp, kGThreads, kGSmem, st>>>(mx, mw, mem, pre);
+    grad_rows<R, false><<<grad, kThreads, 0, st>>>(mem, w, s == 0, d, hid,
+                                                   g);
+    grad_cols<R><<<cols, kColThreads, 0, st>>>(mem, w, s == 0, s == k - 1,
+                                               d, hid, g, dht, lr, delta);
+    wide_update_pass<<<gu, kGThreads, kGSmem, st>>>(mdh, mxt, mem, upd);
+  }
+  pre.first = k == 0;
+  wide_hidden_pass<<<gp, kGThreads, kGSmem, st>>>(mx, mw, mem, pre);
+  grad_rows<R, true><<<grad, kThreads, 0, st>>>(mem, w, k == 0, d, hid,
+                                                loss_partials);
+  Dims dl = d;                   // loss_reduce: a partial per grad_rows CTA
+  dl.nblk = grad.x;
+  loss_reduce<Members><<<dim3(1, members), kThreads, 0, st>>>(
+      mem, dl, loss_partials, loss);
+  return (int)cudaGetLastError();
+}
+
+// f32 at a wide shape takes the wide passes, everything else the narrow.
+template <class S, int R>
+int run_any(const typename S::Mem& mem, int members, float* delta,
+            float* loss, float* w, float* hid, float* dh, float* partials,
+            float* loss_partials, float* const* ws, int B, int F, int H,
+            int k, float lr, cudaStream_t st) {
+  if constexpr (std::is_same<S, SlabF32>::value) {
+    if (wide_path(F, H))
+      return run_wide<R>(mem, members, delta, loss, w, hid, partials,
+                         loss_partials, ws, B, F, H, k, lr, st);
+  }
+  return run<S, R>(mem, members, delta, loss, w, hid, dh, partials,
+                   loss_partials, B, F, H, k, lr, st);
+}
+
 // The R = C+1 instance of a storage form's passes.
 template <class S>
 int dispatch(const typename S::Mem& mem, int members, float* delta,
              float* loss, float* w, float* hid, float* dh, float* partials,
-             float* loss_partials, int B, int F, int H, int R, int k,
-             float lr, void* stream) {
+             float* loss_partials, float* const* ws, int B, int F, int H,
+             int R, int k, float lr, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define KPS_CASE(n)                                                        \
   case n:                                                                  \
-    return run<S, n>(mem, members, delta, loss, w, hid, dh, partials,      \
-                     loss_partials, B, F, H, k, lr, st);
+    return run_any<S, n>(mem, members, delta, loss, w, hid, dh, partials,  \
+                         loss_partials, ws, B, F, H, k, lr, st);
   switch (R) {
     KPS_CASE(2) KPS_CASE(3) KPS_CASE(4) KPS_CASE(5) KPS_CASE(6) KPS_CASE(7)
     KPS_CASE(8) KPS_CASE(9) KPS_CASE(10) KPS_CASE(11) KPS_CASE(12)
@@ -853,21 +1586,27 @@ extern "C" {
 // and masks are host arrays of `members` device pointers ([P], [B, F],
 // [B], [B] each).  Outputs: delta [members, P], loss [members].  Scratch
 // the caller allocates, of the sizes kps_mlp_scratch gives: w, hid, dh,
-// partials, loss_partials.  Returns cudaGetLastError() after the launches.
+// partials, loss_partials, and for the wide path (kps_mlp_wide) the split
+// operands xs, xt, w1s, dht (null otherwise).  Returns cudaGetLastError()
+// after the launches, or the error that kept them from starting.
 int kps_mlp_local_update(const void* const* thetas, const void* const* xs,
                          const void* const* ys, const void* const* masks,
                          int members, float* delta, float* loss, float* w,
                          float* hid, float* dh, float* partials,
-                         float* loss_partials, int B, int F, int H, int R,
-                         int k, float lr, void* stream) {
+                         float* loss_partials, float* xs_split,
+                         float* xt_split, float* w1_split, float* dht_split,
+                         int B, int F, int H, int R, int k, float lr,
+                         void* stream) {
   if (bad_shape(B, F, H, k, members)) return (int)cudaErrorInvalidValue;
   Members mem;
   fill_members(mem, thetas, xs, ys, masks, members);
+  float* const ws[4] = {xs_split, xt_split, w1_split, dht_split};
   return dispatch<SlabF32>(mem, members, delta, loss, w, hid, dh, partials,
-                           loss_partials, B, F, H, R, k, lr, stream);
+                           loss_partials, ws, B, F, H, R, k, lr, stream);
 }
 
-// K5, bf16 slab: as kps_mlp_local_update, with xs pointing at bf16 [B, F].
+// K5, bf16 slab: as kps_mlp_local_update, with xs pointing at bf16 [B, F]
+// (always the narrow passes: no split scratch).
 int kps_mlp_local_update_bf16(const void* const* thetas,
                               const void* const* xs, const void* const* ys,
                               const void* const* masks, int members,
@@ -879,8 +1618,8 @@ int kps_mlp_local_update_bf16(const void* const* thetas,
   MembersBf16 mem;
   fill_members(mem, thetas, xs, ys, masks, members);
   return dispatch<SlabBf16>(mem, members, delta, loss, w, hid, dh,
-                            partials, loss_partials, B, F, H, R, k, lr,
-                            stream);
+                            partials, loss_partials, nullptr, B, F, H, R, k,
+                            lr, stream);
 }
 
 // K5, int8 slab: xs point at int8 q [B, F] and scales at f32 [B] (one
@@ -899,25 +1638,42 @@ int kps_mlp_local_update_q(const void* const* thetas, const void* const* xs,
     mem.scale[i] = i < members ? static_cast<const float*>(scales[i])
                                : nullptr;
   return dispatch<SlabQ>(mem, members, delta, loss, w, hid, dh, partials,
-                         loss_partials, B, F, H, R, k, lr, stream);
+                         loss_partials, nullptr, B, F, H, R, k, lr, stream);
 }
 
-// The float counts of the five scratch buffers of a call on `members`
-// members: w, hid, dh, partials, loss_partials, into sizes[0..4].
-void kps_mlp_scratch(int B, int F, int H, int R, int members,
+// Whether a call on x of storage form `form` (0 f32, 1 bf16, 2 int8) at
+// (B, F, H) takes the wide passes: the rule run_any applies.
+int kps_mlp_wide(int B, int F, int H, int form) {
+  (void)B;
+  return form == 0 && wide_path(F, H);
+}
+
+// The float counts of the scratch buffers of a call on `members` members
+// of storage form `form`, into sizes[0..8]: w, hid, dh, partials,
+// loss_partials, and for the wide path the split operands xs [2][B][F],
+// xt [2][F][Bp], w1s [2][H][F], dht [2][H][Bp] per member (0 otherwise).
+// The wide path keeps no dh [B, Hp] (0), holds g [B, R] where the narrow
+// one holds the row passes' partials, and a loss partial per grad_rows CTA.
+void kps_mlp_scratch(int B, int F, int H, int R, int members, int form,
                      long long* sizes) {
   const Dims d = dims(B, F, H, R);
   const long long n = members;
+  const bool wide = kps_mlp_wide(B, F, H, form);
   sizes[0] = n * d.P;
   sizes[1] = n * d.B * d.Hp;
-  sizes[2] = n * d.B * d.Hp;
-  sizes[3] = n * d.nblk * d.T;
-  sizes[4] = n * d.nblk;
+  sizes[2] = wide ? 0 : n * d.B * d.Hp;
+  sizes[3] = wide ? n * d.B * R : n * d.nblk * d.T;
+  sizes[4] = n * (wide ? (B + kGradRows - 1) / kGradRows : d.nblk);
+  sizes[5] = wide ? n * 2 * d.B * d.F : 0;
+  sizes[6] = wide ? n * 2 * d.F * d.Bp : 0;
+  sizes[7] = wide ? n * 2 * d.H * d.F : 0;
+  sizes[8] = wide ? n * 2 * d.H * d.Bp : 0;
 }
 
-// The dynamic shared memory per CTA of the two tensor passes, in bytes
-// (ptxas reports only the static part): hidden_pass and update_pass for
-// f32, bf16 and int8 x, into bytes[0..5].
+// The dynamic shared memory per CTA of the tensor passes, in bytes (ptxas
+// reports only the static part): hidden_pass and update_pass for f32,
+// bf16 and int8 x, into bytes[0..5], and the wide passes' (both) into
+// bytes[6].
 void kps_mlp_smem(int* bytes) {
   bytes[0] = Geo<SlabF32>::kHidSmem;
   bytes[1] = Geo<SlabF32>::kUpdSmem;
@@ -925,6 +1681,7 @@ void kps_mlp_smem(int* bytes) {
   bytes[3] = Geo<SlabBf16>::kUpdSmem;
   bytes[4] = Geo<SlabQ>::kHidSmem;
   bytes[5] = Geo<SlabQ>::kUpdSmem;
+  bytes[6] = kGSmem;
 }
 
 int kps_mlp_max_rows() { return kMaxRows; }

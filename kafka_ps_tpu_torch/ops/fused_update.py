@@ -35,16 +35,21 @@ bitwise equal to a single call on its inputs by construction; the plain
 batched versions are loops of the plain single versions, so the same
 holds on the CPU.
 
-K4/K5/K6 run their five B*F*H products on the tensor cores (TF32
-mma.sync) at f32 accuracy: each f32 operand is split into two TF32 terms
-(hi + lo) and a product summed from three (two where x is stored bf16 or
-int8, which TF32 holds exactly; see the header of csrc/mlp_update.cu).
-They sum in another order than the plain version, within rtol 1e-4,
-atol 1e-5 of it.  K1/K2/K3 run as one cooperative persistent CUDA launch
-per call, x resident in shared memory across the k steps (see the header
-of csrc/local_update.cu).  Each library sizes its own scratch
-(`kps_logreg_scratch`, `kps_mlp_scratch`), so the tilings stay in the
-.cu files.
+K4/K5/K6 run their five B*F*H products on the tensor cores at f32
+accuracy: each f32 operand is split into two TF32 terms (hi + lo) and a
+product summed from three (two where x is stored bf16 or int8, which TF32
+holds exactly; see the header of csrc/mlp_update.cu).  Two sets of passes
+compute them: the narrow ones (mma.sync, 32 x 32 output tiles) for every
+form and shape, and for f32 at a wide hidden layer (`mlp_wide_path`: H >=
+WIDE_MIN_HIDDEN, F a multiple of 4) the wide ones (wgmma fed by TMA,
+128 x 128 tiles, the operands split once into scratch).  The choice is a
+function of (B, F, H) and the form alone, never of the member count, so
+a K6 member stays bitwise a K4 call.  Both sum in another order than the
+plain version, within rtol 1e-4, atol 1e-5 of it.  K1/K2/K3 run as one
+cooperative persistent CUDA launch per call, x resident in shared memory
+across the k steps (see the header of csrc/local_update.cu).  Each
+library sizes its own scratch (`kps_logreg_scratch`, `kps_mlp_scratch`),
+so the tilings stay in the .cu files.
 
 The counters count each wrapper's kernel calls (a logreg call is one CUDA
 launch, an MLP call several — see the .cu files), so a run can show that
@@ -53,9 +58,10 @@ through the kernels: `launches` (K1), `batched_launches` (K2),
 `stream_launches` and `stream_batched_launches` (K3), `mlp_launches`
 (K4), `mlp_batched_launches` (K6), `mlp_stream_launches` and
 `mlp_stream_batched_launches` (K5), and for each batched counter the gang
-members its calls covered (`..._members`).  A CUDA graph that captured
-wrapper calls (the fused BSP chunk, parallel/bsp.py) adds them again at
-each replay (`add_counts`).
+members its calls covered (`..._members`); `mlp_wide_launches` counts the
+K4 and K6 calls among those that took the wide passes.  A CUDA graph that
+captured wrapper calls (the fused BSP chunk, parallel/bsp.py) adds them
+again at each replay (`add_counts`).
 """
 
 from __future__ import annotations
@@ -76,6 +82,8 @@ SOURCE = "local_update.cu"
 MLP_SOURCE = "mlp_update.cu"
 MAX_ROWS = 16          # classes + 1 the kernels take (kMaxRows in the .cu)
 MAX_MEMBERS = 32       # gang members per kernel call (kMaxMembers)
+WIDE_MIN_HIDDEN = 1024  # the wide MLP passes' least H (kWideMinH)
+_FORMS = ("f32", "bf16", "int8")   # the C entries' storage form codes
 
 launches = 0
 batched_launches = 0
@@ -89,6 +97,7 @@ mlp_batched_members = 0
 mlp_stream_launches = 0
 mlp_stream_batched_launches = 0
 mlp_stream_batched_members = 0
+mlp_wide_launches = 0
 _lock = threading.Lock()
 
 _COUNTERS = ("launches", "batched_launches", "batched_members",
@@ -96,7 +105,7 @@ _COUNTERS = ("launches", "batched_launches", "batched_members",
              "stream_batched_members",
              "mlp_launches", "mlp_batched_launches", "mlp_batched_members",
              "mlp_stream_launches", "mlp_stream_batched_launches",
-             "mlp_stream_batched_members")
+             "mlp_stream_batched_members", "mlp_wide_launches")
 
 
 def reset_counts() -> None:
@@ -301,7 +310,7 @@ def load(family: str, kind: str = "f32") -> None:
     slab form, its geometry checked, without launching it: a process that
     must answer heartbeats builds before it connects."""
     source, ptrs, ints = ((SOURCE, 3, 4) if family == "logreg"
-                          else (MLP_SOURCE, 7, 5))
+                          else (MLP_SOURCE, _mlp_pointers(kind), 5))
     _entry(source, _SYMBOLS[family, kind], family,
            5 if kind == "int8" else 4, ptrs, ints)
 
@@ -324,14 +333,17 @@ def _call(fn, tables, outputs, ints, cfg, name):
     `outputs` are flat tensors of k equal member blocks; a chunk gets the
     address of its first member's block (no per-chunk tensor slices)."""
     dev, k = tables[0][0].device, len(tables[0])
-    blocks = [(o.data_ptr(), o.numel() // k * o.element_size())
+    # an output of None (scratch a path does not use) passes null
+    blocks = [(None, 0) if o is None
+              else (o.data_ptr(), o.numel() // k * o.element_size())
               for o in outputs]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for lo in range(0, k, MAX_MEMBERS):
             hi = min(lo + MAX_MEMBERS, k)
             err = fn(*(_pointers(t[lo:hi]) for t in tables),
-                     hi - lo, *(base + lo * size for base, size in blocks),
+                     hi - lo, *(base and base + lo * size
+                                for base, size in blocks),
                      *ints, cfg.num_max_iter, cfg.local_learning_rate,
                      stream)
             if err != 0:
@@ -367,8 +379,7 @@ def logreg_plan(batch: int, features: int, rows: int, members: int,
     out = (ctypes.c_int * len(_PLAN))()
     # pscheck: disable=PS101 (a diagnostic of the launch geometry, not on a message path; _build.load returns the library it loaded once)
     err = _build.load(SOURCE).kps_logreg_plan(
-        batch, features, rows, members, ("f32", "bf16", "int8").index(kind),
-        out)
+        batch, features, rows, members, _FORMS.index(kind), out)
     if err != 0:
         raise RuntimeError(f"kps_logreg_plan failed: CUDA error {err}")
     return dict(zip(_PLAN, out))
@@ -394,36 +405,85 @@ def _launch_logreg(thetas, xs, ys, masks, cfg: ModelConfig, kind: str):
     return deltas, losses
 
 
+def mlp_wide_path(batch: int, features: int, hidden: int,
+                  kind: str) -> bool:
+    """Whether an MLP call takes the wide passes (mirror of
+    `kps_mlp_wide` in csrc/mlp_update.cu): an f32 slab, H >=
+    WIDE_MIN_HIDDEN and F a multiple of 4 (TMA's 16-byte row strides).
+    A function of the shape and the storage form, never of the member
+    count, so K4 and K6 always agree; K5 (bf16, int8) and ragged F keep
+    the narrow passes.  `batch` does not decide it."""
+    del batch
+    return (kind == "f32" and hidden >= WIDE_MIN_HIDDEN
+            and features % 4 == 0)
+
+
+def mlp_wide_scratch(batch: int, features: int, hidden: int,
+                     members: int, kind: str = "f32") -> tuple[int, ...]:
+    """The float counts of the wide passes' four split operands for a
+    call on `members` members (mirror of kps_mlp_scratch's last four):
+    x [2, B, F], x.T [2, F, Bp], W1 [2, H, F] and dh.T [2, H, Bp] per
+    member, each a hi and a lo plane, Bp = B rounded up to 4; zeros where
+    the call takes the narrow passes."""
+    if not mlp_wide_path(batch, features, hidden, kind):
+        return (0, 0, 0, 0)
+    bp = -(-batch // 4) * 4
+    return tuple(members * 2 * n for n in (
+        batch * features, features * bp, hidden * features, hidden * bp))
+
+
+def _mlp_pointers(kind: str) -> int:
+    """Pointer arguments after the tables of an MLP entry: delta, loss and
+    the scratch (the f32 entry also takes the wide passes' four)."""
+    return 11 if kind == "f32" else 7
+
+
 @functools.lru_cache(maxsize=64)
 def _mlp_scratch(batch: int, features: int, hidden: int, rows: int,
-                 members: int) -> tuple[int, ...]:
-    """The float counts of the MLP kernel's five scratch buffers (w, hid,
-    dh, partials, loss_partials) for a call on `members` members, as
-    mlp_update.cu's tiling needs them."""
+                 members: int, kind: str) -> tuple[int, ...]:
+    """The float counts of the MLP kernel's scratch buffers for a call on
+    `members` members of storage form `kind`, as mlp_update.cu's tiling
+    needs them (`kps_mlp_scratch`): w, hid, dh, partials, loss_partials,
+    and for f32 the wide passes' split operands (0 on the narrow passes).
+    The library's path rule and split sizes are held to this module's
+    mirror (`mlp_wide_path`, `mlp_wide_scratch`)."""
     lib = _build.load(MLP_SOURCE)
-    sizes = (ctypes.c_longlong * 5)()
-    lib.kps_mlp_scratch(batch, features, hidden, rows, members, sizes)
-    return tuple(sizes)
+    form = _FORMS.index(kind)
+    sizes = (ctypes.c_longlong * 9)()
+    lib.kps_mlp_scratch(batch, features, hidden, rows, members, form, sizes)
+    wide = bool(lib.kps_mlp_wide(batch, features, hidden, form))
+    mirror = mlp_wide_scratch(batch, features, hidden, members, kind)
+    if (wide != mlp_wide_path(batch, features, hidden, kind)
+            or tuple(sizes[5:]) != mirror):
+        raise RuntimeError(
+            f"mlp_update.cu and fused_update.py disagree on the wide path "
+            f"at B={batch}, F={features}, H={hidden}, {kind}: library "
+            f"{wide}, {tuple(sizes[5:])}; mirror {mirror}")
+    return tuple(sizes)[:5 + 4 * (kind == "f32")]
 
 
 def _launch_mlp(thetas, xs, ys, masks, cfg: ModelConfig, kind: str):
+    """K4/K5/K6 → (deltas, losses, whether the wide passes ran)."""
     tables = _tables(thetas, xs, ys, masks, kind)
-    fn = _entry(MLP_SOURCE, _SYMBOLS["mlp", kind], "mlp", len(tables), 7, 5)
+    fn = _entry(MLP_SOURCE, _SYMBOLS["mlp", kind], "mlp", len(tables),
+                _mlp_pointers(kind), 5)
     k, (batch, features) = len(xs), slab_batch_shape(xs[0])
     H, R = cfg.hidden_dim, cfg.num_rows
     P = mlp.num_params(cfg)
     f32 = dict(dtype=torch.float32, device=thetas[0].device)
     deltas, losses = torch.empty(k * P, **f32), torch.empty(k, **f32)
-    scratch = tuple(torch.empty(n, **f32) for n in
-                    _mlp_scratch(batch, features, H, R, k))
+    scratch = tuple(torch.empty(n, **f32) if n else None for n in
+                    _mlp_scratch(batch, features, H, R, k, kind))
     _call(fn, tables, (deltas, losses, *scratch),
           (batch, features, H, R), cfg, "mlp_local_update")
-    return deltas, losses
+    return deltas, losses, mlp_wide_path(batch, features, H, kind)
 
 
-def _count(family: str, kind: str, members: int = 0) -> None:
+def _count(family: str, kind: str, members: int = 0,
+           wide: bool = False) -> None:
     """One kernel call: K1/K2/K4/K6 for an f32 slab, K3/K5 for a stored
-    one; `members` > 0 for a batched call."""
+    one; `members` > 0 for a batched call; `wide` for an MLP call on the
+    wide passes."""
     name = (("" if family == "logreg" else "mlp_")
             + ("" if kind == "f32" else "stream_")
             + ("batched_" if members else ""))
@@ -431,6 +491,8 @@ def _count(family: str, kind: str, members: int = 0) -> None:
         globals()[name + "launches"] += 1
         if members:
             globals()[name + "members"] += members
+        if wide:
+            globals()["mlp_wide_launches"] += 1
 
 
 # -- the wrappers --------------------------------------------------------------
@@ -485,8 +547,8 @@ def mlp_local_update(theta: torch.Tensor, x, y: torch.Tensor,
     kind = check_args(theta, x, y, mask, cfg, mlp.num_params(cfg))
     if _x_device(x).type != "cuda":
         return mlp_local_update_plain(theta, x, y, mask, cfg=cfg)
-    delta, losses = _launch_mlp([theta], [x], [y], [mask], cfg, kind)
-    _count("mlp", kind)
+    delta, losses, wide = _launch_mlp([theta], [x], [y], [mask], cfg, kind)
+    _count("mlp", kind, wide=wide)
     return delta, losses[0]
 
 
@@ -508,6 +570,6 @@ def mlp_local_update_batched(thetas, xs, ys, masks, *, cfg: ModelConfig
     if _x_device(xs[0]).type != "cuda":
         return mlp_local_update_batched_plain(thetas, xs, ys, masks,
                                               cfg=cfg)
-    deltas, losses = _launch_mlp(thetas, xs, ys, masks, cfg, kind)
-    _count("mlp", kind, len(xs))
+    deltas, losses, wide = _launch_mlp(thetas, xs, ys, masks, cfg, kind)
+    _count("mlp", kind, len(xs), wide)
     return deltas.view(len(xs), -1), losses

@@ -1,7 +1,7 @@
 """Same-call A/B of the port's kernels across checkouts of the repo, on one
 NVIDIA card: K1 and K2 (logreg, f32), K3 (logreg, bf16 and int8 slabs),
 K4 and K6 (MLP, f32) and K5 (MLP, bf16 and int8 slabs), each where a tree
-has it.
+has it, and K4 and K6 again at the wide MLP's width (H=4096).
 
     python3 scripts/torch_kernel_ab.py TREE [TREE ...]
 
@@ -14,7 +14,8 @@ given: list them as A B B A so that drift of the card cancels.
 
 Per tree and kernel, at the main path's shape (F=1024, B=1024 with 100
 masked rows and one out-of-range label, C=5, k=2; the MLP at H=128; K2
-and K6 on a gang of 4), on inputs made from one seed per member:
+and K6 on a gang of 4; then K4 and K6 at H=4096, K6's 4 members sharing
+one theta as in a fused round), on inputs made from one seed per member:
   * `digest`: sha256 of the outputs' bytes (delta and loss) — trees with
     the same arithmetic agree bit for bit;
   * `max_abs_vs_plain`: the largest difference of the outputs from the
@@ -35,8 +36,9 @@ A pass is named `name[form,R,loss]`: its storage form (f32, bf16, int8)
 and, where it is templated on them, the class count R and the row pass's
 loss flag; only the C=5 (R=6) instances are reported.
 One JSON line per tree and kernel, a summary line per tree and kernel
-(device ms, host us, ms per call, launches per call), then the card's name
-and power limit.
+(device ms, host us, ms per call, launches per call), then one line per
+kernel saying whether every tree gave it the same digest, then the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -53,8 +55,12 @@ import sys
 import time
 
 F, C, B, K, H, MASKED = 1024, 5, 1024, 2, 128, 100
-KERNEL_RE = re.compile(r"(logreg_update|row_pass|apply_pass|loss_pass|"
-                       r"loss_reduce|hidden_pass|update_pass)")
+WIDE_H = 4096                      # the fused MLP path's hidden width
+# the wide passes' names first: "hidden_pass" is in "wide_hidden_pass"
+KERNEL_RE = re.compile(r"(logreg_update|wide_hidden_pass|wide_update_pass|"
+                       r"grad_rows|grad_cols|split_pass|transpose_pass|"
+                       r"row_pass|apply_pass|loss_pass|loss_reduce|"
+                       r"hidden_pass|update_pass)")
 # storage forms as they appear in a pass's template arguments, mangled or
 # demangled; the longer names first ("Members" is in "MembersQ")
 FORMS = (("SlabBf16", "bf16"), ("MembersBf16", "bf16"), ("SlabQ", "int8"),
@@ -231,6 +237,19 @@ def measure_one(tree: str, label: str) -> None:
                          lambda a=a: fu.mlp_local_update(*a, cfg=mcfg),
                          lambda a=a: fu.mlp_local_update_plain(*a,
                                                                cfg=mcfg)))
+        wcfg = ModelConfig(num_features=F, num_classes=C, num_max_iter=K,
+                           local_learning_rate=0.5, hidden_dim=WIDE_H)
+        wbase = mlp.init_params(wcfg, "cpu").numpy()
+        wgang = [inputs(torch, dev, mlp.num_params(wcfg), 51 + i, wbase)
+                 for i in range(4)]
+        wm = [[wgang[0][0]] * 4] + [[g[i] for g in wgang] for i in (1, 2, 3)]
+        runs += [(f"K4 mlp_local_update H={WIDE_H}", mlib,
+                  lambda: fu.mlp_local_update(*wgang[0], cfg=wcfg),
+                  lambda: fu.mlp_local_update_plain(*wgang[0], cfg=wcfg)),
+                 (f"K6 mlp_local_update_batched H={WIDE_H} (one theta)",
+                  mlib, lambda: fu.mlp_local_update_batched(*wm, cfg=wcfg),
+                  lambda: fu.mlp_local_update_batched_plain(*wm,
+                                                            cfg=wcfg))]
     for kernel, sass, fn, plain in runs:
         m = measure(torch, fn, plain, sass)
         print(json.dumps({"tree": label, "kernel": kernel, **m}))
@@ -258,9 +277,18 @@ def main(argv=None) -> int:
               for t in dict.fromkeys(trees)]
     if any(p.wait() != 0 for p in builds):
         raise SystemExit("a tree's kernels failed to build")
+    digests: dict[str, set] = {}
     for label, tree in zip(args.trees, trees):
-        subprocess.run([sys.executable, me, label, "--measure-one", tree],
-                       check=True, timeout=600)
+        out = subprocess.run([sys.executable, me, label, "--measure-one",
+                              tree], check=True, timeout=900,
+                             capture_output=True, text=True).stdout
+        print(out, end="", flush=True)
+        for line in out.splitlines():
+            if line.startswith("{"):
+                row = json.loads(line)
+                digests.setdefault(row["kernel"], set()).add(row["digest"])
+    for kernel, seen in digests.items():
+        print(f"digest {kernel}: the same in every tree: {len(seen) == 1}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

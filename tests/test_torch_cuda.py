@@ -12,9 +12,10 @@ K3 and K5 (bf16 and int8 slabs) take K1's and K4's tolerances: the
 kernel decodes each element exactly as the plain version's decode_x does,
 so both run the same arithmetic on the same decoded values.  A gang
 member and a single call on the same inputs are bitwise equal.  K4-K6
-run their B*F*H products on the tensor cores (TF32 mma.sync, each f32
-operand split into two TF32 terms) and keep these tolerances
-(tests/test_torch_mlp_split.py models the split on the CPU).  K1-K3 are
+run their B*F*H products on the tensor cores (TF32 mma.sync, or for f32
+at a wide hidden layer wgmma fed by TMA; each f32 operand split into two
+TF32 terms) and keep these tolerances (tests/test_torch_mlp_split.py
+models both summation orders on the CPU).  K1-K3 are
 one cooperative launch per call with x resident in shared memory where it
 fits and re-staged at each step where it does not; both give the same
 bits (tests/test_torch_logreg_tiling.py models their summation order on
@@ -164,6 +165,124 @@ def test_mlp_kernel_all_masked_and_bad_labels(card):
     d, loss = fused_update.mlp_local_update(*args, cfg=cfg)
     # every label out of range: zero gradient and zero NLL
     assert torch.count_nonzero(d) == 0 and float(loss) == 0.0
+
+
+# -- the wide MLP passes: f32 at H >= WIDE_MIN_HIDDEN, F a multiple of 4 -----
+
+
+@pytest.mark.parametrize("batch,features,hidden,k", [
+    (1000, 1020, 1056, 2), (1024, 1024, 4096, 2), (37, 64, 1024, 1),
+    (300, 128, 1100, 3), (64, 32, 1024, 0)])
+def test_mlp_wide_passes_match_plain_version(card, batch, features, hidden,
+                                             k):
+    """K4 on the wide passes (wgmma, TMA): ragged B, F and H (none a
+    multiple of the 128-wide tile or the 32-deep chunk), within the MLP's
+    tolerance of the plain version, counted as a wide launch, and bitwise
+    repeatable."""
+    cfg, args = _case(card, batch, features, 5, k, hidden=hidden)
+    before = fused_update.counts()
+    d, loss = fused_update.mlp_local_update(*args, cfg=cfg)
+    torch.cuda.synchronize()
+    after = fused_update.counts()
+    assert after["mlp_launches"] == before["mlp_launches"] + 1
+    assert after["mlp_wide_launches"] == before["mlp_wide_launches"] + 1
+    d_ref, loss_ref = fused_update.mlp_local_update_plain(*args, cfg=cfg)
+    torch.testing.assert_close(d, d_ref, rtol=MLP_RTOL, atol=MLP_ATOL)
+    torch.testing.assert_close(loss, loss_ref, rtol=MLP_RTOL, atol=MLP_ATOL)
+    d2, loss2 = fused_update.mlp_local_update(*args, cfg=cfg)
+    assert torch.equal(d, d2) and torch.equal(loss, loss2)
+
+
+@pytest.mark.parametrize("members,shared", [(1, True), (4, True),
+                                            (4, False), (34, True)])
+def test_mlp_wide_gang_member_is_bitwise_a_single_call(card, members,
+                                                       shared):
+    """K6 at H=4096 on the wide passes: member i == K4 on member i's
+    inputs bit for bit (34 members: two calls of 32 and 2), and two
+    launches are bitwise equal."""
+    cfg, thetas, xs, ys, masks = _gang(card, members, 1024, 1024, 4096,
+                                       shared)
+    before = fused_update.counts()
+    deltas, losses = fused_update.mlp_local_update_batched(
+        thetas, xs, ys, masks, cfg=cfg)
+    after = fused_update.counts()
+    assert after["mlp_wide_launches"] == before["mlp_wide_launches"] + 1
+    again = fused_update.mlp_local_update_batched(thetas, xs, ys, masks,
+                                                  cfg=cfg)
+    assert torch.equal(deltas, again[0]) and torch.equal(losses, again[1])
+    for i in range(members):
+        d, loss = fused_update.mlp_local_update(thetas[i], xs[i], ys[i],
+                                                masks[i], cfg=cfg)
+        assert torch.equal(deltas[i], d) and torch.equal(losses[i], loss)
+
+
+def test_mlp_wide_all_masked_and_bad_labels(card):
+    cfg, args = _case(card, 64, 32, hidden=1024)
+    args[3] = torch.zeros_like(args[3])
+    d, loss = fused_update.mlp_local_update(*args, cfg=cfg)
+    assert torch.count_nonzero(d) == 0 and float(loss) == 0.0
+    cfg, args = _case(card, 64, 32, hidden=1024)
+    args[2] = torch.full_like(args[2], cfg.num_classes + 3)
+    before = fused_update.mlp_wide_launches
+    d, loss = fused_update.mlp_local_update(*args, cfg=cfg)
+    assert fused_update.mlp_wide_launches == before + 1
+    assert torch.count_nonzero(d) == 0 and float(loss) == 0.0
+
+
+@pytest.mark.parametrize("features,kind", [(33, "f32"), (32, "bf16"),
+                                           (32, "int8")])
+def test_mlp_wide_width_keeps_narrow_passes_off_f32(card, features, kind):
+    """At H=1024 a ragged F (rows not 16-byte strided) and the stored
+    forms (K5) keep the narrow passes: no wide launch, and the plain
+    version's tolerance."""
+    cfg, args = _case(card, 64, features, hidden=1024)
+    args = _in_form(args, kind)
+    before = fused_update.mlp_wide_launches
+    d, loss = fused_update.mlp_local_update(*args, cfg=cfg)
+    torch.cuda.synchronize()
+    assert fused_update.mlp_wide_launches == before
+    d_ref, loss_ref = fused_update.mlp_local_update_plain(*args, cfg=cfg)
+    torch.testing.assert_close(d, d_ref, rtol=MLP_RTOL, atol=MLP_ATOL)
+    torch.testing.assert_close(loss, loss_ref, rtol=MLP_RTOL, atol=MLP_ATOL)
+
+
+@pytest.mark.parametrize("batch,features,hidden,kind", [
+    (1024, 1024, 4096, "f32"), (1001, 1020, 1024, "f32"),
+    (1024, 1024, 1023, "f32"), (1024, 1022, 4096, "f32"),
+    (1024, 1024, 4096, "bf16"), (1024, 1024, 4096, "int8")])
+def test_mlp_wide_rule_and_scratch_match_the_library(card, batch, features,
+                                                     hidden, kind):
+    """fused_update's mirror of the path rule and of the split scratch
+    equals what mlp_update.cu decides and sizes (_mlp_scratch raises where
+    they differ)."""
+    from kafka_ps_tpu_torch.ops import _build
+    lib = _build.load(fused_update.MLP_SOURCE)
+    form = ("f32", "bf16", "int8").index(kind)
+    assert bool(lib.kps_mlp_wide(batch, features, hidden, form)) == \
+        fused_update.mlp_wide_path(batch, features, hidden, kind)
+    sizes = fused_update._mlp_scratch(batch, features, hidden, 6, 3, kind)
+    # the stored forms' entries take no split scratch at all
+    want = (fused_update.mlp_wide_scratch(batch, features, hidden, 3, kind)
+            if kind == "f32" else ())
+    assert sizes[5:] == want
+
+
+def test_mlp_wide_call_replays_bitwise_in_a_cuda_graph(card):
+    """A wide K6 call captured in a CUDA graph (its tensor maps encoded at
+    capture from the graph's buffers) replays to the eager call's bits."""
+    cfg, thetas, xs, ys, masks = _gang(card, 2, 256, 256, 1024, True)
+    eager = fused_update.mlp_local_update_batched(thetas, xs, ys, masks,
+                                                  cfg=cfg)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_update.mlp_local_update_batched(thetas, xs, ys, masks,
+                                                    cfg=cfg)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[1],
+                                                             eager[1])
 
 
 def _serial_run(device, c, task="logreg", **kw):
