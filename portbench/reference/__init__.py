@@ -1,0 +1,10 @@
+"""The plain reference that decides a run's `correct`.
+
+Plain PyTorch and NumPy, written from the semantics of the reference
+system and importing nothing of the program (kafka_ps_tpu_torch), of
+jax or of the JAX package: the buffer policy (`buffer`), the MLP's
+k-step local update, the server's apply and the test metrics (`mlp`),
+and the rounds a sequential run trains (`rounds`).  It makes its own
+initial weights and buffers from the inputs the harness hands both
+sides; what the program made is only ever the thing judged.
+"""
