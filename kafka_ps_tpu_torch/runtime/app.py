@@ -30,10 +30,14 @@ under cfg.tier's byte caps, with its policy thread running.
 
 Telemetry: `tracer` and `telemetry` (null by default) go to the fabric,
 the buffers, the server, the workers, the gang and the eval engine.  The
-app counts `data.replay_skipped_rows` and `data.rerouted_rows`, the fused
-loop's rounds are `bsp.step` spans with a `bsp.steps` count, and
-`status()` is the pulse the drive loops print every `status_every`
-seconds as a `[status]` line (utils/status.py).
+app counts `data.replay_skipped_rows` and `data.rerouted_rows`; the fused
+loop's dispatches and evals are device spans (`bsp.step`, `fused.eval`:
+CUDA events, no synchronise), its slab uploads and exit log flush host
+spans (`fused.slab_upload`, `fused.flush_logs`), and the registry counts
+its uploads and their bytes (`fused_slab_uploads_total`,
+`fused_slab_upload_bytes_total`); `status()` is the pulse the drive
+loops print every `status_every` seconds as a `[status]` line
+(utils/status.py).
 """
 
 from __future__ import annotations
@@ -134,6 +138,11 @@ class StreamingPSApp:
         # counts of the fused rounds run: all, in chunks, chunk dispatches
         self._fused_programs: dict = {}
         self._fused_slab = None
+        # per fed worker, its buffer's version at the last slab upload;
+        # the registry's upload counters, resolved at the first upload
+        # (a run that never uploads keeps the JAX package's families)
+        self._fused_uploaded: dict[int, int] = {}
+        self._m_fused_slab = None
         self.fused_stats = {"rounds": 0, "chunk_rounds": 0, "chunks": 0}
         # the serving plane's engine (enable_serving); None: a trainer only
         self.serving_engine = None
@@ -457,16 +466,18 @@ class StreamingPSApp:
         return (self.server.log,
                 *{id(w.log): w.log for w in self.workers}.values())
 
-    def flush_logs(self) -> None:
-        """Force every deferred log row out (waits on the device).
-        Pending async evals drain FIRST: their rows enter the server
-        sink before the sink is flushed."""
+    def flush_logs(self) -> int:
+        """Force every deferred log row out (waits on the device); the
+        rows this flush wrote.  Pending async evals drain FIRST: their
+        rows enter the server sink before the sink is flushed."""
         if self.eval_engine is not None:
             self.eval_engine.drain()
+        rows = 0
         for sink in self._sinks():
             flush = getattr(sink, "flush", None)
             if flush is not None:
-                flush()
+                rows += flush() or 0
+        return rows
 
     def close_logs(self) -> None:
         """Close the eval engine, then the deferred sinks: joins their
@@ -762,24 +773,63 @@ class StreamingPSApp:
                                  in_job(mesh))
         finally:
             reporter.stop()
-            self.flush_logs()
+            self._flush_fused_logs()
         self.settle_tiering()
 
-    def _upload_fused_slab(self, active):
+    def _flush_fused_logs(self) -> None:
+        """The fused call's exit flush, spanned as `fused.flush_logs`
+        with the rows it fetched and wrote.  The host runs ahead of the
+        card on this path, so with the tracer on the exit first waits,
+        outside the span, for the call's last operation: the span times
+        the rows' fetch, formatting and writing, not the queued rounds."""
+        if self.tracer.enabled and self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        with self.tracer.span("fused.flush_logs") as args:
+            args["rows"] = self.flush_logs()
+
+    def _upload_fused_slab(self, active, versions):
         """The active workers' buffers stacked into [N, cap, F] (y, mask
         [N, cap]) and copied to the device once, from pinned memory on
-        the card; the device tensors are reused across uploads."""
-        snaps = []
-        for w in active:
-            sx, sy, sm = self.buffers[w].snapshot()
-            if sm.sum() == 0:
-                raise RuntimeError(
-                    f"There is no data in the buffer of worker {w}")
-            snaps.append((sx, sy, sm))
-        host = [torch.from_numpy(np.stack([s[i] for s in snaps]))
-                for i in range(3)]
-        if self.device.type != "cuda":
-            return host
+        the card; the device tensors are reused across uploads.
+        `versions`: the workers' buffer versions (num_tuples_seen) this
+        upload holds.  Spanned as `fused.slab_upload` with its bytes and
+        the rows inserted since the previous upload."""
+        rows_new = sum(v - self._fused_uploaded.get(w, 0)
+                       for w, v in zip(active, versions))
+        with self.tracer.span("fused.slab_upload", rows_new=rows_new) as a:
+            snaps = []
+            for w in active:
+                sx, sy, sm = self.buffers[w].snapshot()
+                if sm.sum() == 0:
+                    raise RuntimeError(
+                        f"There is no data in the buffer of worker {w}")
+                snaps.append((sx, sy, sm))
+            host = [torch.from_numpy(np.stack([s[i] for s in snaps]))
+                    for i in range(3)]
+            nbytes = sum(t.numel() * t.element_size() for t in host)
+            a["bytes"] = nbytes
+            slab = host if self.device.type != "cuda" else \
+                self._copy_fused_slab(host)
+        self._fused_uploaded.update(zip(active, versions))
+        if self._m_fused_slab is None:
+            self._m_fused_slab = (
+                self.telemetry.counter(
+                    "fused_slab_uploads_total",
+                    "fused-path slab uploads (buffers stacked and copied "
+                    "to the device)"),
+                self.telemetry.counter(
+                    "fused_slab_upload_bytes_total",
+                    "bytes of the fused-path slab uploads (x, y, mask)"))
+        uploads, upload_bytes = self._m_fused_slab
+        uploads.inc()
+        upload_bytes.inc(nbytes)
+        return slab
+
+    def _copy_fused_slab(self, host):
+        """The stacked slab to the device through pinned staging, waiting
+        only for the previous copy out of the staging buffers."""
         cache = self._fused_slab
         if cache is None or [tuple(t.shape) for t in cache[1]] != \
                 [tuple(t.shape) for t in host]:
@@ -826,7 +876,7 @@ class StreamingPSApp:
             # same device slabs
             versions = [self.buffers[w].num_tuples_seen for w in feed]
             if versions != slab_versions:
-                x, y, mask = self._upload_fused_slab(feed)
+                x, y, mask = self._upload_fused_slab(feed, versions)
                 slab_versions = versions
             # rounds until the run cap / the next eval clock
             rounds_left = -((self.server.iterations - max_server_iterations)
@@ -839,24 +889,23 @@ class StreamingPSApp:
             use_chunk = r == CHUNK
             if not use_chunk:
                 r = 1
-            with self.tracer.span("bsp.step", clock=clock + 1, rounds=r):
+            # a device span: the dispatch's device time, with no wait
+            with self.tracer.device_span("bsp.step", self.device,
+                                         clock=clock + 1, rounds=r):
                 if use_chunk:
                     theta, losses = multi_step(theta, x, y, mask)
                     last_loss = losses[-1]
                 else:
                     theta, mean_loss = step(theta, x, y, mask)
                     last_loss = mean_loss
-                if self.tracer.enabled or (job and evaluate):
-                    # the span waits for the round's loss, so that it
-                    # measures the step and not its launch (a graph
-                    # replay, outside any capture); the rows keep the
-                    # device tensor.  In a job with logging too: the
-                    # all-reduce ends every rank's round together on the
-                    # device, and waiting on it keeps the ranks' row
+                if job and evaluate:
+                    # in a job with logging, wait for the round's loss:
+                    # the all-reduce ends every rank's round together on
+                    # the device, and waiting on it keeps the ranks' row
                     # stamps aligned per clock (the auditor sorts the
-                    # ranks' rows by stamp)
+                    # ranks' rows by stamp); the rows keep the device
+                    # tensor
                     float(last_loss)
-            self.tracer.count("bsp.steps")
             if use_chunk:
                 self.fused_stats["chunks"] += 1
                 self.fused_stats["chunk_rounds"] += r
@@ -883,9 +932,11 @@ class StreamingPSApp:
             now = int(time.time() * 1000)
             m = None
             if is_eval:
-                m = self.server.task.evaluate(self.server.theta,
-                                              self.server.test_x,
-                                              self.server.test_y)
+                with self.tracer.device_span("fused.eval", self.device,
+                                             clock=clock):
+                    m = self.server.task.evaluate(self.server.theta,
+                                                  self.server.test_x,
+                                                  self.server.test_y)
                 # in a job the server row is rank 0's alone (every rank
                 # holds the same theta; one writer per file)
                 if rank == 0:

@@ -9,7 +9,8 @@ plain sink while those fields stay device tensors:
   * a background drain thread pops the longest prefix whose events have
     completed and moves all its scalars in one stacked `.cpu()` per
     device, overlapping the fetch with further training;
-  * flush() forces everything out (drive loops call it on exit).
+  * flush() forces everything out (drive loops call it on exit) and
+    returns the number of rows it wrote.
 
 Every value is turned into a Python float before formatting, so a
 tensor's repr never reaches the CSV.
@@ -193,7 +194,10 @@ class DeferredSink:
                 if values else template
                 for template, values, _ in entries]
 
-    def flush(self) -> None:
+    def flush(self) -> int:
+        """Emit every pending row now; returns how many rows it fetched,
+        formatted and wrote (rows the drain thread took are not
+        counted)."""
         with self._lock:
             entries = list(self._pending)
             self._pending.clear()
@@ -206,6 +210,7 @@ class DeferredSink:
                 lines = self._format_entries(entries)
         finally:
             self._emit_in_turn(ticket, lines)
+        return len(lines)
 
     def close(self) -> None:
         self._stop.set()

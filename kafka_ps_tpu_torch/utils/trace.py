@@ -15,10 +15,22 @@ Three layers:
     (Chrome trace JSON; Perfetto or chrome://tracing reads it).
 
 Zero overhead when disabled: the module-level NULL_TRACER no-ops every
-call, and runtime code takes `tracer or NULL_TRACER`.  Spans time the
+call, and runtime code takes `tracer or NULL_TRACER`.  `span` times the
 host: a span around a kernel call measures its launch, never the
-device's work (nothing here waits on the device); the device's time is
-what `device_trace` records.
+device's work.  `device_span` times the device's work on a CUDA stream
+with a pair of timing events, resolved later without waiting; its one
+synchronise is the clock anchor it takes at its first use (after the
+tracer is enabled or cleared).
+
+While torch's profiler records, every span and device span (of any
+tracer, NULL_TRACER too) also opens a profiler range of its name, so
+that the program's spans lie on the profiler's host timeline, on its
+clock: a `--device_trace` file holds them.  The range is the profiler's
+function scope (`_RecordFunctionFast`), not `record_function`'s user
+scope, which the profiler mirrors onto the device's timeline as an
+annotation spanning the range's kernels (a device event that is no
+device work).  `wallClockT0 + ts` of a dump is epoch time, the clock of
+the profiler's events.
 """
 
 from __future__ import annotations
@@ -29,6 +41,34 @@ import os
 import threading
 import time
 from collections import defaultdict, deque
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
+
+# a reusable no-op context: the profiler range when nothing records
+_NO_RANGE = contextlib.nullcontext()
+# device tracks' tids lie above every host tid (thread ident mod 2**31)
+_TRACK_TID0 = 2 ** 31
+
+
+def _profiler_range(name: str):
+    """A profiler range of `name` while torch's profiler records, else
+    a no-op context (one C call to decide)."""
+    return _RecordFunctionFast(name) if _profiler_enabled() else _NO_RANGE
+
+
+def _epoch_at(t: float) -> float:
+    """Epoch seconds at time.perf_counter() value `t`, from the tightest
+    bracket of a few paired readings of the two clocks."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        w = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, w - (a + b) // 2)
+    return (t * 1e9 + best[1]) / 1e9
 
 
 class Tracer:
@@ -45,8 +85,9 @@ class Tracer:
         self._t0 = clock()
         # wall-clock anchor for cross-process merging: perf_counter
         # epochs are process-private, so dump() records where this
-        # tracer's zero sits on the shared wall clock
-        self._wall0 = time.time()
+        # tracer's zero sits on the shared wall clock (epoch seconds)
+        self._wall0 = (_epoch_at(self._t0) if clock is time.perf_counter
+                       else time.time())
         self._lock = threading.Lock()
         self._events: list[dict] = []
         self._counters: dict[str, int] = defaultdict(int)
@@ -55,30 +96,133 @@ class Tracer:
         self._sample_every = counter_sample_s
         self._last_sample: dict[str, float] = {}
         self._flow_seq = 0
+        # device spans in the order opened: (name, args, tid, anchor, start
+        # event, end event); per device index the clock anchor (event,
+        # this tracer's clock at it); device track label -> tid
+        self._pending: deque = deque()
+        self._anchors: dict[int, tuple] = {}
+        self._tracks: dict[str, int] = {}
         self.pid = os.getpid() if pid is None else pid
-        self.enabled = True
+        self._enabled = True
+
+    @property
+    def enabled(self) -> bool:
+        return self._enabled
+
+    @enabled.setter
+    def enabled(self, on: bool) -> None:
+        if on and not self._enabled:
+            with self._lock:
+                self._anchors.clear()    # retaken at the next device span
+        self._enabled = on
 
     # -- spans -------------------------------------------------------------
     @contextlib.contextmanager
     def span(self, name: str, **args):
-        if not self.enabled:
-            yield
-            return
-        start = self._clock()
-        try:
-            yield
-        finally:
-            end = self._clock()
+        """Host span.  Yields its args: the body may add what it learns
+        inside the span."""
+        with _profiler_range(name):
+            if not self._enabled:
+                yield args
+                return
+            start = self._clock()
+            try:
+                yield args
+            finally:
+                end = self._clock()
+                self._record(name, start, end,
+                             threading.get_ident() % 2 ** 31, args)
+
+    def _record(self, name, start, end, tid, args) -> None:
+        with self._lock:
+            self._events.append({
+                "name": name,
+                "ph": "X",                      # complete event
+                "ts": (start - self._t0) * 1e6,  # µs, trace convention
+                "dur": (end - start) * 1e6,
+                "pid": self.pid,
+                "tid": tid,
+                "args": args,
+            })
+
+    @contextlib.contextmanager
+    def device_span(self, name: str, device=None, **args):
+        """Span of the device's work that the body enqueues on `device`'s
+        current stream, on a track of its own.  On a CUDA device: a
+        timing event recorded at entry and one at exit, never waited on;
+        spans resolve oldest first once their end event has completed
+        (checked at each new device span; `dump` waits for the rest), and
+        lie at their device times on this tracer's clock through the
+        device's anchor.  Elsewhere (`device` None or a CPU device) the
+        work is synchronous, so the host's times are the device's.
+        Yields its args, as `span` does."""
+        with _profiler_range(name):
+            if not self._enabled:
+                yield args
+                return
+            device = torch.device("cpu" if device is None else device)
+            if device.type != "cuda":
+                start = self._clock()
+                try:
+                    yield args
+                finally:
+                    self._record(name, start, self._clock(),
+                                 self._track("cpu"), args)
+                return
+            stream = torch.cuda.current_stream(device)
+            anchor = self._anchors.get(stream.device_index)
+            if anchor is None:
+                anchor = self._anchor(stream)
+            self._resolve(wait=False)
+            tid = self._track(f"cuda:{stream.device_index} stream "
+                              f"{stream.stream_id}")
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            try:
+                yield args
+            finally:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(stream)
+                with self._lock:
+                    self._pending.append((name, args, tid, anchor, start,
+                                          end))
+
+    def _track(self, label: str) -> int:
+        with self._lock:
+            return self._tracks.setdefault(
+                label, _TRACK_TID0 + len(self._tracks))
+
+    def _anchor(self, stream) -> tuple:
+        """The device's clock anchor: after one synchronise, an event
+        recorded on the idle stream and this tracer's clock read around
+        the record (the event's first record creates it, so it is
+        recorded once before)."""
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(stream)
+        torch.cuda.synchronize(stream.device)
+        before = self._clock()
+        event.record(stream)
+        anchor = (event, (before + self._clock()) / 2)
+        with self._lock:
+            self._anchors[stream.device_index] = anchor
+        return anchor
+
+    def _resolve(self, wait: bool) -> None:
+        """Place the pending device spans, oldest first: those whose end
+        event has completed, or (wait) all of them."""
+        while True:
             with self._lock:
-                self._events.append({
-                    "name": name,
-                    "ph": "X",                      # complete event
-                    "ts": (start - self._t0) * 1e6,  # µs, trace convention
-                    "dur": (end - start) * 1e6,
-                    "pid": self.pid,
-                    "tid": threading.get_ident() % 2 ** 31,
-                    "args": args,
-                })
+                if not self._pending:
+                    return
+                name, args, tid, (anchor, at), start, end = \
+                    self._pending[0]
+                if not wait and not end.query():
+                    return
+                self._pending.popleft()
+            end.synchronize()
+            t = at + anchor.elapsed_time(start) / 1e3
+            self._record(name, t, t + start.elapsed_time(end) / 1e3, tid,
+                         args)
 
     def span_at(self, name: str, start: float, end: float, **args) -> None:
         """Record a complete span from two clock values already taken
@@ -88,16 +232,8 @@ class Tracer:
         (runtime/server.py:_observe_gate_release)."""
         if not self.enabled:
             return
-        with self._lock:
-            self._events.append({
-                "name": name,
-                "ph": "X",
-                "ts": (start - self._t0) * 1e6,
-                "dur": max(0.0, end - start) * 1e6,
-                "pid": self.pid,
-                "tid": threading.get_ident() % 2 ** 31,
-                "args": args,
-            })
+        self._record(name, start, max(start, end),
+                     threading.get_ident() % 2 ** 31, args)
 
     # -- counters (message-flow view) --------------------------------------
     def count(self, name: str, n: int = 1) -> None:
@@ -147,11 +283,14 @@ class Tracer:
 
     def clear(self) -> None:
         """Drop every recorded event and counter sample (warm up, clear,
-        then trace the steady state).  Flow ids keep advancing, so
-        events after a clear never collide with discarded ones."""
+        then trace the steady state), pending device spans and the clock
+        anchors.  Flow ids keep advancing, so events after a clear never
+        collide with discarded ones."""
         with self._lock:
             self._events.clear()
             self._counter_samples.clear()
+            self._pending.clear()
+            self._anchors.clear()
 
     # -- export ------------------------------------------------------------
     def counters(self) -> dict[str, int]:
@@ -159,7 +298,9 @@ class Tracer:
             return dict(self._counters)
 
     def span_stats(self) -> dict[str, dict]:
-        """Per-span-name count/total/mean milliseconds."""
+        """Per-span-name count/total/mean milliseconds (waits for the
+        pending device spans)."""
+        self._resolve(wait=True)
         with self._lock:
             acc: dict[str, list[float]] = defaultdict(list)
             for e in self._events:
@@ -175,10 +316,19 @@ class Tracer:
         per throttled sample plus a closing sample at dump time); the
         top-level "counters" totals stay for programmatic readers.
         "wallClockT0" anchors this process's ts=0 on the shared wall
-        clock for the merge tool."""
+        clock for the merge tool.  Device spans wait to be resolved
+        first; each device track is named by a `thread_name` metadata
+        event."""
+        self._resolve(wait=True)
         now_us = (self._clock() - self._t0) * 1e6
         with self._lock:
             events = list(self._events)
+            used = {e["tid"] for e in events}
+            for label, track in self._tracks.items():
+                if track in used:
+                    events.append({"name": "thread_name", "ph": "M",
+                                   "pid": self.pid, "tid": track,
+                                   "args": {"name": label}})
             tid = threading.get_ident() % 2 ** 31
             for ts_us, name, total in self._counter_samples:
                 events.append({"name": name, "ph": "C", "ts": ts_us,

@@ -23,6 +23,8 @@ the CPU).
 """
 
 import dataclasses
+import json
+import re
 
 import numpy as np
 import pytest
@@ -1132,6 +1134,92 @@ def test_traced_bridge_round_on_the_card_is_bitwise_the_untraced(card, task,
         a, b = plain[side][topic], traced[side][topic]
         assert a["frames_out"] == b["frames_out"] > 0
         assert b["bytes_out"] - a["bytes_out"] == 16 * b["frames_out"]
+
+
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def test_fused_device_spans_sit_on_their_kernels_without_a_sync(
+        card, monkeypatch, tmp_path):
+    """A traced fused MLP call at H=4096 under torch.profiler: each
+    bsp.step device span starts within 0.5 ms of its dispatch's first
+    device operation (the span placed on the epoch by wallClockT0) and
+    lasts within 5 % of its operations' extent; a dispatch's operations
+    are the kernels and copies launched inside its bsp.step profiler
+    range (by correlation id).  A chunk opens with the copies into its
+    graph's static inputs, so where the host is behind, as at a call's
+    first dispatch, its first program kernel waits for the graph's
+    launch: that offset is printed, not held.  Before the exit's log
+    flush the call synchronises once, for the tracer's clock anchor: no
+    round waits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kafka_ps_tpu_torch.utils import asynclog
+    from kafka_ps_tpu_torch.utils.trace import Tracer
+    # no drain thread fetch (a synchronise of its own) inside the call
+    monkeypatch.setattr(asynclog, "DRAIN_INTERVAL_S", 3600.0)
+    n, rows = 4, 1024
+    cfg = PSConfig(num_workers=n, consistency_model=0, task="mlp",
+                   model=ModelConfig(num_features=1024, num_classes=5,
+                                     hidden_dim=4096),
+                   buffer=BufferConfig(min_size=rows, max_size=rows),
+                   eval_every=10)
+    x, y = generate(n * rows + 500, 1024, 5, seed=3, center_scale=0.3)
+    tracer = Tracer()
+    app = StreamingPSApp(cfg, test_x=x[n * rows:], test_y=y[n * rows:],
+                         device=card, tracer=tracer)
+    for i in range(n * rows):
+        app.data_sink(i % n, x[i], int(y[i]))
+    app.run_fused_bsp(n * 20)       # kernels built, the chunk captured
+    tracer.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        app.run_fused_bsp(app.server.iterations + n * 30)
+    app.close_logs()
+    events = list(prof.profiler.kineto_results.events())
+    data = json.load(open(tracer.dump(str(tmp_path / "t.json"))))
+    spans = sorted((e for e in data["traceEvents"]
+                    if e["ph"] == "X" and e["name"] == "bsp.step"),
+                   key=lambda e: e["ts"])
+    host = sorted((e for e in events if e.name() == "bsp.step"
+                   and not str(e.device_type()).endswith("CUDA")),
+                  key=lambda e: e.start_ns())
+    assert len(spans) == len(host) >= 3
+    assert sum(e["args"]["rounds"] for e in spans) == 30
+    launched = {e.correlation_id(): e.start_ns() for e in events
+                if not str(e.device_type()).endswith("CUDA")
+                and e.name().startswith(("cudaLaunch", "cuLaunch",
+                                         "cudaGraphLaunch", "cudaMemcpy",
+                                         "cudaMemset"))}
+    ops = [e for e in events if str(e.device_type()).endswith("CUDA")
+           and not e.is_user_annotation()]
+    found = []
+    for span, rng in zip(spans, host):
+        lo, hi = rng.start_ns(), rng.start_ns() + rng.duration_ns()
+        mine = [k for k in ops
+                if lo <= launched.get(k.correlation_id(), -1) <= hi]
+        assert mine, f"no operation launched in the bsp.step at {lo}"
+        program = [k.start_ns() for k in mine if not re.search(
+            r"at::|at_cuda_detail|c10::|cublas|cutlass|gemm|gemv|"
+            r"splitKreduce|cudnn|nvjet|xmma|^Memcpy|^Memset", k.name(),
+            re.IGNORECASE)]
+        first = min(k.start_ns() for k in mine)
+        start_ns = (data["wallClockT0"] + span["ts"] / 1e6) * 1e9
+        extent = max(k.start_ns() + k.duration_ns() for k in mine) - first
+        found.append((span, start_ns - first, extent))
+        print(f"bsp.step clock {span['args']['clock']} rounds "
+              f"{span['args']['rounds']}: start - first operation "
+              f"{(start_ns - first) / 1e3:.1f} us, - first program kernel "
+              f"{(start_ns - min(program)) / 1e3:.1f} us; dur "
+              f"{span['dur']:.1f} us, extent {extent / 1e3:.1f} us")
+    for span, offset, extent in found:
+        assert abs(offset) <= 0.5e6, (offset, span)
+        assert abs(span["dur"] * 1e3 - extent) <= 0.05 * extent, \
+            (span["dur"] * 1e3, extent, span)
+    flush = min(e.start_ns() for e in events
+                if e.name() == "fused.flush_logs")
+    syncs = [e.start_ns() for e in events if e.name() in SYNCS]
+    assert sum(t < flush for t in syncs) == 1, syncs
 
 
 def test_deferred_card_deltas_resolve_to_the_inline_bits_without_a_sync(

@@ -104,8 +104,11 @@ def _run(task: str, c: int, variant: str, mode: str, tmp_path):
         kw["fabric"].close()
     if mode == "on":
         # the instrumented run recorded something (the fused rounds pass
-        # no gate, so they leave the flight recorder empty, as in JAX)
-        assert tracer.counters() and telemetry.snapshot()
+        # no gate, so they leave the flight recorder empty, as in JAX; the
+        # fused loop records spans and no tracer counter)
+        recorded = (tracer.span_stats() if variant == "fused"
+                    else tracer.counters())
+        assert recorded and telemetry.snapshot()
         assert (FLIGHT.total_events() > 0) == (variant != "fused")
     FLIGHT.disable()
     theta = app.server.theta.numpy().tobytes()

@@ -3,14 +3,19 @@ samples, flow events and the null tracer as the JAX tests pin them
 (tests/test_trace.py); under one injected clock the same events dump the
 same JSON as the JAX Tracer, and the JAX merge tool stitches a port dump
 with a JAX one; runs emit the JAX span and counter names; device_trace
-writes a torch.profiler trace."""
+writes a torch.profiler trace.  The port's own additions: device spans
+(on the CPU, and on a card's events modelled on the CPU), the spans'
+profiler ranges, the epoch anchor of a dump, and the fused loop's spans
+and upload counters."""
 
 from __future__ import annotations
 
 import json
 import threading
+import time
 
 import pytest
+import torch
 
 from kafka_ps_tpu.telemetry.merge import merge_traces
 from kafka_ps_tpu.utils.trace import Tracer as JTracer
@@ -188,9 +193,9 @@ def test_serial_run_emits_the_jax_span_and_counter_names():
             ref.span_stats()[name]["count"], name
 
 
-def test_fused_run_emits_bsp_step_spans_and_counter():
-    """As the JAX test_fused_path_emits_spans: one bsp.step span and one
-    bsp.steps count per dispatch, single rounds and chunks alike."""
+def test_fused_run_emits_bsp_step_spans():
+    """As the JAX test_fused_path_emits_spans: one bsp.step span per
+    dispatch, single rounds and chunks alike."""
     from kafka_ps_tpu_torch.runtime.app import StreamingPSApp
     from kafka_ps_tpu_torch.utils import config
     from tests.test_torch_slice import _configs, _data
@@ -207,7 +212,6 @@ def test_fused_run_emits_bsp_step_spans_and_counter():
     dispatches = fs["chunks"] + fs["rounds"] - fs["chunk_rounds"]
     assert fs["rounds"] == 25 and fs["chunks"] >= 1
     assert tr.span_stats()["bsp.step"]["count"] == dispatches
-    assert tr.counters()["bsp.steps"] == dispatches
     rounds = sorted(e["args"]["rounds"] for e in tr._events
                     if e["name"] == "bsp.step")
     assert sum(rounds) == 25 and rounds[-1] == app.FUSED_CHUNK_ROUNDS
@@ -230,3 +234,229 @@ def test_device_trace_none_is_a_noop_and_a_dir_gets_a_trace(tmp_path):
             raise RuntimeError("x")
     assert json.load(open(trace_mod.device_trace_path(
         str(tmp_path / "dt2"))))["traceEvents"] is not None
+
+
+# -- device spans, profiler ranges and the epoch anchor ----------------------
+
+def _x_events(tracer, tmp_path):
+    data = json.load(open(tracer.dump(str(tmp_path / "trace.json"))))
+    return data, [e for e in data["traceEvents"] if e["ph"] == "X"]
+
+
+def _no_card_calls(monkeypatch):
+    """torch.cuda's event and synchronise raise if anything calls them."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA event or synchronise was made")
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+
+
+@pytest.mark.parametrize("arm", ["on", "off", "null"])
+def test_device_span_on_the_cpu_is_a_host_span_on_its_own_track(
+        arm, tmp_path, monkeypatch):
+    clock_vals = iter([0.0, 1.0, 3.0, 4.0, 5.0, 6.0])
+    t = {"on": Tracer(clock=lambda: next(clock_vals), pid=5),
+         "off": Tracer(pid=5), "null": NULL_TRACER}[arm]
+    if arm == "off":
+        t.enabled = False
+    _no_card_calls(monkeypatch)
+    with t.device_span("bsp.step", "cpu", clock=1, rounds=8) as args:
+        args["extra"] = 2
+    with t.span("host"):
+        pass
+    if arm != "on":
+        # nothing recorded and, even for a CUDA device, no event made
+        with t.device_span("bsp.step", "cuda", rounds=1):
+            pass
+        assert t.span_stats() == {}
+        return
+    data, spans = _x_events(t, tmp_path)
+    dev, host = spans
+    assert dev["name"] == "bsp.step" and dev["dur"] == 2e6
+    assert dev["args"] == {"clock": 1, "rounds": 8, "extra": 2}
+    assert dev["tid"] >= 2 ** 31 > host["tid"] and dev["pid"] == 5
+    names = [e for e in data["traceEvents"] if e["ph"] == "M"]
+    assert names == [{"name": "thread_name", "ph": "M", "pid": 5,
+                      "tid": dev["tid"], "args": {"name": "cpu"}}]
+
+
+class _Card:
+    """One CUDA stream's timing events modelled on the CPU: the test sets
+    the device's time (ms) and completes events; waiting on an event
+    completes it and every event recorded before it (stream order), a
+    synchronise every event."""
+
+    def __init__(self, monkeypatch):
+        self.now_ms = 0.0
+        self.syncs = 0
+        self.events = []
+        card = self
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                self.t = None
+                self.done = False
+
+            def record(self, stream=None):
+                self.t, self.done = card.now_ms, False
+                if self in card.events:
+                    card.events.remove(self)
+                card.events.append(self)
+
+            def query(self):
+                return self.done
+
+            def synchronize(self):
+                for e in card.events[:card.events.index(self) + 1]:
+                    e.done = True
+
+            def elapsed_time(self, end):
+                assert self.done and end.done
+                return end.t - self.t
+
+        class Stream:
+            device_index, stream_id = 0, 3
+            device = torch.device("cuda", 0)
+
+        def synchronize(device=None):
+            self.syncs += 1
+            for e in self.events:
+                e.done = True
+
+        monkeypatch.setattr(torch.cuda, "Event", Event)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: Stream())
+        monkeypatch.setattr(torch.cuda, "synchronize", synchronize)
+
+    def complete(self):
+        for e in self.events:
+            e.done = True
+
+
+def test_card_device_spans_resolve_later_without_a_wait(tmp_path,
+                                                         monkeypatch):
+    card = _Card(monkeypatch)
+    host = {"t": 10.0}
+    t = Tracer(clock=lambda: host["t"], pid=1)
+    card.now_ms = 100.0
+    with t.device_span("bsp.step", "cuda", rounds=8):      # anchor at 100
+        card.now_ms = 102.5
+    assert card.syncs == 1 and len(t._pending) == 1
+    with t.device_span("bsp.step", "cuda", rounds=1):      # 1st not done
+        card.now_ms = 104.0
+    assert len(t._pending) == 2 and not t._events
+    card.complete()
+    card.now_ms = 110.0
+    with t.device_span("fused.eval", "cuda", clock=10):    # both resolve
+        card.now_ms = 111.0
+    assert len(t._pending) == 1 and len(t._events) == 2
+    data, spans = _x_events(t, tmp_path)        # dump waits for the eval
+    assert card.syncs == 1                      # the anchor's, only
+    assert [e["name"] for e in spans] == ["bsp.step", "bsp.step",
+                                          "fused.eval"]
+    assert [v for e in spans for v in (e["ts"], e["dur"])] == \
+        pytest.approx([0.0, 2500.0, 2500.0, 1500.0, 10000.0, 1000.0])
+    assert {e["tid"] for e in spans} == {spans[0]["tid"]}
+    assert [e["args"]["name"] for e in data["traceEvents"]
+            if e["ph"] == "M"] == ["cuda:0 stream 3"]
+    assert t.span_stats()["bsp.step"] == {"count": 2, "total_ms": 4.0,
+                                          "mean_ms": 2.0}   # rounded
+
+
+@pytest.mark.parametrize("reset", ["clear", "re-enable"])
+def test_clear_or_enable_drops_the_anchor_and_clear_the_pending(
+        reset, tmp_path, monkeypatch):
+    card = _Card(monkeypatch)
+    t = Tracer(clock=lambda: 1.0)
+    with t.device_span("bsp.step", "cuda", rounds=8):
+        card.now_ms = 5.0
+    assert card.syncs == 1 and len(t._pending) == 1
+    if reset == "clear":
+        t.clear()
+        assert not t._pending
+    else:
+        t.enabled = False
+        t.enabled = True
+        assert len(t._pending) == 1     # placed by its own anchor
+    with t.device_span("bsp.step", "cuda", rounds=1):
+        card.now_ms = 6.0
+    assert card.syncs == 2              # a new anchor
+    _, spans = _x_events(t, tmp_path)
+    assert len(spans) == (1 if reset == "clear" else 2)
+
+
+@pytest.mark.parametrize("kind", ["null span", "disabled span",
+                                  "disabled device span"])
+def test_spans_are_profiler_ranges_with_the_tracer_off(kind):
+    from torch.profiler import ProfilerActivity, profile
+    t = NULL_TRACER if kind == "null span" else Tracer()
+    t.enabled = False
+    name = f"kps.{kind.replace(' ', '_')}"
+    opened = t.device_span(name, "cpu") if "device" in kind else \
+        t.span(name)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with opened:
+            torch.ones(8).sum()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name() == name]
+    # a function-scope range: no user annotation for the device's track
+    assert len(events) == 1 and not events[0].is_user_annotation()
+    assert t.span_stats() == {}
+
+
+def test_wall_clock_t0_plus_ts_is_epoch_time(tmp_path):
+    t = Tracer()
+    time.sleep(0.01)
+    at_ns = time.time_ns()
+    with t.span("s"):
+        pass
+    data, (span,) = _x_events(t, tmp_path)
+    epoch_ns = (data["wallClockT0"] + span["ts"] / 1e6) * 1e9
+    assert abs(epoch_ns - at_ns) < 1e6
+
+
+def test_fused_run_spans_its_uploads_evals_and_log_flushes(monkeypatch):
+    """Three run_fused_bsp calls on the CPU: one fused.flush_logs a call
+    with the rows it wrote, one fused.slab_upload a call with the slab's
+    bytes and the rows inserted since the previous upload, one
+    fused.eval per eval clock, bsp.step rounds summing to the rounds;
+    the registry counts the uploads and their bytes."""
+    from kafka_ps_tpu_torch.runtime.app import StreamingPSApp
+    from kafka_ps_tpu_torch.telemetry import Telemetry
+    from kafka_ps_tpu_torch.utils import asynclog, config
+    from tests.test_torch_slice import _configs, _data
+
+    # the flush at each call's exit writes every row of the call
+    monkeypatch.setattr(asynclog, "DRAIN_INTERVAL_S", 3600.0)
+    rows, tx, ty = _data()
+    cfg = _configs(config, 0)
+    cfg = type(cfg)(**{**cfg.__dict__, "eval_every": 10})
+    n = cfg.num_workers
+    tr = Tracer(counter_sample_s=0.0)
+    tel = Telemetry(tracer=tr)
+    app = StreamingPSApp(cfg, test_x=tx, test_y=ty, device="cpu",
+                         tracer=tr, telemetry=tel)
+    inserted = []
+    for call, (lo, hi, rounds) in enumerate([(0, 120, 25), (120, 120, 5),
+                                             (120, 131, 20)]):
+        for i, (feats, label) in enumerate(rows[lo:hi], start=lo):
+            app.data_sink(i % n, feats, label)
+        inserted.append(hi - lo)
+        app.run_fused_bsp(max_server_iterations=app.server.iterations
+                          + n * rounds)
+    app.close_logs()
+    spans = {}
+    for e in tr._events:
+        spans.setdefault(e["name"], []).append(e["args"])
+    assert sum(a["rounds"] for a in spans["bsp.step"]) == 50
+    assert [a["clock"] for a in spans["fused.eval"]] == [10, 20, 30, 40, 50]
+    # rows: a worker row per worker per round, a server row per eval
+    assert [a["rows"] for a in spans["fused.flush_logs"]] == [
+        25 * n + 2, 5 * n + 1, 20 * n + 2]
+    slab = sum(a.nbytes for w in range(n) for a in app.buffers[w].snapshot())
+    uploads = spans["fused.slab_upload"]
+    assert [a["rows_new"] for a in uploads] == inserted
+    assert [a["bytes"] for a in uploads] == [slab] * 3
+    snap = tel.snapshot()
+    assert sum(snap["fused_slab_uploads_total"].values()) == 3
+    assert sum(snap["fused_slab_upload_bytes_total"].values()) == 3 * slab
