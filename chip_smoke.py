@@ -440,21 +440,30 @@ def ptxas_summary(log: str) -> str:
 
 
 WIDE = "mlp_wide_launches"
+WIDE_TILES = ("mlp_wide_update_tiles", "mlp_wide_overlapped_tiles")
 
 
 def other_kernels(n: dict, mine: tuple, task: str, kind: str, hidden: int,
                   calls: int, tag: str) -> dict:
     """The counters of `n` outside `mine` that are not 0.  The wide MLP
-    passes' counter is no other kernel: it must equal `calls` (the run's
-    MLP kernel calls) where an MLP call of this shape and form takes the
-    wide passes, and be 0 elsewhere."""
+    passes' counters are no other kernel: `mlp_wide_launches` must equal
+    `calls` (the run's MLP kernel calls) where an MLP call of this shape
+    and form takes the wide passes, and be 0 elsewhere; its update-pass
+    tiles are more than 0 exactly where it is, and at least the tiles
+    that overlapped."""
     from kafka_ps_tpu_torch.ops import fused_update as fu
     wide = task == "mlp" and fu.mlp_wide_path(B, F, hidden, kind)
     if n.get(WIDE, 0) != (calls if wide else 0):
         raise RuntimeError(f"{tag}: {n.get(WIDE, 0)} wide MLP kernel calls "
                            f"of {calls} (the wide passes "
                            f"{'should' if wide else 'should not'} run)")
-    return {k: v for k, v in n.items() if k not in mine and k != WIDE and v}
+    tiles, overlapped = (n.get(k, 0) for k in WIDE_TILES)
+    if (tiles > 0) != (n.get(WIDE, 0) > 0) or not 0 <= overlapped <= tiles:
+        raise RuntimeError(f"{tag}: {tiles} wide update-pass tiles, "
+                           f"{overlapped} overlapped, over "
+                           f"{n.get(WIDE, 0)} wide MLP kernel calls")
+    return {k: v for k, v in n.items()
+            if k not in mine and k not in (WIDE, *WIDE_TILES) and v}
 
 
 def time_ms(fn, warmup=10, reps=100) -> float:
@@ -5312,13 +5321,12 @@ def main() -> int:
             f.write(log)
         print(f"nvcc {name}, ptxas report for the C=5 instances:")
         print(ptxas_summary(log))
-    smem = (ctypes.c_int * 7)()
+    smem = (ctypes.c_int * 8)()
     _build.load("mlp_update.cu").kps_mlp_smem(smem)
     print("mlp_update.cu dynamic shared memory per CTA, hidden_pass / "
           "update_pass (bytes): " + "; ".join(
               f"{form} {smem[2 * i]} / {smem[2 * i + 1]}"
-              for i, form in enumerate(("f32", "bf16", "int8")))
-          + f"; wide_hidden_pass and wide_update_pass {smem[6]}")
+              for i, form in enumerate(("f32", "bf16", "int8", "wide"))))
 
     from kafka_ps_tpu_torch.native import binding
     t0 = time.perf_counter()

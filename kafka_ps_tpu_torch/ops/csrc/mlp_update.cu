@@ -50,34 +50,43 @@
 // sharing tiles) is the next step; PERF.md holds the times.
 //
 // The wide path (f32 x, H >= kWideMinH, F a multiple of 4).  At B=F=1024,
-// H=4096, k=2 the work is 43.3 GFLOP per member, 42.9 of it in the five
-// B*F*H products: 87 us at the TF32 peak against 38 MB of inputs and
-// outputs (11 us), so operations bound it, and the three-term split puts
-// the floor at ~0.26 ms.  A product there is 1024 x 4096 x 1024, the shape
-// wgmma is built for, while W1 alone (16.8 MB) is far beyond shared memory
-// and fits in L2.  So the five products run as wide_hidden_pass (pre) and
-// wide_update_pass (dW1): a persistent grid (one CTA per SM, each walking
-// its tiles of every member in order) of 128 x 128 output tiles, a
-// producer warp issuing TMA loads of 32-deep chunks (128-byte swizzle)
-// into a ring of three stages with mbarriers, two consumer warpgroups
-// each issuing wgmma m64n128k8 TF32 on 64 rows.  TF32 wgmma reads its
-// operands K-major only and truncates an f32 operand to TF32, and no
-// thread touches a tile on its way in, so the split operands live in
-// scratch, each a hi and a lo plane, rounded where they are written: x
-// (split_pass) and x.T (transpose_pass) once per call, theta's W1 before
-// step 0 (split_pass) and each step's W1 by wide_update_pass's epilogue,
-// dh.T by grad_cols.  Each 32-deep chunk's hi*hi sum starts from zero and
-// reaches the running sum through a round-to-nearest add; the small terms
-// accumulate over all of K in a register set of their own, added at the
-// end (the order of the narrow passes with chunks of 32 for 8; putting
-// the small terms into the chunk's sum moved a relu gate off the plain
-// version on the card).  The small passes: grad_rows (4 warps a row:
-// logits, g; or the NLL), grad_cols (32 columns of [B, H] per CTA over all
-// rows: dh, dh.T, db1, dW2, db2 summed in a fixed order and applied in
-// place, no per-CTA partials) and loss_reduce.  The tensor maps are
-// encoded on the host at every call from the call's scratch and passed by
-// value (__grid_constant__), so a CUDA graph that captures a call replays
-// it on its own buffers.
+// H=4096, k=2 the work is 43.3 GFLOP per member, 42.9 of it in the five B*F*H
+// products: 87 us at the TF32 peak against 38 MB of inputs and outputs (11
+// us), so operations bound it, and the three-term split puts the floor at
+// ~0.26 ms.  A product there is 1024 x 4096 x 1024, the shape wgmma is built
+// for, while W1 alone (16.8 MB) is far beyond shared memory and fits in L2.
+// So the five products run as wide_hidden_pass (pre) and wide_update_pass
+// (dW1): a persistent grid (one CTA per SM, each walking its tiles of every
+// member in order) of 128 x 128 output tiles, a producer warp issuing TMA
+// loads of 32-deep chunks (128-byte swizzle) into a ring of stages with
+// mbarriers, two consumer warpgroups each issuing wgmma m64n128k8 TF32 on 64
+// rows.  wide_hidden_pass's consumers write hid themselves, behind a ring of
+// three stages.  wide_update_pass's epilogue reads W1 and writes W1, its two
+// split planes and (last step) delta, 16-20 bytes an element, which on the
+// consumers left the tensor cores idle for about as long as the tile's
+// products took.  So there each consumer warpgroup hands its finished 64 x 128
+// half of dW1 to a 32 KiB slot of its own in shared memory and goes on to its
+// next tile, while the producer warpgroup's other three warps (the store
+// warps, idle before) finish the epilogue from the slot with the same
+// roundings; the two slots leave room for a ring of two stages.  The store
+// warps keep 72 registers and the consumers 216 (40 and 232 in
+// wide_hidden_pass): at 40 the store warps spilled and the pass took 1.4-2x as
+// long (PERF.md).  TF32 wgmma reads its operands K-major only and truncates an
+// f32 operand to TF32, and no thread touches a tile on its way in, so the
+// split operands live in scratch, each a hi and a lo plane, rounded where they
+// are written: x (split_pass) and x.T (transpose_pass) once per call, theta's
+// W1 before step 0 (split_pass) and each step's W1 by wide_update_pass's
+// epilogue, dh.T by grad_cols.  Each 32-deep chunk's hi*hi sum starts from
+// zero and reaches the running sum through a round-to-nearest add; the small
+// terms accumulate over all of K in a register set of their own, added at the
+// end (the order of the narrow passes with chunks of 32 for 8; putting the
+// small terms into the chunk's sum moved a relu gate off the plain version on
+// the card).  The small passes: grad_rows (4 warps a row: logits, g; or the
+// NLL), grad_cols (32 columns of [B, H] per CTA over all rows: dh, dh.T, db1,
+// dW2, db2 summed in a fixed order and applied in place, no per-CTA partials)
+// and loss_reduce.  The tensor maps are encoded on the host at every call from
+// the call's scratch and passed by value (__grid_constant__), so a CUDA graph
+// that captures a call replays it on its own buffers.
 //
 // The products: mma.sync m16n8k8 TF32 at f32 accuracy.  TF32 keeps 11
 // significant bits, so an f32 operand a is split into hi = tf32(a)
@@ -831,6 +840,21 @@ constexpr int kGStage = 4 * kGOp;
 constexpr int kGSmem = kGStages * kGStage + 1024;  // + alignment slack
 constexpr long long kWaitCycles = 20000000000LL;   // ~10 s: a lost barrier
 static_assert(kGM == kGN, "the A and B tiles share one TMA box");
+// wide_update_pass hands each consumer warpgroup's finished 64 x kGN half
+// of dW1 to the producer warpgroup's other three warps (the store warps)
+// through a slot of its own after a ring of kUStages chunks; they write
+// W1, its split and delta while the consumers run the next tile.
+constexpr int kUStages = 2;
+constexpr int kHalf = (kGM / 2) * kGN;             // floats of a half tile
+constexpr int kStoreWarps = 3;
+constexpr int kGUSmem = kUStages * kGStage + 2 * kHalf * 4 + 1024;
+// setmaxnreg: registers a thread of the producer warpgroup and of a
+// consumer warpgroup keep, within the 168 x 384 the launch gives the CTA
+constexpr int kGRegsP = 40, kGRegsC = 232;      // wide_hidden_pass
+constexpr int kURegsP = 72, kURegsC = 216;      // wide_update_pass
+static_assert(128 * kGRegsP + 256 * kGRegsC <= 168 * kGThreads &&
+                  128 * kURegsP + 256 * kURegsC <= 168 * kGThreads,
+              "register budget");
 
 __device__ __forceinline__ uint32_t sh_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -944,7 +968,7 @@ __device__ __forceinline__ void pin(float (&d)[64]) {
 // for [B, H] (A = x split, B = W1 split, K = F), epilogue hid = relu(pre +
 // b1).  kDw1: dW1 = dh.T @ x for [H, F] (A = dh.T split, B = x.T split,
 // K = B), epilogue W1 -= lr * dW1 and W1's split for the next kPre (and
-// delta on the last step).
+// delta on the last step), run by the store warps (store_tiles).
 enum { kPre = 0, kDw1 = 1 };
 
 struct Wide {
@@ -958,26 +982,184 @@ struct Wide {
   float* delta;
 };
 
+// A half tile in its slot: row r's 128 floats with the 8-float groups
+// permuted by r % 8 (column c at c ^ 8 (r % 8)), so that the consumers'
+// 8-byte writes of their accumulator rows and the store warps' 8-byte
+// reads along a row are both free of bank conflicts.
+__device__ __forceinline__ int half_at(int r, int c) {
+  return r * kGN + (c ^ ((r & 7) << 3));
+}
+
+// Two floats at p, as one 8-byte access where p is 8-byte aligned (vec)
+// and as two 4-byte ones where it is not; the stores are streaming.
+__device__ __forceinline__ float2 ld2(const float* p, bool vec) {
+  return vec ? *reinterpret_cast<const float2*>(p) : make_float2(p[0], p[1]);
+}
+
+__device__ __forceinline__ void st2(float* p, float2 v, bool vec) {
+  if (vec) {
+    __stcs(reinterpret_cast<float2*>(p), v);
+  } else {
+    __stcs(p, v.x);
+    __stcs(p + 1, v.y);
+  }
+}
+
+__device__ __forceinline__ bool aligned8(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 7) == 0;
+}
+
+// One row's [p, p + n) floats into L2 ahead of its reads, widened to
+// 16-byte bounds as a bulk prefetch needs: a row of W1 is followed by the
+// rest of the parameter vector, so the range stays inside it.
+__device__ __forceinline__ void prefetch_row(const float* p, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p) & ~uintptr_t(15);
+  const uintptr_t e =
+      (reinterpret_cast<uintptr_t>(p + n) + 15) & ~uintptr_t(15);
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(a),
+               "r"(static_cast<uint32_t>(e - a))
+               : "memory");
+}
+
+// Tile t's rows of W1 (and, on the last step, theta) into L2, by the
+// store warps a tile ahead of their reads.
+__device__ __forceinline__ void prefetch_tile(const Members& mem,
+                                              const Wide& a, int t) {
+  if (t >= a.total) return;
+  const Dims& d = a.d;
+  const int per = a.tm * a.tn, m = t / per, r = t % per;
+  const int r0 = (r % a.tm) * kGM, c0 = (r / a.tm) * kGN;
+  const float* theta = mem.theta[m];
+  const float* w_in = member_w(mem, a.w, a.first, m, d.P);
+  const int cols = min(kGN, d.F - c0);
+  for (int i = threadIdx.x - 32; i < kGM && r0 + i < d.H;
+       i += kStoreWarps * 32) {
+    const size_t p = (size_t)(r0 + i) * d.F + c0;
+    prefetch_row(w_in + p, cols);
+    if (a.last && !a.first) prefetch_row(theta + p, cols);
+  }
+}
+
+// The update pass's epilogue, on the store warps: each half tile in the
+// order the consumers hand them over (a CTA's tiles in turn, rows 0-63
+// then 64-127), per element wn = W1 - lr * dW1 (the two roundings of w -
+// lr * g), W1 := wn, wn's hi/lo split, and delta = wn - theta on the last
+// step.  A tile's rows of W1 (and theta) are prefetched into L2 a tile
+// ahead; the outputs are streaming stores (evict first: nothing reads them
+// before they would leave L2).  A lane takes columns 2 lane and 64 + 2
+// lane, so a warp reads and writes 256 contiguous bytes of a row: 8-byte
+// accesses where a member's rows allow them (an odd member's rows of the w
+// scratch and of delta [members, P] are only 8-byte aligned at an even P,
+// as at the cell's shape, and only 4-byte aligned at an odd P, which an
+// even num_classes or an odd H gives), else 4-byte ones; each of theta,
+// the w scratch and delta is tested apart, a member at a time (F is a
+// multiple of 4 and a lane's columns are even, so a row's offset keeps the
+// member's alignment).  The split planes [members][2][H][F] are always
+// 8-byte aligned.  W1 is read and written in place, so a batch of
+// kStoreRows rows' loads is issued before their stores.
+constexpr int kStoreRows = 2;
+
+__device__ __forceinline__ void store_tiles(const Members& mem,
+                                            const Wide& a, const float* buf,
+                                            uint64_t* ready,
+                                            uint64_t* freed) {
+  const int sw = threadIdx.x / 32 - 1, lane = threadIdx.x % 32;
+  const Dims& d = a.d;
+  const int per = a.tm * a.tn;
+  int n = 0;  // this CTA's tiles taken so far
+  for (int t = blockIdx.x; t < a.total; t += gridDim.x, ++n) {
+    const int m = t / per, r = t % per;
+    const int r0 = (r % a.tm) * kGM, c0 = (r / a.tm) * kGN;
+    const float* theta = mem.theta[m];
+    const float* w_in = member_w(mem, a.w, a.first, m, d.P);
+    const size_t mp = (size_t)m * d.P, ms = (size_t)m * 2 * d.H * d.F;
+    const bool tv = aligned8(theta), sv = aligned8(a.w + mp),
+               dv = a.last && aligned8(a.delta + mp);
+    const bool wv = a.first ? tv : sv;
+    if (n == 0) prefetch_tile(mem, a, t);
+    prefetch_tile(mem, a, t + gridDim.x);
+    for (int half = 0; half < 2; ++half) {
+      mbar_wait(&ready[half], n & 1);
+      const float* src = buf + half * kHalf;
+      const int h0 = r0 + half * (kGM / 2), f0 = c0 + 2 * lane;
+      // batch b: item b % 2 of row hr = q + (b / 2) kStoreWarps of the half
+      for (int q = sw; q < kGM / 2; q += kStoreWarps * kStoreRows) {
+        float2 w[2 * kStoreRows], th[2 * kStoreRows];
+#pragma unroll
+        for (int b = 0; b < 2 * kStoreRows; ++b) {
+          const int hr = q + (b / 2) * kStoreWarps, f = f0 + 64 * (b % 2);
+          if (hr < kGM / 2 && h0 + hr < d.H && f < d.F) {
+            const size_t p = (size_t)(h0 + hr) * d.F + f;
+            w[b] = ld2(w_in + p, wv);
+            if (a.last) th[b] = ld2(theta + p, tv);
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < 2 * kStoreRows; ++b) {
+          const int hr = q + (b / 2) * kStoreWarps, f = f0 + 64 * (b % 2);
+          if (hr < kGM / 2 && h0 + hr < d.H && f < d.F) {
+            const size_t p = (size_t)(h0 + hr) * d.F + f;
+            const float2 g = *reinterpret_cast<const float2*>(
+                src + half_at(hr, 64 * (b % 2) + 2 * lane));
+            const float2 wn =
+                make_float2(__fsub_rn(w[b].x, __fmul_rn(a.lr, g.x)),
+                            __fsub_rn(w[b].y, __fmul_rn(a.lr, g.y)));
+            st2(a.w + mp + p, wn, sv);
+            uint2 wh, wl;
+            split(wn.x, wh.x, wl.x);
+            split(wn.y, wh.y, wl.y);
+            __stcs(reinterpret_cast<uint2*>(a.out + ms + p), wh);
+            __stcs(reinterpret_cast<uint2*>(a.out + ms + (size_t)d.H * d.F +
+                                            p),
+                   wl);
+            if (a.last)
+              st2(a.delta + mp + p,
+                  make_float2(__fsub_rn(wn.x, th[b].x),
+                              __fsub_rn(wn.y, th[b].y)),
+                  dv);
+          }
+        }
+      }
+      mbar_arrive(&freed[half]);
+    }
+  }
+}
+
 template <int OP>
 __device__ __forceinline__ void wide_body(const CUtensorMap* ta,
                                           const CUtensorMap* tb,
                                           const Members& mem, const Wide& a) {
-  __shared__ __align__(8) uint64_t full[kGStages], empty[kGStages];
+  constexpr int S = OP == kDw1 ? kUStages : kGStages;
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  // kDw1: a consumer warpgroup's half tile handed over to the store warps
+  // in its slot (ready) and taken (freed)
+  __shared__ __align__(8) uint64_t ready[2], freed[2];
   extern __shared__ __align__(16) unsigned char wsm[];
   unsigned char* sm = wsm + ((1024 - (sh_addr(wsm) & 1023)) & 1023);
+  float* buf = reinterpret_cast<float*>(sm + S * kGStage);
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kGStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
+    if constexpr (OP == kDw1)
+      for (int s = 0; s < 2; ++s) {
+        mbar_init(&ready[s], 128);               // a consumer warpgroup
+        mbar_init(&freed[s], kStoreWarps * 32);  // the store warps
+      }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   const int per = a.tm * a.tn;
   if (wg == 0) {
     // the producer: every chunk of every tile of this CTA, in order
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        OP == kDw1 ? kURegsP : kGRegsP));
+    if (threadIdx.x >= 32) {
+      if constexpr (OP == kDw1) store_tiles(mem, a, buf, ready, freed);
+      return;
+    }
     if (threadIdx.x != 0) return;
     int stage = 0, phase = 0;
     for (int t = blockIdx.x; t < a.total; t += gridDim.x) {
@@ -992,7 +1174,7 @@ __device__ __forceinline__ void wide_body(const CUtensorMap* ta,
         tma_load(st + kGOp, ta, k0, r0, 1, m, &full[stage]);
         tma_load(st + 2 * kGOp, tb, k0, c0, 0, m, &full[stage]);
         tma_load(st + 3 * kGOp, tb, k0, c0, 1, m, &full[stage]);
-        if (++stage == kGStages) {
+        if (++stage == S) {
           stage = 0;
           phase ^= 1;
         }
@@ -1000,11 +1182,13 @@ __device__ __forceinline__ void wide_body(const CUtensorMap* ta,
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+      OP == kDw1 ? kURegsC : kGRegsC));
   const int cw = wg - 1;  // rows cw*64.. of the tile
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const Dims& d = a.d;
   int stage = 0, phase = 0;
+  int n = 0;  // kDw1: this CTA's tiles handed over
   float cb[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) cb[i] = 0.f;
@@ -1041,7 +1225,7 @@ __device__ __forceinline__ void wide_body(const CUtensorMap* ta,
       // and reaches the running sum through round-to-nearest adds
 #pragma unroll
       for (int i = 0; i < 64; ++i) big[i] = __fadd_rn(big[i], cb[i]);
-      if (++stage == kGStages) {
+      if (++stage == S) {
         stage = 0;
         phase ^= 1;
       }
@@ -1052,7 +1236,7 @@ __device__ __forceinline__ void wide_body(const CUtensorMap* ta,
     // 16 warp + lane/4 + 8h, column 8j + 2 (lane%4) + c
     const int row = r0 + cw * 64 + warp * 16 + lane / 4;
     const int col = c0 + 2 * (lane % 4);
-    if (OP == kPre) {
+    if constexpr (OP == kPre) {
       const float* b1 =
           member_w(mem, a.w, a.first, m, d.P) + (size_t)d.H * d.F;
       float* hid = a.out + (size_t)m * d.B * d.Hp;
@@ -1072,34 +1256,20 @@ __device__ __forceinline__ void wide_body(const CUtensorMap* ta,
           }
         }
     } else {
-      const float* theta = mem.theta[m];
-      const float* w_in = member_w(mem, a.w, a.first, m, d.P);
-      float* w_out = a.w + (size_t)m * d.P;
-      float* hi = a.out + (size_t)m * 2 * d.H * d.F;
-      float* lo = hi + (size_t)d.H * d.F;
+      // hand this warpgroup's half of dW1 to the store warps and go on to
+      // the next tile, once they took its half of the last tile
+      mbar_wait(&freed[cw], (n - 1) & 1);
+      float* dst = buf + cw * kHalf;
+      const int hr = warp * 16 + lane / 4;
 #pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int h = row + 8 * h2;
-        if (h >= d.H) continue;
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int f = col + 8 * j + c;
-            if (f >= d.F) continue;
-            const size_t p = (size_t)h * d.F + f;
-            // the same two roundings as w - lr * g
-            const float wn =
-                __fsub_rn(w_in[p], __fmul_rn(a.lr, big[4 * j + 2 * h2 + c]));
-            w_out[p] = wn;
-            uint32_t wh, wl;
-            split(wn, wh, wl);
-            hi[p] = __uint_as_float(wh);
-            lo[p] = __uint_as_float(wl);
-            if (a.last)
-              a.delta[(size_t)m * d.P + p] = __fsub_rn(wn, theta[p]);
-          }
-      }
+        for (int h2 = 0; h2 < 2; ++h2)
+          *reinterpret_cast<float2*>(
+              dst + half_at(hr + 8 * h2, 8 * j + 2 * (lane % 4))) =
+              make_float2(big[4 * j + 2 * h2], big[4 * j + 2 * h2 + 1]);
+      mbar_arrive(&ready[cw]);
+      ++n;
     }
   }
 }
@@ -1483,7 +1653,7 @@ int run_wide(const Members& mem, int members, float* delta, float* loss,
   if (err == 0)
     err = (int)cudaFuncSetAttribute(
         wide_update_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kGSmem);
+        kGUSmem);
   int dev = 0, sms = 0;
   if (err == 0) err = (int)cudaGetDevice(&dev);
   if (err == 0)
@@ -1524,7 +1694,7 @@ int run_wide(const Members& mem, int members, float* delta, float* loss,
                                                    g);
     grad_cols<R><<<cols, kColThreads, 0, st>>>(mem, w, s == 0, s == k - 1,
                                                d, hid, g, dht, lr, delta);
-    wide_update_pass<<<gu, kGThreads, kGSmem, st>>>(mdh, mxt, mem, upd);
+    wide_update_pass<<<gu, kGThreads, kGUSmem, st>>>(mdh, mxt, mem, upd);
   }
   pre.first = k == 0;
   wide_hidden_pass<<<gp, kGThreads, kGSmem, st>>>(mx, mw, mem, pre);
@@ -1672,8 +1842,8 @@ void kps_mlp_scratch(int B, int F, int H, int R, int members, int form,
 
 // The dynamic shared memory per CTA of the tensor passes, in bytes (ptxas
 // reports only the static part): hidden_pass and update_pass for f32,
-// bf16 and int8 x, into bytes[0..5], and the wide passes' (both) into
-// bytes[6].
+// bf16 and int8 x, into bytes[0..5], wide_hidden_pass's into bytes[6] and
+// wide_update_pass's into bytes[7].
 void kps_mlp_smem(int* bytes) {
   bytes[0] = Geo<SlabF32>::kHidSmem;
   bytes[1] = Geo<SlabF32>::kUpdSmem;
@@ -1682,6 +1852,7 @@ void kps_mlp_smem(int* bytes) {
   bytes[4] = Geo<SlabQ>::kHidSmem;
   bytes[5] = Geo<SlabQ>::kUpdSmem;
   bytes[6] = kGSmem;
+  bytes[7] = kGUSmem;
 }
 
 int kps_mlp_max_rows() { return kMaxRows; }

@@ -59,7 +59,11 @@ through the kernels: `launches` (K1), `batched_launches` (K2),
 (K4), `mlp_batched_launches` (K6), `mlp_stream_launches` and
 `mlp_stream_batched_launches` (K5), and for each batched counter the gang
 members its calls covered (`..._members`); `mlp_wide_launches` counts the
-K4 and K6 calls among those that took the wide passes.  A CUDA graph that
+K4 and K6 calls among those that took the wide passes, `mlp_wide_update_tiles`
+the output tiles of their update-pass launches and `mlp_wide_overlapped_tiles`
+those of them whose epilogue ran beside the CTA's next tile (every tile but
+each CTA's last; from the launch geometry, `mlp_wide_tiles`, with no read
+from the card).  A CUDA graph that
 captured wrapper calls (the fused BSP chunk, parallel/bsp.py) adds them
 again at each replay (`add_counts`).
 """
@@ -83,6 +87,7 @@ MLP_SOURCE = "mlp_update.cu"
 MAX_ROWS = 16          # classes + 1 the kernels take (kMaxRows in the .cu)
 MAX_MEMBERS = 32       # gang members per kernel call (kMaxMembers)
 WIDE_MIN_HIDDEN = 1024  # the wide MLP passes' least H (kWideMinH)
+WIDE_TILE = 128        # the wide passes' output tiles are square (kGM, kGN)
 _FORMS = ("f32", "bf16", "int8")   # the C entries' storage form codes
 
 launches = 0
@@ -98,6 +103,8 @@ mlp_stream_launches = 0
 mlp_stream_batched_launches = 0
 mlp_stream_batched_members = 0
 mlp_wide_launches = 0
+mlp_wide_update_tiles = 0
+mlp_wide_overlapped_tiles = 0
 _lock = threading.Lock()
 
 _COUNTERS = ("launches", "batched_launches", "batched_members",
@@ -105,7 +112,8 @@ _COUNTERS = ("launches", "batched_launches", "batched_members",
              "stream_batched_members",
              "mlp_launches", "mlp_batched_launches", "mlp_batched_members",
              "mlp_stream_launches", "mlp_stream_batched_launches",
-             "mlp_stream_batched_members", "mlp_wide_launches")
+             "mlp_stream_batched_members", "mlp_wide_launches",
+             "mlp_wide_update_tiles", "mlp_wide_overlapped_tiles")
 
 
 def reset_counts() -> None:
@@ -462,8 +470,30 @@ def _mlp_scratch(batch: int, features: int, hidden: int, rows: int,
     return tuple(sizes)[:5 + 4 * (kind == "f32")]
 
 
+def mlp_wide_tiles(features: int, hidden: int, members: int, steps: int,
+                   sms: int) -> tuple[int, int]:
+    """The output tiles of a wide call's update-pass launches (`steps` a
+    chunk of at most MAX_MEMBERS members, one CTA an SM up to one a tile,
+    as csrc/mlp_update.cu's run_wide launches them), and how many of them
+    hand their epilogue to the store warps while the CTA's next tile runs
+    (all but each CTA's last), on a card of `sms` SMs."""
+    per = -(-hidden // WIDE_TILE) * -(-features // WIDE_TILE)
+    total = overlapped = 0
+    for lo in range(0, members, MAX_MEMBERS):
+        n = per * min(MAX_MEMBERS, members - lo)
+        total += n
+        overlapped += n - min(n, sms)
+    return steps * total, steps * overlapped
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_mlp(thetas, xs, ys, masks, cfg: ModelConfig, kind: str):
-    """K4/K5/K6 → (deltas, losses, whether the wide passes ran)."""
+    """K4/K5/K6 → (deltas, losses, the wide update pass's tiles and
+    overlapped tiles, or None on the narrow passes)."""
     tables = _tables(thetas, xs, ys, masks, kind)
     fn = _entry(MLP_SOURCE, _SYMBOLS["mlp", kind], "mlp", len(tables),
                 _mlp_pointers(kind), 5)
@@ -476,14 +506,17 @@ def _launch_mlp(thetas, xs, ys, masks, cfg: ModelConfig, kind: str):
                     _mlp_scratch(batch, features, H, R, k, kind))
     _call(fn, tables, (deltas, losses, *scratch),
           (batch, features, H, R), cfg, "mlp_local_update")
-    return deltas, losses, mlp_wide_path(batch, features, H, kind)
+    if not mlp_wide_path(batch, features, H, kind):
+        return deltas, losses, None
+    return deltas, losses, mlp_wide_tiles(features, H, k, cfg.num_max_iter,
+                                          _sm_count(f32["device"]))
 
 
 def _count(family: str, kind: str, members: int = 0,
-           wide: bool = False) -> None:
+           wide: tuple[int, int] | None = None) -> None:
     """One kernel call: K1/K2/K4/K6 for an f32 slab, K3/K5 for a stored
     one; `members` > 0 for a batched call; `wide` for an MLP call on the
-    wide passes."""
+    wide passes: its update-pass tiles and overlapped tiles."""
     name = (("" if family == "logreg" else "mlp_")
             + ("" if kind == "f32" else "stream_")
             + ("batched_" if members else ""))
@@ -491,8 +524,10 @@ def _count(family: str, kind: str, members: int = 0,
         globals()[name + "launches"] += 1
         if members:
             globals()[name + "members"] += members
-        if wide:
+        if wide is not None:
             globals()["mlp_wide_launches"] += 1
+            globals()["mlp_wide_update_tiles"] += wide[0]
+            globals()["mlp_wide_overlapped_tiles"] += wide[1]
 
 
 # -- the wrappers --------------------------------------------------------------

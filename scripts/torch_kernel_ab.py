@@ -3,7 +3,7 @@ NVIDIA card: K1 and K2 (logreg, f32), K3 (logreg, bf16 and int8 slabs),
 K4 and K6 (MLP, f32) and K5 (MLP, bf16 and int8 slabs), each where a tree
 has it, and K4 and K6 again at the wide MLP's width (H=4096).
 
-    python3 scripts/torch_kernel_ab.py TREE [TREE ...]
+    python3 scripts/torch_kernel_ab.py TREE [TREE ...] [--wide-hidden H ...]
 
 Each TREE is the root of a checkout that holds kafka_ps_tpu_torch/ (for
 example a `git archive` of a commit unpacked under an ignored directory).
@@ -15,7 +15,9 @@ given: list them as A B B A so that drift of the card cancels.
 Per tree and kernel, at the main path's shape (F=1024, B=1024 with 100
 masked rows and one out-of-range label, C=5, k=2; the MLP at H=128; K2
 and K6 on a gang of 4; then K4 and K6 at H=4096, K6's 4 members sharing
-one theta as in a fused round), on inputs made from one seed per member:
+one theta as in a fused round, and at each other width `--wide-hidden`
+names, such as H=1024, where a K4 update pass has one tile an SM), on
+inputs made from one seed per member:
   * `digest`: sha256 of the outputs' bytes (delta and loss) — trees with
     the same arithmetic agree bit for bit;
   * `max_abs_vs_plain`: the largest difference of the outputs from the
@@ -185,7 +187,7 @@ def build_one(tree: str) -> None:
     _build.build(_build.sources())
 
 
-def measure_one(tree: str, label: str) -> None:
+def measure_one(tree: str, label: str, widths=(WIDE_H,)) -> None:
     sys.path.insert(0, tree)
     import torch
 
@@ -237,19 +239,25 @@ def measure_one(tree: str, label: str) -> None:
                          lambda a=a: fu.mlp_local_update(*a, cfg=mcfg),
                          lambda a=a: fu.mlp_local_update_plain(*a,
                                                                cfg=mcfg)))
-        wcfg = ModelConfig(num_features=F, num_classes=C, num_max_iter=K,
-                           local_learning_rate=0.5, hidden_dim=WIDE_H)
-        wbase = mlp.init_params(wcfg, "cpu").numpy()
-        wgang = [inputs(torch, dev, mlp.num_params(wcfg), 51 + i, wbase)
-                 for i in range(4)]
-        wm = [[wgang[0][0]] * 4] + [[g[i] for g in wgang] for i in (1, 2, 3)]
-        runs += [(f"K4 mlp_local_update H={WIDE_H}", mlib,
-                  lambda: fu.mlp_local_update(*wgang[0], cfg=wcfg),
-                  lambda: fu.mlp_local_update_plain(*wgang[0], cfg=wcfg)),
-                 (f"K6 mlp_local_update_batched H={WIDE_H} (one theta)",
-                  mlib, lambda: fu.mlp_local_update_batched(*wm, cfg=wcfg),
-                  lambda: fu.mlp_local_update_batched_plain(*wm,
-                                                            cfg=wcfg))]
+        for wh in widths:
+            wcfg = ModelConfig(num_features=F, num_classes=C,
+                               num_max_iter=K, local_learning_rate=0.5,
+                               hidden_dim=wh)
+            wbase = mlp.init_params(wcfg, "cpu").numpy()
+            wgang = [inputs(torch, dev, mlp.num_params(wcfg), 51 + i,
+                            wbase) for i in range(4)]
+            wm = [[wgang[0][0]] * 4] + [[g[i] for g in wgang]
+                                        for i in (1, 2, 3)]
+            runs += [(f"K4 mlp_local_update H={wh}", mlib,
+                      lambda g=wgang[0], c=wcfg: fu.mlp_local_update(
+                          *g, cfg=c),
+                      lambda g=wgang[0], c=wcfg: fu.mlp_local_update_plain(
+                          *g, cfg=c)),
+                     (f"K6 mlp_local_update_batched H={wh} (one theta)",
+                      mlib, lambda m=wm, c=wcfg:
+                      fu.mlp_local_update_batched(*m, cfg=c),
+                      lambda m=wm, c=wcfg:
+                      fu.mlp_local_update_batched_plain(*m, cfg=c))]
     for kernel, sass, fn, plain in runs:
         m = measure(torch, fn, plain, sass)
         print(json.dumps({"tree": label, "kernel": kernel, **m}))
@@ -264,13 +272,16 @@ def main(argv=None) -> int:
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--build-one", help=argparse.SUPPRESS)
     ap.add_argument("--measure-one", help=argparse.SUPPRESS)
+    ap.add_argument("--wide-hidden", type=int, nargs="+", default=[WIDE_H],
+                    help="the hidden widths of the wide K4 and K6 runs")
     args = ap.parse_args(argv)
     if args.build_one:
         build_one(args.build_one)
         return 0
     if args.measure_one:
-        measure_one(args.measure_one, args.trees[0])
+        measure_one(args.measure_one, args.trees[0], args.wide_hidden)
         return 0
+    widths = ["--wide-hidden", *map(str, args.wide_hidden)]
     me = os.path.abspath(__file__)
     trees = [os.path.abspath(t) for t in args.trees]
     builds = [subprocess.Popen([sys.executable, me, "-", "--build-one", t])
@@ -280,7 +291,7 @@ def main(argv=None) -> int:
     digests: dict[str, set] = {}
     for label, tree in zip(args.trees, trees):
         out = subprocess.run([sys.executable, me, label, "--measure-one",
-                              tree], check=True, timeout=900,
+                              tree, *widths], check=True, timeout=900,
                              capture_output=True, text=True).stdout
         print(out, end="", flush=True)
         for line in out.splitlines():

@@ -16,12 +16,16 @@ its theta), `member51`, `member52` (chip_smoke.py's wide members with a
 theta of their own).  Per tree and set one JSON line: the kernel against
 the plain version and against float64, and the plain version against
 float64, each as the largest difference, the count of delta and loss
-elements outside rtol 1e-4, atol 1e-5, and the mean difference.  Each
-tree runs in a process of its own; list the trees as A B B A.
+elements outside rtol 1e-4, atol 1e-5, and the mean difference; and the
+SHA-256 of the bytes of delta and loss from K4 and from K6 on 4 members
+sharing the set's theta (member j's rows of x, y and mask rolled by j B/4),
+which trees with the same arithmetic give bit for bit.  Each tree runs in
+a process of its own; list the trees as A B B A.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -100,6 +104,13 @@ def diff(torch, out, ref) -> dict:
             "mean": float(e.mean())}
 
 
+def digest(deltas, losses) -> str:
+    h = hashlib.sha256()
+    for t in (deltas, losses):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def measure_one(tree: str, label: str) -> None:
     sys.path.insert(0, tree)
     import numpy as np
@@ -116,13 +127,18 @@ def measure_one(tree: str, label: str) -> None:
     sets = inputs(torch, np, generate, theta0, mlp.num_params(cfg))
     for name, args in sets.items():
         out = fu.mlp_local_update(*args, cfg=cfg)
+        theta, x, y, mask = args
+        gang = fu.mlp_local_update_batched(
+            [theta] * 4, *([torch.roll(v, j * B // 4, 0) for j in range(4)]
+                           for v in (x, y, mask)), cfg=cfg)
         plain = fu.mlp_local_update_plain(*args, cfg=cfg)
         f64 = update_f64(torch, mlp, cfg, *args)
         torch.cuda.synchronize()
         row = {"tree": label, "set": name,
                "kernel_vs_plain": diff(torch, out, plain),
                "kernel_vs_f64": diff(torch, out, f64),
-               "plain_vs_f64": diff(torch, plain, f64)}
+               "plain_vs_f64": diff(torch, plain, f64),
+               "sha256": {"k4": digest(*out), "k6": digest(*gang)}}
         print(json.dumps(row), flush=True)
 
 

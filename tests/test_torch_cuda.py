@@ -107,12 +107,19 @@ def test_wrapper_raises_on_bad_cuda_arguments(card):
         fused_update.local_update(*bad, cfg=cfg)
 
 
-def _gang(dev, members, batch, features, hidden=None, shared=False):
-    cases = [_case(dev, batch, features, seed=s, hidden=hidden)
+def _gang(dev, members, batch, features, hidden=None, shared=False,
+          classes=5):
+    """A gang's inputs; `shared` True gives every member the first theta,
+    False a tensor each, "packed" a view each into one flat tensor (member
+    m's theta at m P floats, so at an odd P an odd member's theta is only
+    4-byte aligned)."""
+    cases = [_case(dev, batch, features, classes, seed=s, hidden=hidden)
              for s in range(members)]
     cfg = cases[0][0]
     thetas, xs, ys, masks = (list(a) for a in zip(*(c[1] for c in cases)))
-    if shared:
+    if shared == "packed":
+        thetas = list(torch.cat(thetas).split(thetas[0].numel()))
+    elif shared:
         thetas = [thetas[0]] * members
     return cfg, thetas, xs, ys, masks
 
@@ -174,13 +181,13 @@ def test_mlp_kernel_all_masked_and_bad_labels(card):
 
 @pytest.mark.parametrize("batch,features,hidden,k", [
     (1000, 1020, 1056, 2), (1024, 1024, 4096, 2), (37, 64, 1024, 1),
-    (300, 128, 1100, 3), (64, 32, 1024, 0)])
+    (300, 128, 1100, 3), (64, 32, 1024, 0), (1024, 1024, 1025, 2)])
 def test_mlp_wide_passes_match_plain_version(card, batch, features, hidden,
                                              k):
     """K4 on the wide passes (wgmma, TMA): ragged B, F and H (none a
-    multiple of the 128-wide tile or the 32-deep chunk), within the MLP's
-    tolerance of the plain version, counted as a wide launch, and bitwise
-    repeatable."""
+    multiple of the 128-wide tile or the 32-deep chunk; H=1025 makes the
+    parameter count P odd), within the MLP's tolerance of the plain
+    version, counted as a wide launch, and bitwise repeatable."""
     cfg, args = _case(card, batch, features, 5, k, hidden=hidden)
     before = fused_update.counts()
     d, loss = fused_update.mlp_local_update(*args, cfg=cfg)
@@ -195,15 +202,23 @@ def test_mlp_wide_passes_match_plain_version(card, batch, features, hidden,
     assert torch.equal(d, d2) and torch.equal(loss, loss2)
 
 
-@pytest.mark.parametrize("members,shared", [(1, True), (4, True),
-                                            (4, False), (34, True)])
+@pytest.mark.parametrize("members,shared,hidden,classes", [
+    (1, True, 4096, 5), (4, True, 4096, 5), (4, False, 4096, 5),
+    (3, False, 4096, 5), (34, True, 4096, 5), (3, "packed", 4096, 2),
+    (3, "packed", 1025, 5)], ids=[
+    "1-True", "4-True", "4-False", "3-False", "34-True",
+    "3-packed-h4096-c2", "3-packed-h1025-c5"])
 def test_mlp_wide_gang_member_is_bitwise_a_single_call(card, members,
-                                                       shared):
-    """K6 at H=4096 on the wide passes: member i == K4 on member i's
-    inputs bit for bit (34 members: two calls of 32 and 2), and two
-    launches are bitwise equal."""
-    cfg, thetas, xs, ys, masks = _gang(card, members, 1024, 1024, 4096,
-                                       shared)
+                                                       shared, hidden,
+                                                       classes):
+    """K6 on the wide passes: member i == K4 on member i's inputs bit for
+    bit (34 members: two calls of 32 and 2), and two launches are bitwise
+    equal.  Member 1's rows of the W scratch and of delta [members, P]
+    are only 8-byte aligned at H=4096, C=5 (P even, 2 mod 4), and only
+    4-byte aligned, its packed theta's too, where P is odd (C=2, or
+    H=1025)."""
+    cfg, thetas, xs, ys, masks = _gang(card, members, 1024, 1024, hidden,
+                                       shared, classes)
     before = fused_update.counts()
     deltas, losses = fused_update.mlp_local_update_batched(
         thetas, xs, ys, masks, cfg=cfg)
@@ -216,6 +231,34 @@ def test_mlp_wide_gang_member_is_bitwise_a_single_call(card, members,
         d, loss = fused_update.mlp_local_update(thetas[i], xs[i], ys[i],
                                                 masks[i], cfg=cfg)
         assert torch.equal(deltas[i], d) and torch.equal(losses[i], loss)
+
+
+@pytest.mark.parametrize("members", [1, 4, 34])
+def test_mlp_wide_counts_update_tiles_from_the_launch_geometry(card,
+                                                               members):
+    """A wide K4 or K6 call at H=4096, B=F=1024 adds k launches of 32 x 8
+    update tiles a member (34 members: launches of 32 and of 2), of which
+    all but one a CTA (one CTA an SM, at most one a tile) overlap the
+    CTA's next tile: 1,024 and 892 a launch for 4 members on 132 SMs."""
+    cfg, thetas, xs, ys, masks = _gang(card, members, 1024, 1024, 4096,
+                                       True)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    k = cfg.num_max_iter
+    before = fused_update.counts()
+    if members == 1:
+        fused_update.mlp_local_update(thetas[0], xs[0], ys[0], masks[0],
+                                      cfg=cfg)
+    else:
+        fused_update.mlp_local_update_batched(thetas, xs, ys, masks,
+                                              cfg=cfg)
+    after = fused_update.counts()
+    launches = [32 * 8 * n for n in (32, members - 32)] if members > 32 \
+        else [32 * 8 * members]
+    assert after["mlp_wide_update_tiles"] - before[
+        "mlp_wide_update_tiles"] == k * sum(launches)
+    assert after["mlp_wide_overlapped_tiles"] - before[
+        "mlp_wide_overlapped_tiles"] == k * sum(n - min(n, sms)
+                                                for n in launches)
 
 
 def test_mlp_wide_all_masked_and_bad_labels(card):

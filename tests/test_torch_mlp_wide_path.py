@@ -14,6 +14,7 @@ is held to the JAX package's update at a wide-ish shape.
 """
 
 import inspect
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +24,7 @@ import torch
 from kafka_ps_tpu.models import mlp as jmlp
 from kafka_ps_tpu.utils.config import ModelConfig as JModelConfig
 from kafka_ps_tpu_torch.models import mlp
-from kafka_ps_tpu_torch.ops import fused_update
+from kafka_ps_tpu_torch.ops import _build, fused_update
 from kafka_ps_tpu_torch.utils.config import ModelConfig
 from test_torch_mlp_split import split_update
 
@@ -69,18 +70,28 @@ def test_wide_scratch_covers_split_and_transposed_operands(batch, bp):
     assert 0.25e9 < 4 * sum(big) < 0.35e9
 
 
-def test_wide_counter_is_one_of_the_counters():
-    fused_update.reset_counts()
-    assert fused_update.counts()["mlp_wide_launches"] == 0
-    fused_update.add_counts({"mlp_wide_launches": 3})
-    assert fused_update.counts()["mlp_wide_launches"] == 3
-    fused_update.reset_counts()
-    assert not any(fused_update.counts().values())
+@pytest.mark.parametrize("features,hidden,members,steps,sms,want", [
+    (1024, 4096, 4, 1, 132, (1024, 892)), (1024, 4096, 4, 2, 132,
+                                           (2048, 1784)),
+    (1024, 4096, 1, 2, 132, (512, 248)), (1024, 1024, 1, 1, 132, (64, 0)),
+    (1020, 1056, 1, 1, 132, (72, 0)), (1024, 4096, 34, 1, 132,
+                                       (8704, 8440)),
+    (1024, 4096, 4, 1, 78, (1024, 946))])
+def test_wide_tiles_follow_the_launch_geometry(features, hidden, members,
+                                               steps, sms, want):
+    """An update-pass launch covers [H, F] in 128 x 128 tiles a member on
+    min(tiles, SMs) CTAs, at most 32 members a launch; every tile but each
+    CTA's last hands its epilogue over while the next one runs (the cell's
+    shape: 1,024 and 892 a launch on 132 SMs).  The tile is the kernel's."""
+    with open(f"{_build.CSRC}/mlp_update.cu") as f:
+        found = re.findall(r"constexpr int kGM = (\d+), kGN = (\d+),",
+                           f.read())
+    assert found == [(str(fused_update.WIDE_TILE),) * 2]
+    assert fused_update.mlp_wide_tiles(features, hidden, members, steps,
+                                       sms) == want
 
 
-def test_cpu_tensors_run_the_plain_version_at_a_wide_shape():
-    """On the CPU a wide-shape call runs the plain version: no kernel
-    launch counted, the wide counter included."""
+def _wide_cpu_case():
     cfg = ModelConfig(num_features=8, num_classes=2, num_max_iter=1,
                       hidden_dim=1024)
     rng = np.random.default_rng(0)
@@ -88,7 +99,30 @@ def test_cpu_tensors_run_the_plain_version_at_a_wide_shape():
                               ).astype(np.float32))
     x = torch.from_numpy(rng.normal(size=(16, 8)).astype(np.float32))
     y = torch.from_numpy(rng.integers(0, 3, size=16).astype(np.int32))
-    mask = torch.ones(16)
+    return cfg, theta, x, y, torch.ones(16)
+
+
+@pytest.mark.parametrize("name", ["mlp_wide_launches",
+                                  "mlp_wide_update_tiles",
+                                  "mlp_wide_overlapped_tiles"])
+def test_wide_counter_is_one_of_the_counters(name):
+    """The wide path's counters are kernel counters: added to, reset with
+    the others, and left at 0 by a CPU call at a wide shape."""
+    fused_update.reset_counts()
+    assert fused_update.counts()[name] == 0
+    fused_update.add_counts({name: 3})
+    assert fused_update.counts()[name] == 3
+    fused_update.reset_counts()
+    assert not any(fused_update.counts().values())
+    cfg, *args = _wide_cpu_case()
+    fused_update.mlp_local_update(*args, cfg=cfg)
+    assert fused_update.counts()[name] == 0
+
+
+def test_cpu_tensors_run_the_plain_version_at_a_wide_shape():
+    """On the CPU a wide-shape call runs the plain version: no kernel
+    launch counted, the wide counters included."""
+    cfg, theta, x, y, mask = _wide_cpu_case()
     fused_update.reset_counts()
     d, loss = fused_update.mlp_local_update(theta, x, y, mask, cfg=cfg)
     ds, ls = fused_update.mlp_local_update_batched([theta] * 2, [x] * 2,
