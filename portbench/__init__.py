@@ -7,7 +7,11 @@ name: the configuration under `configs/`, the traffic mix under
 `traffic/`, one reader per metric under `metrics/`, the operation counts
 of a kernel family under `kernels/` and the limits of the correctness
 check under `checks/`.  The plain reference that decides `correct` is
-`reference/`, which imports nothing of the program.
+`reference/`, which imports nothing of the program; the configuration's
+`reference` key names its model family's module there, which names the
+rows its model reads (`rows/`).  A new model family is new files and
+entries: its module, its rows if new, its kernel counts, a
+configuration, a traffic mix, a checks file.
 
 Tests: `python -m pytest portbench/tests` on the CPU; on the card also
 `python -m pytest portbench/tests -m cuda`.  `calibrate.py` takes the

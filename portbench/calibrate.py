@@ -8,9 +8,10 @@ For each seed, in one process: a run of the cell with a window of
 --seconds, then the numbers the check compares for the program (sound
 runs: the lower readings), and for the first k seeds the same numbers
 of two references put in the program's place: the control, the
-reference with every product on TF32 operands, and the fault of half of
-every batch left out, the mean taken over the rest; and of the
-program's outputs with its logged test F1 and accuracy altered by 0.05.
+reference in its model family's control precision (CONTROL: TF32
+operands), and the fault of half of every batch left out, the mean
+taken over the rest; and of the program's outputs with its logged test
+F1 and accuracy altered by 0.05.
 A state left unchanged reads 1 by the leaf gaps' measure and needs no
 run.  One JSON object per seed on standard output, with each leaf's gap
 behind the leaf numbers.
@@ -38,7 +39,6 @@ def main(argv=None) -> int:
 
     from portbench import cell as cell_mod
     from portbench import check, manifest
-    from portbench.reference import mlp
     cell = manifest.cell(args.workload)
     for i, seed in enumerate(int(s) for s in args.seeds.split(",")):
         t = time.perf_counter()
@@ -57,12 +57,8 @@ def main(argv=None) -> int:
                "updates_per_s": cr.run.updates / cr.run.window_s}
         if i < args.controls:
             for name, other in (
-                    ("control_tf32", check.Reference(
-                        cr.cfg, cr.handed, cr.test, cr.device,
-                        prec=mlp.Precision(tf32=True))),
-                    ("half_batch", check.Reference(
-                        cr.cfg, cr.handed, cr.test, cr.device,
-                        half_batch=True))):
+                    ("control_tf32", cr.reference(prec=cr.family.CONTROL)),
+                    ("half_batch", cr.reference(half_batch=True))):
                 leaves: dict = {}
                 out[name] = check.readings(check.as_produced(other), ref,
                                            leaves)

@@ -2,7 +2,8 @@
 the check that decides `correct`.
 
 Set-up builds one StreamingPSApp over the configuration (its kernels
-built or loaded from kafka_ps_tpu_torch/_build/), hands it the burst
+built or loaded from kafka_ps_tpu_torch/_build/), hands it the burst of
+rows that the configuration's model family reads (`rows/<name>.py`)
 through `data_sink`, then drives `run_fused_bsp` through the rounds the
 check follows (check.py: one call a round, then one call shaped as the
 window's, the evals and the chunks' CUDA graph among them) and a timed
@@ -26,6 +27,7 @@ spans come from there.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -41,7 +43,6 @@ import torch
 
 from portbench import check, devtrace, manifest
 from portbench.peaks import peak as card_peak
-from portbench.synth import sparse, table
 
 CALL_S = 1.0
 WARM_ROUNDS = 20          # to clock 50: calls end on eval clocks
@@ -92,20 +93,14 @@ def _ps_config(cfg: dict):
         num_workers=cfg["num_workers"],
         consistency_model=cfg["consistency_model"],
         task=cfg["task"],
-        model=ModelConfig(num_features=cfg["num_features"],
-                          num_classes=cfg["num_classes"],
-                          num_max_iter=cfg["num_max_iter"],
-                          local_learning_rate=cfg["local_learning_rate"],
-                          hidden_dim=cfg["hidden_dim"]),
+        model=ModelConfig(**{f.name: cfg[f.name]
+                             for f in dataclasses.fields(ModelConfig)
+                             if f.name in cfg}),
         buffer=BufferConfig(min_size=b["min_size"], max_size=b["max_size"],
                             coefficient=b["coefficient"],
                             arrival_window=b["arrival_window"]),
         learning_rate=cfg.get("server_learning_rate"),
         eval_every=cfg["eval_every"])
-
-
-def _theta(app) -> np.ndarray:
-    return app.server.theta.detach().float().cpu().numpy().copy()
 
 
 def _power_limit() -> str:
@@ -134,12 +129,14 @@ class CellRun:
         self.cuda = self.device.type == "cuda"
         self.t_process = t_process
         self.n = self.cfg["num_workers"]
+        self.family = cell.family
+        self.rows = manifest.rows(self.family.ROWS)
         kind = torch.cuda.get_device_name(0) if self.cuda else "cpu"
         self.run = Run(cell.name, self.cfg, self.traffic, kind,
                        card_peak(kind))
         self.server_rows: list[str] = []
         self.worker_rows: list[str] = []
-        self.handed: list = []      # (worker, dense row, label, stamp ms)
+        self.handed: list = []      # (worker, record, label, stamp ms)
         self.marks = [("imports and CUDA context", time.perf_counter())]
 
     # -- set-up -----------------------------------------------------------
@@ -147,15 +144,16 @@ class CellRun:
     def build(self) -> None:
         from kafka_ps_tpu_torch.runtime.app import StreamingPSApp
         from kafka_ps_tpu_torch.utils.trace import Tracer
-        cfg, tr = self.cfg, self.traffic
+        cfg, tr, rows = self.cfg, self.traffic, self.rows
         burst = tr["burst_per_worker"] * self.n
-        x, y = table(self.seed, burst + tr["test_rows"],
-                     cfg["num_features"], cfg["num_classes"])
-        self.test = (x[burst:], y[burst:])
+        records, labels = rows.make(cfg, self.seed,
+                                    burst + tr["test_rows"])
+        self.test = rows.test(tuple(a[burst:] for a in records),
+                              labels[burst:])
         self.tracer = Tracer() if self.trace else None
         clock = StampClock()
         self.app = StreamingPSApp(
-            _ps_config(cfg), self.test[0], self.test[1],
+            _ps_config(cfg), *self.test,
             server_log=self.server_rows.append,
             worker_log=self.worker_rows.append, clock_ms=clock,
             device=self.device, tracer=self.tracer)
@@ -163,8 +161,11 @@ class CellRun:
         self._mark("app and kernels")
         for i in range(burst):
             w = i % self.n
-            self.handed.append((w, x[i], int(y[i]), clock.stamp_ms))
-            self.app.data_sink(w, sparse(x[i]), int(y[i]))
+            self.handed.append((w, tuple(a[i] for a in records),
+                                int(labels[i]), clock.stamp_ms))
+            self.app.data_sink(w, rows.handed(records, i), int(labels[i]))
+        self.follow = self.family.Model(
+            cfg, [h[1] for h in self.handed]).follow
         self._mark("burst")
 
     def _mark(self, name: str) -> None:
@@ -181,9 +182,9 @@ class CellRun:
         self.thetas = []
         for _ in range(check.SETUP_ROUNDS):
             self.call(1)
-            self.thetas.append(_theta(self.app))
+            self.thetas.append(self.follow.snapshot(self.app.server.theta))
         self.call(check.CALL_ROUNDS)
-        self.theta_call = _theta(self.app)
+        self.theta_call = self.follow.snapshot(self.app.server.theta)
         self._mark("checked rounds")
         self.setup_worker_rows = list(self.worker_rows)
         self.setup_server_rows = list(self.server_rows)
@@ -290,7 +291,7 @@ class CellRun:
         buffers = [b.state() for b in self.app.buffers]
         return check.Produced(
             losses, self.thetas, self.theta_call, evals,
-            [(s["x"], s["y"], s["ids"]) for s in buffers])
+            [(self.rows.program(s), s["y"], s["ids"]) for s in buffers])
 
     def close(self) -> None:
         self.app.close_logs()
@@ -299,10 +300,14 @@ class CellRun:
         if self.cuda:
             torch.cuda.empty_cache()
 
-    def reference(self):
+    def reference(self, prec=None, half_batch: bool = False):
+        """The reference on the inputs handed to the program; `prec` (the
+        family's CONTROL) or `half_batch` make it a control or a fault."""
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        return check.Reference(self.cfg, self.handed, self.test, self.device)
+        return check.Reference(self.family, self.cfg,
+                               self.rows.fields(self.cfg), self.handed,
+                               self.test, self.device, prec, half_batch)
 
 
 def result_line(cr: CellRun, values: dict, limits: dict, trace: bool,

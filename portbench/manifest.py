@@ -1,12 +1,15 @@
 """BENCHMARK.json and the files it names, found by name.
 
 A cell (an entry of `workloads`) names a configuration, whose `file`
-holds its sizes, and a traffic mix, `traffic/<traffic>.json`.  Each
-metric is read by `metrics/<name>.py`, a module with `read(run) -> float
-| None`; a kernel family's operation and byte counts are
+holds its sizes, and a traffic mix, `traffic/<traffic>.json`.  The
+configuration's `reference` names its model family's module (under
+`reference/`: the model, its control, the names of its rows and kernel
+counts, its CPU test sizes); the rows a family reads are `rows/<name>.py`.
+Each metric is read by `metrics/<name>.py`, a module with `read(run) ->
+float | None`; a kernel family's operation and byte counts are
 `kernels/<name>.py`; the limits of a cell's correctness check are
 `checks/<cell>.json`.  Adding any of them is adding a file and an entry:
-no file here names a cell, a configuration or a metric.
+no file here names a cell, a configuration, a model family or a metric.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ class Cell:
     traffic: dict
     end_to_end: list
     per_layer: list
+    family: object               # the configuration's `reference` module
 
 
 def benchmark(root: str = ROOT) -> dict:
@@ -67,6 +71,21 @@ def kernel(name: str, here: str = HERE):
     """The operation and byte counts of one kernel family."""
     return _load_module(os.path.join(here, "kernels", f"{name}.py"),
                         f"portbench_kernel_{name}")
+
+
+def family(config: dict, root: str = ROOT):
+    """The model family module a configuration names under `reference`,
+    a path from the root of the checkout."""
+    path = os.path.join(root, config["reference"])
+    name = os.path.splitext(os.path.basename(path))[0]
+    return _load_module(path, f"portbench_family_{name}")
+
+
+def rows(name: str, here: str = HERE):
+    """The rows a model family reads: their generator, what `data_sink`
+    gets for one, the record the reference buffer keeps."""
+    return _load_module(os.path.join(here, "rows", f"{name}.py"),
+                        f"portbench_rows_{name}")
 
 
 def traffic(name: str, here: str = HERE) -> dict:
@@ -100,16 +119,16 @@ def compose(entry: dict, bench: dict, root: str = ROOT) -> Cell:
 
     return Cell(name, entry["chips"], config,
                 traffic(entry["traffic"], here), metrics("end_to_end"),
-                metrics("per_layer"))
+                metrics("per_layer"), family(config, root))
 
 
-def roofline(run, family: str) -> float | None:
+def roofline(run, name: str) -> float | None:
     """A kernel family's share of its roofline in the profiled window:
-    the summed bounds of its calls (kernels/<family>.py, from the
+    the summed bounds of its calls (kernels/<name>.py, from the
     program's kernel counters) over the device time of the program's
     kernels, in percent; None without a trace, a known card or a call."""
     p = run.profile
     if p is None or run.peak is None or not p.program_kernel_ns:
         return None
-    work = kernel(family).work_ms(run.config, run.profiled_counts, run.peak)
+    work = kernel(name).work_ms(run.config, run.profiled_counts, run.peak)
     return 100.0 * work / (p.program_kernel_ns / 1e6) if work else None

@@ -1,7 +1,8 @@
 """bsp_round_ms: the fused loop's `bsp.step` spans in the part of a
 traced window after the profiled part, all their time over all their
-rounds.  With tracing on the span waits for the round's loss, so it
-holds the round's device time and its own synchronise."""
+rounds.  Each span is timed on the device by CUDA events recorded on
+the stream before and after the round's dispatch and read later, with
+no synchronise: it holds the round's time on the stream between them."""
 
 
 def read(run):

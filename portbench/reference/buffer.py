@@ -10,6 +10,9 @@ policy the program implements in data/buffer.py).
     row is overwritten, above it (the target shrank) the n oldest rows
     are dropped and the next-oldest overwritten;
   * a row's id is the largest id held plus one (1 when empty).
+
+A row's record is one or more fixed-width arrays (a family's rows say
+which: dense values, integer ids); the policy does not look into them.
 """
 
 from __future__ import annotations
@@ -20,12 +23,15 @@ import numpy as np
 
 
 class Buffer:
-    def __init__(self, num_features: int, min_size: int, max_size: int,
+    def __init__(self, fields, min_size: int, max_size: int,
                  coefficient: float, arrival_window: int):
+        """`fields`: the (shape, dtype) of each array of a row's
+        record."""
         self.min_size = min_size
         self.max_size = max_size
         self.coefficient = coefficient
-        self.x = np.zeros((max_size, num_features), dtype=np.float32)
+        self.records = tuple(np.zeros((max_size, *shape), dtype=dtype)
+                             for shape, dtype in fields)
         self.y = np.zeros((max_size,), dtype=np.int32)
         self.ids = np.zeros((max_size,), dtype=np.int64)
         self._gaps: deque[float] = deque(maxlen=arrival_window)
@@ -39,7 +45,7 @@ class Buffer:
         calculated = round(self.coefficient * 60000.0 / mean_ms)
         return max(self.min_size, min(self.max_size, int(calculated)))
 
-    def add(self, row: np.ndarray, label: int, stamp_ms: float) -> None:
+    def add(self, record: tuple, label: int, stamp_ms: float) -> None:
         if self._last is not None:
             self._gaps.append(stamp_ms - self._last)
         self._last = stamp_ms
@@ -56,11 +62,12 @@ class Buffer:
             oldest_first = filled[np.argsort(self.ids[filled])]
             self.ids[oldest_first[:n]] = 0
             slot = int(oldest_first[n])
-        self.x[slot] = row
+        for held, value in zip(self.records, record, strict=True):
+            held[slot] = value
         self.y[slot] = label
         self.ids[slot] = new_id
 
-    def slab(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(x, y, mask) as a round trains on them."""
-        return (self.x.copy(), self.y.copy(),
+    def slab(self) -> tuple[np.ndarray, ...]:
+        """(the record's arrays..., y, mask) as a round trains on them."""
+        return (*(a.copy() for a in self.records), self.y.copy(),
                 (self.ids > 0).astype(np.float32))

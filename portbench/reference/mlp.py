@@ -1,4 +1,5 @@
-"""The one-hidden-layer MLP classifier in plain float32 PyTorch.
+"""The one-hidden-layer MLP classifier in plain float32 PyTorch: the
+model family of the configurations whose `reference` names this file.
 
 Flat layout W1 [H, F] | b1 [H] | W2 [R, H] | b2 [R], R = classes + 1
 (labels run 1..C; row 0 is never a label).  Initial weights: W1 and W2
@@ -13,20 +14,30 @@ the masked mean cross-entropy, the gradient in closed form,
     dW1 = dh^T x,   db1 = sum dh,
 
 then the loss at the updated weights.  `evaluate` gives the test loss,
-the support-weighted F1 and the accuracy (argmax takes the first of
-tied maxima).
+the support-weighted F1 and the accuracy.  Every product goes through
+`Precision.mm` (numerics.py); the control is TF32 operands.
 
-Every product goes through `Precision.mm`: plain float32 with TF32 off,
-or, for the control, each operand rounded to TF32 (10 mantissa bits,
-round to nearest even) with float32 sums, the arithmetic of TF32 tensor
-cores, the same on the CPU and the card.
+What the harness takes from a family module: `Model` (sizes, initial
+weights, leaves, the k-step update, the test evaluation, and `follow`,
+what of the weights the check follows: all of them here), `F32` and
+`CONTROL` (the check's precision and its control's), `ROWS` (the rows
+the model reads, `rows/<ROWS>.py`), `COUNTS` (its operations per update,
+`kernels/<COUNTS>.py`) and `TINY` (its sizes in the CPU tests).
 """
 
 from __future__ import annotations
 
 import torch
 
+from portbench.reference.follow import Follow
+from portbench.reference.numerics import F32, TF32, Precision, evaluation
+from portbench.reference.numerics import onehot as _onehot
+
 INIT_SEED = 0
+CONTROL = TF32
+ROWS = "dense"
+COUNTS = "mlp_update"
+TINY = {"num_features": 32, "hidden_dim": 16}
 
 
 def num_params(f: int, h: int, r: int) -> int:
@@ -50,33 +61,6 @@ def init(f: int, h: int, r: int) -> torch.Tensor:
         * (2.0 / h) ** 0.5
     return torch.cat([w1.reshape(-1), torch.zeros(h), w2.reshape(-1),
                       torch.zeros(r)])
-
-
-def round_tf32(a: torch.Tensor) -> torch.Tensor:
-    """float32 → the nearest TF32 value (ties to even), as float32."""
-    u = a.contiguous().view(torch.int32)
-    u = (u + 0x0FFF + ((u >> 13) & 1)) & ~0x1FFF
-    return u.view(torch.float32)
-
-
-class Precision:
-    """float32 with TF32 off (`tf32=False`), or TF32 operands."""
-
-    def __init__(self, tf32: bool = False):
-        self.tf32 = tf32
-
-    def mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if self.tf32:
-            a, b = round_tf32(a), round_tf32(b)
-        return a @ b
-
-
-F32 = Precision(False)
-
-
-def _onehot(y: torch.Tensor, r: int) -> torch.Tensor:
-    return (y.reshape(-1, 1).long()
-            == torch.arange(r, device=y.device)).to(torch.float32)
 
 
 def _forward(p, x, prec):
@@ -121,14 +105,31 @@ def evaluate(theta: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
     z = _forward(p, x, prec)[2]
     onehot = _onehot(y, r)
     loss = _loss(p, x, onehot, torch.ones(len(y), device=x.device), prec)
-    preds = torch.argmax(z, dim=-1)
-    cm = onehot.T @ _onehot(preds, r)       # [true, predicted] counts
-    tp = torch.diagonal(cm)
-    support = cm.sum(dim=1)
-    predicted = cm.sum(dim=0)
-    precision = tp / torch.clamp(predicted, min=1.0)
-    recall = tp / torch.clamp(support, min=1.0)
-    f1 = 2 * precision * recall / torch.clamp(precision + recall, min=1e-12)
-    total = torch.clamp(support.sum(), min=1.0)
-    return (float(loss), float((f1 * support).sum() / total),
-            float(tp.sum() / total))
+    return evaluation(z, onehot, loss)
+
+
+class Model:
+    """The sizes of configuration `cfg` and the arithmetic the check
+    runs on them; `rows` are the records of every row handed over (the
+    MLP follows all of its weights and reads none of them)."""
+
+    def __init__(self, cfg: dict, rows: list | None = None):
+        self.sizes = {"f": cfg["num_features"], "h": cfg["hidden_dim"],
+                      "r": cfg["num_classes"] + 1}
+        self.k = cfg["num_max_iter"]
+        self.lr = cfg["local_learning_rate"]
+        self.follow = Follow()
+
+    def theta0(self) -> torch.Tensor:
+        return self.follow.take(init(**self.sizes))
+
+    def leaves(self, theta: torch.Tensor) -> dict[str, torch.Tensor]:
+        return leaves(theta, **self.sizes)
+
+    def update(self, theta, slab, prec):
+        x, y, m = slab
+        return local_update(theta, x, y, m, k=self.k, lr=self.lr,
+                            prec=prec, **self.sizes)
+
+    def evaluate(self, theta, test, prec):
+        return evaluate(theta, *test, prec=prec, **self.sizes)

@@ -12,16 +12,21 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 
-def tiny_cell(name: str):
-    """Cell `name` of BENCHMARK.json cut to a size the CPU runs in
-    seconds: 32 features, 16 hidden units, buffers of 8 to 64 rows."""
-    from portbench import manifest
-    cell = manifest.cell(name)
-    cell.config.update(num_features=32, hidden_dim=16)
+def shrink(cell):
+    """`cell` cut to a size the CPU runs in seconds: its model family's
+    CPU sizes (`TINY`), buffers of 8 to 64 rows, 64 rows a worker before
+    the window and 100 test rows."""
+    cell.config.update(cell.family.TINY)
     cell.config["buffer"] = dict(cell.config["buffer"], min_size=8,
                                  max_size=64)
     cell.traffic.update(burst_per_worker=64, test_rows=100)
     return cell
+
+
+def tiny_cell(name: str):
+    """Cell `name` of BENCHMARK.json cut to its CPU size (`shrink`)."""
+    from portbench import manifest
+    return shrink(manifest.cell(name))
 
 
 @pytest.fixture

@@ -1,7 +1,8 @@
 """The check that decides `correct`, driven on the CPU at a small size:
-sound runs pass; the control (the reference on TF32 operands, put in the
-program's place) fails; and each fault the cells can have, planted under
-the timed path, makes `correct` come out false."""
+sound runs pass; the control (the reference in its model family's
+control precision, TF32 operands, put in the program's place) fails;
+and each fault the cells can have, planted under the timed path, makes
+`correct` come out false."""
 
 import numpy as np
 import pytest
@@ -9,7 +10,6 @@ import torch
 
 from portbench import cell as cell_mod
 from portbench import check, manifest
-from portbench.reference import mlp
 
 CELLS = [w["name"] for w in manifest.benchmark()["workloads"]]
 
@@ -39,8 +39,7 @@ def test_the_control_fails(tiny, name):
     ref = cr.reference()
     limits = check.load_limits(name)
     assert check.verdict(check.readings(produced, ref), limits)[0]
-    control = check.Reference(cr.cfg, cr.handed, cr.test, cr.device,
-                              prec=mlp.Precision(tf32=True))
+    control = cr.reference(prec=cr.family.CONTROL)
     ok, checks = check.verdict(
         check.readings(check.as_produced(control), ref), limits)
     assert not ok, checks
@@ -112,3 +111,19 @@ def test_a_reading_that_is_not_a_number_fails():
                                {"loss_gap": 1.0})
     assert not ok and np.isnan(checks["loss_gap"]["value"])
     assert not check.verdict({"x": 0.0}, {})[0]
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_float32_reference_in_the_programs_place_drifts_at_most_1(
+        tiny, name):
+    """A stretch's drift is the gap from the float64 witness over the
+    float32 reference's own gap from it, at least a floor: the float32
+    reference itself, put in the program's place, reads at most 1."""
+    cr = cell_mod.CellRun(tiny(name), 29, 0.6, False, "cpu", 0.0)
+    cr.build()
+    cr.first_rounds()
+    cr.close()
+    out = check.readings(check.as_produced(cr.reference()), cr.reference())
+    for key in ("loss_drift", "change_drift", "call_loss_drift",
+                "call_change_drift"):
+        assert 0.0 <= out[key] <= 1.0, (key, out[key])

@@ -58,6 +58,71 @@ def test_the_reference_imports_nothing_of_the_program(path):
                    for m in _imports(path)), path
 
 
+SHARED = ["check.py", "cell.py", "manifest.py", "calibrate.py",
+          "reference/rounds.py", "reference/buffer.py", "metrics/mfu.py",
+          "tests/conftest.py"]
+FAMILY_MODULES = {"portbench.reference.mlp", "portbench.reference.logreg",
+                  "portbench.kernels.mlp_update"}
+
+
+def _imported(path):
+    """Every module an import in `path` names, a from-import's names
+    included (`from a import b` names `a` and `a.b`)."""
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("rel", SHARED)
+def test_no_shared_harness_file_names_a_model_family(rel):
+    path = os.path.join(PB, rel)
+    assert "hidden_dim" not in open(path).read(), rel
+    assert not set(_imported(path)) & FAMILY_MODULES, rel
+
+
+FAMILIES = sorted({os.path.join(PB, "reference", "logreg.py"),
+                   os.path.join(PB, "reference", "mlp.py")}
+                  | set(_sources(os.path.join("tests", "families"))))
+
+
+@pytest.mark.parametrize("path", FAMILIES, ids=os.path.basename)
+def test_a_family_module_imports_nothing_of_the_program(path):
+    tops = {m.split(".")[0] for m in _imports(path)}
+    assert tops <= {"__future__", "torch", "numpy", "portbench"}, tops
+    assert all(m == "portbench.reference"
+               or m.startswith("portbench.reference.")
+               for m in _imports(path) if m.startswith("portbench")), path
+
+
+def test_the_logreg_family_runs_without_the_program_or_jax():
+    """Its update and evaluation in a fresh interpreter, loaded by path
+    as the harness loads it."""
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "import torch\n"
+        "from portbench import manifest\n"
+        "cfg = {'reference': 'portbench/reference/logreg.py',\n"
+        "       'num_features': 8, 'num_classes': 3, 'num_max_iter': 2,\n"
+        "       'local_learning_rate': 0.5}\n"
+        "fam = manifest.family(cfg)\n"
+        "m = fam.Model(cfg)\n"
+        "x = torch.randn(16, 8); y = torch.randint(1, 4, (16,))\n"
+        "d, loss = m.update(m.theta0(), (x, y, torch.ones(16)), fam.F32)\n"
+        "print(m.evaluate(m.theta0() + d, (x, y), fam.CONTROL)[0] < "
+        "float(loss) + 1)\n"
+        "tops = {n.split('.')[0] for n in sys.modules}\n"
+        "print(sorted(tops & {'jax', 'jaxlib', 'flax', 'kafka_ps_tpu',\n"
+        "                     'kafka_ps_tpu_torch'}))\n" % manifest.ROOT)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split() == ["True", "[]"]
+
+
 def test_a_run_loads_no_forbidden_module():
     """A whole CPU run of a small cell, in a fresh interpreter."""
     code = (

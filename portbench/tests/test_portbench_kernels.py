@@ -1,5 +1,6 @@
-"""The kernel families' operation counts give the bounds the port's
-kernel table (PERF.md) was measured against."""
+"""The kernel families' operation counts: the MLP's give the bounds the
+port's kernel table (PERF.md) was measured against; logistic
+regression's counts the products of its k steps."""
 
 import pytest
 
@@ -33,3 +34,10 @@ def test_work_is_the_bounds_of_the_calls_counted():
               "mlp_batched_members": 20}
     assert k.work_ms(cfg, counts, H100) == pytest.approx(
         3 * 0.0874788 + 5 * 0.3499151, rel=1e-5)
+
+
+def test_logreg_counts_k_plus_1_forward_and_k_backward_products():
+    cfg = {"buffer": {"max_size": 1024}, "num_features": 1024,
+           "num_classes": 5, "num_max_iter": 2}
+    k = manifest.kernel("logreg_update")
+    assert k.flops_per_member(cfg) == 5 * 2 * 1024 * 1024 * 6
